@@ -1,0 +1,147 @@
+"""Device-resident embedding bank: the searchable copy of the store's int4
+slab, kept on the device and refreshed *incrementally*.
+
+  * ``packed`` (cap, E//2) int8 + ``scales`` (cap, 1) fp32 live on the
+    bank's device; queries run the fused dequant-and-scan
+    ``retrieval_topk_int4`` (the CUDA kernel on a CUDA bank), so the fp32
+    bank never exists in device memory;
+  * a refresh scatters ONLY the rows dirtied since the last one
+    (``index_copy_`` of the dirty rows' packed nibbles + scales — the host
+    payload is just those rows), and grows by slab doubling *on device* in
+    lockstep with the host slab (a device-to-device copy, no re-upload);
+  * every refresh publishes a generation-counted ``BankSnapshot``.
+
+Single device, synchronous refresh. The scatter updates the published
+buffers in place (the reference publishes a fresh copy-on-write buffer
+instead); the store therefore runs refresh and scan under one lock hold,
+so no scan can see a half-scattered slab.
+
+Transfer accounting: ``h2d_bytes`` / ``h2d_rows`` count the actual
+host-to-device payload (scattered rows + scales + the row index).
+Steady-state queries transfer nothing but the query batch.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels.retrieval_topk.ops import retrieval_topk_int4
+
+
+class BankSnapshot(NamedTuple):
+    """One published generation of the device bank."""
+    packed: torch.Tensor   # (cap, E//2) int8
+    scales: torch.Tensor   # (cap, 1) fp32
+    n: int                 # valid rows; rows >= n are masked at query time
+    uids: np.ndarray       # (n,) int64, row i -> uid, aligned with this epoch
+    generation: int        # monotonically increasing refresh counter
+
+
+class DeviceBank:
+    """Device-resident int4 slab mirror (see module docstring)."""
+
+    def __init__(self, embed_dim: int, *, device="cuda"):
+        if embed_dim % 2:
+            raise ValueError(f"int4 bank needs an even embed_dim, got "
+                             f"{embed_dim}")
+        self.embed_dim = embed_dim
+        self.device = resolve_device(device)
+        self._row_width = embed_dim // 2
+        self._cap = 0
+        self._packed: Optional[torch.Tensor] = None
+        self._scales: Optional[torch.Tensor] = None
+        self._published: Optional[BankSnapshot] = None
+        self._gen = 0
+        self.h2d_bytes = 0
+        self.h2d_rows = 0
+        self.n_syncs = 0
+        self.n_grows = 0
+
+    # -- state ---------------------------------------------------------------
+
+    def __len__(self) -> int:
+        st = self._published
+        return 0 if st is None else st.n
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
+
+    @property
+    def published(self) -> Optional[BankSnapshot]:
+        return self._published
+
+    @property
+    def generation(self) -> int:
+        st = self._published
+        return 0 if st is None else st.generation
+
+    def stats(self) -> Dict[str, int]:
+        return {"h2d_bytes": self.h2d_bytes, "h2d_rows": self.h2d_rows,
+                "n_syncs": self.n_syncs, "n_grows": self.n_grows,
+                "capacity": self._cap, "n": len(self), "n_shards": 1,
+                "generation": self.generation,
+                "device_bytes": 0 if self._packed is None else
+                int(self._packed.nbytes + self._scales.nbytes)}
+
+    # -- refresh -------------------------------------------------------------
+
+    def _grow_to(self, cap: int) -> None:
+        """Slab doubling on device: allocate the grown buffers and copy the
+        old content device-to-device — never a host re-upload."""
+        new_p = torch.zeros((cap, self._row_width), dtype=torch.int8,
+                            device=self.device)
+        new_s = torch.zeros((cap, 1), dtype=torch.float32, device=self.device)
+        if self._cap:
+            new_p[:self._cap].copy_(self._packed)
+            new_s[:self._cap].copy_(self._scales)
+            self.n_grows += 1
+        self._packed, self._scales, self._cap = new_p, new_s, cap
+
+    def sync(self, host_packed: np.ndarray, host_scales: np.ndarray, n: int,
+             dirty_rows: np.ndarray,
+             uids: Optional[np.ndarray] = None) -> BankSnapshot:
+        """Bring the device slab up to date with the host slab and publish.
+        ``dirty_rows`` are the row indices written since the last refresh —
+        only those rows travel. The caller serializes refreshes and scans
+        (the store holds its lock across both)."""
+        if host_packed.shape[0] > self._cap:
+            self._grow_to(int(host_packed.shape[0]))
+        rows = np.asarray(dirty_rows, np.int64).ravel()
+        if rows.size:
+            vals = torch.from_numpy(np.ascontiguousarray(host_packed[rows]))
+            scs = torch.from_numpy(np.ascontiguousarray(host_scales[rows]))
+            idx = torch.from_numpy(rows)
+            idx_d = idx.to(self.device)
+            self._packed.index_copy_(0, idx_d, vals.to(self.device))
+            self._scales.index_copy_(0, idx_d, scs.to(self.device))
+            self.h2d_bytes += int(vals.nbytes + scs.nbytes + idx.nbytes)
+            self.h2d_rows += int(rows.size)
+        self._gen += 1
+        uids = (np.zeros((int(n),), np.int64) if uids is None
+                else np.asarray(uids, np.int64))
+        self._published = BankSnapshot(self._packed, self._scales, int(n),
+                                       uids, self._gen)
+        self.n_syncs += 1
+        return self._published
+
+    # -- search --------------------------------------------------------------
+
+    def search(self, queries: np.ndarray, k: int,
+               state: Optional[BankSnapshot] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Fused top-k over the device-resident bank: (Q, E) queries ->
+        (row indices (Q, k) int64, scores (Q, k) fp32), descending score.
+        Only the query batch travels host-to-device."""
+        if state is None:
+            state = self._published
+        if state is None:
+            raise RuntimeError("DeviceBank.search before the first sync()")
+        k = min(k, state.n)
+        q = torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
+        s, i = retrieval_topk_int4(q, state.packed, state.scales, k,
+                                   normalize=False, n_valid=state.n)
+        return i.cpu().numpy().astype(np.int64), s.cpu().numpy()

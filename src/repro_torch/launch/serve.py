@@ -1,0 +1,133 @@
+"""Serving driver: embedding runtime + query runtime, end to end.
+
+Queries are served through ``QueryEngine.query_batch`` (one tower pass +
+one fused store scan for the whole query drain); ``--per-query`` serves
+them one at a time instead.
+
+On the GPU (the default device):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
+Smoke scale on the CPU (plain versions of the kernels):
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import get_arch, smoke_variant
+from repro_torch.core import exits as EX
+from repro_torch.core import preexit as PE
+from repro_torch.core.store import EmbeddingStore, not_ported
+from repro_torch.data import synthetic as SYN
+from repro_torch.models import imagebind as IB
+from repro_torch.serving.engine import EmbeddingEngine
+from repro_torch.serving.query import QueryEngine
+
+
+@torch.no_grad()
+def _calibrate(params, cfg, recall, vis):
+    all_exits = IB.mem_embed_all_exits(params, cfg, recall, "vision", vis)
+    labels = EX.optimal_exit_labels(all_exits["exit_embs"],
+                                    all_exits["exit_embs"][-1])
+    sup = IB.tower_forward(params, cfg, recall, "vision", vis,
+                           layer_end=recall.superficial_layers)["pooled"][-1]
+    return sup, labels, len(all_exits["exits"])
+
+
+def build_service(spec, *, n_train: int = 256, seed: int = 0,
+                  policy: str = "recall", params=None, lora=None,
+                  search_impl: str = "auto", device="cuda", **query_kw):
+    """Fit the pre-exit predictor from self-supervised labels on a
+    calibration set, then stand up the embedding + query engines on
+    ``device``. ``query_kw`` goes to ``QueryEngine``."""
+    if lora is not None:
+        raise not_ported("lora")
+    device = resolve_device(device)
+    cfg, recall = spec.model, spec.recall
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    if params is None:
+        params = IB.mem_init(gen, cfg, recall, device=device)
+    data = SYN.multimodal_pairs(seed, n_train, cfg)
+    vis = torch.as_tensor(data.items["vision"]).to(device)
+    sup, labels, n_exits = _calibrate(params, cfg, recall, vis)
+    del vis
+    predictor, stats = PE.train_predictor(
+        gen, sup, labels, n_exits=n_exits, hidden=recall.predictor_hidden,
+        steps=150)
+
+    store = EmbeddingStore(cfg.embed_dim, device=device)
+    engine = EmbeddingEngine(params, cfg, recall, modality="vision",
+                             predictor_params=predictor, policy=policy,
+                             store=store, device=device)
+    query = QueryEngine(params, cfg, recall, store=store,
+                        refine_fn=engine.refine_fn(), query_modality="text",
+                        search_impl=search_impl, device=device,
+                        **query_kw)
+    return engine, query, {"predictor": stats,
+                           "labels": labels.cpu().numpy()}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="recall-imagebind")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--n-items", type=int, default=128)
+    ap.add_argument("--n-queries", type=int, default=16)
+    ap.add_argument("--policy", default="recall",
+                    choices=["recall", "branchynet", "fixed", "full"])
+    ap.add_argument("--per-query", action="store_true",
+                    help="serve queries one at a time instead of one "
+                         "query_batch drain")
+    ap.add_argument("--search-impl", default="auto",
+                    choices=["auto", "numpy", "device"],
+                    help="store scan backend: 'device' keeps the int4 slab "
+                         "resident on the device and scans it with the "
+                         "fused kernel; 'auto' picks it on CUDA and numpy "
+                         "on the CPU")
+    args = ap.parse_args(argv)
+
+    spec = get_arch(args.arch)
+    if args.smoke:
+        spec = smoke_variant(spec)
+    engine, query, info = build_service(spec, policy=args.policy,
+                                        search_impl=args.search_impl,
+                                        device=args.device)
+    print(f"predictor: {info['predictor']}")
+
+    data = SYN.multimodal_pairs(1, args.n_items, spec.model)
+    engine.submit_batch(np.arange(args.n_items), data.items["vision"])
+    stats = engine.drain()
+    print(f"embedded {stats.n_embedded} items, avg layers "
+          f"{stats.avg_layers:.1f}/{spec.model.tower('vision').n_layers}, "
+          f"{stats.n_embedded / stats.wall_s:.1f} items/s (host wall, "
+          f"{args.device})")
+    print(f"store: {engine.store.storage_bytes()}")
+
+    nq = min(args.n_queries, len(data.items["text"]))
+    t0 = time.perf_counter()
+    if args.per_query:
+        results = [query.query(data.items["text"][qi], k=10)
+                   for qi in range(nq)]
+    else:
+        results = query.query_batch(data.items["text"][:nq], k=10)
+    dt = time.perf_counter() - t0
+    hits = sum(int(len(r.uids) > 0 and r.uids[0] == qi)
+               for qi, r in enumerate(results))
+    mode = "per-query" if args.per_query else "batched"
+    print(f"{nq} {mode} queries in {dt:.2f}s "
+          f"({dt / nq * 1e3:.0f} ms/query host), "
+          f"{sum(r.n_refined for r in results)} refinements")
+    print(f"R@1 (untrained model, sanity only): {hits / nq:.2f}")
+    if engine.store.device_bank is not None:
+        print(f"device bank: {engine.store.device_bank.stats()}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

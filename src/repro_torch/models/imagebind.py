@@ -1,0 +1,136 @@
+"""ImageBind-style multimodal embedding model (MEM), encoder side.
+
+Per-modality transformer towers bind into one shared embedding space.
+Modality frontends are stubs: ``inputs`` is precomputed patch/frame
+features for vision/audio/imu and token ids for text; each tower prepends a
+CLS token, adds learned positions and runs the transformer stack, so the
+Recall machinery (exit taps, prefix/suffix layer ranges) applies per tower.
+
+Activations run in the config's dtype: the frontend casts the stub features
+and a resumed hidden state to it. (The reference lets its fp32 stub
+features and fp32 cached activations promote every matmul of a bf16 config
+to fp32; the two agree exactly for fp32 configs, which the parity tests
+use. See ROADMAP queue C.)
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import LMConfig, MEMConfig, RecallConfig, TowerConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import ParamDef, Schema
+
+
+def tower_lm_cfg(t: TowerConfig, mem: MEMConfig) -> LMConfig:
+    """Encoder-flavoured LMConfig for one tower (bidirectional, no RoPE)."""
+    return LMConfig(
+        n_layers=t.n_layers, d_model=t.d_model, n_heads=t.n_heads,
+        n_kv_heads=t.n_heads, d_ff=t.d_ff, vocab=max(t.vocab, 1),
+        causal=False, rope_theta=0.0, dtype=mem.dtype, norm_eps=mem.norm_eps)
+
+
+def tower_schema(t: TowerConfig, mem: MEMConfig, recall: RecallConfig) -> Schema:
+    cfg = tower_lm_cfg(t, mem)
+    s = T.lm_schema(cfg, recall, embed_out=mem.embed_dim)
+    del s["embed"]
+    if t.vocab:  # discrete-token frontend
+        s["tok_emb"] = ParamDef((t.vocab, t.d_model), ("vocab", "embed"), "embed")
+    else:        # stub frontend: precomputed frame/patch/token embeddings
+        s["proj_in"] = ParamDef((t.d_input, t.d_model), ("act_embed", "embed"), "fan_in")
+    s["cls"] = ParamDef((1, t.d_model), (None, "embed"), "normal", 0.02)
+    s["pos"] = ParamDef((t.n_tokens + 1, t.d_model), ("seq", "embed"), "normal", 0.02)
+    return s
+
+
+def mem_schema(cfg: MEMConfig, recall: RecallConfig) -> Schema:
+    return {
+        "towers": {t.modality: tower_schema(t, cfg, recall) for t in cfg.towers},
+        "logit_scale": ParamDef((), (), "zeros"),
+    }
+
+
+def mem_init(gen: torch.Generator, cfg: MEMConfig, recall: RecallConfig,
+             device="cpu"):
+    """Random MEM params from ``gen`` (a generator on ``device``)."""
+    dtype = L.torch_dtype(cfg.dtype)
+    p = L.init_params(gen, mem_schema(cfg, recall), dtype=dtype, device=device)
+    p["logit_scale"] = torch.tensor(math.log(cfg.logit_scale_init),
+                                    dtype=torch.float32,
+                                    device=device).to(dtype)
+    return p
+
+
+def _frontend(tp: Schema, t: TowerConfig, inputs: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """inputs -> (B, n_tokens+1, d_model) with CLS prepended."""
+    if t.vocab:
+        x = tp["tok_emb"][inputs.long().clamp(0, t.vocab - 1)].to(dtype)
+    else:
+        x = inputs.to(dtype) @ tp["proj_in"].to(dtype)
+    B = x.shape[0]
+    cls = tp["cls"][None].expand(B, 1, x.shape[-1]).to(dtype)
+    x = torch.cat([cls, x], dim=1)
+    return x + tp["pos"][None, : x.shape[1]].to(dtype)
+
+
+def tower_forward(params: Schema, cfg: MEMConfig, recall: RecallConfig,
+                  modality: str, inputs: Optional[torch.Tensor], *,
+                  layer_start: int = 0, layer_end: Optional[int] = None,
+                  h_state: Optional[torch.Tensor] = None,
+                  collect_pooled: bool = True):
+    """Generic tower run over layers [start, end); ``h_state`` skips the
+    frontend (cached-activation reuse, §3.4)."""
+    t = cfg.tower(modality)
+    tcfg = tower_lm_cfg(t, cfg)
+    tp = params["towers"][modality]
+    dtype = L.torch_dtype(cfg.dtype)
+    x = _frontend(tp, t, inputs, dtype) if h_state is None else h_state.to(dtype)
+    return T.forward_hidden(tp, tcfg, recall, embeds=x,
+                            layer_start=layer_start, layer_end=layer_end,
+                            collect_pooled=collect_pooled, pool="cls")
+
+
+def mem_embed(params: Schema, cfg: MEMConfig, recall: RecallConfig,
+              modality: str, inputs: torch.Tensor, *,
+              exit_layer: Optional[int] = None) -> torch.Tensor:
+    """Fine-grained (exit_layer=None) or coarse embedding: (B, embed_dim)."""
+    out = tower_forward(params, cfg, recall, modality, inputs,
+                        layer_end=exit_layer)
+    tp = params["towers"][modality]
+    return T.exit_embedding(tp, out["pooled"][-1], cfg.norm_eps)
+
+
+def mem_embed_all_exits(params: Schema, cfg: MEMConfig, recall: RecallConfig,
+                        modality: str, inputs: torch.Tensor):
+    """(n_exits, B, E) embeddings at every exit + per-layer hidden pool."""
+    t = cfg.tower(modality)
+    out = tower_forward(params, cfg, recall, modality, inputs)
+    exits = recall.exit_layers(t.n_layers)
+    idx = torch.tensor([e - 1 for e in exits], device=out["pooled"].device)
+    tp = params["towers"][modality]
+    embs = T.exit_embedding(tp, out["pooled"][idx], cfg.norm_eps)
+    return {"exit_embs": embs, "exits": exits, "pooled": out["pooled"]}
+
+
+def mem_refine(params: Schema, cfg: MEMConfig, recall: RecallConfig,
+               modality: str, h_cached: torch.Tensor,
+               start: int) -> torch.Tensor:
+    """Live-encoder refinement from cached layer-``start`` activations."""
+    out = tower_forward(params, cfg, recall, modality, inputs=None,
+                        h_state=h_cached, layer_start=start)
+    tp = params["towers"][modality]
+    return T.exit_embedding(tp, out["pooled"][-1], cfg.norm_eps)
+
+
+def info_nce(za: torch.Tensor, zb: torch.Tensor,
+             logit_scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric InfoNCE between aligned batches of normalized embeddings."""
+    scale = torch.exp(logit_scale.float())
+    logits = scale * (za.float() @ zb.float().T)
+    labels = torch.arange(za.shape[0], device=za.device)
+    return 0.5 * (L.cross_entropy(logits, labels)
+                  + L.cross_entropy(logits.T, labels))

@@ -1,0 +1,183 @@
+"""Foundational layers: schema-driven params, RMSNorm, MLPs, losses.
+
+Parameters are nested dicts of tensors built from a *schema* (nested dicts
+of ``ParamDef``), the same structure as the reference's pytrees, so
+``models/convert.py`` can carry JAX parameters across leaf by leaf.
+RMSNorm goes through the kernel dispatch (Triton on CUDA, the plain version
+on the CPU); every other op here is plain PyTorch.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def torch_dtype(name) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else DTYPES[str(name)]
+
+
+# ---------------------------------------------------------------------------
+# Schema-driven parameters
+# ---------------------------------------------------------------------------
+
+
+class ParamDef(NamedTuple):
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical axis names, len == len(shape)
+    init: str = "normal"  # normal | zeros | ones | embed | fan_in
+    scale: float = 1.0
+
+
+Schema = Dict[str, Any]  # nested dict of ParamDef
+
+
+def _init_leaf(gen: torch.Generator, d: ParamDef, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    if d.init == "normal":
+        std = d.scale
+    elif d.init == "embed":
+        std = d.scale * 0.02
+    elif d.init == "fan_in":
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale / math.sqrt(fan_in)
+    else:
+        raise ValueError(d.init)
+    x = torch.randn(d.shape, generator=gen, device=device,
+                    dtype=torch.float32)
+    return (x * std).to(dtype)
+
+
+def init_params(gen: torch.Generator, schema: Schema, dtype=torch.float32,
+                device="cpu"):
+    """Initialize a nested param dict from a schema (keys in sorted order,
+    one draw per leaf from ``gen``, which must live on ``device``)."""
+    device = torch.device(device)
+    dtype = torch_dtype(dtype)
+
+    def walk(s):
+        if isinstance(s, ParamDef):
+            return _init_leaf(gen, s, dtype, device)
+        return {k: walk(s[k]) for k in sorted(s)}
+    return walk(schema)
+
+
+def count_params(params) -> int:
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    return sum(count_params(v) for v in params.values())
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_schema(d: int, layer_dims: Tuple[int, ...] = ()) -> ParamDef:
+    axes = tuple("layer" for _ in layer_dims) + ("embed",)
+    return ParamDef(layer_dims + (d,), axes, "ones")
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    return rmsnorm_op(x, scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# Attention projections / MLPs (schemas; the apply functions live in
+# models/transformer.py)
+# ---------------------------------------------------------------------------
+
+
+def attn_schema(d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                qkv_bias: bool, layer_dims: Tuple[int, ...] = ()) -> Schema:
+    L = layer_dims
+    la = tuple("layer" for _ in L)
+    s: Schema = {
+        "wq": ParamDef(L + (d_model, n_heads, head_dim), la + ("embed", "heads", "head_dim"), "fan_in"),
+        "wk": ParamDef(L + (d_model, n_kv, head_dim), la + ("embed", "kv_heads", "head_dim"), "fan_in"),
+        "wv": ParamDef(L + (d_model, n_kv, head_dim), la + ("embed", "kv_heads", "head_dim"), "fan_in"),
+        "wo": ParamDef(L + (n_heads, head_dim, d_model), la + ("heads", "head_dim", "embed"), "fan_in"),
+    }
+    if qkv_bias:
+        s["bq"] = ParamDef(L + (n_heads, head_dim), la + ("heads", "head_dim"), "zeros")
+        s["bk"] = ParamDef(L + (n_kv, head_dim), la + ("kv_heads", "head_dim"), "zeros")
+        s["bv"] = ParamDef(L + (n_kv, head_dim), la + ("kv_heads", "head_dim"), "zeros")
+    return s
+
+
+def swiglu_schema(d_model: int, d_ff: int,
+                  layer_dims: Tuple[int, ...] = ()) -> Schema:
+    L = layer_dims
+    la = tuple("layer" for _ in L)
+    return {
+        "w_gate": ParamDef(L + (d_model, d_ff), la + ("embed", "mlp"), "fan_in"),
+        "w_up": ParamDef(L + (d_model, d_ff), la + ("embed", "mlp"), "fan_in"),
+        "w_down": ParamDef(L + (d_ff, d_model), la + ("mlp", "embed"), "fan_in"),
+    }
+
+
+def mlp_schema(dims: Sequence[int], name_axes: Tuple[str, str] = ("embed", "mlp"),
+               bias: bool = True) -> Schema:
+    """Plain feed-forward stack ``dims[0] -> dims[1] -> ... -> dims[-1]``."""
+    s: Schema = {}
+    for i in range(len(dims) - 1):
+        s[f"w{i}"] = ParamDef((dims[i], dims[i + 1]), name_axes, "fan_in")
+        if bias:
+            s[f"b{i}"] = ParamDef((dims[i + 1],), (name_axes[1],), "zeros")
+    return s
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(p: Schema, x: torch.Tensor, *, act=torch.relu,
+              final_act: bool = False) -> torch.Tensor:
+    n = len([k for k in p if k.startswith("w")])
+    for i in range(n):
+        x = x @ p[f"w{i}"].to(x.dtype)
+        if f"b{i}" in p:
+            x = x + p[f"b{i}"].to(x.dtype)
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
+
+
+def embed_schema(vocab: int, d: int) -> ParamDef:
+    return ParamDef((vocab, d), ("vocab", "embed"), "embed")
+
+
+# ---------------------------------------------------------------------------
+# Losses / misc
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V), labels (...) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    xf = x.float()
+    n = torch.linalg.norm(xf, dim=-1, keepdim=True)
+    return (xf / torch.clamp_min(n, eps)).to(x.dtype)

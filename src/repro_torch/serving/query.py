@@ -1,0 +1,179 @@
+"""Query runtime (paper §2.2 "online recall", §3.4 speculative retrieval).
+
+Embeds the query at several granularities (exit depths of the *query*
+tower), speculatively filters the store per granularity, verifies globally,
+then refines surviving coarse candidates with the live encoder under an
+optional latency budget. Repeated queries hit permanently upgraded
+embeddings (§5.3) and skip refinement.
+
+Two entry points:
+  * ``query``       — one query (refinement budget counts *successes*,
+    retrying past failed candidates).
+  * ``query_batch`` — many users per drain: ONE ``mem_embed_all_exits`` tower
+    pass for the whole batch, one fused ``store.search_batch`` call over all
+    B×G (query, granularity) pairs, a single deduplicated refinement batch
+    shared across queries, and one store ``upgrade_batch``; the per-query
+    budget caps *attempted* candidates.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import MEMConfig, RecallConfig
+from repro_torch.core.retrieval import (RetrievalResult, global_verify,
+                                        refine_round,
+                                        single_granularity_retrieve,
+                                        speculative_retrieve)
+from repro_torch.core.store import EmbeddingStore, not_ported
+from repro_torch.models import imagebind as IB
+
+
+class QueryEngine:
+    def __init__(self, params, cfg: MEMConfig, recall: RecallConfig, *,
+                 store: EmbeddingStore,
+                 refine_fn: Optional[Callable] = None,
+                 query_modality: str = "text", lora=None,
+                 search_impl: str = "auto", search_devices=None,
+                 bank_refresh: str = "sync", freshness: Optional[str] = None,
+                 index: str = "none", nprobe: Optional[int] = None,
+                 device="cuda"):
+        if lora is not None:
+            raise not_ported("lora")
+        self.device = resolve_device(device)
+        if search_devices is not None:
+            raise not_ported("shard")
+        if index != "none" or nprobe is not None or search_impl == "ivf":
+            raise not_ported("ivf")
+        if bank_refresh != "sync" or freshness is not None:
+            raise not_ported("async")
+        self.params, self.cfg, self.recall = params, cfg, recall
+        self.store = store
+        self.refine_fn = refine_fn
+        self.modality = query_modality
+        self.search_impl = store.resolve_impl(search_impl)
+        # device-resident bank: attach eagerly so the warm-up upload happens
+        # at engine construction, not on the first query
+        if self.search_impl == "device" and store.device_bank is None:
+            store.attach_device_bank()
+        t = cfg.tower(query_modality)
+        exits = recall.exit_layers(t.n_layers)
+        k = recall.query_granularities
+        # spread query granularities across the exit range (incl. full depth)
+        idx = np.unique(np.linspace(0, len(exits) - 1, k).round().astype(int))
+        self.granularities = [exits[i] for i in idx]
+        self._exits = exits
+        self._g_rows = [exits.index(g) for g in self.granularities]
+
+    # -- embedding -----------------------------------------------------------
+
+    @torch.no_grad()
+    def _all_exits(self, queries: np.ndarray) -> np.ndarray:
+        x = torch.as_tensor(np.asarray(queries)).to(self.device)
+        embs = IB.mem_embed_all_exits(self.params, self.cfg, self.recall,
+                                      self.modality, x)["exit_embs"]
+        return embs.float().cpu().numpy()
+
+    def embed_query(self, query: np.ndarray) -> Dict[int, np.ndarray]:
+        """One tower pass gives every granularity (exit taps are free)."""
+        embs = self._all_exits(np.asarray(query)[None])[:, 0]
+        return {e: embs[self._exits.index(e)] for e in self.granularities}
+
+    def embed_query_batch(self, queries: np.ndarray) -> np.ndarray:
+        """(B, ...) query batch -> (B, G, E) granularity embeddings from ONE
+        tower pass (row -1 is the fine/full-depth embedding)."""
+        embs = self._all_exits(queries)
+        return embs[self._g_rows].transpose(1, 0, 2)  # (B, G, E)
+
+    # -- single query --------------------------------------------------------
+
+    def query(self, query: np.ndarray, *, k: int = 10, final_k: int = 10,
+              refine_budget: Optional[int] = None,
+              speculative: bool = True) -> RetrievalResult:
+        by_g = self.embed_query(query)
+        fine = by_g[self.granularities[-1]]
+        if not speculative:
+            t0 = time.perf_counter()
+            uids, scores = single_granularity_retrieve(self.store, fine, k)
+            return RetrievalResult(uids=uids, scores=scores, filtered_uids=uids,
+                                   n_refined=0, latency_s=time.perf_counter() - t0,
+                                   per_round_s={})
+        return speculative_retrieve(
+            self.store, [by_g[g] for g in self.granularities], fine,
+            k=k, final_k=final_k, refine_fn=self.refine_fn,
+            refine_budget=refine_budget, impl=self.search_impl)
+
+    # -- batched queries -----------------------------------------------------
+
+    def query_batch(self, queries, *, k: int = 10, final_k: int = 10,
+                    refine_budget: Optional[int] = None,
+                    speculative: bool = True) -> List[RetrievalResult]:
+        """Serve a whole drain of queries at once (see module docstring).
+        Per-result ``latency_s``/``per_round_s`` are the batch wall time
+        amortized over the batch."""
+        queries = np.stack([np.asarray(q) for q in queries])
+        B = len(queries)
+        if B == 0:
+            return []
+        t0 = time.perf_counter()
+        QG = self.embed_query_batch(queries)            # (B, G, E)
+        fine_q = QG[:, -1]                              # (B, E)
+        G = QG.shape[1]
+        if not speculative:
+            uids, scores = self.store.search_batch(fine_q, k,
+                                                   impl=self.search_impl)
+            dt = (time.perf_counter() - t0) / B
+            return [RetrievalResult(uids=uids[b], scores=scores[b],
+                                    filtered_uids=uids[b], n_refined=0,
+                                    latency_s=dt, per_round_s={})
+                    for b in range(B)]
+
+        # round 1: every (query, granularity) pair in ONE fused store scan
+        flat_u, flat_s = self.store.search_batch(QG.reshape(B * G, -1), k,
+                                                 impl=self.search_impl)
+        kk = flat_u.shape[1]
+        u3 = flat_u.reshape(B, G, kk)
+        s3 = flat_s.reshape(B, G, kk)
+        t1 = time.perf_counter()
+
+        # round 2: vectorized dedup per query; one contains() call for the
+        # whole batch drops uids deleted since the scan
+        cands = [global_verify(list(zip(u3[b], s3[b])), k) for b in range(B)]
+        lens = [u.size for u, _ in cands]
+        if sum(lens):
+            live_all = self.store.contains(
+                np.concatenate([u for u, _ in cands]))
+            offs = np.cumsum([0] + lens)
+            cands = [(u[live_all[o:o + n]], s[live_all[o:o + n]])
+                     for (u, s), o, n in zip(cands, offs, lens)]
+        t2 = time.perf_counter()
+
+        # round 3: one deduplicated refinement batch across all queries
+        fine_per_q, n_ref_per_q = refine_round(
+            self.store, [u for u, _ in cands], self.refine_fn, refine_budget,
+            upgrade=True, budget_mode="attempts")
+        t3 = time.perf_counter()
+
+        ranked = []
+        for b in range(B):
+            uids_b, _ = cands[b]
+            fine_embs = fine_per_q[b]
+            n_ref = n_ref_per_q[b]
+            if len(fine_embs):
+                scores = fine_embs @ fine_q[b]
+                order = np.argsort(-scores)[:final_k]
+                ranked.append((uids_b[order], scores[order], uids_b, n_ref))
+            else:
+                ranked.append((np.zeros((0,), np.int64),
+                               np.zeros((0,), np.float32), uids_b, n_ref))
+        t4 = time.perf_counter()
+        per_round = {"filter": (t1 - t0) / B, "verify": (t2 - t1) / B,
+                     "refine": (t3 - t2) / B, "match": (t4 - t3) / B}
+        return [RetrievalResult(uids=u, scores=s, filtered_uids=fu,
+                                n_refined=n, latency_s=(t4 - t0) / B,
+                                per_round_s=dict(per_round))
+                for u, s, fu, n in ranked]

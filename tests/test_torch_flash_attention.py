@@ -1,0 +1,90 @@
+"""Port parity: attention forward's plain version against the reference's
+Pallas flash kernel (interpret mode) and its materialized oracle."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as JO
+from repro.kernels.flash_attention.kernel import flash_fwd_pallas
+from repro_torch.kernels.flash_attention import ops as FO
+from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
+
+
+def _jax_pallas_fwd(q, k, v, *, causal, window, q_offset, block):
+    """(out (B,Sq,H,D), lse (B,H,Sq)) from the Pallas kernel, laid out and
+    padded as ops.flash_attention(impl='pallas') does."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    bq, bkv = min(block, Sq), min(block, Skv)
+    cfg = JO._Cfg(causal=causal, window=window, q_offset=q_offset,
+                  scale=float(1.0 / np.sqrt(D)), block_q=bq, block_kv=bkv,
+                  skv_real=Skv, sq_real=Sq, use_pallas=True,
+                  block_skip=False, unroll=False)
+    qg = JO._pad_to(jnp.moveaxis(q, 2, 1).reshape(B, KV, G, Sq, D), bq, 3)
+    kg = JO._pad_to(jnp.moveaxis(k, 2, 1), bkv, 2)
+    vg = JO._pad_to(jnp.moveaxis(v, 2, 1), bkv, 2)
+    out, lse = flash_fwd_pallas(cfg, qg, kg, vg, interpret=True)
+    out = jnp.moveaxis(out[:, :, :, :Sq].reshape(B, H, Sq, D), 1, 2)
+    return np.asarray(out), np.asarray(lse[..., :Sq].reshape(B, H, Sq))
+
+
+CASES = [  # B, Sq, Skv, H, KV, D, causal, window, q_offset
+    (2, 19, 19, 2, 2, 64, False, 0, 0),    # ragged, encoder-style
+    (1, 21, 45, 4, 2, 80, False, 0, 0),    # GQA G=2, head dim 80
+    (2, 24, 24, 4, 2, 64, True, 0, 0),     # causal
+    (1, 33, 33, 2, 1, 80, True, 9, 0),     # sliding window
+    (1, 7, 30, 2, 2, 64, True, 0, 23),     # q_offset (chunked prefill)
+]
+
+
+def _qkv(B, Sq, Skv, H, KV, D, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D)).astype(dtype),
+            rng.standard_normal((B, Skv, KV, D)).astype(dtype),
+            rng.standard_normal((B, Skv, KV, D)).astype(dtype))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,qoff", CASES)
+def test_plain_matches_pallas_and_ref(B, Sq, Skv, H, KV, D, causal, window,
+                                      qoff):
+    q, k, v = _qkv(B, Sq, Skv, H, KV, D, seed=Sq * D)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    o_j, l_j = _jax_pallas_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               block=16, **kw)
+    o_r = np.asarray(JO.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), impl="ref", **kw))
+    o_t, l_t = attention_fwd_reference(torch.from_numpy(q),
+                                       torch.from_numpy(k),
+                                       torch.from_numpy(v), **kw)
+    np.testing.assert_allclose(o_t.numpy(), o_j, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(l_t.numpy(), l_j, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(o_t.numpy(), o_r, atol=1e-5, rtol=0)
+    before = FO.launches
+    o_o = FO.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), **kw)
+    assert FO.launches == before
+    np.testing.assert_array_equal(o_o.numpy(), o_t.numpy())
+
+
+def test_bf16_matches_pallas():
+    q, k, v = _qkv(2, 17, 17, 2, 2, 64, seed=5)
+    bf = jnp.bfloat16
+    o_j, l_j = _jax_pallas_fwd(jnp.asarray(q, bf), jnp.asarray(k, bf),
+                               jnp.asarray(v, bf), causal=False, window=0,
+                               q_offset=0, block=8)
+    to_bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+    o_t, l_t = attention_fwd_reference(to_bf(q), to_bf(k), to_bf(v),
+                                       causal=False)
+    assert o_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(o_t.float().numpy(),
+                               np.asarray(o_j, np.float32), atol=2e-2)
+    np.testing.assert_allclose(l_t.numpy(), l_j, atol=2e-2)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 4, 2, 2, 64, seed=0))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_cuda(q, k, v, causal=False)

@@ -1,0 +1,148 @@
+"""Port parity: the MEM encoder, with the reference's params carried across
+by ``params_from_jax``, computes what the reference computes (fp32)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import MEMConfig, RecallConfig, TowerConfig
+from repro.models import imagebind as JIB
+from repro.models import transformer as JT
+from repro_torch.configs import base as TC
+from repro_torch.models import imagebind as TIB
+from repro_torch.models import transformer as TT
+from repro_torch.models.convert import params_from_jax
+
+# the tests/test_serving.py config, fp32
+CFG = MEMConfig(towers=(TowerConfig("vision", 4, 32, 2, 64, 12, 16),
+                        TowerConfig("text", 3, 32, 2, 64, 8, 0, vocab=128)),
+                embed_dim=32, dtype="float32")
+RC = RecallConfig(exit_interval=1, superficial_layers=2, predictor_hidden=32,
+                  lora_rank=4, query_granularities=2)
+TCFG = TC.MEMConfig(towers=(TC.TowerConfig("vision", 4, 32, 2, 64, 12, 16),
+                            TC.TowerConfig("text", 3, 32, 2, 64, 8, 0,
+                                           vocab=128)),
+                    embed_dim=32, dtype="float32")
+TRC = TC.RecallConfig(exit_interval=1, superficial_layers=2,
+                      predictor_hidden=32, lora_rank=4,
+                      query_granularities=2)
+ATOL = 1e-4  # embeddings (unit norm)
+
+
+def _assert_hidden_close(got, want):
+    """Hidden states (magnitude up to ~40): one layer agrees to ~1e-6 of the
+    tensor's scale, and the random-init residual stream amplifies that
+    roundoff ~3x a layer; hold the max error to 1e-4 of the scale."""
+    want = np.asarray(want)
+    err = np.abs(np.asarray(got) - want).max()
+    assert err <= 1e-4 * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def both():
+    jp = JIB.mem_init(jax.random.PRNGKey(0), CFG, RC)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    rng = np.random.default_rng(0)
+    inputs = {"vision": rng.standard_normal((5, 12, 16)).astype(np.float32),
+              "text": rng.integers(0, 140, (5, 8)).astype(np.int32)}
+    return jp, tp, inputs
+
+
+def test_config_copy_matches_reference():
+    for t_port, t_ref in zip(TCFG.towers, CFG.towers):
+        assert t_port.__dict__ == t_ref.__dict__
+    assert TRC.exit_layers(4) == RC.exit_layers(4)
+    from repro.configs.base import get_arch, smoke_variant
+    ref = get_arch("recall-imagebind")
+    port = TC.get_arch("recall-imagebind")
+    for spec_ref, spec_port in ((ref, port),
+                                (smoke_variant(ref), TC.smoke_variant(port))):
+        assert spec_port.arch_id == spec_ref.arch_id
+        assert [t.__dict__ for t in spec_port.model.towers] == \
+            [t.__dict__ for t in spec_ref.model.towers]
+        assert spec_port.model.embed_dim == spec_ref.model.embed_dim
+        assert spec_port.model.dtype == spec_ref.model.dtype
+        assert spec_port.recall.__dict__ == spec_ref.recall.__dict__
+
+
+def test_param_tree_matches_reference(both):
+    jp, tp, _ = both
+    ours = TIB.mem_init(torch.Generator().manual_seed(0), TCFG, TRC)
+    flat_j = jax.tree_util.tree_flatten_with_path(jp)[0]
+    for path, leaf in flat_j:
+        node_t, node_o = tp, ours
+        for key in path:
+            node_t, node_o = node_t[key.key], node_o[key.key]
+        assert tuple(node_t.shape) == tuple(leaf.shape) == tuple(node_o.shape)
+        np.testing.assert_array_equal(node_t.numpy(), np.asarray(leaf))
+
+
+@pytest.mark.parametrize("modality", ["vision", "text"])
+def test_tower_forward_and_exits(both, modality):
+    jp, tp, inputs = both
+    x = inputs[modality]
+    j = JIB.tower_forward(jp, CFG, RC, modality, jnp.asarray(x))
+    t = TIB.tower_forward(tp, TCFG, TRC, modality, torch.from_numpy(x))
+    _assert_hidden_close(t["h"].numpy(), j["h"])
+    _assert_hidden_close(t["pooled"].numpy(), j["pooled"])
+    ja = JIB.mem_embed_all_exits(jp, CFG, RC, modality, jnp.asarray(x))
+    ta = TIB.mem_embed_all_exits(tp, TCFG, TRC, modality, torch.from_numpy(x))
+    assert ta["exits"] == ja["exits"]
+    np.testing.assert_allclose(ta["exit_embs"].numpy(),
+                               np.asarray(ja["exit_embs"]), atol=ATOL)
+    # exit_embedding on its own, and a coarse mem_embed at exit 2
+    e_j = JT.exit_embedding(jp["towers"][modality], j["pooled"][1])
+    e_t = TT.exit_embedding(tp["towers"][modality], t["pooled"][1])
+    np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), atol=ATOL)
+    c_j = JIB.mem_embed(jp, CFG, RC, modality, jnp.asarray(x), exit_layer=2)
+    c_t = TIB.mem_embed(tp, TCFG, TRC, modality, torch.from_numpy(x),
+                        exit_layer=2)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), atol=ATOL)
+
+
+def test_mem_refine_from_cached_state(both):
+    jp, tp, inputs = both
+    x = inputs["vision"]
+    N = RC.superficial_layers
+    h_j = JIB.tower_forward(jp, CFG, RC, "vision", jnp.asarray(x),
+                            layer_end=N)["h"]
+    h = np.array(h_j)
+    r_j = JIB.mem_refine(jp, CFG, RC, "vision", jnp.asarray(h), N)
+    r_t = TIB.mem_refine(tp, TCFG, TRC, "vision", torch.from_numpy(h), N)
+    np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), atol=ATOL)
+    full = TIB.mem_embed(tp, TCFG, TRC, "vision", torch.from_numpy(x))
+    np.testing.assert_allclose(r_t.numpy(), full.numpy(), atol=ATOL)
+
+
+def test_info_nce(both):
+    jp, tp, inputs = both
+    rng = np.random.default_rng(1)
+    za = rng.standard_normal((6, 32)).astype(np.float32)
+    zb = rng.standard_normal((6, 32)).astype(np.float32)
+    want = JIB.info_nce(jnp.asarray(za), jnp.asarray(zb), jp["logit_scale"])
+    got = TIB.info_nce(torch.from_numpy(za), torch.from_numpy(zb),
+                       tp["logit_scale"])
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["build_service", "EmbeddingEngine",
+                                   "QueryEngine"])
+def test_lora_is_refused(both, entry):
+    """Every entry point refuses LoRA deltas at construction, an empty dict
+    included, naming the ROADMAP item."""
+    from repro_torch.configs.base import ArchSpec
+    from repro_torch.core.store import EmbeddingStore
+    from repro_torch.launch.serve import build_service
+    from repro_torch.serving.engine import EmbeddingEngine
+    from repro_torch.serving.query import QueryEngine
+    _, tp, _ = both
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if entry == "build_service":
+            build_service(ArchSpec("t", "mem", TCFG, (), recall=TRC), params=tp,
+                          lora={}, device="cpu")
+        elif entry == "EmbeddingEngine":
+            EmbeddingEngine(tp, TCFG, TRC, lora={}, device="cpu")
+        else:
+            QueryEngine(tp, TCFG, TRC, lora={}, device="cpu",
+                        store=EmbeddingStore(TCFG.embed_dim, device="cpu"))
