@@ -6,14 +6,25 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It prints the card's name and power limit, builds the port's CUDA kernels
-from the sources in this checkout (``nvcc``, sm_90a; the Triton rmsnorm
-compiles at its first launch), holds each kernel against its plain PyTorch
-version at the serving path's shapes, then serves RECALL end to end at the
-full width of ``recall-imagebind`` (random weights from a seed) and checks
-that every kernel ran on that path. It ends with one JSON line of kernel
-measurements and one ``{"ok": true, ...}`` line. Any failed phase or
-tolerance exits non-zero; without a CUDA device it exits non-zero at once.
-It never imports JAX or the JAX package.
+from the sources in this checkout (one ``nvcc`` per source, all at once,
+sm_90a; the Triton rmsnorm compiles at its first launch), and holds each
+kernel against its plain PyTorch version at its path's shapes. Then it
+drives two paths, each with every launch counter set to 0 just before it
+and read just after:
+
+  * serve: RECALL end to end at the full width of ``recall-imagebind``
+    (random weights from a seed): drain, then query_batch (exhaustive int4
+    scan); afterwards one more query_batch through an IVF-indexed engine
+    (the pruned union scan);
+  * IVF: a 2^17-row ``clustered_sphere`` store at E = 1024 with an online
+    IVF index (256 clusters, nprobe 8), queried through both pruned
+    strategies and the dense fp32 path, held against the numpy oracles and
+    the exhaustive device scan.
+
+It ends with one JSON line of kernel measurements and one
+``{"ok": true, ...}`` line. Any failed phase or tolerance exits non-zero;
+without a CUDA device it exits non-zero at once. It never imports JAX or
+the JAX package.
 """
 from __future__ import annotations
 
@@ -91,19 +102,27 @@ def _topk_case(Q, N, E, k, *, n_valid, normalize, gen):
     if not err <= tol:
         _fail(f"retrieval_topk_int4 Q={Q} N={N} E={E} k={k} n_valid="
               f"{n_valid} normalize={normalize}: score err {err} > {tol}")
-    # ids must agree wherever the plain scores are separated by > tol
+    bad = (i_k.long() != i_p[:, :k].long()) & _resolved(s_p, k, tol)
+    if bad.any():
+        _fail(f"retrieval_topk_int4 Q={Q} N={N} k={k}: {int(bad.sum())} ids "
+              "differ at separated scores")
+    return q, packed, scales, err
+
+
+def _resolved(s_p, k, tol):
+    """(Q, k) mask of the first k plain entries whose score is separated
+    by > tol from both neighbours: ids must agree there. ``s_p`` may hold
+    one entry more than k, to see the k-th entry's gap; without it the
+    last entry stays unresolved."""
+    import torch
     sp = s_p.double()
     gap = torch.full_like(sp, float("inf"))
     gap[:, 1:] = (sp[:, 1:] - sp[:, :-1]).abs()
     gap[:, :-1] = torch.minimum(gap[:, :-1], (sp[:, :-1] - sp[:, 1:]).abs())
     resolved = gap[:, :k] > tol
-    if kk == k:  # no entry after the k-th: leave the last one unresolved
+    if s_p.shape[1] == k:
         resolved[:, -1] = False
-    bad = (i_k.long() != i_p[:, :k].long()) & resolved
-    if bad.any():
-        _fail(f"retrieval_topk_int4 Q={Q} N={N} k={k}: {int(bad.sum())} ids "
-              "differ at separated scores")
-    return q, packed, scales, err
+    return resolved
 
 
 def check_topk(gen):
@@ -148,6 +167,175 @@ def check_topk(gen):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
+def _unit(shape, gen):
+    import torch
+    x = torch.randn(shape, generator=gen, device="cuda")
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def _gather_case(q, packed, scales, ids, k, *, n_valid, what):
+    """The gathered kernel against its plain version on the same ids:
+    scores within 1e-5, ids equal where separated, and the sentinel pair
+    (-1e30, -1) in exactly the slots the plain version leaves dead."""
+    import torch
+    from repro_torch.kernels.retrieval_topk import ref as R
+    from repro_torch.kernels.retrieval_topk.kernel import (
+        retrieval_topk_int4_gathered_cuda)
+    s_k, i_k = retrieval_topk_int4_gathered_cuda(q, packed, scales, ids, k,
+                                                 n_valid=n_valid)
+    kk = min(k + 1, ids.shape[1])
+    s_p, i_p = R.retrieval_topk_int4_gathered_reference(
+        q, packed, scales, ids, kk, n_valid=n_valid, block_l=1024)
+    torch.cuda.synchronize()
+    tol = 1e-5  # fp32 dot of unit vectors, another summation order
+    dead = s_p[:, :k] <= -1e29
+    if not (torch.equal(s_k <= -1e29, dead) and (i_k[dead] == -1).all()):
+        _fail(f"retrieval_topk_int4_gathered {what}: dead slots differ from "
+              "the plain version's")
+    err = (s_k - s_p[:, :k])[~dead].abs().max().item() if (~dead).any() \
+        else 0.0
+    if not err <= tol:
+        _fail(f"retrieval_topk_int4_gathered {what}: score err {err} > {tol}")
+    bad = (i_k.long() != i_p[:, :k].long()) & _resolved(s_p, k, tol) & ~dead
+    if bad.any():
+        _fail(f"retrieval_topk_int4_gathered {what}: {int(bad.sum())} ids "
+              "differ at separated scores")
+    return err
+
+
+def check_gathered(gen):
+    """The IVF per-query pruned scan: side cases, the bit-equality of its
+    per-row scores with the exhaustive kernel's, and the serving shape
+    (Q = 192 = 64 queries x 3 granularities, L = 8192 candidates each, from
+    a 2^20-row bank)."""
+    import torch
+    from repro_torch.core.quantize import dequantize_int4, quantize_int4
+    from repro_torch.kernels.retrieval_topk import ref as R
+    from repro_torch.kernels.retrieval_topk.kernel import (
+        retrieval_topk_int4_cuda, retrieval_topk_int4_gathered_cuda)
+    N, E = 1 << 20, 1024
+    packed, scales = quantize_int4(_unit((N, E), gen))
+    # side cases: -1 padding, ids >= n_valid, rows with fewer than k live
+    # ids, L not a multiple of the 1024-candidate chunk, k = 64, the byte
+    # path (E/2 % 16 != 0)
+    for Q, L, k, nv, pad, short, e_small in [
+            (37, 1500, 10, N - 999_999, 3, 4, None),
+            (5, 300, 64, N, 0, 2, None),
+            (3, 64, 10, N, 2, 1, 200)]:
+        p, sc = (packed, scales) if e_small is None else quantize_int4(
+            _unit((5000, e_small), gen))
+        n_rows = p.shape[0]
+        nv = min(nv, n_rows)
+        q = _unit((Q, p.shape[1] * 2), gen)
+        ids = torch.randint(0, n_rows, (Q, L), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        if pad:
+            ids[:, ::pad] = -1
+        ids[Q - short:, 5:] = -1  # fewer than k live candidates
+        _gather_case(q, p, sc, ids, k, n_valid=nv,
+                     what=f"Q={Q} L={L} k={k} n_valid={nv}")
+        print(f"  gathered side case Q={Q} L={L} E={p.shape[1] * 2} k={k} "
+              f"n_valid={nv} pad every {pad} short rows {short}: ok")
+    Q, L, k = 192, 8192, 10
+    q = _unit((Q, E), gen)
+    # one shared candidate set in id order through both kernels: the
+    # exhaustive scan of the same rows returns the same floats
+    rows = torch.randperm(N, generator=gen, device="cuda")[:L].sort().values
+    ids = rows.int()[None].expand(Q, -1).contiguous()
+    s_g, i_g = retrieval_topk_int4_gathered_cuda(q, packed, scales, ids, k)
+    s_x, i_x = retrieval_topk_int4_cuda(q, packed.index_select(0, rows),
+                                        scales.index_select(0, rows), k)
+    if not (torch.equal(s_g, s_x) and torch.equal(i_g, rows[i_x.long()].int())):
+        _fail("gathered vs exhaustive int4 kernel on one candidate set: "
+              "scores or ids not bit-equal")
+    print(f"  gathered vs exhaustive kernel, Q={Q}, the same {L} rows: "
+          "scores and ids bit-equal (torch.equal)")
+    ids = torch.randint(0, N, (Q, L), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    err = _gather_case(q, packed, scales, ids, k, n_valid=N,
+                       what=f"Q={Q} L={L}")
+    ms = time_ms(lambda: retrieval_topk_int4_gathered_cuda(
+        q, packed, scales, ids, k), reps=5)
+    plain_ms = time_ms(lambda: R.retrieval_topk_int4_gathered_reference(
+        q, packed, scales, ids, k, block_l=1024), reps=1, trials=3)
+    lib_ms = time_ms(lambda: torch.topk(torch.bmm(
+        dequantize_int4(packed[ids.long()], scales[ids.long()]),
+        q[:, :, None])[..., 0], k), reps=1, trials=3)
+    live = int(((ids >= 0) & (ids < N)).sum())  # every live id is one row read
+    n_bytes = live * (E // 2 + 4 + 4) + Q * E * 4 + Q * k * 8
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * live * E, "fp32")
+    print(f"  gathered Q={Q} L={L} E={E} k={k} (ids from {N} rows): "
+          f"max_abs_err {err:.3e} (tol 1e-5) kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, torch.topk(bmm) {lib_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return {"name": "retrieval_topk_int4_gathered", "route": "cuda",
+            "source": "src/repro_torch/kernels/retrieval_topk/csrc/"
+                      "topk_int4_gather.cu",
+            "replaces": "src/repro/kernels/retrieval_topk/kernel.py:104",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def _dense_case(q, bank, k, *, n_valid, normalize, what):
+    import torch
+    from repro_torch.kernels.retrieval_topk import ref as R
+    from repro_torch.kernels.retrieval_topk.kernel import retrieval_topk_cuda
+    s_k, i_k = retrieval_topk_cuda(q, bank, k, normalize=normalize,
+                                   n_valid=n_valid)
+    kk = min(k + 1, bank.shape[0])
+    s_p, i_p = R.retrieval_topk_reference(q, bank, kk, normalize=normalize,
+                                          n_valid=n_valid, block_n=65536)
+    torch.cuda.synchronize()
+    tol = 1e-5  # fp32 dot of unit vectors, another summation order
+    err = (s_k - s_p[:, :k]).abs().max().item()
+    if not err <= tol:
+        _fail(f"retrieval_topk_dense {what}: score err {err} > {tol}")
+    bad = (i_k.long() != i_p[:, :k].long()) & _resolved(s_p, k, tol)
+    if bad.any():
+        _fail(f"retrieval_topk_dense {what}: {int(bad.sum())} ids differ at "
+              "separated scores")
+    return err
+
+
+def check_dense(gen):
+    """The dense fp32 scan (search impl 'pallas'/'xla'): side cases and the
+    serving shape Q = 192, N = 2^20, E = 1024, normalize off and on, with
+    n_valid < N."""
+    import torch
+    from repro_torch.kernels.retrieval_topk import ref as R
+    from repro_torch.kernels.retrieval_topk.kernel import retrieval_topk_cuda
+    for Q, N, E, k, nv, nz in [(37, 50_001, 1024, 64, 49_002, True),
+                               (5, 3_000, 201, 1, 3_000, False),
+                               (3, 100, 64, 10, 5, False)]:
+        _dense_case(_unit((Q, E), gen), _unit((N, E), gen), k, n_valid=nv,
+                    normalize=nz, what=f"Q={Q} N={N} E={E} k={k}")
+        print(f"  dense side case Q={Q} N={N} E={E} k={k} n_valid={nv} "
+              f"normalize={nz}: ok")
+    Q, N, E, k = 192, 1 << 20, 1024, 10
+    q, bank = _unit((Q, E), gen), _unit((N, E), gen)
+    errs = [_dense_case(q, bank, k, n_valid=nv, normalize=nz,
+                        what=f"Q={Q} N={N} n_valid={nv} normalize={nz}")
+            for nv, nz in ((N, False), (N - 12345, True))]
+    ms = time_ms(lambda: retrieval_topk_cuda(q, bank, k, normalize=False,
+                                             n_valid=N), reps=5)
+    plain_ms = time_ms(lambda: R.retrieval_topk_reference(
+        q, bank, k, normalize=False, n_valid=N, block_n=65536), reps=1,
+        trials=3)
+    lib_ms = time_ms(lambda: torch.topk(q @ bank.T, k), reps=1, trials=3)
+    n_bytes = N * E * 4 + Q * E * 4 + Q * k * 8
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * Q * N * E, "fp32")
+    print(f"  dense Q={Q} N={N} E={E} k={k}: max_abs_err {max(errs):.3e} "
+          f"(tol 1e-5) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"torch.topk(q @ bank.T) {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by})")
+    return {"name": "retrieval_topk_dense", "route": "cuda",
+            "source": "src/repro_torch/kernels/retrieval_topk/csrc/"
+                      "topk_dense.cu",
+            "replaces": "src/repro/kernels/retrieval_topk/kernel.py:29",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 def _flash_case(B, Sq, Skv, H, KV, D, dtype, *, causal, window, q_offset,
                 gen, tol, lse_tol):
     import torch
@@ -185,22 +373,29 @@ def check_flash(gen):
         print(f"  flash f32 side case B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
               f"D={D} causal={causal} window={window} q_offset={qoff}: ok")
     rows = []
-    for tower, S, D in (("vision", 257, 80), ("text", 78, 64)):
+    # the serving path's dtypes in the bf16 config: the vision tower runs
+    # fp32 activations (as the reference's promotion gives), the text tower
+    # bf16
+    for tower, S, D, dtype in (("vision", 257, 80, torch.float32),
+                               ("text", 78, 64, torch.bfloat16)):
         B, H = 64, 16
+        fp32 = dtype == torch.float32
         # bf16 output: one rounding of values of |o| < 4 is < 2e-2
-        q, k, v, err = _flash_case(B, S, S, H, H, D, torch.bfloat16,
-                                   causal=False, window=0, q_offset=0,
-                                   gen=gen, tol=2e-2, lse_tol=1e-3)
+        tol, lse_tol = (1e-5, 1e-5) if fp32 else (2e-2, 1e-3)
+        q, k, v, err = _flash_case(B, S, S, H, H, D, dtype, causal=False,
+                                   window=0, q_offset=0, gen=gen, tol=tol,
+                                   lse_tol=lse_tol)
         ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=False))
         plain_ms = time_ms(lambda: attention_fwd_reference(q, k, v,
                                                            causal=False),
                            reps=2, trials=3)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        n_bytes = 4 * B * S * H * D * 2 + B * H * S * 4
-        b_ms, b_by = bound_ms(n_bytes, 4.0 * B * H * S * S * D, "bf16")
-        print(f"  flash {tower} B={B} S={S} H={H} D={D} bf16: max_abs_err "
-              f"{err:.3e} (tol 2e-2) kernel {ms:.3f} ms, plain "
+        n_bytes = 4 * B * S * H * D * (4 if fp32 else 2) + B * H * S * 4
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * B * H * S * S * D,
+                              "fp32" if fp32 else "bf16")
+        print(f"  flash {tower} B={B} S={S} H={H} D={D} {dtype}: max_abs_err "
+              f"{err:.3e} (tol {tol}) kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
         rows.append({"name": f"flash_attention_fwd[{tower}]", "route": "cuda",
@@ -219,10 +414,17 @@ def check_rmsnorm(gen):
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_triton
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
     out = {}
-    for rows_, D, dtype in ((333, 1024, torch.float32), (7, 32, torch.float32),
-                            (64 * 257, 1280, torch.bfloat16)):
+    # last, the serving path's largest call: the vision tower's fp32
+    # activations (64 items x 257 tokens) with the bf16 config's scale; the
+    # text tower's is bf16 (64 queries x 78 tokens)
+    for rows_, D, dtype, s_dtype in (
+            (333, 1024, torch.float32, torch.float32),
+            (7, 32, torch.float32, torch.float32),
+            (64 * 78, 1024, torch.bfloat16, torch.bfloat16),
+            (64 * 257, 1280, torch.float32, torch.bfloat16)):
         x = torch.randn((rows_, D), generator=gen, device="cuda").to(dtype)
-        s = (1 + 0.1 * torch.randn((D,), generator=gen, device="cuda")).to(dtype)
+        s = (1 + 0.1 * torch.randn((D,), generator=gen,
+                                   device="cuda")).to(s_dtype)
         y_k = rmsnorm_triton(x, s, 1e-6)
         y_p = rmsnorm_reference(x, s, 1e-6)
         torch.cuda.synchronize()
@@ -238,10 +440,12 @@ def check_rmsnorm(gen):
     x, s, err = out["x"], out["s"], out["err"]
     ms = time_ms(lambda: rmsnorm_triton(x, s, 1e-6), reps=20)
     plain_ms = time_ms(lambda: rmsnorm_reference(x, s, 1e-6), reps=20)
-    lib_ms = time_ms(lambda: F.rms_norm(x, (x.shape[-1],), s, 1e-6), reps=20)
+    s_x = s.to(x.dtype)  # F.rms_norm wants the weight in x's dtype
+    lib_ms = time_ms(lambda: F.rms_norm(x, (x.shape[-1],), s_x, 1e-6),
+                     reps=20)
     n = x.numel()
-    b_ms, b_by = bound_ms(2 * n * 2 + s.numel() * 2, 4.0 * n, "fp32")
-    print(f"  rmsnorm {tuple(x.shape)} bf16: kernel {ms:.4f} ms, plain "
+    b_ms, b_by = bound_ms(2 * n * 4 + s.numel() * 2, 4.0 * n, "fp32")
+    print(f"  rmsnorm {tuple(x.shape)} fp32: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound {b_ms:.4f} "
           f"ms ({b_by})")
     return {"name": "rmsnorm", "route": "triton",
@@ -257,8 +461,12 @@ def kernel_phase():
     gen.manual_seed(0)
     print("kernels vs plain versions:")
     rows = [check_topk(gen)]
+    torch.cuda.empty_cache()
     rows += check_flash(gen)
     rows.append(check_rmsnorm(gen))
+    rows.append(check_gathered(gen))
+    torch.cuda.empty_cache()
+    rows.append(check_dense(gen))
     torch.cuda.empty_cache()
     return rows
 
@@ -268,26 +476,30 @@ def kernel_phase():
 # ---------------------------------------------------------------------------
 
 
-def _kernel_ops():
+def _counters():
+    """Kernel name -> (ops module, its launch counter's name)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.retrieval_topk import ops as topk_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
-    return {"retrieval_topk_int4": topk_ops, "flash_attention_fwd": flash_ops,
-            "rmsnorm": rms_ops}
+    return {"retrieval_topk_int4": (topk_ops, "launches"),
+            "retrieval_topk_int4_gathered": (topk_ops, "launches_gathered"),
+            "retrieval_topk_dense": (topk_ops, "launches_dense"),
+            "flash_attention_fwd": (flash_ops, "launches"),
+            "rmsnorm": (rms_ops, "launches")}
 
 
-def _reset_launches(ops) -> None:
-    for m in ops.values():
-        m.launches = 0
-    ops["flash_attention_fwd"].launches_by_head_dim.clear()
+def _reset_launches() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+    _counters()["flash_attention_fwd"][0].launches_by_head_dim.clear()
 
 
-def _read_launches(ops, cfg) -> dict:
+def _read_launches(cfg) -> dict:
     """Each kernel row's own count; the flash rows split by their tower's
-    head dim."""
-    flash = ops["flash_attention_fwd"]
-    out = {"retrieval_topk_int4": ops["retrieval_topk_int4"].launches,
-           "rmsnorm": ops["rmsnorm"].launches}
+    head dim (of ``cfg``, the recall-imagebind model)."""
+    counters = _counters()
+    flash = counters.pop("flash_attention_fwd")[0]
+    out = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
     dims = {tower: cfg.tower(tower).d_model // cfg.tower(tower).n_heads
             for tower in ("vision", "text")}
     if len(set(dims.values())) != 2:
@@ -367,7 +579,7 @@ def check_fp32_end_to_end(params, spec, vision, text):
             for modality, items in (("vision", vision), ("text", text)):
                 t = cfg32.tower(modality)
                 h0 = IB._frontend(p["towers"][modality], t,
-                                  torch.as_tensor(items).cuda(), torch.float32)
+                                  torch.as_tensor(items).cuda())
                 ulp = torch.randint(0, 2, h0.shape, generator=gen,
                                     device="cuda") * 2.0 - 1.0
                 got = exit_embs(p, modality, h0, plain=False)
@@ -456,13 +668,12 @@ def serve_phase():
     spec = get_arch("recall-imagebind")
     cfg = spec.model
     n_items, n_queries, k = 512, 64, 10
-    print(f"serve recall-imagebind (bf16, full width; vision "
+    print(f"serve recall-imagebind (bf16 weights, full width; vision "
           f"{cfg.tower('vision').n_layers}L d={cfg.tower('vision').d_model}, "
           f"text {cfg.tower('text').n_layers}L d={cfg.tower('text').d_model}"
           f"): {n_items} items, {n_queries} queries, k={k}")
     data = SYN.multimodal_pairs(1, n_items, cfg)
-    ops = _kernel_ops()
-    _reset_launches(ops)
+    _reset_launches()
     t0 = time.perf_counter()
     engine, query, info = build_service(spec, n_train=256, seed=0,
                                         device="cuda")
@@ -477,7 +688,7 @@ def serve_phase():
     results = query.query_batch(data.items["text"][:n_queries], k=k)
     torch.cuda.synchronize()
     t_query = time.perf_counter() - t0
-    launches = _read_launches(ops, cfg)
+    launches = _read_launches(cfg)
 
     print(f"  build_service (init, 256-item calibration, predictor fit): "
           f"{t_build:.2f} s; predictor {info['predictor']}")
@@ -492,20 +703,12 @@ def serve_phase():
     print(f"  device bank: {bank.stats()}")
     print(f"  kernel launches on the serving path: {launches}")
 
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n in SERVE_KERNELS if launches[n] == 0]
     if missing:
         _fail(f"kernels never launched on the serving path: {missing}")
     if len(engine.store) != n_items or len(bank) != n_items:
         _fail(f"store holds {len(engine.store)} rows, bank {len(bank)}")
-    for b, r in enumerate(results):
-        if not (1 <= len(r.uids) <= k and np.isfinite(r.scores).all()
-                and len(set(r.uids.tolist())) == len(r.uids)
-                and np.all(np.diff(r.scores) <= 0)
-                and np.all(np.abs(r.scores) <= 1 + 1e-3)
-                and engine.store.contains(r.uids).all()):
-            _fail(f"query {b}: malformed result {r.uids} {r.scores}")
-    if n_ref == 0:
-        _fail("no candidate was refined")
+    _check_results(results, engine.store, k)
     # the device bank's scan against the host numpy scan of the same store
     qg = query.embed_query_batch(data.items["text"][:n_queries])
     qg = qg.reshape(-1, cfg.embed_dim)
@@ -527,11 +730,219 @@ def serve_phase():
                           data.items["text"][:4])
     profile_phase(engine, query, data.items["vision"][:64],
                   data.items["text"][n_queries:n_queries + 16])
+    serve_ivf(engine, spec, data.items["text"][:n_queries], k)
+    return launches
+
+
+SERVE_KERNELS = ("retrieval_topk_int4", "flash_attention_fwd[vision]",
+                 "flash_attention_fwd[text]", "rmsnorm")
+IVF_KERNELS = ("retrieval_topk_int4_gathered", "retrieval_topk_dense")
+
+
+def _check_results(results, store, k) -> None:
+    """Well-formed query_batch results: 1..k distinct live uids per query,
+    finite unit-range scores in descending order, and some refinement."""
+    import numpy as np
+    for b, r in enumerate(results):
+        if not (1 <= len(r.uids) <= k and np.isfinite(r.scores).all()
+                and len(set(r.uids.tolist())) == len(r.uids)
+                and np.all(np.diff(r.scores) <= 0)
+                and np.all(np.abs(r.scores) <= 1 + 1e-3)
+                and store.contains(r.uids).all()):
+            _fail(f"query {b}: malformed result {r.uids} {r.scores}")
+    if sum(r.n_refined for r in results) == 0:
+        _fail("no candidate was refined")
+
+
+def serve_ivf(engine, spec, texts, k):
+    """query_batch through an IVF-indexed QueryEngine over the drained
+    store: 'auto' resolves to the pruned union scan, which runs the
+    exhaustive int4 kernel over the gathered candidate rows."""
+    import torch
+    from repro_torch.serving.query import QueryEngine
+    _reset_launches()
+    t0 = time.perf_counter()
+    query = QueryEngine(engine.params, spec.model, spec.recall,
+                        store=engine.store, refine_fn=engine.refine_fn(),
+                        query_modality="text", index="ivf",
+                        index_clusters=16, index_min_rows=256, nprobe=4,
+                        device="cuda")
+    if query.search_impl != "ivf":
+        _fail(f"IVF query engine resolved auto to {query.search_impl!r}")
+    results = query.query_batch(texts, k=k)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _read_launches(spec.model)
+    store = engine.store
+    print(f"  IVF query_batch ({len(texts)} queries, {len(store)} items, 16 "
+          f"clusters, nprobe 4, attach included): {dt:.3f} s = "
+          f"{dt / len(texts) * 1e3:.2f} ms/query, {sum(r.n_refined for r in results)} "
+          f"refinements, fallbacks {store.ivf_fallbacks}, index "
+          f"{store.ivf_index.stats()}, launches {launches}")
+    if launches["retrieval_topk_int4"] == 0 or store.ivf_fallbacks:
+        _fail("the IVF query_batch did not run the pruned union scan")
+    _check_results(results, store, k)
+
+
+def _same_topk(got, want, tol, what):
+    """(uids, scores) pairs: scores within ``tol``, uids equal wherever the
+    wanted scores are separated by more than ``tol``."""
+    import numpy as np
+    (u_g, s_g), (u_w, s_w) = got, want
+    if u_g.shape != u_w.shape:
+        _fail(f"{what}: shapes {u_g.shape} vs {u_w.shape}")
+    err = float(np.abs(s_g - s_w).max())
+    sep = np.ones(s_w.shape, bool)
+    d = np.abs(np.diff(s_w, axis=1)) > tol
+    sep[:, 1:] &= d
+    sep[:, :-1] &= d
+    sep[:, -1] = False
+    if not (err <= tol and np.array_equal(u_g[sep], u_w[sep])):
+        _fail(f"{what}: score err {err} (tol {tol}) or uids differ at "
+              "separated scores")
+    return err
+
+
+def _numpy_topk(dense, rows, uids, queries, k):
+    """Exact top-k of each query over ``rows`` of the fp32 slab."""
+    import numpy as np
+    s = queries @ dense[rows].T
+    sel = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return uids[rows[sel]], np.take_along_axis(s, sel, axis=1)
+
+
+def ivf_phase():
+    """The IVF pruned-search path at a real library size: 2^17
+    clustered_sphere rows at E = 1024 (C/2 = 128 blobs, the corpus shape of
+    the reference's store benchmark) inserted in batches into a CUDA store
+    with an online IVF index (C = 256, nprobe 8, min_rows 32768), queried by
+    64 clustered queries through both pruned strategies and the dense fp32
+    path. Launch counters are read right after those queries; the checks,
+    timings and profiles follow."""
+    import numpy as np
+    import torch
+    from repro_torch.core.store import EmbeddingStore
+    from repro_torch.data.synthetic import clustered_sphere
+    from repro_torch.index.pruned_scan import pruned_search_numpy, recall_at_k
+    from repro_torch.configs.base import get_arch
+    n, E, C, nprobe, k, Q, batch = 1 << 17, 1024, 256, 8, 10, 64, 8192
+    rng = np.random.default_rng(0)
+    data, centers = clustered_sphere(rng, n, C // 2, E, spread=0.03)
+    queries, _ = clustered_sphere(rng, Q, spread=0.03, centers=centers)
+    print(f"IVF: {n} clustered_sphere rows ({C // 2} blobs, spread 0.03), "
+          f"E={E}, "
+          f"C={C}, nprobe={nprobe}, {Q} queries, k={k}")
+    _reset_launches()
+    t0 = time.perf_counter()
+    store = EmbeddingStore(E, device="cuda")
+    idx = store.attach_ivf(n_clusters=C, nprobe=nprobe, min_rows=32768)
+    for lo in range(0, n, batch):
+        store.add_batch(np.arange(lo, lo + batch), data[lo:lo + batch],
+                        np.zeros(batch), np.ones(batch))
+    t_insert = time.perf_counter() - t0
+    if store.resolve_impl("auto") != "ivf":
+        _fail(f"auto resolves to {store.resolve_impl('auto')!r} on a CUDA "
+              f"store of {n} rows with a trained index")
+    t0 = time.perf_counter()
+    got_u = store.search_batch(queries, k)  # auto: ivf, union (+ re-cluster)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    got_g = store.search_batch(queries, k, impl="ivf", strategy="gathered")
+    got_d = store.search_batch(queries, k, impl="pallas")
+    torch.cuda.synchronize()
+    launches = _read_launches(get_arch("recall-imagebind").model)
+    print(f"  insert {n} rows in {batch}-row batches (quantize, train, "
+          f"assign): {t_insert:.2f} s; first query (inline re-cluster, "
+          f"bank upload): {t_first:.2f} s; launches {launches}")
+    missing = [name for name in IVF_KERNELS if launches[name] == 0]
+    if missing or launches["retrieval_topk_int4"] == 0:
+        _fail(f"kernels never launched on the IVF path: {missing}")
+
+    small = EmbeddingStore(E, device="cuda")
+    small.attach_ivf(n_clusters=16, min_rows=32768)
+    small.add_batch(np.arange(4096), data[:4096], np.zeros(4096),
+                    np.ones(4096))
+    if not small.ivf_index.trained or small.resolve_impl("auto") != "device":
+        _fail("auto on a 4096-row store below min_rows is not 'device'")
+
+    st = idx.stats()
+    if not (st["trained"] and st["n_unassigned"] == 0
+            and store.ivf_fallbacks == 0):
+        _fail(f"index {st}, fallbacks {store.ivf_fallbacks}")
+    dense, uids = store.dense_matrix(), store.uids()
+    tol = 1e-5  # fp32 dots of the same dequantized rows, another order
+    # gathered == the numpy pruned oracle (same probes, same candidates)
+    err_g = _same_topk(got_g, pruned_search_numpy(dense, n, uids, idx,
+                                                  queries, k), tol,
+                       "gathered vs pruned_search_numpy")
+    # union == the exact top-k over the batch's candidate union, which holds
+    # every query's own candidates: never worse than the per-query oracle
+    union = idx.candidate_union(queries)
+    err_u = _same_topk(got_u, _numpy_topk(dense, union, uids, queries, k),
+                       tol, "union vs numpy over the candidate union")
+    if (got_u[1][:, -1] < got_g[1][:, -1] - tol).any():
+        _fail("union's k-th score below the per-query pruned scan's")
+    exact = store.search_batch(queries, k, impl="device")
+    _same_topk(got_d, store.search_batch(queries, k, impl="numpy"), tol,
+               "dense kernel path vs numpy")
+    # every cluster probed: both strategies return the exhaustive scan's
+    # rows with the same floats (per-row scores are bit-equal)
+    for strategy in ("union", "gathered"):
+        _same_topk(store.search_batch(queries, k, impl="ivf", nprobe=C,
+                                      strategy=strategy), exact, 0.0,
+                   f"{strategy} at nprobe = C vs the exhaustive device scan")
+    rec_u, rec_g = (recall_at_k(got_u[0], exact[0]),
+                    recall_at_k(got_g[0], exact[0]))
+    cand = idx.candidate_rows(queries, k)
+    per_q = float((cand >= 0).sum(axis=1).mean())
+
+    def qps(fn, reps=5):
+        fn()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return Q / statistics.median(ts)
+
+    q_ex = qps(lambda: store.search_batch(queries, k, impl="device"))
+    q_u = qps(lambda: store.search_batch(queries, k, impl="ivf"))
+    q_g = qps(lambda: store.search_batch(queries, k, impl="ivf",
+                                         strategy="gathered"))
+    host_u = Q / qps(lambda: idx.candidate_union(queries)) * 1e3
+    host_g = Q / qps(lambda: idx.candidate_rows(queries, k)) * 1e3
+    print(f"  union vs numpy over its {union.size} candidate rows: max err "
+          f"{err_u:.2e}; gathered vs pruned_search_numpy: max err "
+          f"{err_g:.2e} (tol {tol}); nprobe=C: both equal the exhaustive "
+          "scan (scores bit-equal); dense path vs numpy: ok")
+    print(f"  recall@{k} vs the exhaustive device scan: union {rec_u:.4f}, "
+          f"gathered {rec_g:.4f}; candidates per query: gathered "
+          f"{per_q:.1f} of {n} ({per_q / n:.2%}), union {union.size} "
+          f"shared by the batch")
+    print(f"  host wall q/s incl. candidate building ({Q}-query batches): "
+          f"exhaustive device {q_ex:.1f}, union {q_u:.1f} "
+          f"({q_u / q_ex:.2f}x), gathered {q_g:.1f} ({q_g / q_ex:.2f}x); "
+          f"of a batch's host wall, building candidates takes {host_u:.2f} ms "
+          f"(union) and {host_g:.2f} ms (gathered)")
+    profile_windows((
+        ("exhaustive device scan, 64 queries",
+         lambda: store.search_batch(queries, k, impl="device")),
+        ("IVF union scan, 64 queries",
+         lambda: store.search_batch(queries, k, impl="ivf")),
+        ("IVF gathered scan, 64 queries",
+         lambda: store.search_batch(queries, k, impl="ivf",
+                                    strategy="gathered"))))
+    print(f"  ivf_index.stats() {st}; ivf_fallbacks {store.ivf_fallbacks}; "
+          f"dense path uploads {store.upload_calls} x "
+          f"{store.upload_bytes // max(store.upload_calls, 1)} bytes")
     return launches
 
 
 _LAYERS = (("flash_fwd_kernel", "attention (flash kernel)"),
+           ("topk_int4_gather", "gathered int4 scan (top-k kernel)"),
            ("topk_int4", "int4 scan (top-k kernel)"),
+           ("topk_dense", "dense scan (top-k kernel)"),
+           ("topk_pass2", "top-k merge (pass 2)"),
            ("rmsnorm", "rmsnorm (Triton kernel)"),
            ("gemm", "matmul (cuBLAS)"), ("sm90_", "matmul (cuBLAS)"),
            ("nvjet", "matmul (cuBLAS)"), ("cutlass", "matmul (cuBLAS)"))
@@ -546,18 +957,22 @@ def _layer_of(kernel_name: str) -> str:
 
 def profile_phase(engine, query, items, texts):
     """Where the device time goes: one more drain batch and one more query
-    batch under torch.profiler, device time summed by kernel and by layer,
-    and the device's busy share of the wall time."""
+    batch under torch.profiler."""
     import numpy as np
+    return profile_windows((
+        ("drain of 64 items", lambda: (engine.submit_batch(
+            np.arange(10_000, 10_000 + len(items)), items), engine.drain())),
+        ("query_batch of 16 queries", lambda: query.query_batch(texts,
+                                                                k=10))))
+
+
+def profile_windows(windows):
+    """Each (what, fn) run once under torch.profiler: device time summed by
+    kernel and by layer, and the device's busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for what, fn in (
-            ("drain of 64 items", lambda: (engine.submit_batch(
-                np.arange(10_000, 10_000 + len(items)), items),
-                engine.drain())),
-            ("query_batch of 16 queries", lambda: query.query_batch(texts,
-                                                                    k=10))):
+    for what, fn in windows:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -609,11 +1024,18 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
-    build_phase()
-    rows = kernel_phase()
-    launches = serve_phase()
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    walls = {}
+    for name, phase in (("build", build_phase), ("kernels", kernel_phase),
+                        ("serve", serve_phase), ("ivf", ivf_phase)):
+        t0 = time.perf_counter()
+        walls[name] = (phase(), time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    print("phase wall times: " + ", ".join(
+        f"{name} {wall:.1f} s" for name, (_, wall) in walls.items()))
+    rows = walls["kernels"][0]
+    for row in rows:  # each kernel's count from the path that runs it
+        path = "ivf" if row["name"] in IVF_KERNELS else "serve"
+        row["launches"] = walls[path][0][row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

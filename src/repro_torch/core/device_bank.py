@@ -9,7 +9,9 @@ slab, kept on the device and refreshed *incrementally*.
     (``index_copy_`` of the dirty rows' packed nibbles + scales — the host
     payload is just those rows), and grows by slab doubling *on device* in
     lockstep with the host slab (a device-to-device copy, no re-upload);
-  * every refresh publishes a generation-counted ``BankSnapshot``.
+  * every refresh publishes a generation-counted ``BankSnapshot``;
+  * the IVF pruned scans read the same slab: ``search_rows`` (one candidate
+    union for the batch) and ``search_gathered`` (per-query candidates).
 
 Single device, synchronous refresh. The scatter updates the published
 buffers in place (the reference publishes a fresh copy-on-write buffer
@@ -28,7 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.retrieval_topk.ops import retrieval_topk_int4
+from repro_torch.kernels.retrieval_topk.ops import (
+    retrieval_topk_int4, retrieval_topk_int4_gathered,
+    retrieval_topk_int4_rows)
 
 
 class BankSnapshot(NamedTuple):
@@ -130,18 +134,56 @@ class DeviceBank:
 
     # -- search --------------------------------------------------------------
 
+    def _state(self, state: Optional[BankSnapshot]) -> BankSnapshot:
+        state = self._published if state is None else state
+        if state is None:
+            raise RuntimeError("DeviceBank search before the first sync()")
+        return state
+
+    def _queries(self, queries: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
+
     def search(self, queries: np.ndarray, k: int,
                state: Optional[BankSnapshot] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Fused top-k over the device-resident bank: (Q, E) queries ->
         (row indices (Q, k) int64, scores (Q, k) fp32), descending score.
         Only the query batch travels host-to-device."""
-        if state is None:
-            state = self._published
-        if state is None:
-            raise RuntimeError("DeviceBank.search before the first sync()")
+        state = self._state(state)
         k = min(k, state.n)
-        q = torch.as_tensor(np.asarray(queries, np.float32)).to(self.device)
-        s, i = retrieval_topk_int4(q, state.packed, state.scales, k,
-                                   normalize=False, n_valid=state.n)
+        s, i = retrieval_topk_int4(self._queries(queries), state.packed,
+                                   state.scales, k, normalize=False,
+                                   n_valid=state.n)
         return i.cpu().numpy().astype(np.int64), s.cpu().numpy()
+
+    def search_gathered(self, queries: np.ndarray, row_ids: np.ndarray,
+                        k: int, state: Optional[BankSnapshot] = None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """IVF pruned scan, per-query strategy: top-k over each query's own
+        candidate rows ``row_ids`` (Q, L) int32 (-1 padded) of one
+        snapshot; ids past its fill are masked. Device work scales with L,
+        not the bank size, and the kernel reads the candidates by id, so
+        no gathered copy is made. Returns ((Q, k) GLOBAL row ids, (Q, k)
+        scores); slots with no live candidate hold id -1 / score -1e30."""
+        state = self._state(state)
+        k = min(k, state.n)
+        ids = torch.from_numpy(np.ascontiguousarray(row_ids, np.int32))
+        s, i = retrieval_topk_int4_gathered(
+            self._queries(queries), state.packed, state.scales,
+            ids.to(self.device), k, normalize=False, n_valid=state.n)
+        return i.cpu().numpy().astype(np.int64), s.cpu().numpy()
+
+    def search_rows(self, queries: np.ndarray, rows: np.ndarray, k: int,
+                    state: Optional[BankSnapshot] = None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """IVF pruned scan, batch-union strategy: one candidate-row set for
+        the whole batch (the caller keeps ``rows`` < ``state.n``), gathered
+        on the device and scanned by the exhaustive int4 kernel over
+        ``len(rows)`` instead of ``n`` rows. Returns ((Q, k) GLOBAL row
+        ids, (Q, k) scores). Requires k <= len(rows)."""
+        state = self._state(state)
+        rows = np.asarray(rows, np.int64)
+        s, i = retrieval_topk_int4_rows(self._queries(queries), state.packed,
+                                        state.scales, rows, k,
+                                        normalize=False)
+        return rows[i.cpu().numpy()], s.cpu().numpy()

@@ -17,9 +17,17 @@ Inserts quantize on the host with ``quantize_int4_np``. ``search_batch`` is
 the serving hot path: on a store that lives on a CUDA device,
 ``impl='auto'`` resolves to the device-resident int4 bank
 (``core.device_bank``), refreshed from a dirty-row bitmap and scanned by
-the fused dequant-top-k kernel; a store the caller put on the CPU resolves
-to the numpy matmul path. Queried items are permanently upgraded to their
-fine-grained embeddings (§5.3) via ``upgrade_batch``.
+the fused dequant-top-k kernel, and to the IVF pruned scan once an
+attached index (``attach_ivf``) is trained and the store holds its
+``min_rows``; a store the caller put on the CPU resolves to the numpy
+matmul path. Queried items are permanently upgraded to their fine-grained
+embeddings (§5.3) via ``upgrade_batch``.
+
+The IVF index (``index.ivf``) follows every mutation under the store lock
+(``add_batch`` trains then assigns, ``upgrade_batch`` re-assigns,
+``delete_batch`` mirrors the swap-with-last); its re-cluster jobs run in
+three phases whose middle one holds no lock (``ivf_maybe_recluster``,
+inline on the sync query path).
 """
 from __future__ import annotations
 
@@ -28,29 +36,32 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+import torch
+
 from repro_torch import resolve_device
 from repro_torch.core.quantize import dequantize_int4_np, quantize_int4_np
+from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
 
 _META_DTYPE = np.dtype([("uid", np.int64), ("exit_idx", np.int32),
                         ("exit_layer", np.int32), ("fine", np.bool_),
                         ("modality_id", np.int32)])  # index into _modalities
 
 _NOT_PORTED = {
-    "ivf": "the IVF coarse-filter index and pruned scan are not ported yet "
-           "(ROADMAP queue A, pruned-search slice)",
     "async": "async bank refresh is not ported yet (ROADMAP queue A, "
              "async-refresh slice)",
     "shard": "sharded device banks are not ported yet (ROADMAP queue A, "
              "multi-GPU slice)",
     "lora": "LoRA deltas (P-LoRA) are not ported yet (ROADMAP queue A, "
             "training slice)",
-    "dense": "the dense fp32 top-k kernel (search impl 'pallas'/'xla') is "
-             "not ported yet (ROADMAP queue B)",
 }
 
 
 def not_ported(feature: str) -> NotImplementedError:
     return NotImplementedError(_NOT_PORTED[feature])
+
+
+def _empty(nq: int) -> Tuple[np.ndarray, np.ndarray]:
+    return np.zeros((nq, 0), np.int64), np.zeros((nq, 0), np.float32)
 
 
 class EmbeddingStore:
@@ -74,6 +85,14 @@ class EmbeddingStore:
         self._bank_dirty = np.zeros(self._cap, np.bool_)
         self._any_bank_dirty = False
         self._bank = None  # DeviceBank, created lazily / via attach
+        # online IVF coarse-filter index (attach_ivf); mutations keep its
+        # assignment/posting lists in lockstep under this same lock
+        self._ivf = None
+        self.ivf_fallbacks = 0  # impl='ivf' queries served exhaustively
+        # fp32 slab uploads of the dense kernel path (impl 'pallas'/'xla'),
+        # the bytes the int4 device bank exists to avoid
+        self.upload_bytes = 0
+        self.upload_calls = 0
         self._escaped_n = 0  # rows visible to views handed out to readers
         self._uid_to_row: Dict[int, int] = {}
         self._modalities: List[str] = [""]  # interned names; id 0 = unset
@@ -105,6 +124,8 @@ class EmbeddingStore:
             setattr(self, name, new)
         self._cap = cap
         self._escaped_n = 0  # the fresh dense buffer has no outside readers
+        if self._ivf is not None:
+            self._ivf.ensure_capacity(cap)
 
     # -- mutation ------------------------------------------------------------
 
@@ -163,6 +184,9 @@ class EmbeddingStore:
                     self._act_cache[u] = (ap[j], ascale[j], shape,
                                           int(exit_layers[j]))
             self._n = nxt
+            if self._ivf is not None:  # train then assign, one argmin each
+                self._ivf.observe(embs)
+                self._ivf.assign_rows(rows, embs, nxt)
 
     def upgrade_batch(self, uids: Sequence[int], fine_embs: np.ndarray) -> None:
         """Vectorized §5.3 upgrade: requantize the batch in one call, mark
@@ -181,6 +205,8 @@ class EmbeddingStore:
             self._dirty[rows] = True
             self._any_dirty = True
             self._mark_bank_dirty_locked(rows)
+            if self._ivf is not None:  # content changed -> cluster may too
+                self._ivf.assign_rows(rows, embs, self._n)
             for u in uids.tolist():
                 self._act_cache.pop(u, None)  # §3.4: storage freed once refined
 
@@ -213,6 +239,8 @@ class EmbeddingStore:
                 self._dirty[last] = False
                 self._bank_dirty[last] = False
                 self._n = last
+                if self._ivf is not None:  # assignment swaps with the row
+                    self._ivf.on_delete(row, last)
 
     # -- index ---------------------------------------------------------------
 
@@ -353,8 +381,115 @@ class EmbeddingStore:
                          self._meta["uid"][:self._n].copy())
         return bank, snap
 
-    def attach_ivf(self, **kw):
-        raise not_ported("ivf")
+    # -- IVF coarse-filter index ---------------------------------------------
+
+    def attach_ivf(self, *, n_clusters: int = 64, nprobe: int = 8,
+                   min_rows: int = 32_768, seed: int = 0, **kw):
+        """Create (or replace) the online IVF coarse-filter index
+        (``index.ivf``). Existing rows seed the centroids and are assigned
+        at once when there are enough of them; otherwise training starts
+        from the insert stream. ``search_batch`` gains ``impl='ivf'`` (the
+        pruned scan over the device bank), and ``'auto'`` on a CUDA store
+        cuts over to it once the store holds ``min_rows`` rows. Returns
+        the index."""
+        from repro_torch.index.ivf import IVFIndex
+        with self._lock:
+            idx = IVFIndex(self.embed_dim, n_clusters=n_clusters,
+                           nprobe=nprobe, min_rows=min_rows, seed=seed, **kw)
+            idx.ensure_capacity(self._cap)
+            if self._n:
+                self._refresh_dense_locked()
+                if self._n >= n_clusters:
+                    idx.init_from(self._dense[:self._n])
+                else:  # too few rows to seed: buffer them as training data
+                    idx.observe(self._dense[:self._n])
+                idx.assign_rows(np.arange(self._n), self._dense[:self._n],
+                                self._n)
+            self._ivf = idx
+            return idx
+
+    @property
+    def ivf_index(self):
+        """The attached IVFIndex, or None."""
+        return self._ivf
+
+    def ivf_recluster_begin(self):
+        """Phase 1 of a re-cluster job: take the index's recluster lock
+        (non-blocking: one job in flight at a time), check the trigger, and
+        snapshot under the store lock. Returns a ``ReclusterJob`` or None
+        (no index / too few rows / no trigger / a job already running).
+        The caller MUST finish with ``ivf_recluster_commit`` or
+        ``ivf_recluster_abort``."""
+        idx = self._ivf
+        if idx is None or not idx.recluster_lock.acquire(blocking=False):
+            return None
+        try:
+            with self._lock:
+                if not idx.trained:
+                    # late init: the index was attached before enough rows
+                    # existed and inserts never filled its buffer. Seed from
+                    # a bounded subsample (this holds the store lock); the
+                    # unassigned-rows trigger then fires this job, whose
+                    # unlocked compute phase assigns the whole corpus
+                    if self._n < idx.n_clusters:
+                        idx.recluster_lock.release()
+                        return None
+                    self._refresh_dense_locked()
+                    m = min(self._n,
+                            max(idx.n_clusters + 1,
+                                int(idx.n_clusters * idx.init_oversample)))
+                    sel = (np.arange(self._n) if m == self._n else
+                           idx._rng.choice(self._n, m, replace=False))
+                    idx.init_from(self._dense[sel])
+                if not idx.needs_recluster():
+                    idx.recluster_lock.release()
+                    return None
+                # COW view: rows < n stay stable while compute runs unlocked
+                self._refresh_dense_locked()
+                self._escaped_n = max(self._escaped_n, self._n)
+                return idx.begin_recluster(self._dense)
+        except BaseException:
+            idx.recluster_lock.release()
+            raise
+
+    def ivf_recluster_commit(self, job) -> None:
+        """Phase 3: apply the computed assignment under the store lock and
+        release the job lock. Targets the index the job belongs to
+        (``job.owner``): if ``attach_ivf`` replaced it mid-job, the result
+        is dropped."""
+        idx = job.owner
+        try:
+            with self._lock:
+                if idx is self._ivf:
+                    idx.commit_recluster(job, self._n)
+                else:
+                    idx.abort_recluster()
+        finally:
+            idx.recluster_lock.release()
+
+    def ivf_recluster_abort(self, job) -> None:
+        idx = job.owner
+        try:
+            with self._lock:
+                idx.abort_recluster()
+        finally:
+            idx.recluster_lock.release()
+
+    def ivf_maybe_recluster(self) -> bool:
+        """Run one whole re-cluster job if the index wants one: begin ->
+        unlocked O(n·C) argmin -> commit. The sync ``impl='ivf'`` query
+        path calls it inline, as it pays the bank refresh inline."""
+        from repro_torch.index.ivf import IVFIndex
+        job = self.ivf_recluster_begin()
+        if job is None:
+            return False
+        try:
+            IVFIndex.compute_assignments(job)  # no locks held
+        except BaseException:
+            self.ivf_recluster_abort(job)
+            raise
+        self.ivf_recluster_commit(job)
+        return True
 
     # -- search --------------------------------------------------------------
 
@@ -380,56 +515,125 @@ class EmbeddingStore:
         return uids[idx], scores[idx]
 
     def resolve_impl(self, impl: str) -> str:
-        """``'auto'`` follows the device the caller put the store on: the
-        device bank for CUDA, numpy for the CPU."""
+        """``'auto'`` follows the device the caller put the store on: numpy
+        for the CPU; for CUDA the IVF pruned scan once an attached index is
+        trained and the store holds its ``min_rows``, the device bank's
+        exhaustive scan below that."""
         if impl != "auto":
             return impl
-        return "numpy" if self.device.type == "cpu" else "device"
+        if self.device.type == "cpu":
+            return "numpy"
+        if self._ivf is not None and self._ivf.searchable(self._n):
+            return "ivf"
+        return "device"
 
     def search_batch(self, queries: np.ndarray, k: int, *, impl: str = "auto",
                      freshness: Optional[str] = None,
-                     nprobe: Optional[int] = None
+                     nprobe: Optional[int] = None, strategy: str = "union"
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """Fused batched top-k over the whole store: queries (Q, E) ->
         (uids (Q, k), scores (Q, k)), both sorted by descending score; raw
-        inner products. ``impl``: 'device' (int4 bank, incremental refresh,
-        fused dequant scan), 'numpy' (host matmul + argpartition), or
-        'auto' (see ``resolve_impl``)."""
+        inner products. ``impl``:
+
+          * ``'device'``: the int4 device bank (incremental refresh, fused
+            dequant scan);
+          * ``'ivf'``: the coarse-filtered pruned scan over the device bank
+            (needs ``attach_ivf``); a query returns the exact top-k of its
+            probed clusters, and slots past its live candidate count hold
+            uid -1 / score -1e30. ``nprobe`` overrides the index's default
+            (ignored by the other impls); ``strategy`` is ``'union'`` (one
+            shared candidate union, the exhaustive kernel) or
+            ``'gathered'`` (each query's own candidates, the gathered
+            kernel);
+          * ``'pallas'`` / ``'xla'``: the dense fp32 kernel over the host
+            slab, uploaded per call (``upload_bytes``/``upload_calls``);
+            the reference's two names compute the same function;
+          * ``'numpy'``: host matmul + argpartition;
+          * ``'auto'``: see ``resolve_impl``."""
         if freshness is not None:
             raise not_ported("async")
-        if nprobe is not None:
-            raise not_ported("ivf")
         impl = self.resolve_impl(impl)
-        if impl == "ivf":
-            raise not_ported("ivf")
-        if impl in ("pallas", "xla"):
-            raise not_ported("dense")
-        if impl not in ("device", "numpy"):
+        if impl not in ("device", "ivf", "numpy", "pallas", "xla"):
             raise ValueError(f"search impl {impl!r}")
         queries = np.asarray(queries, np.float32).reshape(-1, self.embed_dim)
         nq = len(queries)
         if self._n == 0 or nq == 0:
-            return (np.zeros((nq, 0), np.int64),
-                    np.zeros((nq, 0), np.float32))
+            return _empty(nq)
+        if impl == "ivf":
+            return self._search_ivf(queries, k, nprobe=nprobe,
+                                    strategy=strategy)
         if impl == "device":
             # refresh + scan under one lock hold: the bank's scatter is in
             # place, so a scan must not overlap the next refresh
             with self._lock:
                 bank, snap = self._sync_bank_locked()
                 if snap.n == 0:
-                    return (np.zeros((nq, 0), np.int64),
-                            np.zeros((nq, 0), np.float32))
+                    return _empty(nq)
                 idx, top_s = bank.search(queries, min(k, snap.n), state=snap)
             return snap.uids[idx], top_s
         slab, n, uids = self._search_snapshot()
         k = min(k, n)
-        scores = queries @ slab[:n].T                       # (Q, N)
-        idx = np.argpartition(-scores, k - 1, axis=1)[:, :k]
-        part = np.take_along_axis(scores, idx, axis=1)
-        order = np.argsort(-part, axis=1)
-        idx = np.take_along_axis(idx, order, axis=1)
-        top_s = np.take_along_axis(part, order, axis=1)
-        return uids[idx], top_s
+        if impl == "numpy":
+            scores = queries @ slab[:n].T                       # (Q, N)
+            idx = np.argpartition(-scores, k - 1, axis=1)[:, :k]
+            part = np.take_along_axis(scores, idx, axis=1)
+            order = np.argsort(-part, axis=1)
+            idx = np.take_along_axis(idx, order, axis=1)
+            top_s = np.take_along_axis(part, order, axis=1)
+            return uids[idx], top_s
+        # the whole capacity slab + a row count, as the reference hands its
+        # kernel; the upload is what the device bank avoids
+        self.upload_bytes += int(slab.nbytes)
+        self.upload_calls += 1
+        s, i = retrieval_topk(torch.from_numpy(queries).to(self.device),
+                              torch.from_numpy(slab).to(self.device), k,
+                              normalize=False, n_valid=n)
+        return uids[i.cpu().numpy().astype(np.int64)], s.cpu().numpy()
+
+    def _search_ivf(self, queries: np.ndarray, k: int, *,
+                    nprobe: Optional[int], strategy: str
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """IVF pruned scan over the device bank (see ``search_batch``). A
+        due re-cluster job runs first, inline; then the bank refresh, the
+        candidates (from the current posting lists) and the scan share one
+        lock hold, so the candidates and the snapshot agree exactly and no
+        refresh scatters into the slab mid-scan. An untrained index, or a
+        batch whose probed clusters are all empty, is served by the
+        exhaustive scan and counted in ``ivf_fallbacks``."""
+        if self._ivf is None:
+            raise ValueError("impl='ivf' requires attach_ivf() first")
+        if strategy not in ("union", "gathered"):
+            raise ValueError(f"ivf strategy={strategy!r}")
+        nq = len(queries)
+        self.ivf_maybe_recluster()
+        with self._lock:
+            bank, snap = self._sync_bank_locked()
+            if snap.n == 0:
+                return _empty(nq)
+            k = min(k, snap.n)
+            cand = None
+            if self._ivf.trained:
+                cand = (self._ivf.candidate_union(queries, nprobe=nprobe)
+                        if strategy == "union" else
+                        self._ivf.candidate_rows(queries, k, nprobe=nprobe))
+            if cand is None or cand.size == 0:
+                self.ivf_fallbacks += 1
+                ridx, top_s = bank.search(queries, k, state=snap)
+                return snap.uids[ridx], top_s
+            if strategy == "union":
+                k2 = min(k, int(cand.size))
+                rows, top_s = bank.search_rows(queries, cand, k2, state=snap)
+                uids = snap.uids[rows]
+                if k2 < k:  # union smaller than k: pad with the sentinel
+                    uids = np.pad(uids, ((0, 0), (0, k - k2)),
+                                  constant_values=-1)
+                    top_s = np.pad(top_s, ((0, 0), (0, k - k2)),
+                                   constant_values=-1e30)
+                return uids, top_s
+            rows, top_s = bank.search_gathered(queries, cand, k, state=snap)
+        live = top_s > -5e29  # the kernel's sentinel for dead slots
+        return np.where(live, snap.uids[np.clip(rows, 0, snap.n - 1)],
+                        -1), top_s
 
     # -- accounting ----------------------------------------------------------
 

@@ -1,14 +1,15 @@
-"""Procedural, *learnable* multimodal pairs (the reference's generator).
+"""Synthetic data, the reference's generators draw for draw: the same seeds
+give the same arrays.
 
-One latent z per item; each modality observes a fixed random projection of
-z plus modality noise, so items differ in SNR and hence in optimal exit.
-The draws are the reference's, number for number: the same seeds give the
-same arrays.
+``multimodal_pairs``: procedural, *learnable* multimodal pairs. One latent z
+per item; each modality observes a fixed random projection of z plus
+modality noise, so items differ in SNR and hence in optimal exit.
+``clustered_sphere``: the blob-mixture embedding corpus of the IVF tests.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -54,3 +55,24 @@ def multimodal_pairs(seed: int, n: int, cfg: MEMConfig, d_latent: int = 16,
                 obs.shape).astype(np.float32)
             items[t.modality] = obs.astype(np.float32)
     return MultimodalData(items=items, difficulty=difficulty, latent=z)
+
+
+def clustered_sphere(rng: np.random.Generator, n: int,
+                     n_centers: Optional[int] = None, dim: int = 256, *,
+                     spread: float = 0.12,
+                     centers: Optional[np.ndarray] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Blob mixture on the unit sphere: unit-norm centers plus per-component
+    noise ``spread``. Keep the noise norm ``spread * sqrt(dim)`` below the
+    ~sqrt(2) distance between centers (e.g. ``spread = 0.03`` at dim 1024),
+    or the "clusters" are effectively uniform. Pass ``centers`` to draw more
+    points (e.g. queries) from an existing mixture. Returns ((n, dim)
+    unit-norm fp32 points, the centers)."""
+    if centers is None:
+        centers = rng.standard_normal((n_centers, dim)).astype(np.float32)
+        centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    dim = centers.shape[1]
+    x = centers[rng.integers(0, len(centers), n)] + \
+        spread * rng.standard_normal((n, dim)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x.astype(np.float32), centers

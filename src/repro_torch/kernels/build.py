@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels: ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``.
 
-A library is built at first use, and again when its source is newer than
-the ``.so``, into ``build/repro_torch/`` at the repository root (listed in
+A library is built at first use, and again when its source (or a header
+beside it) is newer than the ``.so``, into ``build/repro_torch/`` at the repository root (listed in
 ``.gitignore``). ``build_all`` starts one ``nvcc`` per source at once, so a
 cold start pays for the slowest source, not the sum. Nothing here runs at
 import time: the CPU tests import every module on machines without ``nvcc``.
@@ -21,9 +21,12 @@ from typing import Dict, List, Tuple
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 
-# library name -> its one CUDA source
+_TOPK = KERNELS_DIR / "retrieval_topk" / "csrc"
+# library name -> its one CUDA source (it may include headers beside it)
 SOURCES: Dict[str, Path] = {
-    "topk_int4": KERNELS_DIR / "retrieval_topk" / "csrc" / "topk_int4.cu",
+    "topk_int4": _TOPK / "topk_int4.cu",
+    "topk_int4_gather": _TOPK / "topk_int4_gather.cu",
+    "topk_dense": _TOPK / "topk_dense.cu",
     "flash_fwd": KERNELS_DIR / "flash_attention" / "csrc" / "flash_fwd.cu",
 }
 
@@ -52,7 +55,12 @@ def _so_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     so = _so_path(name)
-    return not so.exists() or so.stat().st_mtime < SOURCES[name].stat().st_mtime
+    if not so.exists():
+        return True
+    src = SOURCES[name]
+    newest = max(f.stat().st_mtime
+                 for f in [src, *src.parent.glob("*.cuh")])
+    return so.stat().st_mtime < newest
 
 
 def _start(name: str) -> Tuple[subprocess.Popen, Path, float]:

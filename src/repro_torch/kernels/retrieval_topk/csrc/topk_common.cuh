@@ -1,0 +1,205 @@
+// Pieces shared by the port's top-k scans (topk_int4.cu, topk_int4_gather.cu,
+// topk_dense.cu): the (score, id) order, the nibble decode, the sorted-list
+// insert, the warp-wide merge, the row dots, and the pass-2 merge of the
+// partial lists that pass 1 of every scan writes.
+//
+// The row dots are the one place a row's score is computed. Each is a single
+// fmaf chain in element order e = 0 .. E-1 per query, so every kernel that
+// calls int4_row_dot scores a row bit for bit alike: the IVF pruned scan
+// (gathered ids) and the exhaustive scan return the same float for the same
+// row, and pruning can only drop rows, never re-score them.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int KMAX = 64;
+
+__device__ __forceinline__ bool better(float s, int i, float s2, int i2) {
+  return s > s2 || (s == s2 && i < i2);
+}
+
+// Signed nibble (two's complement, 4 bits) to float without I2F:
+// (n ^ 8) = n + 8 in [0, 15] sits in the mantissa of 2^23.
+__device__ __forceinline__ float nib2f(unsigned n) {
+  return __int_as_float(0x4B000000u | (n ^ 8u)) - 8388616.0f;
+}
+
+// One thread inserts (s, id) into a sorted list of cnt <= k entries.
+__device__ inline void list_insert(float* ls, int* li, int* cnt, int k,
+                                   float s, int id) {
+  int c = *cnt;
+  if (c == k && !better(s, id, ls[k - 1], li[k - 1])) return;
+  int pos = c < k ? c : k - 1;
+  while (pos > 0 && better(s, id, ls[pos - 1], li[pos - 1])) {
+    ls[pos] = ls[pos - 1];
+    li[pos] = li[pos - 1];
+    --pos;
+  }
+  ls[pos] = s;
+  li[pos] = id;
+  if (c < k) *cnt = c + 1;
+}
+
+// A whole warp merges n candidates into one list; get(j, s, id) reads
+// candidate j and returns whether it is live. All 32 lanes must call it.
+template <typename Get>
+__device__ void warp_merge(int n, Get get, float* ls, int* li, int* cnt,
+                           int k) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < n; base += 32) {
+    const int j = base + lane;
+    float s = -INFINITY;
+    int id = INT_MAX;
+    bool live = j < n && get(j, s, id);
+    // a stale threshold only lets more candidates through; insertion
+    // re-checks against the current list
+    const int c = *cnt;
+    bool cand = live && (c < k || better(s, id, ls[k - 1], li[k - 1]));
+    unsigned m = __ballot_sync(0xffffffffu, cand);
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float ss = __shfl_sync(0xffffffffu, s, src);
+      const int ii = __shfl_sync(0xffffffffu, id, src);
+      if (lane == 0) list_insert(ls, li, cnt, k, ss, ii);
+      __syncwarp();
+    }
+  }
+}
+
+// NQ query rows in shared memory (row stride E floats) against one packed
+// int4 row (E/2 bytes; low nibble = element 2i, high = 2i+1). acc[i] is the
+// unscaled dot, one fmaf chain in element order; ss is the nibbles' sum of
+// squares when `norm`. 16-byte loads (32 nibbles) when E/2 is a multiple of
+// 16 (the caller guarantees 16-byte aligned rows then), else byte loads.
+template <int NQ>
+__device__ __forceinline__ void int4_row_dot(const float* __restrict__ qs,
+                                             int E,
+                                             const int8_t* __restrict__ prow,
+                                             bool norm, float (&acc)[NQ],
+                                             float& ss) {
+  const int E2 = E / 2;
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) acc[i] = 0.f;
+  ss = 0.f;
+  if ((E2 & 15) == 0) {
+    const int4* pv = reinterpret_cast<const int4*>(prow);
+    for (int vi = 0; vi < E2 / 16; ++vi) {
+      const int4 w4 = __ldg(pv + vi);
+      const unsigned words[4] = {(unsigned)w4.x, (unsigned)w4.y,
+                                 (unsigned)w4.z, (unsigned)w4.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        // nibble j of word w is element 32*vi + 8*w + j
+        float f[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) f[j] = nib2f((words[w] >> (4 * j)) & 0xFu);
+        if (norm) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) ss = fmaf(f[j], f[j], ss);
+        }
+        const int e0 = 32 * vi + 8 * w;
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(qs + i * E + e0);
+          const float4 b = *reinterpret_cast<const float4*>(qs + i * E + e0 + 4);
+          float x = acc[i];
+          x = fmaf(a.x, f[0], x); x = fmaf(a.y, f[1], x);
+          x = fmaf(a.z, f[2], x); x = fmaf(a.w, f[3], x);
+          x = fmaf(b.x, f[4], x); x = fmaf(b.y, f[5], x);
+          x = fmaf(b.z, f[6], x); x = fmaf(b.w, f[7], x);
+          acc[i] = x;
+        }
+      }
+    }
+  } else {
+    for (int j = 0; j < E2; ++j) {
+      const unsigned byte = (unsigned char)prow[j];
+      const float f0 = nib2f(byte & 0xFu), f1 = nib2f(byte >> 4);
+      if (norm) ss = fmaf(f0, f0, fmaf(f1, f1, ss));
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+        acc[i] = fmaf(qs[i * E + 2 * j + 1], f1,
+                      fmaf(qs[i * E + 2 * j], f0, acc[i]));
+    }
+  }
+}
+
+// Stage NQ query rows in shared memory (zero rows past Q), L2-normalised
+// with rsqrt(max(sum x^2, 1e-16)) when `norm`. Ends with __syncthreads().
+template <int NQ, int THREADS>
+__device__ void stage_queries(const float* __restrict__ q, int Q, int E,
+                              int q0, bool norm, float* qs) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int idx = tid; idx < NQ * E; idx += THREADS) {
+    const int qi = idx / E;
+    qs[idx] = q0 + qi < Q ? q[(size_t)(q0 + qi) * E + idx % E] : 0.f;
+  }
+  __syncthreads();
+  if (norm) {
+    for (int qi = warp; qi < NQ; qi += THREADS / 32) {
+      float ss = 0.f;
+      for (int e = lane; e < E; e += 32) ss += qs[qi * E + e] * qs[qi * E + e];
+      for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      const float r = rsqrtf(fmaxf(ss, 1e-16f));
+      for (int e = lane; e < E; e += 32) qs[qi * E + e] *= r;
+    }
+    __syncthreads();
+  }
+}
+
+// Pass 2: one warp per query merges its n_parts partial lists (k entries
+// each, (Q, n_parts, k), unused slots id INT_MAX) into the final sorted
+// top-k. Slots left empty (fewer than k live rows) get score -1e30 and, with
+// dead_id_minus_one, id -1 (the gathered scan's sentinel pair); otherwise
+// ids n_valid, n_valid + 1, ... (where a stable descending sort of the
+// masked rows puts them).
+constexpr int P2_WARPS = 4;
+
+__global__ void __launch_bounds__(P2_WARPS * 32)
+topk_pass2(const float* __restrict__ part_s, const int* __restrict__ part_i,
+           float* __restrict__ out_s, int* __restrict__ out_i, int Q, int k,
+           int n_parts, int n_valid, int dead_id_minus_one) {
+  __shared__ float ls[P2_WARPS][KMAX];
+  __shared__ int li[P2_WARPS][KMAX];
+  __shared__ int cnt[P2_WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qi = blockIdx.x * P2_WARPS + warp;
+  if (qi >= Q) return;  // warp-uniform; no block barrier follows
+  if (lane == 0) cnt[warp] = 0;
+  __syncwarp();
+  const float* cs = part_s + (size_t)qi * n_parts * k;
+  const int* ci = part_i + (size_t)qi * n_parts * k;
+  warp_merge(n_parts * k,
+             [&](int j, float& s, int& id) {
+               s = cs[j];
+               id = ci[j];
+               return id != INT_MAX;
+             },
+             ls[warp], li[warp], &cnt[warp], k);
+  __syncwarp();
+  const int c = cnt[warp];
+  for (int j = lane; j < k; j += 32) {
+    const bool have = j < c;
+    out_s[(size_t)qi * k + j] = have ? ls[warp][j] : -1e30f;
+    out_i[(size_t)qi * k + j] =
+        have ? li[warp][j] : (dead_id_minus_one ? -1 : n_valid + (j - c));
+  }
+}
+
+inline cudaError_t launch_pass2(const float* part_s, const int* part_i,
+                                float* out_s, int* out_i, int Q, int k,
+                                int n_parts, int n_valid,
+                                int dead_id_minus_one, cudaStream_t stream) {
+  topk_pass2<<<(Q + P2_WARPS - 1) / P2_WARPS, P2_WARPS * 32, 0, stream>>>(
+      part_s, part_i, out_s, out_i, Q, k, n_parts, n_valid,
+      dead_id_minus_one);
+  return cudaGetLastError();
+}
+
+}  // namespace

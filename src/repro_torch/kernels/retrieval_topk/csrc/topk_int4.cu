@@ -33,10 +33,9 @@
 //    order, exactly where a stable descending sort puts them.
 //  * merge: a warp tests its candidates against the current k-th entry with
 //    one ballot; the few that beat it are inserted by lane 0.
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <limits.h>
-#include <math.h>
+//  * the row dot, the merge and pass 2 live in topk_common.cuh, shared with
+//    the gathered (IVF) and dense scans.
+#include "topk_common.cuh"
 
 namespace {
 
@@ -44,60 +43,6 @@ constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int BQ = 16;          // query rows per block
 constexpr int TILE = THREADS;   // bank rows per tile, one per thread
-constexpr int KMAX = 64;
-
-__device__ __forceinline__ bool better(float s, int i, float s2, int i2) {
-  return s > s2 || (s == s2 && i < i2);
-}
-
-// Signed nibble (two's complement, 4 bits) to float without I2F:
-// (n ^ 8) = n + 8 in [0, 15] sits in the mantissa of 2^23.
-__device__ __forceinline__ float nib2f(unsigned n) {
-  return __int_as_float(0x4B000000u | (n ^ 8u)) - 8388616.0f;
-}
-
-// One thread inserts (s, id) into a sorted list of cnt <= k entries.
-__device__ void list_insert(float* ls, int* li, int* cnt, int k, float s,
-                            int id) {
-  int c = *cnt;
-  if (c == k && !better(s, id, ls[k - 1], li[k - 1])) return;
-  int pos = c < k ? c : k - 1;
-  while (pos > 0 && better(s, id, ls[pos - 1], li[pos - 1])) {
-    ls[pos] = ls[pos - 1];
-    li[pos] = li[pos - 1];
-    --pos;
-  }
-  ls[pos] = s;
-  li[pos] = id;
-  if (c < k) *cnt = c + 1;
-}
-
-// A whole warp merges n candidates into one list; get(j, s, id) reads
-// candidate j and returns whether it is live.
-template <typename Get>
-__device__ void warp_merge(int n, Get get, float* ls, int* li, int* cnt,
-                           int k) {
-  const int lane = threadIdx.x & 31;
-  for (int base = 0; base < n; base += 32) {
-    const int j = base + lane;
-    float s = -INFINITY;
-    int id = INT_MAX;
-    bool live = j < n && get(j, s, id);
-    // a stale threshold only lets more candidates through; insertion
-    // re-checks against the current list
-    const int c = *cnt;
-    bool cand = live && (c < k || better(s, id, ls[k - 1], li[k - 1]));
-    unsigned m = __ballot_sync(0xffffffffu, cand);
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const float ss = __shfl_sync(0xffffffffu, s, src);
-      const int ii = __shfl_sync(0xffffffffu, id, src);
-      if (lane == 0) list_insert(ls, li, cnt, k, ss, ii);
-      __syncwarp();
-    }
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 topk_int4_pass1(const float* __restrict__ q, const int8_t* __restrict__ packed,
@@ -111,79 +56,22 @@ topk_int4_pass1(const float* __restrict__ q, const int8_t* __restrict__ packed,
   int* li = reinterpret_cast<int*>(ls + BQ * KMAX);  // BQ * KMAX
   int* cnt = li + BQ * KMAX;                 // BQ
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int q0 = blockIdx.x * BQ;
   const int chunk = blockIdx.y;
   const int r0 = chunk * chunk_rows;
   const int r1 = min(r0 + chunk_rows, n_valid);
   const int E2 = E / 2;
 
-  for (int idx = tid; idx < BQ * E; idx += THREADS) {
-    const int qi = idx / E;
-    qs[idx] = q0 + qi < Q ? q[(size_t)(q0 + qi) * E + idx % E] : 0.f;
-  }
   if (tid < BQ) cnt[tid] = 0;
-  __syncthreads();
-  if (normalize) {
-    for (int qi = warp; qi < BQ; qi += NWARPS) {
-      float ss = 0.f;
-      for (int e = lane; e < E; e += 32) ss += qs[qi * E + e] * qs[qi * E + e];
-      for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      const float r = rsqrtf(fmaxf(ss, 1e-16f));
-      for (int e = lane; e < E; e += 32) qs[qi * E + e] *= r;
-    }
-    __syncthreads();
-  }
+  stage_queries<BQ, THREADS>(q, Q, E, q0, normalize, qs);
 
   for (int t0 = r0; t0 < r1; t0 += TILE) {
     const int row = t0 + tid;
     if (row < r1) {
       float acc[BQ];
-#pragma unroll
-      for (int i = 0; i < BQ; ++i) acc[i] = 0.f;
-      float ss = 0.f;
-      const int8_t* prow = packed + (size_t)row * E2;
-      if ((E2 & 15) == 0) {
-        const int4* pv = reinterpret_cast<const int4*>(prow);
-        for (int vi = 0; vi < E2 / 16; ++vi) {
-          const int4 w4 = __ldg(pv + vi);
-          const unsigned words[4] = {(unsigned)w4.x, (unsigned)w4.y,
-                                     (unsigned)w4.z, (unsigned)w4.w};
-#pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            // nibble j of word w is element 32*vi + 8*w + j
-            float f[8];
-#pragma unroll
-            for (int j = 0; j < 8; ++j) f[j] = nib2f((words[w] >> (4 * j)) & 0xFu);
-            if (normalize) {
-#pragma unroll
-              for (int j = 0; j < 8; ++j) ss = fmaf(f[j], f[j], ss);
-            }
-            const int e0 = 32 * vi + 8 * w;
-#pragma unroll
-            for (int i = 0; i < BQ; ++i) {
-              const float4 a = *reinterpret_cast<const float4*>(qs + i * E + e0);
-              const float4 b = *reinterpret_cast<const float4*>(qs + i * E + e0 + 4);
-              float x = acc[i];
-              x = fmaf(a.x, f[0], x); x = fmaf(a.y, f[1], x);
-              x = fmaf(a.z, f[2], x); x = fmaf(a.w, f[3], x);
-              x = fmaf(b.x, f[4], x); x = fmaf(b.y, f[5], x);
-              x = fmaf(b.z, f[6], x); x = fmaf(b.w, f[7], x);
-              acc[i] = x;
-            }
-          }
-        }
-      } else {  // E/2 not a multiple of 16: byte loads
-        for (int j = 0; j < E2; ++j) {
-          const unsigned byte = (unsigned char)prow[j];
-          const float f0 = nib2f(byte & 0xFu), f1 = nib2f(byte >> 4);
-          if (normalize) ss = fmaf(f0, f0, fmaf(f1, f1, ss));
-#pragma unroll
-          for (int i = 0; i < BQ; ++i)
-            acc[i] = fmaf(qs[i * E + 2 * j + 1], f1,
-                          fmaf(qs[i * E + 2 * j], f0, acc[i]));
-        }
-      }
+      float ss;
+      int4_row_dot<BQ>(qs, E, packed + (size_t)row * E2, normalize, acc, ss);
       const float sr = scales[row];
       const float rn = normalize ? rsqrtf(fmaxf(sr * sr * ss, 1e-16f)) : 1.f;
 #pragma unroll
@@ -215,39 +103,6 @@ topk_int4_pass1(const float* __restrict__ q, const int8_t* __restrict__ packed,
   }
 }
 
-constexpr int P2_WARPS = 4;
-
-__global__ void __launch_bounds__(P2_WARPS * 32)
-topk_int4_pass2(const float* __restrict__ part_s, const int* __restrict__ part_i,
-                float* __restrict__ out_s, int* __restrict__ out_i, int Q,
-                int k, int n_chunks, int n_valid) {
-  __shared__ float ls[P2_WARPS][KMAX];
-  __shared__ int li[P2_WARPS][KMAX];
-  __shared__ int cnt[P2_WARPS];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * P2_WARPS + warp;
-  if (qi >= Q) return;  // warp-uniform; no block barrier follows
-  if (lane == 0) cnt[warp] = 0;
-  __syncwarp();
-  const float* cs = part_s + (size_t)qi * n_chunks * k;
-  const int* ci = part_i + (size_t)qi * n_chunks * k;
-  warp_merge(n_chunks * k,
-             [&](int j, float& s, int& id) {
-               s = cs[j];
-               id = ci[j];
-               return id != INT_MAX;
-             },
-             ls[warp], li[warp], &cnt[warp], k);
-  __syncwarp();
-  const int c = cnt[warp];
-  for (int j = lane; j < k; j += 32) {
-    const bool have = j < c;
-    // fewer than k live rows (n_valid < k): masked rows follow in id order
-    out_s[(size_t)qi * k + j] = have ? ls[warp][j] : -1e30f;
-    out_i[(size_t)qi * k + j] = have ? li[warp][j] : n_valid + (j - c);
-  }
-}
-
 }  // namespace
 
 extern "C" int topk_int4_launch(const float* q, const int8_t* packed,
@@ -269,7 +124,6 @@ extern "C" int topk_int4_launch(const float* q, const int8_t* packed,
       chunk_rows, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  topk_int4_pass2<<<(Q + P2_WARPS - 1) / P2_WARPS, P2_WARPS * 32, 0, stream>>>(
-      part_s, part_i, out_s, out_i, Q, k, n_chunks, n_valid);
-  return (int)cudaGetLastError();
+  return (int)launch_pass2(part_s, part_i, out_s, out_i, Q, k, n_chunks,
+                           n_valid, 0, stream);
 }

@@ -1,7 +1,11 @@
-"""ctypes binding of the CUDA int4 top-k scan (``csrc/topk_int4.cu``).
+"""ctypes bindings of the CUDA top-k scans: the exhaustive int4 scan
+(``csrc/topk_int4.cu``), the gathered int4 scan over per-query candidate
+ids (``csrc/topk_int4_gather.cu``, the IVF pruned path) and the dense fp32
+scan (``csrc/topk_dense.cu``).
 
-The wrapper checks devices, types, shapes and contiguity, allocates the
-outputs and the pass-1 scratch, and launches on PyTorch's current stream.
+Each wrapper checks devices, types, shapes, contiguity and alignment,
+allocates the outputs and the pass-1 scratch, and launches on PyTorch's
+current stream.
 """
 from __future__ import annotations
 
@@ -15,16 +19,40 @@ from repro_torch.kernels import build
 K_MAX = 64
 E_MAX = 2048
 CHUNK_ROWS = 4096  # bank rows per pass-1 block
+CHUNK_L = 1024     # candidates per pass-1 block of the gathered scan
+GATHER_WARPS = 8   # partial lists per gathered pass-1 block (one per warp;
+                   # the launch refuses another count)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("topk_int4")
-    lib.topk_int4_launch.restype = ctypes.c_int
-    lib.topk_int4_launch.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = {"topk_int4": [_P] * 7 + [_I] * 7 + [_P],
+                   "topk_int4_gather": [_P] * 8 + [_I] * 7 + [_P],
+                   "topk_dense": [_P] * 6 + [_I] * 7 + [_P]}[name]
     return lib
+
+
+def _check_common(what: str, query: torch.Tensor, bank: torch.Tensor,
+                  others, k: int, n_rows: int) -> None:
+    """Device, query dtype/shape, contiguity, 16-byte alignment and k."""
+    dev = bank.device
+    if dev.type != "cuda" or any(t.device != dev for t in (query, *others)):
+        raise ValueError(f"{what}: every input must be on one CUDA device, "
+                         f"got {[str(t.device) for t in (query, bank, *others)]}")
+    if query.dtype != torch.float32 or query.dim() != 2:
+        raise TypeError(f"{what} wants a 2-D f32 query, got {query.dtype} "
+                        f"{tuple(query.shape)}")
+    if not all(t.is_contiguous() for t in (query, bank, *others)):
+        raise ValueError(f"{what} wants contiguous inputs")
+    if bank.data_ptr() % 16:
+        raise ValueError(f"{what}: the bank must be 16-byte aligned")
+    if not 1 <= k <= min(K_MAX, n_rows):
+        raise ValueError(f"k={k} must be in [1, min({K_MAX}, {n_rows})]")
 
 
 def retrieval_topk_int4_cuda(query: torch.Tensor, packed: torch.Tensor,
@@ -34,30 +62,9 @@ def retrieval_topk_int4_cuda(query: torch.Tensor, packed: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """query (Q, E) f32; packed (N, E//2) int8; scales (N, 1) f32, all on
     one CUDA device -> ((Q, k) f32 scores, (Q, k) int32 row ids)."""
+    Q, E, N = _check_int4("retrieval_topk_int4_cuda", query, packed,
+                          scales, k, packed.shape[0])
     dev = packed.device
-    if dev.type != "cuda" or query.device != dev or scales.device != dev:
-        raise ValueError("retrieval_topk_int4_cuda: query, packed and scales "
-                         "must be on one CUDA device, got "
-                         f"{query.device}, {packed.device}, {scales.device}")
-    if query.dtype != torch.float32 or packed.dtype != torch.int8 \
-            or scales.dtype != torch.float32:
-        raise TypeError("retrieval_topk_int4_cuda wants f32 query, int8 "
-                        "packed, f32 scales; got "
-                        f"{query.dtype}, {packed.dtype}, {scales.dtype}")
-    if query.dim() != 2 or packed.dim() != 2:
-        raise ValueError(f"shapes {tuple(query.shape)}, {tuple(packed.shape)}")
-    Q, E = query.shape
-    N = packed.shape[0]
-    if E % 2 or E > E_MAX or packed.shape[1] * 2 != E:
-        raise ValueError(f"E={E} must be even, <= {E_MAX}, and match "
-                         f"packed width {packed.shape[1]}")
-    if tuple(scales.shape) != (N, 1):
-        raise ValueError(f"scales shape {tuple(scales.shape)} != ({N}, 1)")
-    if not 1 <= k <= min(K_MAX, N):
-        raise ValueError(f"k={k} must be in [1, min({K_MAX}, N={N})]")
-    if not (query.is_contiguous() and packed.is_contiguous()
-            and scales.is_contiguous()):
-        raise ValueError("retrieval_topk_int4_cuda wants contiguous inputs")
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
@@ -68,10 +75,98 @@ def retrieval_topk_int4_cuda(query: torch.Tensor, packed: torch.Tensor,
     part_i = torch.empty((Q, n_chunks, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().topk_int4_launch(
+        err = _lib("topk_int4").topk_int4_launch(
             query.data_ptr(), packed.data_ptr(), scales.data_ptr(),
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
             out_i.data_ptr(), Q, E, k, nv, int(bool(normalize)), CHUNK_ROWS,
             n_chunks, stream)
     build.check(err, "retrieval_topk_int4")
+    return out_s, out_i
+
+
+def _check_int4(what: str, query: torch.Tensor, packed: torch.Tensor,
+                scales: torch.Tensor, k: int, n_rows: int,
+                others=()) -> Tuple[int, int, int]:
+    _check_common(what, query, packed, (scales, *others), k, n_rows)
+    if packed.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"{what} wants int8 packed and f32 scales, got "
+                        f"{packed.dtype}, {scales.dtype}")
+    Q, E = query.shape
+    N = packed.shape[0]
+    if packed.dim() != 2 or E % 2 or E > E_MAX or packed.shape[1] * 2 != E:
+        raise ValueError(f"E={E} must be even, <= {E_MAX}, and match "
+                         f"packed {tuple(packed.shape)}")
+    if tuple(scales.shape) != (N, 1):
+        raise ValueError(f"scales shape {tuple(scales.shape)} != ({N}, 1)")
+    return Q, E, N
+
+
+def retrieval_topk_int4_gathered_cuda(query: torch.Tensor,
+                                      packed: torch.Tensor,
+                                      scales: torch.Tensor,
+                                      row_ids: torch.Tensor, k: int, *,
+                                      n_valid: Optional[int] = None
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """query (Q, E) f32; packed (N, E//2) int8; scales (N, 1) f32; row_ids
+    (Q, L) int32 candidate bank rows (< 0 or >= n_valid: dead), L >= k, all
+    on one CUDA device -> ((Q, k) f32 scores, (Q, k) int32 global row ids);
+    slots with no live candidate hold (-1e30, -1)."""
+    what = "retrieval_topk_int4_gathered_cuda"
+    if row_ids.dtype != torch.int32 or row_ids.dim() != 2 \
+            or row_ids.shape[0] != query.shape[0]:
+        raise ValueError(f"{what} wants (Q, L) int32 row ids, got "
+                         f"{row_ids.dtype} {tuple(row_ids.shape)}")
+    L = row_ids.shape[1]
+    Q, E, N = _check_int4(what, query, packed, scales, k, L, (row_ids,))
+    dev = packed.device
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out_s, out_i
+    nv = N if n_valid is None else max(0, min(int(n_valid), N))
+    n_chunks = -(-L // CHUNK_L)
+    n_parts = n_chunks * GATHER_WARPS
+    part_s = torch.empty((Q, n_parts, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((Q, n_parts, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib("topk_int4_gather").topk_int4_gather_launch(
+            query.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+            row_ids.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), Q, E, L, k, nv, CHUNK_L,
+            n_parts, stream)
+    build.check(err, "retrieval_topk_int4_gathered")
+    return out_s, out_i
+
+
+def retrieval_topk_cuda(query: torch.Tensor, bank: torch.Tensor, k: int, *,
+                        normalize: bool = True,
+                        n_valid: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """query (Q, E) f32; bank (N, E) f32, both on one CUDA device ->
+    ((Q, k) f32 scores, (Q, k) int32 row ids); rows >= n_valid masked."""
+    what = "retrieval_topk_cuda"
+    _check_common(what, query, bank, (), k, bank.shape[0])
+    Q, E = query.shape
+    if bank.dtype != torch.float32 or bank.dim() != 2 or bank.shape[1] != E \
+            or E > E_MAX:
+        raise ValueError(f"{what} wants an (N, {E}) f32 bank with E <= "
+                         f"{E_MAX}, got {bank.dtype} {tuple(bank.shape)}")
+    N = bank.shape[0]
+    dev = bank.device
+    out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out_s, out_i
+    nv = N if n_valid is None else max(0, min(int(n_valid), N))
+    n_chunks = max(1, -(-nv // CHUNK_ROWS))
+    part_s = torch.empty((Q, n_chunks, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((Q, n_chunks, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib("topk_dense").topk_dense_launch(
+            query.data_ptr(), bank.data_ptr(), part_s.data_ptr(),
+            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Q, E, k,
+            nv, int(bool(normalize)), CHUNK_ROWS, n_chunks, stream)
+    build.check(err, "retrieval_topk_dense")
     return out_s, out_i

@@ -8,6 +8,10 @@ On the GPU (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
 Smoke scale on the CPU (plain versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+With the online IVF coarse filter and its pruned scan:
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --index ivf --index-clusters 8 --index-min-rows 16 --nprobe 4 \
+      --search-impl ivf
 """
 from __future__ import annotations
 
@@ -85,11 +89,28 @@ def main(argv=None):
                     help="serve queries one at a time instead of one "
                          "query_batch drain")
     ap.add_argument("--search-impl", default="auto",
-                    choices=["auto", "numpy", "device"],
+                    choices=["auto", "numpy", "device", "ivf"],
                     help="store scan backend: 'device' keeps the int4 slab "
                          "resident on the device and scans it with the "
-                         "fused kernel; 'auto' picks it on CUDA and numpy "
-                         "on the CPU")
+                         "fused kernel; 'ivf' scans only the probed IVF "
+                         "clusters (needs --index ivf); 'auto' picks numpy "
+                         "on the CPU, and on CUDA 'ivf' once the index is "
+                         "trained and holds --index-min-rows rows, else "
+                         "'device'")
+    ap.add_argument("--index", default="none", choices=["none", "ivf"],
+                    help="coarse-filter index: 'ivf' keeps an online "
+                         "mini-batch-k-means quantizer + posting lists")
+    ap.add_argument("--index-clusters", type=int, default=64,
+                    help="IVF cluster count (coarse codebook size)")
+    ap.add_argument("--index-min-rows", type=int, default=None,
+                    help="row count where search impl 'auto' cuts over to "
+                         "the pruned IVF path (default: the index's 32768)")
+    ap.add_argument("--nprobe", type=int, default=None,
+                    help="IVF clusters probed per query (default: the "
+                         "index's 8)")
+    ap.add_argument("--index-auto-grow", action="store_true",
+                    help="grow the IVF cluster count toward ~sqrt(n) "
+                         "across re-cluster jobs")
     args = ap.parse_args(argv)
 
     spec = get_arch(args.arch)
@@ -97,7 +118,11 @@ def main(argv=None):
         spec = smoke_variant(spec)
     engine, query, info = build_service(spec, policy=args.policy,
                                         search_impl=args.search_impl,
-                                        device=args.device)
+                                        device=args.device, index=args.index,
+                                        index_clusters=args.index_clusters,
+                                        index_min_rows=args.index_min_rows,
+                                        nprobe=args.nprobe,
+                                        index_auto_grow=args.index_auto_grow)
     print(f"predictor: {info['predictor']}")
 
     data = SYN.multimodal_pairs(1, args.n_items, spec.model)
@@ -126,6 +151,9 @@ def main(argv=None):
     print(f"R@1 (untrained model, sanity only): {hits / nq:.2f}")
     if engine.store.device_bank is not None:
         print(f"device bank: {engine.store.device_bank.stats()}")
+    if engine.store.ivf_index is not None:
+        print(f"ivf index: {engine.store.ivf_index.stats()}, "
+              f"fallbacks={engine.store.ivf_fallbacks}")
     return results
 
 

@@ -6,11 +6,11 @@ features for vision/audio/imu and token ids for text; each tower prepends a
 CLS token, adds learned positions and runs the transformer stack, so the
 Recall machinery (exit taps, prefix/suffix layer ranges) applies per tower.
 
-Activations run in the config's dtype: the frontend casts the stub features
-and a resumed hidden state to it. (The reference lets its fp32 stub
-features and fp32 cached activations promote every matmul of a bf16 config
-to fp32; the two agree exactly for fp32 configs, which the parity tests
-use. See ROADMAP queue C.)
+Activations keep the dtype the reference's promotion gives them, and every
+layer casts its weights to it: in a bf16 config the text tower (a bf16
+token lookup) runs in bf16, while fp32 stub features and a resumed fp32
+hidden state (the dequantized activation cache) keep the vision tower and
+refinement in fp32.
 """
 from __future__ import annotations
 
@@ -64,17 +64,17 @@ def mem_init(gen: torch.Generator, cfg: MEMConfig, recall: RecallConfig,
     return p
 
 
-def _frontend(tp: Schema, t: TowerConfig, inputs: torch.Tensor,
-              dtype: torch.dtype) -> torch.Tensor:
-    """inputs -> (B, n_tokens+1, d_model) with CLS prepended."""
+def _frontend(tp: Schema, t: TowerConfig, inputs: torch.Tensor) -> torch.Tensor:
+    """inputs -> (B, n_tokens+1, d_model) with CLS prepended, in the token
+    table's dtype (text) or the stub features' dtype (other towers)."""
     if t.vocab:
-        x = tp["tok_emb"][inputs.long().clamp(0, t.vocab - 1)].to(dtype)
+        x = tp["tok_emb"][inputs.long().clamp(0, t.vocab - 1)]
     else:
-        x = inputs.to(dtype) @ tp["proj_in"].to(dtype)
+        x = inputs @ tp["proj_in"].to(inputs.dtype)
     B = x.shape[0]
-    cls = tp["cls"][None].expand(B, 1, x.shape[-1]).to(dtype)
+    cls = tp["cls"][None].expand(B, 1, x.shape[-1]).to(x.dtype)
     x = torch.cat([cls, x], dim=1)
-    return x + tp["pos"][None, : x.shape[1]].to(dtype)
+    return x + tp["pos"][None, : x.shape[1]].to(x.dtype)
 
 
 def tower_forward(params: Schema, cfg: MEMConfig, recall: RecallConfig,
@@ -87,8 +87,7 @@ def tower_forward(params: Schema, cfg: MEMConfig, recall: RecallConfig,
     t = cfg.tower(modality)
     tcfg = tower_lm_cfg(t, cfg)
     tp = params["towers"][modality]
-    dtype = L.torch_dtype(cfg.dtype)
-    x = _frontend(tp, t, inputs, dtype) if h_state is None else h_state.to(dtype)
+    x = _frontend(tp, t, inputs) if h_state is None else h_state
     return T.forward_hidden(tp, tcfg, recall, embeds=x,
                             layer_start=layer_start, layer_end=layer_end,
                             collect_pooled=collect_pooled, pool="cls")

@@ -40,25 +40,46 @@ class QueryEngine:
                  query_modality: str = "text", lora=None,
                  search_impl: str = "auto", search_devices=None,
                  bank_refresh: str = "sync", freshness: Optional[str] = None,
-                 index: str = "none", nprobe: Optional[int] = None,
-                 device="cuda"):
+                 index: str = "none", index_clusters: int = 64,
+                 index_min_rows: Optional[int] = None,
+                 nprobe: Optional[int] = None,
+                 index_auto_grow: bool = False, device="cuda"):
         if lora is not None:
             raise not_ported("lora")
         self.device = resolve_device(device)
         if search_devices is not None:
             raise not_ported("shard")
-        if index != "none" or nprobe is not None or search_impl == "ivf":
-            raise not_ported("ivf")
         if bank_refresh != "sync" or freshness is not None:
             raise not_ported("async")
         self.params, self.cfg, self.recall = params, cfg, recall
         self.store = store
         self.refine_fn = refine_fn
         self.modality = query_modality
-        self.search_impl = store.resolve_impl(search_impl)
+        # IVF probe fan-out forwarded to every store scan (None = the
+        # index's default; ignored on non-IVF paths)
+        self.nprobe = nprobe
+        # coarse-filter index: "ivf" attaches the online IVF quantizer, so
+        # search_impl='auto' cuts over to the pruned scan at index_min_rows;
+        # an index already attached to the store is reused
+        if index == "ivf":
+            if store.ivf_index is None:
+                ivf_kw = {"n_clusters": index_clusters,
+                          "auto_grow": index_auto_grow}
+                if index_min_rows is not None:
+                    ivf_kw["min_rows"] = index_min_rows
+                if nprobe is not None:
+                    ivf_kw["nprobe"] = nprobe
+                store.attach_ivf(**ivf_kw)
+        elif index != "none":
+            raise ValueError(f"index={index!r}")
+        if search_impl == "ivf" and store.ivf_index is None:
+            raise ValueError("search_impl='ivf' needs an attached IVF index "
+                             "(pass index='ivf' or attach_ivf beforehand)")
+        self._search_impl = search_impl
         # device-resident bank: attach eagerly so the warm-up upload happens
         # at engine construction, not on the first query
-        if self.search_impl == "device" and store.device_bank is None:
+        if store.resolve_impl(search_impl) in ("device", "ivf") \
+                and store.device_bank is None:
             store.attach_device_bank()
         t = cfg.tower(query_modality)
         exits = recall.exit_layers(t.n_layers)
@@ -68,6 +89,13 @@ class QueryEngine:
         self.granularities = [exits[i] for i in idx]
         self._exits = exits
         self._g_rows = [exits.index(g) for g in self.granularities]
+
+    @property
+    def search_impl(self) -> str:
+        """The store scan a query runs now: ``'auto'`` is resolved on every
+        call, so the cut-over to the IVF path happens as the store grows
+        past the index's ``min_rows``."""
+        return self.store.resolve_impl(self._search_impl)
 
     # -- embedding -----------------------------------------------------------
 
@@ -105,7 +133,8 @@ class QueryEngine:
         return speculative_retrieve(
             self.store, [by_g[g] for g in self.granularities], fine,
             k=k, final_k=final_k, refine_fn=self.refine_fn,
-            refine_budget=refine_budget, impl=self.search_impl)
+            refine_budget=refine_budget, impl=self.search_impl,
+            nprobe=self.nprobe)
 
     # -- batched queries -----------------------------------------------------
 
@@ -125,7 +154,8 @@ class QueryEngine:
         G = QG.shape[1]
         if not speculative:
             uids, scores = self.store.search_batch(fine_q, k,
-                                                   impl=self.search_impl)
+                                                   impl=self.search_impl,
+                                                   nprobe=self.nprobe)
             dt = (time.perf_counter() - t0) / B
             return [RetrievalResult(uids=uids[b], scores=scores[b],
                                     filtered_uids=uids[b], n_refined=0,
@@ -134,7 +164,8 @@ class QueryEngine:
 
         # round 1: every (query, granularity) pair in ONE fused store scan
         flat_u, flat_s = self.store.search_batch(QG.reshape(B * G, -1), k,
-                                                 impl=self.search_impl)
+                                                 impl=self.search_impl,
+                                                 nprobe=self.nprobe)
         kk = flat_u.shape[1]
         u3 = flat_u.reshape(B, G, kk)
         s3 = flat_s.reshape(B, G, kk)

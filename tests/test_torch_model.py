@@ -146,3 +146,36 @@ def test_lora_is_refused(both, entry):
         else:
             QueryEngine(tp, TCFG, TRC, lora={}, device="cpu",
                         store=EmbeddingStore(TCFG.embed_dim, device="cpu"))
+
+
+# the same towers in bf16: the reference promotes the vision tower (fp32
+# stub features) and refinement (fp32 cached activations) to fp32, while
+# the text tower (a bf16 token lookup) runs in bf16
+CFG16 = MEMConfig(towers=CFG.towers, embed_dim=32, dtype="bfloat16")
+TCFG16 = TC.MEMConfig(towers=TCFG.towers, embed_dim=32, dtype="bfloat16")
+ATOL_BF16 = 4 * 2.0 ** -8  # text embeddings: a few bf16 steps of unit norm
+
+
+def test_bf16_config_keeps_reference_dtypes():
+    jp = JIB.mem_init(jax.random.PRNGKey(1), CFG16, RC)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp))
+    assert tp["towers"]["vision"]["proj_in"].dtype == torch.bfloat16
+    rng = np.random.default_rng(2)
+    vis = rng.standard_normal((4, 12, 16)).astype(np.float32)
+    txt = rng.integers(0, 128, (4, 8)).astype(np.int32)
+    for modality, x, atol in (("vision", vis, ATOL), ("text", txt, ATOL_BF16)):
+        j = JIB.mem_embed_all_exits(jp, CFG16, RC, modality, jnp.asarray(x))
+        t = TIB.mem_embed_all_exits(tp, TCFG16, TRC, modality,
+                                    torch.from_numpy(x))
+        assert t["pooled"].dtype == \
+            {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+                str(j["pooled"].dtype)]
+        np.testing.assert_allclose(t["exit_embs"].numpy(),
+                                   np.asarray(j["exit_embs"]), atol=atol)
+    # refinement resumes from an fp32 hidden state (the dequantized cache)
+    N = RC.superficial_layers
+    h = np.array(JIB.tower_forward(jp, CFG16, RC, "vision", jnp.asarray(vis),
+                                   layer_end=N)["h"], np.float32)
+    r_j = JIB.mem_refine(jp, CFG16, RC, "vision", jnp.asarray(h), N)
+    r_t = TIB.mem_refine(tp, TCFG16, TRC, "vision", torch.from_numpy(h), N)
+    np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), atol=ATOL)

@@ -168,9 +168,7 @@ def test_serve_cli_smoke_on_cpu(capsys):
     assert "embedded 24 items" in out and "device bank:" in out
 
 
-@pytest.mark.parametrize("kw", [dict(index="ivf"), dict(nprobe=8),
-                                dict(search_impl="ivf"),
-                                dict(bank_refresh="async"),
+@pytest.mark.parametrize("kw", [dict(bank_refresh="async"),
                                 dict(freshness="stale"),
                                 dict(search_devices=["cuda:0", "cuda:1"])],
                          ids=lambda kw: next(iter(kw)))

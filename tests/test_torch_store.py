@@ -131,15 +131,10 @@ def test_auto_follows_the_requested_device():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.attach_ivf(),
-    lambda s: s.search_batch(np.ones((1, E), np.float32), 2, impl="ivf"),
-    lambda s: s.search_batch(np.ones((1, E), np.float32), 2, nprobe=4),
     lambda s: s.search_batch(np.ones((1, E), np.float32), 2, freshness="stale"),
     lambda s: s.set_bank_refresh("async"),
     lambda s: s.attach_device_bank(["cuda:0", "cuda:1"]),
-    lambda s: s.search_batch(np.ones((1, E), np.float32), 2, impl="pallas"),
-], ids=["attach_ivf", "impl_ivf", "nprobe", "freshness", "async", "sharded",
-        "dense_kernel"])
+], ids=["freshness", "async", "sharded"])
 def test_unported_features_raise(call):
     ts = TStore(E, device="cpu")
     ts.add(0, np.ones(E, np.float32), exit_idx=0, exit_layer=1)
