@@ -19,7 +19,11 @@ def quantize_int4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.shape[-1] % 2:
         raise ValueError(f"int4 packing needs an even last dim, got {x.shape}")
     xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True) / 7.0
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    # divide by a tensor, not a Python number: on CUDA, PyTorch turns
+    # division by a host scalar into a multiply by its reciprocal, which
+    # differs from the IEEE quotient in the last bit
+    scale = absmax / absmax.new_full((), 7.0)
     scale = torch.clamp_min(scale, 1e-12)
     # torch.round rounds half to even, like np.rint / jnp.round
     q = torch.clamp(torch.round(xf / scale), -8, 7).to(torch.int8)

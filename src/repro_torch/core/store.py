@@ -13,7 +13,11 @@ on-flash store (§5.4). Embeddings live in contiguous growable slabs:
     re-dequantized.
 
 Capacity grows by amortized doubling; a uid->row hash index finds rows.
-Inserts quantize on the host with ``quantize_int4_np``. ``search_batch`` is
+Inserts quantize embeddings on the host with ``quantize_int4_np``. Cached
+activations handed over as a tensor are quantized where they lie (on a
+CUDA device by the int4_cache kernel; only the packed bytes and scales come
+to the host); numpy activations take ``quantize_int4_np`` as in the
+reference. The activation cache itself stays host-resident. ``search_batch`` is
 the serving hot path: on a store that lives on a CUDA device,
 ``impl='auto'`` resolves to the device-resident int4 bank
 (``core.device_bank``), refreshed from a dirty-row bitmap and scanned by
@@ -23,15 +27,21 @@ attached index (``attach_ivf``) is trained and the store holds its
 matmul path. Queried items are permanently upgraded to their fine-grained
 embeddings (§5.3) via ``upgrade_batch``.
 
+The device bank refreshes in sync mode (under the store lock on the query
+path, the default) or in async mode (``set_bank_refresh("async")``:
+epochs outside the lock, ``core.bank_refresh``), where queries serve a
+published generation within the configured staleness bounds.
+
 The IVF index (``index.ivf``) follows every mutation under the store lock
 (``add_batch`` trains then assigns, ``upgrade_batch`` re-assigns,
 ``delete_batch`` mirrors the swap-with-last); its re-cluster jobs run in
 three phases whose middle one holds no lock (``ivf_maybe_recluster``,
-inline on the sync query path).
+inline on the sync query path, on the refresh thread in async mode).
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +50,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.quantize import dequantize_int4_np, quantize_int4_np
+from repro_torch.kernels.int4_cache import ops as int4_ops
 from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
 
 _META_DTYPE = np.dtype([("uid", np.int64), ("exit_idx", np.int32),
@@ -47,8 +58,6 @@ _META_DTYPE = np.dtype([("uid", np.int64), ("exit_idx", np.int32),
                         ("modality_id", np.int32)])  # index into _modalities
 
 _NOT_PORTED = {
-    "async": "async bank refresh is not ported yet (ROADMAP queue A, "
-             "async-refresh slice)",
     "shard": "sharded device banks are not ported yet (ROADMAP queue A, "
              "multi-GPU slice)",
     "lora": "LoRA deltas (P-LoRA) are not ported yet (ROADMAP queue A, "
@@ -85,6 +94,11 @@ class EmbeddingStore:
         self._bank_dirty = np.zeros(self._cap, np.bool_)
         self._any_bank_dirty = False
         self._bank = None  # DeviceBank, created lazily / via attach
+        # bounded-staleness accounting for the async refresh: distinct rows
+        # dirty but unpublished, and since when
+        self._bank_pending_rows = 0
+        self._bank_first_dirty_t: Optional[float] = None
+        self._bank_refresher = None  # RefreshScheduler in async mode
         # online IVF coarse-filter index (attach_ivf); mutations keep its
         # assignment/posting lists in lockstep under this same lock
         self._ivf = None
@@ -93,6 +107,8 @@ class EmbeddingStore:
         # the bytes the int4 device bank exists to avoid
         self.upload_bytes = 0
         self.upload_calls = 0
+        # packed activation bytes + scales copied from a device to the host
+        self.act_d2h_bytes = 0
         self._escaped_n = 0  # rows visible to views handed out to readers
         self._uid_to_row: Dict[int, int] = {}
         self._modalities: List[str] = [""]  # interned names; id 0 = unset
@@ -130,26 +146,41 @@ class EmbeddingStore:
     # -- mutation ------------------------------------------------------------
 
     def add(self, uid: int, emb: np.ndarray, *, exit_idx: int, exit_layer: int,
-            modality: str = "", fine: bool = False,
-            cached_h: Optional[np.ndarray] = None) -> None:
+            modality: str = "", fine: bool = False, cached_h=None) -> None:
+        """One-row ``add_batch``; ``cached_h`` is numpy or a tensor."""
+        if cached_h is not None and not isinstance(cached_h, torch.Tensor):
+            cached_h = np.asarray(cached_h, np.float32)
         self.add_batch([uid], np.asarray(emb, np.float32)[None],
                        [exit_idx], [exit_layer], modality=modality, fine=fine,
-                       cached_hs=None if cached_h is None
-                       else np.asarray(cached_h, np.float32)[None])
+                       cached_hs=None if cached_h is None else cached_h[None])
+
+    def _quantize_activations(self, hs) -> Tuple[np.ndarray, np.ndarray,
+                                                 Tuple[int, ...]]:
+        """(B, ..., d) activations -> host (packed, scales, per-item shape).
+        A tensor is quantized where it lies (``int4_cache.ops``: the kernel
+        on a CUDA device, the plain version on the CPU) and only the packed
+        bytes and scales leave the device; numpy takes
+        ``quantize_int4_np``. Both give the same bits."""
+        if not isinstance(hs, torch.Tensor):
+            ch = np.asarray(hs, np.float32)
+            return (*quantize_int4_np(ch), tuple(ch.shape[1:]))
+        p, s = int4_ops.quantize(hs)
+        p, s = p.cpu().numpy(), s.cpu().numpy()
+        if hs.device.type != "cpu":
+            self.act_d2h_bytes += int(p.nbytes + s.nbytes)
+        return p, s, tuple(hs.shape[1:])
 
     def add_batch(self, uids, embs, exit_idxs, exit_layers, *, modality="",
                   fine: bool = False, cached_hs=None) -> None:
         """Vectorized insert: one quantize call for the embedding batch and
-        (optionally) one for the activation batch. Re-adding an existing uid
-        overwrites its row in place (last write wins)."""
+        (optionally) one for the activation batch (numpy or a tensor, see
+        ``_quantize_activations``). Re-adding an existing uid overwrites its
+        row in place (last write wins)."""
         uids = np.asarray(uids, np.int64).ravel()
         embs = np.asarray(embs, np.float32).reshape(len(uids), self.embed_dim)
         packed, scales = quantize_int4_np(embs)
-        act = None
-        if cached_hs is not None:
-            ch = np.asarray(cached_hs, np.float32)  # (B, ..., d)
-            p, s = quantize_int4_np(ch)
-            act = (p, s, tuple(ch.shape[1:]))
+        act = (None if cached_hs is None
+               else self._quantize_activations(cached_hs))
         exit_idxs = np.asarray(exit_idxs, np.int32).ravel()
         exit_layers = np.asarray(exit_layers, np.int32).ravel()
         with self._lock:
@@ -237,7 +268,7 @@ class EmbeddingStore:
                     self._mark_bank_dirty_locked(np.array([row], np.int64))
                 # the vacated tail slot must not leak into the next refresh
                 self._dirty[last] = False
-                self._bank_dirty[last] = False
+                self._unmark_bank_dirty_locked(last)
                 self._n = last
                 if self._ivf is not None:  # assignment swaps with the row
                     self._ivf.on_delete(row, last)
@@ -310,14 +341,20 @@ class EmbeddingStore:
             self._refresh_dense_locked()
             return self._dense[self._rows_of_locked(uids)].copy()
 
+    def _cached_packed(self, uids) -> Dict[int, Tuple[np.ndarray, np.ndarray,
+                                                      Tuple[int, ...], int]]:
+        """{uid: (packed, scales, shape, layer)} of the cached activations,
+        still quantized: the refinement hook dequantizes them where it runs
+        the continuation."""
+        with self._lock:
+            return {int(u): self._act_cache[int(u)] for u in uids
+                    if int(u) in self._act_cache}
+
     def cached_activations(self, uids) -> Dict[int, Tuple[np.ndarray, int]]:
         """Batched host dequant of cached activations, one call per distinct
         activation shape. Returns {uid: (h, layer)}."""
-        with self._lock:
-            items = [(int(u), self._act_cache[int(u)]) for u in uids
-                     if int(u) in self._act_cache]
         by_shape: Dict[Tuple[int, ...], list] = {}
-        for u, (p, s, shape, layer) in items:
+        for u, (p, s, shape, layer) in self._cached_packed(uids).items():
             by_shape.setdefault(shape, []).append((u, p, s, layer))
         out: Dict[int, Tuple[np.ndarray, int]] = {}
         for shape, group in by_shape.items():
@@ -330,17 +367,50 @@ class EmbeddingStore:
     # -- device bank ---------------------------------------------------------
 
     def _mark_bank_dirty_locked(self, rows: np.ndarray) -> None:
+        """Record freshly dirtied bank rows, keeping the staleness counters
+        exact (distinct rows; the time of the oldest unpublished write),
+        and wake the async refresher, if any."""
+        rows = np.unique(rows)  # a batch may hit one row twice (dup uids)
+        fresh = int(np.count_nonzero(~self._bank_dirty[rows]))
         self._bank_dirty[rows] = True
         self._any_bank_dirty = True
+        if fresh:
+            self._bank_pending_rows += fresh
+            if self._bank_first_dirty_t is None:
+                self._bank_first_dirty_t = time.monotonic()
+        ref = self._bank_refresher
+        if ref is not None:
+            ref.notify()
+
+    def _unmark_bank_dirty_locked(self, row: int) -> None:
+        if self._bank_dirty[row]:
+            self._bank_dirty[row] = False
+            self._bank_pending_rows -= 1
+            if self._bank_pending_rows == 0:
+                # nothing pending: the next write must not inherit this age
+                self._bank_first_dirty_t = None
 
     def _take_bank_dirty_locked(self) -> np.ndarray:
-        """Consume the dirty rows for one refresh."""
-        if not self._any_bank_dirty:  # steady-state queries skip the O(N) scan
-            return np.zeros((0,), np.int64)
-        rows = np.nonzero(self._bank_dirty[:self._n])[0]
-        self._bank_dirty[:self._n] = False
-        self._any_bank_dirty = False
+        """Consume the dirty slice for one refresh: rows dirtied after this
+        call belong to the next one. Resets the staleness counters."""
+        if self._any_bank_dirty:  # steady-state queries skip the O(N) scan
+            rows = np.nonzero(self._bank_dirty[:self._n])[0]
+            self._bank_dirty[:self._n] = False
+            self._any_bank_dirty = False
+        else:
+            rows = np.zeros((0,), np.int64)
+        self._bank_pending_rows = 0
+        self._bank_first_dirty_t = None
         return rows
+
+    def _requeue_bank_rows(self, rows: np.ndarray) -> None:
+        """Put a consumed dirty slice back (a refresh epoch failed after its
+        begin): the rows must land in a later epoch, not vanish."""
+        with self._lock:
+            live = np.asarray(rows, np.int64)
+            live = live[live < self._n]
+            if live.size:
+                self._mark_bank_dirty_locked(live)
 
     def attach_device_bank(self, devices=None, *, device=None):
         """Create (or replace) the device-resident searchable bank on
@@ -363,16 +433,59 @@ class EmbeddingStore:
         """The attached DeviceBank, or None."""
         return self._bank
 
-    def set_bank_refresh(self, mode: str = "sync", **kw):
-        """Only ``"sync"`` (refresh under the store lock per query) is
-        ported."""
-        if mode == "async":
-            raise not_ported("async")
-        if mode != "sync":
+    @property
+    def bank_refresher(self):
+        """The async RefreshScheduler, or None in sync mode."""
+        return self._bank_refresher
+
+    def set_bank_refresh(self, mode: str = "sync", *,
+                         max_lag_rows: Optional[int] = None,
+                         max_lag_ms: Optional[float] = None,
+                         thread: bool = True, **scheduler_kw):
+        """Choose the device-bank refresh policy.
+
+        ``"sync"`` (default): every device query brings the bank exactly up
+        to date under the store lock first; tears down an async scheduler
+        (draining its pending rows into one last flip).
+
+        ``"async"``: refresh runs as epochs outside the lock
+        (``core.bank_refresh``), on a background thread unless
+        ``thread=False`` (then the caller steps the returned scheduler).
+        Queries serve the published, possibly lagging, snapshot while the
+        dirt stays within ``max_lag_rows`` / ``max_lag_ms`` (None =
+        unbounded, 0 = fresh-blocking) and block for a refresh otherwise.
+        Returns the scheduler (async) or None (sync)."""
+        from repro_torch.core.bank_refresh import RefreshScheduler
+        if mode not in ("sync", "async"):
             raise ValueError(mode)
-        return None
+        old = self._bank_refresher
+        if old is not None:
+            # drain while queries still route through the scheduler; the
+            # bank's refresh_lock serializes it against a sync refresh
+            old.stop(drain=True)
+            self._bank_refresher = None
+        if mode == "sync":
+            return None
+        ref = RefreshScheduler(self, max_lag_rows=max_lag_rows,
+                               max_lag_ms=max_lag_ms, thread=thread,
+                               **scheduler_kw)
+        self._bank_refresher = ref
+        return ref
+
+    def kick_bank_refresh(self) -> bool:
+        """Hint that now is a good moment to refresh (right after a drain,
+        so the scatter hides behind host work instead of landing on the
+        first query). No-op in sync mode."""
+        ref = self._bank_refresher
+        if ref is None:
+            return False
+        ref.notify()
+        return True
 
     def _sync_bank_locked(self):
+        """In-lock refresh (sync mode): move only the dirty rows and
+        publish. Returns (bank, snapshot), the point the scan is pinned
+        to."""
         if self._bank is None:
             self.attach_device_bank()
         bank = self._bank
@@ -478,7 +591,8 @@ class EmbeddingStore:
     def ivf_maybe_recluster(self) -> bool:
         """Run one whole re-cluster job if the index wants one: begin ->
         unlocked O(n·C) argmin -> commit. The sync ``impl='ivf'`` query
-        path calls it inline, as it pays the bank refresh inline."""
+        path calls it inline, as it pays the bank refresh inline; in async
+        mode the refresh thread runs it after each epoch."""
         from repro_torch.index.ivf import IVFIndex
         job = self.ivf_recluster_begin()
         if job is None:
@@ -549,9 +663,13 @@ class EmbeddingStore:
             slab, uploaded per call (``upload_bytes``/``upload_calls``);
             the reference's two names compute the same function;
           * ``'numpy'``: host matmul + argpartition;
-          * ``'auto'``: see ``resolve_impl``."""
-        if freshness is not None:
-            raise not_ported("async")
+          * ``'auto'``: see ``resolve_impl``.
+
+        ``freshness`` applies to the device and ivf paths under the async
+        refresh policy: None obeys the configured staleness bounds,
+        ``"fresh"`` blocks for a refresh, ``"stale"`` serves the published
+        generation as is. In sync mode every device query is exact and
+        ``freshness`` is ignored, as in the reference."""
         impl = self.resolve_impl(impl)
         if impl not in ("device", "ivf", "numpy", "pallas", "xla"):
             raise ValueError(f"search impl {impl!r}")
@@ -560,16 +678,23 @@ class EmbeddingStore:
         if self._n == 0 or nq == 0:
             return _empty(nq)
         if impl == "ivf":
-            return self._search_ivf(queries, k, nprobe=nprobe,
-                                    strategy=strategy)
+            return self._search_ivf(queries, k, freshness=freshness,
+                                    nprobe=nprobe, strategy=strategy)
         if impl == "device":
-            # refresh + scan under one lock hold: the bank's scatter is in
-            # place, so a scan must not overlap the next refresh
-            with self._lock:
-                bank, snap = self._sync_bank_locked()
-                if snap.n == 0:
-                    return _empty(nq)
-                idx, top_s = bank.search(queries, min(k, snap.n), state=snap)
+            ref = self._bank_refresher
+            if ref is not None:
+                # async: no store lock across the refresh; the scheduler
+                # hands back a published generation
+                bank, snap, _ = self._async_bank_coherent(ref, freshness)
+            else:
+                with self._lock:
+                    bank, snap = self._sync_bank_locked()
+            if snap.n == 0:
+                return _empty(nq)
+            # the scan runs outside the lock, pinned to the refresh-point
+            # bank and snapshot (never written again), so row indices stay
+            # aligned with the snapshot's uid copy
+            idx, top_s = bank.search(queries, min(k, snap.n), state=snap)
             return snap.uids[idx], top_s
         slab, n, uids = self._search_snapshot()
         k = min(k, n)
@@ -590,47 +715,84 @@ class EmbeddingStore:
                               normalize=False, n_valid=n)
         return uids[i.cpu().numpy().astype(np.int64)], s.cpu().numpy()
 
+    def _async_bank_coherent(self, ref, freshness: Optional[str],
+                             cand_fn=None):
+        """A coherent (bank, snapshot, candidates) triple on the async query
+        path, without holding the store lock across a (possibly blocking)
+        refresh: the snapshot must belong to the bank the scan runs on, and
+        a concurrent ``attach_device_bank`` swaps ``self._bank``. Banks are
+        never reused, so seeing ``self._bank is bank`` under the lock after
+        taking the snapshot proves no swap happened; ``cand_fn`` (candidate
+        building) runs in that same lock hold. After 8 lost races the
+        in-lock sync refresh serves the query (the bank's refresh_lock
+        serializes it against an in-flight epoch)."""
+        for _ in range(8):
+            bank = self._bank
+            snap = ref.snapshot_for_query(freshness)
+            with self._lock:
+                if bank is not None and self._bank is bank:
+                    return bank, snap, (None if cand_fn is None
+                                        else cand_fn())
+        with self._lock:
+            bank, snap = self._sync_bank_locked()
+            return bank, snap, (None if cand_fn is None else cand_fn())
+
+    def _ivf_candidates_locked(self, queries, k, nprobe, strategy):
+        if not self._ivf.trained:
+            return None
+        if strategy == "union":
+            return self._ivf.candidate_union(queries, nprobe=nprobe)
+        return self._ivf.candidate_rows(queries, k, nprobe=nprobe)
+
     def _search_ivf(self, queries: np.ndarray, k: int, *,
-                    nprobe: Optional[int], strategy: str
-                    ) -> Tuple[np.ndarray, np.ndarray]:
-        """IVF pruned scan over the device bank (see ``search_batch``). A
-        due re-cluster job runs first, inline; then the bank refresh, the
-        candidates (from the current posting lists) and the scan share one
-        lock hold, so the candidates and the snapshot agree exactly and no
-        refresh scatters into the slab mid-scan. An untrained index, or a
-        batch whose probed clusters are all empty, is served by the
+                    freshness: Optional[str], nprobe: Optional[int],
+                    strategy: str) -> Tuple[np.ndarray, np.ndarray]:
+        """IVF pruned scan over the device bank (see ``search_batch``).
+        Sync mode runs a due re-cluster job first, inline, then takes the
+        bank refresh and the candidates in one lock hold, so they agree
+        exactly. Async mode leaves re-clustering to the refresh thread and
+        pairs the snapshot with the candidates through
+        ``_async_bank_coherent``; the posting lists may then run ahead of a
+        stale generation: candidate ids past ``snap.n`` are dropped
+        (union) or masked by the kernel (gathered). An untrained index, or
+        a batch whose probed clusters are all empty, is served by the
         exhaustive scan and counted in ``ivf_fallbacks``."""
         if self._ivf is None:
             raise ValueError("impl='ivf' requires attach_ivf() first")
         if strategy not in ("union", "gathered"):
             raise ValueError(f"ivf strategy={strategy!r}")
         nq = len(queries)
-        self.ivf_maybe_recluster()
-        with self._lock:
-            bank, snap = self._sync_bank_locked()
-            if snap.n == 0:
-                return _empty(nq)
-            k = min(k, snap.n)
-            cand = None
-            if self._ivf.trained:
-                cand = (self._ivf.candidate_union(queries, nprobe=nprobe)
-                        if strategy == "union" else
-                        self._ivf.candidate_rows(queries, k, nprobe=nprobe))
-            if cand is None or cand.size == 0:
-                self.ivf_fallbacks += 1
-                ridx, top_s = bank.search(queries, k, state=snap)
-                return snap.uids[ridx], top_s
-            if strategy == "union":
-                k2 = min(k, int(cand.size))
-                rows, top_s = bank.search_rows(queries, cand, k2, state=snap)
-                uids = snap.uids[rows]
-                if k2 < k:  # union smaller than k: pad with the sentinel
-                    uids = np.pad(uids, ((0, 0), (0, k - k2)),
-                                  constant_values=-1)
-                    top_s = np.pad(top_s, ((0, 0), (0, k - k2)),
-                                   constant_values=-1e30)
-                return uids, top_s
-            rows, top_s = bank.search_gathered(queries, cand, k, state=snap)
+        ref = self._bank_refresher
+        cand_fn = (lambda: self._ivf_candidates_locked(queries, k, nprobe,
+                                                       strategy))
+        if ref is None:
+            self.ivf_maybe_recluster()
+            with self._lock:
+                bank, snap = self._sync_bank_locked()
+                cand = cand_fn()
+        else:
+            bank, snap, cand = self._async_bank_coherent(ref, freshness,
+                                                         cand_fn)
+        if snap.n == 0:
+            return _empty(nq)
+        k = min(k, snap.n)
+        if strategy == "union" and cand is not None:
+            cand = cand[cand < snap.n]  # postings ahead of a stale snapshot
+        if cand is None or cand.size == 0:
+            self.ivf_fallbacks += 1
+            ridx, top_s = bank.search(queries, k, state=snap)
+            return snap.uids[ridx], top_s
+        if strategy == "union":
+            k2 = min(k, int(cand.size))
+            rows, top_s = bank.search_rows(queries, cand, k2, state=snap)
+            uids = snap.uids[rows]
+            if k2 < k:  # union smaller than k: pad with the sentinel
+                uids = np.pad(uids, ((0, 0), (0, k - k2)),
+                              constant_values=-1)
+                top_s = np.pad(top_s, ((0, 0), (0, k - k2)),
+                               constant_values=-1e30)
+            return uids, top_s
+        rows, top_s = bank.search_gathered(queries, cand, k, state=snap)
         live = top_s > -5e29  # the kernel's sentinel for dead slots
         return np.where(live, snap.uids[np.clip(rows, 0, snap.n - 1)],
                         -1), top_s

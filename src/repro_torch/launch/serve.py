@@ -12,6 +12,9 @@ With the online IVF coarse filter and its pruned scan:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --index ivf --index-clusters 8 --index-min-rows 16 --nprobe 4 \
       --search-impl ivf
+With the async device-bank refresh (bounded staleness):
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --search-impl device --bank-refresh async --bank-max-lag-rows 64
 """
 from __future__ import annotations
 
@@ -47,7 +50,9 @@ def build_service(spec, *, n_train: int = 256, seed: int = 0,
                   search_impl: str = "auto", device="cuda", **query_kw):
     """Fit the pre-exit predictor from self-supervised labels on a
     calibration set, then stand up the embedding + query engines on
-    ``device``. ``query_kw`` goes to ``QueryEngine``."""
+    ``device``. ``query_kw`` goes to ``QueryEngine`` (``bank_refresh``,
+    ``bank_max_lag_rows``, ``bank_max_lag_ms``, ``freshness``, ``index``,
+    ...)."""
     if lora is not None:
         raise not_ported("lora")
     device = resolve_device(device)
@@ -97,6 +102,19 @@ def main(argv=None):
                          "on the CPU, and on CUDA 'ivf' once the index is "
                          "trained and holds --index-min-rows rows, else "
                          "'device'")
+    ap.add_argument("--bank-refresh", default="sync",
+                    choices=["sync", "async"],
+                    help="device-bank refresh policy: 'sync' refreshes "
+                         "exactly under the store lock per query; 'async' "
+                         "moves dirty rows on a background scheduler and "
+                         "serves bounded-stale snapshots")
+    ap.add_argument("--bank-max-lag-rows", type=int, default=None,
+                    help="async only: most dirty-but-unpublished rows a "
+                         "query may be served past (default unbounded; 0 = "
+                         "fresh-blocking)")
+    ap.add_argument("--bank-max-lag-ms", type=float, default=None,
+                    help="async only: most age in ms of the oldest "
+                         "unpublished write a query may be served past")
     ap.add_argument("--index", default="none", choices=["none", "ivf"],
                     help="coarse-filter index: 'ivf' keeps an online "
                          "mini-batch-k-means quantizer + posting lists")
@@ -118,7 +136,11 @@ def main(argv=None):
         spec = smoke_variant(spec)
     engine, query, info = build_service(spec, policy=args.policy,
                                         search_impl=args.search_impl,
-                                        device=args.device, index=args.index,
+                                        device=args.device,
+                                        bank_refresh=args.bank_refresh,
+                                        bank_max_lag_rows=args.bank_max_lag_rows,
+                                        bank_max_lag_ms=args.bank_max_lag_ms,
+                                        index=args.index,
                                         index_clusters=args.index_clusters,
                                         index_min_rows=args.index_min_rows,
                                         nprobe=args.nprobe,
@@ -154,6 +176,12 @@ def main(argv=None):
     if engine.store.ivf_index is not None:
         print(f"ivf index: {engine.store.ivf_index.stats()}, "
               f"fallbacks={engine.store.ivf_fallbacks}")
+    ref = engine.store.bank_refresher
+    if ref is not None:
+        print(f"bank refresh: async, epochs={ref.n_epochs}, "
+              f"blocking={ref.n_blocking}, stale={ref.n_stale_served}, "
+              f"lag={ref.lag()}")
+        engine.store.set_bank_refresh("sync")  # drain + stop the thread
     return results
 
 

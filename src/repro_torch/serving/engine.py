@@ -11,8 +11,10 @@ Pipeline per drained queue batch:
 Policies: "recall" (the above), "branchynet" (run layer-by-layer, exit on
 confidence — no pre-exit, no batching), "fixed" (everyone exits at layer k),
 "full" (no early exit). The model runs on ``device`` (default CUDA); the
-superficial hidden states stay there for the group continuation, and a host
-copy feeds the store's activation cache.
+superficial hidden states stay there for the group continuation and are
+quantized there for the store's activation cache (the int4_cache kernel on
+CUDA), so only their packed bytes and scales reach the host. Refinement
+uploads those bytes and dequantizes them on the device.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.configs.base import MEMConfig, RecallConfig
 from repro_torch.core import preexit as PE
 from repro_torch.core.scheduler import plan_exit_groups
 from repro_torch.core.store import EmbeddingStore, not_ported
+from repro_torch.kernels.int4_cache import ops as int4_ops
 from repro_torch.models import imagebind as IB
 from repro_torch.models import transformer as T
 
@@ -39,6 +42,9 @@ class EngineStats:
     superficial_batches: int = 0
     group_batches: int = 0
     wall_s: float = 0.0
+    # cached activations (packed bytes + scales) uploaded to a device for
+    # refinement
+    refine_h2d_bytes: int = 0
 
     @property
     def avg_layers(self) -> float:
@@ -129,7 +135,6 @@ class EmbeddingEngine:
             self.stats.superficial_batches += 1
         h_sup = torch.cat(h_parts)                      # on device
         pooled_all = torch.cat(pooled_parts, dim=1)     # (N, B, d)
-        h_sup_host = _host(h_sup) if self.cache_activations else None
 
         if self.policy == "recall":
             if self.predictor is None:
@@ -158,7 +163,10 @@ class EmbeddingEngine:
             self.store.add_batch(
                 uids[ids], _host(embs), [exit_idx] * len(ids),
                 [exit_layer] * len(ids), modality=self.modality,
-                cached_hs=None if h_sup_host is None else h_sup_host[ids])
+                cached_hs=h_sup[ids_d] if self.cache_activations else None)
+        # async bank refresh: scatter the new rows now, behind host work,
+        # not on the first query's path
+        self.store.kick_bank_refresh()
         self.stats.n_embedded += len(uids)
         self.stats.wall_s += time.perf_counter() - t0
         return self.stats
@@ -181,30 +189,40 @@ class EmbeddingEngine:
 
     # -- refinement hook for the query runtime -----------------------------------
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cpu":
+            return t
+        self.stats.refine_h2d_bytes += int(a.nbytes)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def refine_fn(self) -> Callable:
         """Batched refinement hook for speculative retrieval round 3.
 
         Called with a uid array it returns ``{uid: fine_emb}`` for every uid
         with a cached activation, running one dense continuation per
-        activation-shape group (chunked at ``max_batch``)."""
+        activation-shape group (chunked at ``max_batch``). The cached
+        activations travel still packed (pinned, non-blocking) and are
+        dequantized on the device (the int4_cache kernel on CUDA)."""
         start = self.recall.superficial_layers
         end = self.tower.n_layers
 
         @torch.no_grad()
         def refine(uids: np.ndarray) -> Dict[int, np.ndarray]:
             uid_list = [int(u) for u in np.asarray(uids).ravel()]
-            cached = self.store.cached_activations(uid_list)
+            cached = self.store._cached_packed(uid_list)
             groups: Dict[Tuple[int, ...], List[int]] = {}
             for u in uid_list:
                 if u in cached:
-                    groups.setdefault(tuple(cached[u][0].shape), []).append(u)
+                    groups.setdefault(cached[u][2], []).append(u)
             out: Dict[int, np.ndarray] = {}
-            for us in groups.values():
+            for shape, us in groups.items():
                 for i in range(0, len(us), self.max_batch):
                     chunk = us[i:i + self.max_batch]
-                    h = torch.as_tensor(np.stack([cached[u][0]
-                                                  for u in chunk]))
-                    embs = _host(self._continue(h.to(self.device), start, end))
+                    p = self._upload(np.stack([cached[u][0] for u in chunk]))
+                    s = self._upload(np.stack([cached[u][1] for u in chunk]))
+                    h = int4_ops.dequantize(p, s).reshape(len(chunk), *shape)
+                    embs = _host(self._continue(h, start, end))
                     out.update(zip(chunk, embs))
             return out
         return refine

@@ -39,8 +39,10 @@ class QueryEngine:
                  refine_fn: Optional[Callable] = None,
                  query_modality: str = "text", lora=None,
                  search_impl: str = "auto", search_devices=None,
-                 bank_refresh: str = "sync", freshness: Optional[str] = None,
-                 index: str = "none", index_clusters: int = 64,
+                 bank_refresh: str = "sync",
+                 bank_max_lag_rows: Optional[int] = None,
+                 bank_max_lag_ms: Optional[float] = None,
+                 freshness: Optional[str] = None, index: str = "none", index_clusters: int = 64,
                  index_min_rows: Optional[int] = None,
                  nprobe: Optional[int] = None,
                  index_auto_grow: bool = False, device="cuda"):
@@ -49,12 +51,15 @@ class QueryEngine:
         self.device = resolve_device(device)
         if search_devices is not None:
             raise not_ported("shard")
-        if bank_refresh != "sync" or freshness is not None:
-            raise not_ported("async")
+        if bank_refresh not in ("sync", "async"):
+            raise ValueError(f"bank_refresh={bank_refresh!r}")
         self.params, self.cfg, self.recall = params, cfg, recall
         self.store = store
         self.refine_fn = refine_fn
         self.modality = query_modality
+        # per-query default of the async staleness policy (None = obey the
+        # configured bounds; "fresh"/"stale" force a side)
+        self.freshness = freshness
         # IVF probe fan-out forwarded to every store scan (None = the
         # index's default; ignored on non-IVF paths)
         self.nprobe = nprobe
@@ -81,6 +86,12 @@ class QueryEngine:
         if store.resolve_impl(search_impl) in ("device", "ivf") \
                 and store.device_bank is None:
             store.attach_device_bank()
+        # "async" moves the dirty-row refresh off the query path onto a
+        # background scheduler (bounded staleness); "sync" leaves the
+        # store's policy as it is
+        if bank_refresh == "async":
+            store.set_bank_refresh("async", max_lag_rows=bank_max_lag_rows,
+                                   max_lag_ms=bank_max_lag_ms)
         t = cfg.tower(query_modality)
         exits = recall.exit_layers(t.n_layers)
         k = recall.query_granularities
@@ -134,7 +145,7 @@ class QueryEngine:
             self.store, [by_g[g] for g in self.granularities], fine,
             k=k, final_k=final_k, refine_fn=self.refine_fn,
             refine_budget=refine_budget, impl=self.search_impl,
-            nprobe=self.nprobe)
+            freshness=self.freshness, nprobe=self.nprobe)
 
     # -- batched queries -----------------------------------------------------
 
@@ -155,6 +166,7 @@ class QueryEngine:
         if not speculative:
             uids, scores = self.store.search_batch(fine_q, k,
                                                    impl=self.search_impl,
+                                                   freshness=self.freshness,
                                                    nprobe=self.nprobe)
             dt = (time.perf_counter() - t0) / B
             return [RetrievalResult(uids=uids[b], scores=scores[b],
@@ -165,6 +177,7 @@ class QueryEngine:
         # round 1: every (query, granularity) pair in ONE fused store scan
         flat_u, flat_s = self.store.search_batch(QG.reshape(B * G, -1), k,
                                                  impl=self.search_impl,
+                                                 freshness=self.freshness,
                                                  nprobe=self.nprobe)
         kk = flat_u.shape[1]
         u3 = flat_u.reshape(B, G, kk)

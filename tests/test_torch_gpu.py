@@ -151,3 +151,79 @@ def test_dense_kernel_matches_plain(gen, Q, N, E, k, n_valid, normalize):
                                         n_valid=n_valid)
     assert (s - s_p).abs().max().item() <= 1e-5
     assert torch.equal(i[_sep(s_p)], i_p[_sep(s_p)])
+
+
+def _int4_rows(gen, N, D, dtype):
+    x = (torch.randn((N, D), generator=gen, device="cuda") * 3).to(dtype)
+    x[0] = 0  # all-zero row: the scale clamps to 1e-12
+    if N > 1 and D >= 8:  # absmax 7, scale exactly 1: ties to even
+        x[1] = 0
+        x[1, :8] = torch.tensor([7.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, -3.5])
+    return x
+
+
+@pytest.mark.parametrize("N,D,dtype", [(300, 1280, torch.float32),
+                                       (257, 64, torch.bfloat16),
+                                       (1, 2, torch.float32),
+                                       (33, 10, torch.float32)])
+def test_int4_cache_kernels_match_plain_bit_for_bit(gen, N, D, dtype):
+    import numpy as np
+    from repro_torch.core.quantize import quantize_int4_np
+    from repro_torch.kernels.int4_cache import ops
+    from repro_torch.kernels.int4_cache.ref import (
+        dequantize_int4_reference, quantize_int4_reference)
+    x = _int4_rows(gen, N, D, dtype)
+    before = (ops.launches, ops.launches_dequant)
+    p, s = ops.quantize(x)
+    p_p, s_p = quantize_int4_reference(x)
+    assert torch.equal(p, p_p) and torch.equal(s, s_p)
+    # and the host's numpy version, the layout contract
+    p_np, s_np = quantize_int4_np(x.float().cpu().numpy())
+    assert np.array_equal(p.cpu().numpy(), p_np)
+    assert np.array_equal(s.cpu().numpy(), s_np)
+    for out in (torch.float32, torch.bfloat16):
+        y = ops.dequantize(p, s, dtype=out)
+        assert y.dtype == out
+        assert torch.equal(y, dequantize_int4_reference(p_p, s_p, dtype=out))
+    assert (ops.launches, ops.launches_dequant) == (before[0] + 1,
+                                                    before[1] + 2)
+
+
+def test_async_refresh_epoch_on_the_card_with_a_racing_scan(gen):
+    """One async epoch (side-stream scatter, event-guarded flip) while a
+    scan of the previous generation runs: the old scan sees its own rows,
+    and after the flip a stale read equals a sync store's scan."""
+    import numpy as np
+    from repro_torch.core.store import EmbeddingStore
+    rng = np.random.default_rng(0)
+    E, n = 256, 20_000
+    embs = rng.standard_normal((n, E)).astype(np.float32)
+    q = rng.standard_normal((8, E)).astype(np.float32)
+    st = EmbeddingStore(E, device="cuda")
+    st.add_batch(np.arange(n), embs, np.zeros(n), np.ones(n))
+    ref = st.set_bank_refresh("async", thread=False)
+    old = st.search_batch(q, 10, impl="device", freshness="fresh")
+    snap0 = st.device_bank.published
+    new = rng.standard_normal((4096, E)).astype(np.float32)
+    st.upgrade_batch(np.arange(4096), new)
+    extra = rng.standard_normal((5000, E)).astype(np.float32)
+    st.add_batch(np.arange(n, n + 5000), extra, np.zeros(5000),
+                 np.ones(5000))
+    epoch = ref.begin_epoch()
+    ref.apply(epoch)                  # queued on the bank's side stream
+    racing = st.device_bank.search(q, 10, state=snap0)
+    ref.flip(epoch)
+    assert snap0.ready is not None and st.device_bank.published.ready \
+        is not None
+    assert np.array_equal(racing[1], old[1])
+    assert np.array_equal(snap0.uids[racing[0]], old[0])
+    got = st.search_batch(q, 10, impl="device", freshness="stale")
+    sync = EmbeddingStore(E, device="cuda")
+    sync.add_batch(np.arange(n), embs, np.zeros(n), np.ones(n))
+    sync.upgrade_batch(np.arange(4096), new)
+    sync.add_batch(np.arange(n, n + 5000), extra, np.zeros(5000),
+                   np.ones(5000))
+    want = sync.search_batch(q, 10, impl="device")
+    torch.cuda.synchronize()
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    st.set_bank_refresh("sync")

@@ -13,6 +13,7 @@ from repro.configs.base import MEMConfig, RecallConfig, TowerConfig
 from repro.configs.base import get_arch, smoke_variant
 from repro.core import exits as EX
 from repro.core import preexit as PE
+from repro.core.quantize import dequantize_int4_np
 from repro.core.store import EmbeddingStore as JStore
 from repro.data.synthetic import multimodal_pairs
 from repro.models import imagebind as IB
@@ -168,8 +169,7 @@ def test_serve_cli_smoke_on_cpu(capsys):
     assert "embedded 24 items" in out and "device bank:" in out
 
 
-@pytest.mark.parametrize("kw", [dict(bank_refresh="async"),
-                                dict(freshness="stale"),
+@pytest.mark.parametrize("kw", [dict(lora={}),
                                 dict(search_devices=["cuda:0", "cuda:1"])],
                          ids=lambda kw: next(iter(kw)))
 def test_query_engine_refuses_unported_features(service, kw):
@@ -177,3 +177,116 @@ def test_query_engine_refuses_unported_features(service, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TQuery(t_params, TCFG, TRC, store=TStore(TCFG.embed_dim, device="cpu"),
                device="cpu", **kw)
+
+
+def _drained_pair(service, n_items, seed, **query_kw):
+    """The same items drained through both packages' engines, with query
+    engines over the two stores (device-bank search)."""
+    params, predictor, t_params, t_predictor = service
+    items = multimodal_pairs(seed, n_items, CFG).items
+    js, ts = JStore(CFG.embed_dim), TStore(TCFG.embed_dim, device="cpu")
+    je = JEngine(params, CFG, RC, predictor_params=predictor, max_batch=16,
+                 store=js, fw_kw=FW)
+    te = TEngine(t_params, TCFG, TRC, predictor_params=t_predictor,
+                 max_batch=16, store=ts, device="cpu")
+    for eng in (je, te):
+        eng.submit_batch(np.arange(n_items), items["vision"])
+        eng.drain()
+    jq = JQuery(params, CFG, RC, store=js, refine_fn=je.refine_fn(),
+                fw_kw=FW, search_impl="device", **query_kw)
+    tq = TQuery(t_params, TCFG, TRC, store=ts, refine_fn=te.refine_fn(),
+                search_impl="device", device="cpu", **query_kw)
+    return items, (js, je, jq), (ts, te, tq)
+
+
+def test_act_cache_bytes_and_refinement_match_reference(service):
+    """The drain hands the port's store its hidden states as a tensor
+    (quantized by int4_cache.ops where they lie). Given the reference
+    drain's own hidden states, the port's store caches the same packed
+    bytes and scales, bit for bit. Through the two drains, whose hidden
+    states differ in the last bits (another summation order), the packed
+    bytes, shapes and layers are equal for every uid and the scales within
+    1e-5 relative; the refinement hook, which dequantizes on the engine's
+    device, gives the reference's fine embeddings."""
+    seen = []
+    add = JStore.add_batch
+
+    def spy(self, uids, embs, exit_idxs, exit_layers, **kw):
+        seen.append((np.array(uids), np.array(kw["cached_hs"])))
+        return add(self, uids, embs, exit_idxs, exit_layers, **kw)
+
+    JStore.add_batch = spy
+    try:
+        _, (js, je, _), (ts, te, _) = _drained_pair(service, 24, seed=4)
+    finally:
+        JStore.add_batch = add
+    same = TStore(TCFG.embed_dim, device="cpu")
+    for uids, hs in seen:
+        same.add_batch(uids, np.zeros((len(uids), TCFG.embed_dim)),
+                       [0] * len(uids), [1] * len(uids),
+                       cached_hs=torch.from_numpy(hs))
+    assert sorted(ts._act_cache) == sorted(js._act_cache) == list(range(24))
+    for u in range(24):
+        (pj, sj, shj, lj), (pt, st_, sht, lt) = js._act_cache[u], \
+            ts._act_cache[u]
+        assert np.array_equal(same._act_cache[u][0], pj)
+        assert np.array_equal(same._act_cache[u][1], sj)
+        assert pt.dtype == np.int8 and np.array_equal(pt, pj)
+        # absmax of hidden states that differ in the last bits
+        np.testing.assert_allclose(st_, sj, rtol=1e-5, atol=0)
+        assert sht == shj and lt == lj
+    assert ts.storage_bytes() == js.storage_bytes()
+    assert ts.act_d2h_bytes == 0  # CPU tensors: nothing left a device
+    uids = np.arange(0, 24, 3)
+    want, got = je.refine_fn()(uids), te.refine_fn()(uids)
+    assert sorted(got) == sorted(want) == uids.tolist()
+    for u in uids.tolist():
+        np.testing.assert_allclose(got[u], want[u], atol=TOL)
+    assert te.stats.refine_h2d_bytes == 0  # nothing went to a device
+    # the public accessor still returns dequantized numpy, as the reference
+    for u, (h, layer) in ts.cached_activations(uids).items():
+        h_j, layer_j = js.cached_activations([u])[u]
+        assert layer == layer_j and h.dtype == np.float32
+        assert np.array_equal(h, dequantize_int4_np(*ts._act_cache[u][:2]))
+        np.testing.assert_allclose(h, h_j, rtol=1e-5, atol=0)
+
+
+def test_query_batch_with_async_bank_refresh_matches_reference(service):
+    """QueryEngine(bank_refresh="async", freshness="fresh") on both
+    packages, each with a background refresh thread: every scan blocks for
+    an epoch, so both serve what the sync engines serve, and the
+    refinements' upgrades land in a later epoch. (A bound of
+    max_lag_rows=0 is not enough for that under a real thread: rows an
+    in-flight epoch has taken count as published, in both packages.)"""
+    items, (js, _, jq), (ts, _, tq) = _drained_pair(
+        service, 32, seed=5, bank_refresh="async", bank_max_lag_rows=0,
+        freshness="fresh")
+    try:
+        assert ts.bank_refresher is not None and tq.freshness == "fresh"
+        queries = items["text"][:6]
+        for _ in range(2):  # the second batch scans the upgraded rows
+            j_res = jq.query_batch(queries, k=10)
+            t_res = tq.query_batch(queries, k=10)
+            for jr, tr in zip(j_res, t_res):
+                assert tr.n_refined == jr.n_refined
+                assert sorted(tr.filtered_uids.tolist()) == \
+                    sorted(jr.filtered_uids.tolist())
+                np.testing.assert_allclose(tr.scores, jr.scores, atol=TOL)
+        assert ts.bank_refresher.n_blocking == 2  # one fused scan a batch
+    finally:
+        js.set_bank_refresh("sync")
+        ts.set_bank_refresh("sync")
+    assert len(ts.device_bank) == len(ts) == 32
+    np.testing.assert_array_equal(ts.is_fine(np.arange(32)),
+                                  js.is_fine(np.arange(32)))
+
+
+def test_serve_cli_async_refresh_on_cpu(capsys):
+    from repro_torch.launch import serve
+    results = serve.main(["--smoke", "--device", "cpu", "--n-items", "24",
+                          "--n-queries", "4", "--search-impl", "device",
+                          "--bank-refresh", "async",
+                          "--bank-max-lag-rows", "8"])
+    assert len(results) == 4
+    out = capsys.readouterr().out
+    assert "bank refresh: async, epochs=" in out

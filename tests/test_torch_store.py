@@ -131,10 +131,8 @@ def test_auto_follows_the_requested_device():
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.search_batch(np.ones((1, E), np.float32), 2, freshness="stale"),
-    lambda s: s.set_bank_refresh("async"),
     lambda s: s.attach_device_bank(["cuda:0", "cuda:1"]),
-], ids=["freshness", "async", "sharded"])
+], ids=["sharded"])
 def test_unported_features_raise(call):
     ts = TStore(E, device="cpu")
     ts.add(0, np.ones(E, np.float32), exit_idx=0, exit_layer=1)
