@@ -9,7 +9,7 @@ It prints the card's name and power limit, builds the port's CUDA kernels
 from the sources in this checkout (one ``nvcc`` per source, all at once,
 sm_90a; the Triton rmsnorm compiles at its first launch), and holds each
 kernel against its plain PyTorch version at its path's shapes (the int4
-activation-cache kernels bit for bit). Then it drives three paths, each
+activation-cache kernels bit for bit). Then it drives five paths, each
 with every launch counter set to 0 just before it and read just after:
 
   * serve: RECALL end to end at the full width of ``recall-imagebind``
@@ -25,10 +25,19 @@ with every launch counter set to 0 just before it and read just after:
     preloaded with 2^17 rows; a writer thread inserts rows and drains
     items while a query thread scans and runs a query_batch; every policy
     read stays within the row bound, and after the refresher stops a fresh
-    scan equals a sync store's scan of the same mutations, bit for bit.
+    scan equals a sync store's scan of the same mutations, bit for bit;
+  * LM: qwen2-1.5b at full width and depth (random weights from a seed)
+    through ``launch.steps.build_step``: a prefill of 32 prompts of 2,048
+    into a 32,768-token cache, then 32 greedy decode steps (read apart:
+    the prefill's counters and the decode window's), then 8 steps over
+    caches of seeded K/V filled to lengths of 16,384-32,768;
+  * MoE: qwen3-moe-30b-a3b at full width and 16 of its 48 layers, 16
+    prompts of 1,024 into a 4,096-token cache, then 16 decode steps, with
+    the expert loads and the assignments the capacity drops.
 
-It ends with one JSON line of kernel measurements and one
-``{"ok": true, ...}`` line. Any failed phase or tolerance exits non-zero;
+One prefill and one decode step of each LM are held call by call against
+the plain versions. It ends with one JSON line of kernel measurements and
+one ``{"ok": true, ...}`` line. Any failed phase or tolerance exits non-zero;
 without a CUDA device it exits non-zero at once. It never imports JAX or
 the JAX package.
 """
@@ -545,6 +554,239 @@ def check_int4_cache(gen):
              "bound_ms": d_b, "bound_by": d_by, "library_ms": None}]
 
 
+def _decode_case(B, S, H, KV, D, dtype, *, window, lengths, gen):
+    import torch
+    from repro_torch.kernels.decode_attention.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_reference)
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    lens = lengths if isinstance(lengths, torch.Tensor) else torch.tensor(
+        lengths, dtype=torch.int32, device="cuda")
+    o_k = decode_attn_cuda(q, k, v, lens, window=window)
+    o_p = decode_attention_reference(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    # f32: another summation order. bf16: both round the same fp32 result
+    # once, so they differ by at most one bf16 step of the largest output,
+    # 2^-7 of it; a split merged with the wrong weight or a dropped tile
+    # moves the output by a fraction of itself and fails
+    tol = 1e-5 if dtype == torch.float32 else \
+        2.0 ** -7 * o_p.float().abs().max().item()
+    err = (o_k.float() - o_p.float()).abs().max().item()
+    if not err <= tol:
+        _fail(f"decode_attention B={B} S={S} H={H} KV={KV} D={D} {dtype} "
+              f"window={window}: err {err} > {tol}")
+    return q, k, v, lens, err, tol
+
+
+def check_decode(gen):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_reference)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # side cases: lengths 1 and S, a window, G = 1 (MHA, moonshot's
+    # shape), f32 and bf16, S not a multiple of the 32-key step, a
+    # sequence with no valid position
+    for B, S, H, KV, D, dtype, window, lengths in (
+            (3, 1000, 8, 2, 128, bf16, 0, (1, 1000, 517)),
+            (2, 4096, 12, 2, 128, bf16, 1000, (4096, 2500)),
+            (4, 2000, 16, 16, 128, bf16, 0, (2000, 1999, 33, 1024)),
+            (2, 777, 32, 4, 128, f32, 0, (777, 300)),
+            (2, 90, 6, 1, 64, f32, 7, (0, 90))):
+        _decode_case(B, S, H, KV, D, dtype, window=window, lengths=lengths,
+                     gen=gen)
+        print(f"  decode side case B={B} S={S} H={H} KV={KV} D={D} {dtype} "
+              f"window={window} lengths={lengths}: ok")
+    rows = []
+    # the decode paths' shapes: qwen2-1.5b's long-context window and
+    # qwen3-moe's 4,096 cache
+    for arch, B, S, H, KV, lo in (("qwen2-1.5b", 32, 32768, 12, 2, 16384),
+                                  ("qwen3-moe-30b-a3b", 16, 4096, 32, 4,
+                                   1024)):
+        D = 128
+        lens = torch.randint(lo, S + 1, (B,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        q, k, v, lens, err, tol = _decode_case(B, S, H, KV, D, bf16,
+                                               window=0, lengths=lens,
+                                               gen=gen)
+        ms = time_ms(lambda: decode_attn_cuda(q, k, v, lens), reps=20)
+        plain_ms = time_ms(lambda: decode_attention_reference(q, k, v, lens),
+                           reps=2, trials=3)
+        qt = q[:, :, None]                                # (B, H, 1, D)
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        mask = (torch.arange(S, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]         # (B, 1, 1, S)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
+        n_valid = int(torch.clamp(lens.long(), max=S).sum())
+        n_bytes = (2 * n_valid * KV * D + 2 * B * H * D) * 2
+        b_ms, b_by = bound_ms(n_bytes, 4.0 * n_valid * H * D, "bf16")
+        print(f"  decode_attention {arch} B={B} S={S} H={H} KV={KV} D={D} "
+              f"bf16, sum(lengths) {n_valid}: max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}, 2^-7 of max|out|) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"(bool mask, GQA) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})")
+        rows.append({"name": f"decode_attention[{arch}]", "route": "cuda",
+                     "source": "src/repro_torch/kernels/decode_attention/"
+                               "csrc/decode_attn.cu",
+                     "replaces": "src/repro/kernels/decode_attention/"
+                                 "kernel.py:30",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
+        del q, k, v, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_case(T, d, E, F, dtype, ids, gen):
+    """The kernel against the plain sorted version on one plan: rows below
+    ``used`` within one output rounding step (bf16) or 1e-5 (f32) of the
+    output's scale."""
+    import torch
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_cuda
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
+    bt = ops.block_t_for(T, E)
+    p = ops.plan(ids, E, bt)
+    x = torch.randn((T, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((E, d, F), generator=gen, device="cuda")
+         * d ** -0.5).to(dtype)
+    xs = ops.scatter_rows(x, p)
+    del x
+    ys = moe_gemm_cuda(xs, p.block_expert, w, bt, p.used)
+    ys_p = moe_gemm_sorted_reference(xs, p.block_expert, w, bt, p.used)
+    n = int(p.used)
+    scale = max(1.0, ys_p[:n].float().abs().max().item())
+    err = (ys[:n].float() - ys_p[:n].float()).abs().max().item() / scale
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    if not err <= rel:
+        _fail(f"moe_gemm T={T} d={d} E={E} F={F} {dtype}: error {err:.3e} "
+              f"of the output's scale > {rel}")
+    return xs, w, p, bt, err, rel
+
+
+def check_moe_gemm(gen):
+    import torch
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_cuda
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
+    bf16 = torch.bfloat16
+
+    def ids(T, E, kind):
+        if kind == "one expert":
+            return torch.full((T,), E // 2, dtype=torch.int32, device="cuda")
+        e = torch.randint(0, E, (T,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        return e // 4 * 4 if kind == "empty experts" else e
+
+    # side cases: every token on one expert, empty experts, T not a
+    # multiple of the token block, F = 768 and 1408 (no multiple of the
+    # TPU kernel's 512), ragged d and F, the f32 path
+    for T, d, E, F, dtype, kind in (
+            (4096, 2048, 128, 768, bf16, "one expert"),
+            (1000, 2048, 64, 1408, bf16, "empty experts"),
+            (8191, 512, 128, 768, bf16, "random"),
+            (333, 200, 16, 100, bf16, "random"),
+            (777, 256, 8, 384, torch.float32, "random")):
+        _moe_case(T, d, E, F, dtype, ids(T, E, kind), gen)
+        print(f"  moe_gemm side case T={T} d={d} E={E} F={F} {dtype} "
+              f"({kind}): ok")
+    rows = []
+    # the MoE paths' shapes at qwen3-moe's d = 2048, E = 128, top-8:
+    # prefill (16 x 1,024 tokens x 8) gate/up and down, decode (16 x 8)
+    for what, T, d, F in (("prefill", 131072, 2048, 768),
+                          ("prefill down", 131072, 768, 2048),
+                          ("decode", 128, 2048, 768)):
+        E = 128
+        xs, w, p, bt, err, rel = _moe_case(T, d, E, F, bf16,
+                                           ids(T, E, "random"), gen)
+        ms = time_ms(lambda: moe_gemm_cuda(xs, p.block_expert, w, bt,
+                                           p.used), reps=10)
+        plain_ms = time_ms(lambda: moe_gemm_sorted_reference(
+            xs, p.block_expert, w, bt, p.used), reps=1, trials=3)
+        ends = torch.cumsum((p.block_expert[:int(p.used) // bt].long()[
+            :, None] == torch.arange(E, device="cuda")).sum(0) * bt, 0)
+        bounds = [0] + ends.tolist()
+        groups = [(e, bounds[e], bounds[e + 1]) for e in range(E)
+                  if bounds[e + 1] > bounds[e]]
+        loop_ms = time_ms(lambda: [xs[r0:r1] @ w[e] for e, r0, r1 in groups],
+                          reps=2, trials=3)
+        gmm_ms = None
+        if hasattr(torch, "_grouped_mm"):
+            n, offs = int(p.used), ends.to(torch.int32)
+            # w as it is, then each expert's matrix column-major
+            for wb in (w, w.transpose(1, 2).contiguous().transpose(1, 2)):
+                try:
+                    torch._grouped_mm(xs[:n], wb, offs=offs)
+                except RuntimeError as e:  # a yardstick only: report it
+                    print(f"  torch._grouped_mm refused the case: "
+                          f"{str(e).splitlines()[0][:160]}")
+                    continue
+                gmm_ms = time_ms(lambda: torch._grouped_mm(xs[:n], wb,
+                                                           offs=offs))
+                break
+        lib_ms = gmm_ms if gmm_ms is not None else loop_ms
+        e_used = len(groups)
+        n_bytes = T * d * 2 + e_used * d * F * 2 + T * F * 2
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * T * d * F, "bf16")
+        print(f"  moe_gemm {what} T={T} d={d} F={F} E={E} (experts used "
+              f"{e_used}, token block {bt}, rows {int(p.used)} of "
+              f"{p.T_pad}) bf16: error {err:.3e} of the output's scale (tol "
+              f"{rel:.2e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"per-expert torch.matmul loop {loop_ms:.4f} ms, "
+              f"torch._grouped_mm "
+              + (f"{gmm_ms:.4f} ms" if gmm_ms is not None else "n/a")
+              + f", bound {b_ms:.4f} ms ({b_by})")
+        if what != "prefill down":
+            rows.append({"name": f"moe_gemm[{what}]", "route": "cuda",
+                         "source": "src/repro_torch/kernels/moe_gemm/csrc/"
+                                   "moe_gemm.cu",
+                         "replaces": "src/repro/kernels/moe_gemm/"
+                                     "kernel.py:27",
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": lib_ms})
+        del xs, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_flash_lm(gen):
+    """The flash forward at qwen2-1.5b's prefill: 32 prompts of 2,048,
+    12 heads of 128 over 2 kv heads, bf16, causal."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
+    B, S, H, KV, D = 32, 2048, 12, 2, 128
+    # bf16 output: one rounding of values of |o| < 4 is < 2e-2
+    q, k, v, err = _flash_case(B, S, S, H, KV, D, torch.bfloat16, causal=True,
+                               window=0, q_offset=0, gen=gen, tol=2e-2,
+                               lse_tol=1e-3)
+    ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=True), reps=3,
+                 trials=3)
+    plain_ms = time_ms(lambda: attention_fwd_reference(q, k, v, causal=True),
+                       reps=1, trials=2)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
+    n_bytes = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 + B * H * S * 4
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * B * H * D * S * (S + 1) / 2, "bf16")
+    print(f"  flash lm_prefill (qwen2-1.5b) B={B} S={S} H={H} KV={KV} D={D} "
+          f"bf16 causal: max_abs_err {err:.3e} (tol 2e-2) kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return {"name": "flash_attention_fwd[lm_prefill]", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_fwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
 def kernel_phase():
     import torch
     gen = torch.Generator(device="cuda")
@@ -560,6 +802,10 @@ def kernel_phase():
     torch.cuda.empty_cache()
     rows += check_int4_cache(gen)
     torch.cuda.empty_cache()
+    rows += check_decode(gen)
+    rows += check_moe_gemm(gen)
+    rows.append(check_flash_lm(gen))
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -570,8 +816,10 @@ def kernel_phase():
 
 def _counters():
     """Kernel name -> (ops module, its launch counter's name)."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.int4_cache import ops as int4_ops
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.retrieval_topk import ops as topk_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     return {"int4_quant": (int4_ops, "launches"),
@@ -580,7 +828,9 @@ def _counters():
             "retrieval_topk_int4_gathered": (topk_ops, "launches_gathered"),
             "retrieval_topk_dense": (topk_ops, "launches_dense"),
             "flash_attention_fwd": (flash_ops, "launches"),
-            "rmsnorm": (rms_ops, "launches")}
+            "rmsnorm": (rms_ops, "launches"),
+            "decode_attention": (decode_ops, "launches"),
+            "moe_gemm": (moe_ops, "launches")}
 
 
 def _reset_launches() -> None:
@@ -704,6 +954,31 @@ def check_fp32_end_to_end(params, spec, vision, text):
               f"vs plain: {bad} > {tol}")
 
 
+def _call_checker(rel_tol):
+    """(both, worst, calls): ``both(name, kernel_fn, plain_fn, rows=None)``
+    wraps a kernel's dispatch so that each call also runs the plain version
+    on the same arguments and fails beyond ``rel_tol`` of the output's
+    scale (over the first ``rows(*args)`` rows when given); ``worst`` and
+    ``calls`` collect each name's largest error and call count."""
+    worst, calls = {}, {}
+
+    def both(name, kernel_fn, plain_fn, rows=None):
+        def run(*args, **kw):
+            got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
+            g, w = (got, want) if rows is None else \
+                (got[:rows(*args)], want[:rows(*args)])
+            scale = max(1.0, w.float().abs().max().item())
+            err = (g.float() - w.float()).abs().max().item() / scale
+            worst[name] = max(worst.get(name, 0.0), err)
+            calls[name] = calls.get(name, 0) + 1
+            if not err <= rel_tol:
+                _fail(f"{name} call {calls[name]} {tuple(args[0].shape)}: "
+                      f"error {err:.3e} of the output's scale > {rel_tol}")
+            return got
+        return run
+    return both, worst, calls
+
+
 def check_calls_vs_plain(params, spec, vision, text):
     """Every kernel call of one full-width forward of both towers (4 items
     each) against its plain version on the same real activations.
@@ -722,21 +997,7 @@ def check_calls_vs_plain(params, spec, vision, text):
     from repro_torch.models import imagebind as IB
     from repro_torch.models import layers, transformer as T
     rel_tol = 2.0 ** -7
-    worst, calls = {}, {}
-
-    def both(name, kernel_fn, plain_fn):
-        def run(*args, **kw):
-            got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
-            scale = max(1.0, want.float().abs().max().item())
-            err = (got.float() - want.float()).abs().max().item() / scale
-            worst[name] = max(worst.get(name, 0.0), err)
-            calls[name] = calls.get(name, 0) + 1
-            if not err <= rel_tol:
-                _fail(f"{name} call {calls[name]} {tuple(args[0].shape)}: "
-                      f"error {err:.3e} of the output's scale > {rel_tol}")
-            return got
-        return run
-
+    both, worst, calls = _call_checker(rel_tol)
     with torch.no_grad(), \
             mock.patch.object(T, "flash_attention",
                               both("flash_attention_fwd",
@@ -1226,6 +1487,9 @@ def async_phase():
 
 
 _LAYERS = (("flash_fwd_kernel", "attention (flash kernel)"),
+           ("decode_split", "decode attention (CUDA kernel, split pass)"),
+           ("decode_merge", "decode attention (CUDA kernel, merge pass)"),
+           ("moe_gemm_kernel", "grouped expert GEMM (CUDA kernel)"),
            ("int4_quant", "int4 quantize (cache kernel)"),
            ("int4_dequant", "int4 dequantize (cache kernel)"),
            ("Memcpy DtoH", "copies device to host"),
@@ -1250,7 +1514,7 @@ def profile_phase(engine, query, items, texts):
     """Where the device time goes: one more drain batch and one more query
     batch under torch.profiler."""
     import numpy as np
-    starts = iter(range(10_000, 10_000 + 3 * len(items), len(items)))
+    starts = iter(range(10_000, 10_000 + 15 * len(items), len(items)))
 
     def drain():  # fresh uids for each trace
         start = next(starts)
@@ -1264,16 +1528,19 @@ def profile_phase(engine, query, items, texts):
          "flash_fwd")))
 
 
-def _profile_once(fn):
+def _profile_once(fn, reps):
+    """``reps`` runs of ``fn`` under torch.profiler: wall s, device ms and
+    device ms by layer per run, and the kernel names seen."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = (time.perf_counter() - t0) / reps
     by_layer, total, names = {}, 0.0, set()
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
@@ -1282,8 +1549,8 @@ def _profile_once(fn):
         if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         layer = _layer_of(ev.key)
-        by_layer[layer] = by_layer.get(layer, 0.0) + us / 1e3
-        total += us / 1e3
+        by_layer[layer] = by_layer.get(layer, 0.0) + us / 1e3 / reps
+        total += us / 1e3 / reps
         names.add(ev.key)
     return wall, total, by_layer, names
 
@@ -1293,25 +1560,302 @@ def profile_windows(windows):
     summed by kernel and by layer, and the device's busy share of the wall
     time. The trace has been seen to lose a short window's kernel events
     (PERF.md, section 6), so a window whose trace holds no kernel whose
-    name contains ``must_see`` is run again, up to three times in all; a
+    name contains ``must_see`` is traced again, up to four times in all,
+    running ``fn`` 1, 2, 4, then 8 times in the trace (numbers per run); a
     window that never shows it fails."""
     out = {}
     for what, fn, must_see in windows:
-        for attempt in range(1, 4):
-            wall, total, by_layer, names = _profile_once(fn)
+        for attempt in range(1, 5):
+            reps = 2 ** (attempt - 1)
+            wall, total, by_layer, names = _profile_once(fn, reps)
             if any(must_see in n for n in names):
                 break
         else:
-            _fail(f"profiler saw no {must_see!r} kernel in three traces of "
-                  f"the {what} (device time {total:.3f} ms)")
+            _fail(f"profiler saw no {must_see!r} kernel in four traces of "
+                  f"the {what} (device time {total:.3f} ms; kernels seen: "
+                  f"{sorted(names)[:8]})")
         shares = ", ".join(f"{k} {v:.2f} ms ({v / total:.0%})" for k, v in
                            sorted(by_layer.items(), key=lambda kv: -kv[1]))
         print(f"  profile {what}"
-              + (f" (trace {attempt} of 3)" if attempt > 1 else "")
+              + (f" (trace {attempt} of 4, mean of {reps} back-to-back "
+                 f"runs)" if attempt > 1 else " (1 run)")
               + f": wall {wall * 1e3:.1f} ms, device busy {total:.1f} ms "
               f"({total / (wall * 1e3):.0%}); {shares}")
         out[what] = (wall, total, by_layer)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (prefill -> decode), dense and MoE
+# ---------------------------------------------------------------------------
+
+
+def _lm_launches() -> dict:
+    c = _counters()
+    return {name: getattr(*c[name]) for name in
+            ("flash_attention_fwd", "decode_attention", "moe_gemm", "rmsnorm")}
+
+
+def check_lm_calls(run, what, *, record_plan=None):
+    """Every kernel call of ``run()`` (a prefill or a decode step) against
+    its plain version on the same inputs, within one bf16 step of the
+    output's scale; the grouped GEMM on the rows of real groups.
+    ``record_plan`` sees the expert ids of every MoE layer."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_reference)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+    from repro_torch.models import layers, transformer as T
+    rel_tol = 2.0 ** -7
+    both, worst, calls = _call_checker(rel_tol)
+    plan = moe_ops.plan
+
+    def recording_plan(expert_ids, *args):
+        if record_plan is not None:
+            record_plan(expert_ids)
+        return plan(expert_ids, *args)
+
+    with torch.no_grad(), \
+            mock.patch.object(T, "flash_attention",
+                              both("flash_attention_fwd",
+                                   flash_ops.flash_attention,
+                                   attention_reference)), \
+            mock.patch.object(T, "decode_attention",
+                              both("decode_attention",
+                                   dec_ops.decode_attention,
+                                   decode_attention_reference)), \
+            mock.patch.object(layers, "rmsnorm_op",
+                              both("rmsnorm", rms_ops.rmsnorm_op,
+                                   rmsnorm_reference)), \
+            mock.patch.object(moe_ops, "moe_gemm_sorted",
+                              both("moe_gemm", moe_ops.moe_gemm_sorted,
+                                   moe_gemm_sorted_reference,
+                                   rows=lambda *a: int(a[4]))), \
+            mock.patch.object(moe_ops, "plan", recording_plan):
+        out = run()
+        torch.cuda.synchronize()
+    print(f"  kernel calls of {what} vs plain versions on the same inputs: "
+          f"{calls}, worst error "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + f" of the output's scale (tol {rel_tol:.2e})")
+    return out
+
+
+def _decode_window(dec, params, token, k, v, lengths, n_steps):
+    """``n_steps`` greedy steps (argmax feeds the next token), one sync at
+    the end: (token, lengths, wall s, all logits finite)."""
+    import torch
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        lengths = lengths + 1
+        logits, k, v = dec.fn(params, token, k, v, lengths)
+        ok &= torch.isfinite(logits).all()
+        token = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return token, lengths, time.perf_counter() - t0, bool(ok)
+
+
+def _step_bytes(cfg, sum_len: float, B: int) -> float:
+    """A decode step's bytes in ``lm_decode_hbm_bytes``'s accounting, over
+    the batch's own lengths: every active weight, the valid K and V rows,
+    the logits."""
+    return (cfg.n_active_params * 2.0
+            + 2.0 * cfg.n_layers * sum_len * cfg.n_kv_heads * cfg.head_dim
+            * 2.0 + 2.0 * B * cfg.vocab * 4.0)
+
+
+def _report_decode(arch, what, cfg, B, wall, n_steps, sum_len):
+    ms = wall / n_steps * 1e3
+    n_bytes = _step_bytes(cfg, sum_len, B)
+    print(f"  {arch} decode, {what}: {n_steps} steps of {B} in {wall:.3f} s "
+          f"= {ms:.2f} ms/step, {B / ms * 1e3:.1f} tokens/s; bytes/step "
+          f"{n_bytes / 1e9:.3f} GB (weights + sum(lengths) {sum_len:.0f} of "
+          f"K/V + logits) = {n_bytes / ms / 1e6:.1f} GB/s, byte bound "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/step")
+
+
+def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
+              long_lo=0, n_long=0, record_plan=None):
+    """One LM through ``build_step`` with random weights from a CUDA
+    generator: a call-by-call check of a prefill of ``check_batch``
+    prompts; the timed prefill of B prompts of S seeded tokens into caches
+    padded to ``pad_to`` (then once more under the profiler); a warm-up
+    step and ``n_steps`` timed greedy decode steps; one decode step checked
+    call by call; with ``n_long``, a window of decode steps over caches of
+    seeded K/V filled to per-sequence lengths in [long_lo, pad_to); each
+    window profiled. Returns the launch counts of the prefill and of the
+    decode window."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import transformer as T
+    spec = get_arch(arch)
+    pre = build_step(spec, ShapeConfig("prefill", "prefill", B, S),
+                     n_layers=n_layers, pad_to=pad_to)
+    dec = build_step(spec, ShapeConfig("decode", "decode", B, pad_to),
+                     n_layers=n_layers)
+    cfg, L = pre.meta["cfg"], pre.meta["cfg"].n_layers
+    print(f"LM {arch} ({cfg.dtype}, full width, {L} of {spec.model.n_layers} "
+          f"layers: d={cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+          f"kv of {cfg.head_dim}, "
+          + (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+             f"{cfg.moe.d_ff_expert}" if cfg.moe else f"d_ff {cfg.d_ff}")
+          + f"; {cfg.n_params / 1e9:.2f} B params): {B} prompts of {S}, "
+          f"cache {pad_to}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    counts = {}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        params = T.lm_init(gen, cfg, spec.recall, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        # first the call-by-call check, which also warms cuBLAS and the
+        # Triton rmsnorm at this width
+        check_lm_calls(lambda: T.prefill(params, cfg, spec.recall,
+                                         tokens[:check_batch]),
+                       f"one prefill of {check_batch} x {S}",
+                       record_plan=record_plan)
+        torch.cuda.empty_cache()
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = pre.fn(params, tokens)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        counts["prefill"] = _lm_launches()
+        embs = out["exit_embs"]
+        n_exits = len(spec.recall.exit_layers(L))
+        if tuple(embs.shape) != (n_exits, B, 1024) or \
+                not torch.isfinite(embs).all():
+            _fail(f"{arch} prefill: exit embeddings {tuple(embs.shape)} "
+                  f"not finite or not ({n_exits}, {B}, 1024)")
+        if tuple(out["k_cache"].shape) != (L, B, pad_to, cfg.n_kv_heads,
+                                           cfg.head_dim):
+            _fail(f"{arch} prefill: cache {tuple(out['k_cache'].shape)}")
+        del out
+        print(f"  init {t_init:.2f} s; prefill {B} x {S}: {t_pre:.3f} s = "
+              f"{B * S / t_pre:.0f} tokens/s, "
+              f"{pre.model_flops / t_pre / 1e12:.1f} model TFLOP/s; "
+              f"launches {counts['prefill']}")
+        held = {}
+
+        def prefill_again():  # frees the last caches before making new ones
+            held.clear()
+            held.update(pre.fn(params, tokens))
+
+        profile_windows(((f"{arch} prefill of {B} x {S}", prefill_again,
+                          "flash_fwd"),))
+        k, v = held.pop("k_cache"), held.pop("v_cache")
+        held.clear()
+        lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        token = tokens[:, -1].contiguous()
+        # a warm-up step, then the timed window
+        token, lengths, _, _ = _decode_window(dec, params, token, k, v,
+                                              lengths, 1)
+        _reset_launches()
+        len0 = float(lengths.sum())
+        token, lengths, wall, ok = _decode_window(dec, params, token, k, v,
+                                                  lengths, n_steps)
+        counts["decode"] = _lm_launches()
+        if not ok:
+            _fail(f"{arch} decode: non-finite logits")
+        _report_decode(arch, f"context {S + 1}-{S + 1 + n_steps}", cfg, B,
+                       wall, n_steps, len0 + B * (n_steps + 1) / 2)
+        print(f"  launches in the decode window: {counts['decode']}")
+        lengths = lengths + 1
+        check_lm_calls(lambda: dec.fn(params, token, k, v, lengths),
+                       "one decode step")
+        profile_windows(((f"{arch} decode step at context {S + n_steps}",
+                          lambda: dec.fn(params, token, k, v, lengths),
+                          "decode_split"),))
+        if n_long:
+            for t in (k, v):
+                t.normal_(generator=gen)
+            lengths = torch.randint(long_lo, pad_to - n_long, (B,),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int32)
+            len0 = float(lengths.sum())
+            token, lengths, wall, ok = _decode_window(dec, params, token, k,
+                                                      v, lengths, n_long)
+            if not ok:
+                _fail(f"{arch} long-context decode: non-finite logits")
+            _report_decode(arch, f"caches of seeded K/V, lengths in "
+                           f"[{long_lo}, {pad_to})", cfg, B, wall, n_long,
+                           len0 + B * (n_long + 1) / 2)
+            profile_windows(((f"{arch} decode step at lengths in "
+                              f"[{long_lo}, {pad_to})",
+                              lambda: dec.fn(params, token, k, v, lengths),
+                              "decode_split"),))
+    # rmsnorm: two a layer, then the exit head's (prefill) or the final
+    # norm (decode)
+    for name, want in (("flash_attention_fwd", ("prefill", L)),
+                       ("decode_attention", ("decode", L * n_steps)),
+                       ("moe_gemm", ("prefill", 3 * L if cfg.moe else 0)),
+                       ("moe_gemm", ("decode",
+                                     3 * L * n_steps if cfg.moe else 0)),
+                       ("rmsnorm", ("prefill", 2 * L + 1)),
+                       ("rmsnorm", ("decode", (2 * L + 1) * n_steps))):
+        window, n = want
+        if counts[window][name] != n:
+            _fail(f"{arch} {window}: {name} launched "
+                  f"{counts[window][name]} times, not {n}")
+    return counts
+
+
+def lm_phase():
+    """qwen2-1.5b at full width and depth: 32 prompts of 2,048 into a
+    32,768-token cache, 32 decode steps, then 8 steps at lengths in
+    [16,384, 32,768) (the reference's decode_32k cut from B = 128 to 32:
+    128 x 32,768 tokens of cache is 117 GB)."""
+    c = _serve_lm("qwen2-1.5b", n_layers=None, B=32, S=2048, pad_to=32768,
+                  n_steps=32, check_batch=8, long_lo=16384, n_long=8)
+    return {"decode_attention[qwen2-1.5b]": c["decode"]["decode_attention"],
+            "flash_attention_fwd[lm_prefill]":
+                c["prefill"]["flash_attention_fwd"]}
+
+
+def moe_phase():
+    """qwen3-moe-30b-a3b at full width, 16 of its 48 layers: 16 prompts of
+    1,024 into a 4,096-token cache, 16 decode steps; the expert loads and
+    the assignments the capacity drops, at the checked prefill."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.moe import capacity
+    moe, B, S = get_arch("qwen3-moe-30b-a3b").model.moe, 16, 1024
+    E, K, C = moe.n_experts, moe.top_k, capacity(S, moe)
+    loads, drops = [], []
+
+    def record(expert_ids):
+        ids = expert_ids.reshape(B, S * K).long()
+        onehot = (ids[..., None] == torch.arange(E, device="cuda")).int()
+        loads.append(onehot.sum((0, 1)))
+        pos = ((torch.cumsum(onehot, 1) - 1) * onehot).sum(-1)
+        drops.append(int((pos >= C).sum()))
+
+    c = _serve_lm("qwen3-moe-30b-a3b", n_layers=16, B=B, S=S, pad_to=4096,
+                  n_steps=16, check_batch=B, record_plan=record)
+    loads_ = torch.stack(loads)                              # (layers, E)
+    print(f"  expert load at the checked prefill ({B} x {S} tokens x top-{K}"
+          f" = {B * S * K} assignments a layer, {E} experts, capacity "
+          f"{C} a group): busiest {int(loads_.max())}, idlest "
+          f"{int(loads_.min())} (mean {B * S * K / E:.0f}); dropped "
+          f"{sum(drops)} of {B * S * K * len(drops)} over {len(drops)} "
+          f"layers")
+    return {"decode_attention[qwen3-moe-30b-a3b]":
+                c["decode"]["decode_attention"],
+            "moe_gemm[prefill]": c["prefill"]["moe_gemm"],
+            "moe_gemm[decode]": c["decode"]["moe_gemm"]}
 
 
 def build_phase():
@@ -1341,7 +1885,8 @@ def main() -> None:
     walls = {}
     for name, phase in (("build", build_phase), ("kernels", kernel_phase),
                         ("serve", serve_phase), ("ivf", ivf_phase),
-                        ("async", async_phase)):
+                        ("async", async_phase), ("lm", lm_phase),
+                        ("moe", moe_phase)):
         t0 = time.perf_counter()
         walls[name] = (phase(), time.perf_counter() - t0)
         torch.cuda.empty_cache()
@@ -1349,7 +1894,9 @@ def main() -> None:
         f"{name} {wall:.1f} s" for name, (_, wall) in walls.items()))
     rows = walls["kernels"][0]
     for row in rows:  # each kernel's count from the path that runs it
-        path = "ivf" if row["name"] in IVF_KERNELS else "serve"
+        path = next((p for p in ("lm", "moe") if row["name"] in
+                     walls[p][0]),
+                    "ivf" if row["name"] in IVF_KERNELS else "serve")
         row["launches"] = walls[path][0][row["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

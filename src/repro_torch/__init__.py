@@ -1,5 +1,7 @@
-"""PyTorch + CUDA port of RECALL's serving path (embed -> int4 bank ->
-speculative query), beside the JAX reference package ``repro``.
+"""PyTorch + CUDA port of RECALL (embed -> int4 bank -> speculative query,
+the IVF coarse filter, the write side) and of the reference's LM serving
+path (prefill -> decode, dense and MoE), beside the JAX reference package
+``repro``.
 
 Subpackages mirror ``repro``'s names so each module's counterpart is easy to
 find. Kernels are hand-written for Hopper (``kernels/*/csrc`` and the Triton

@@ -1,20 +1,32 @@
-"""Config dataclasses and registry for the port (the ``mem`` family only).
+"""Config dataclasses and registry for the port (the ``mem`` and ``lm``
+families).
 
-A copy of the parts of ``repro.configs.base`` that RECALL's serving path
-reads, so the port imports nothing of the JAX package. Field names and
-defaults are the reference's; ``tests/test_torch_imports.py`` keeps the
-port free of ``repro`` imports and the parity tests keep the values equal.
+A copy of the parts of ``repro.configs.base`` that the ported paths read
+(RECALL's serving path, the LM serving path), so the port imports nothing
+of the JAX package. Field names and defaults are the reference's;
+``tests/test_torch_imports.py`` keeps the port free of ``repro`` imports and
+the parity tests keep the values equal.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
 
 
 @dataclass(frozen=True)
 class LMConfig:
-    """Transformer stack config; the MEM towers use it bidirectionally."""
+    """Decoder-style transformer (also used bidirectionally for encoders)."""
 
     n_layers: int
     d_model: int
@@ -25,14 +37,50 @@ class LMConfig:
     d_head: int = 0  # 0 -> d_model // n_heads
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    moe: Optional[MoEConfig] = None
     causal: bool = True
     window: int = 0  # 0 = full attention; >0 = sliding window
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     dtype: str = "bfloat16"
 
     @property
     def head_dim(self) -> int:
         return self.d_head if self.d_head else self.d_model // self.n_heads
+
+    def _attn_params(self) -> int:
+        d, h, kv, hd = self.d_model, self.n_heads, self.n_kv_heads, \
+            self.head_dim
+        return d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
+
+    def _embed_params(self) -> int:
+        return self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+
+    @property
+    def n_params(self) -> int:
+        """Analytic parameter count (the reference's, for 6ND roofline
+        terms)."""
+        d = self.d_model
+        if self.moe is not None:
+            m = self.moe
+            ff_exp = 3 * d * m.d_ff_expert  # gate+up+down (SwiGLU)
+            ff = (m.n_experts * ff_exp + m.n_shared_experts * ff_exp
+                  + d * m.n_experts)
+        else:
+            ff = 3 * d * self.d_ff
+        per_layer = self._attn_params() + ff + 2 * d  # two norms
+        return self.n_layers * per_layer + self._embed_params() + d
+
+    @property
+    def n_active_params(self) -> int:
+        """Active params per token (MoE counts only routed top-k experts)."""
+        if self.moe is None:
+            return self.n_params
+        d, m = self.d_model, self.moe
+        ff_exp = 3 * d * m.d_ff_expert
+        per_layer = (self._attn_params() + (m.top_k + m.n_shared_experts)
+                     * ff_exp + d * m.n_experts + 2 * d)
+        return self.n_layers * per_layer + self._embed_params() + d
 
 
 @dataclass(frozen=True)
@@ -99,7 +147,7 @@ class ShapeConfig:
     """One benchmark cell: names the step and its global dims."""
 
     name: str
-    kind: str  # serve | retrieval | train | ...
+    kind: str  # serve | retrieval | train | prefill | decode
     global_batch: int = 0
     seq_len: int = 0
     n_candidates: int = 0
@@ -109,17 +157,24 @@ class ShapeConfig:
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # "mem" is the only family the port carries
-    model: Any  # MEMConfig
+    family: str  # "mem" | "lm" (the families the port carries)
+    model: Any  # MEMConfig | LMConfig
     shapes: Tuple[ShapeConfig, ...]
     recall: RecallConfig = RecallConfig()
     source: str = ""
     notes: str = ""
 
+    def shape(self, name: str) -> ShapeConfig:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id}: no shape {name!r}")
+
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 
-_ARCH_MODULES = ["recall_imagebind"]
+_ARCH_MODULES = ["qwen3_moe_30b_a3b", "moonshot_v1_16b_a3b", "minitron_8b",
+                 "deepseek_67b", "qwen2_1_5b", "recall_imagebind"]
 
 
 def register(spec: ArchSpec) -> ArchSpec:
@@ -143,20 +198,47 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 
 def smoke_variant(spec: ArchSpec) -> ArchSpec:
-    """Shrink a full ``mem`` config to a CPU-runnable one of the same family
-    (the reference's ``mem`` branch, value for value)."""
-    if spec.family != "mem":
-        raise ValueError(f"the port carries only the mem family, not "
-                         f"{spec.family!r}")
+    """Shrink a full config to a CPU-runnable one of the same family (the
+    reference's ``lm`` and ``mem`` branches, value for value)."""
     m = spec.model
-    towers = tuple(
-        replace(t, n_layers=3, d_model=32, n_heads=2, d_ff=64,
-                n_tokens=min(t.n_tokens, 16), d_input=min(t.d_input, 24),
-                vocab=min(t.vocab, 256) if t.vocab else 0)
-        for t in m.towers
-    )
-    sm = replace(m, towers=towers, embed_dim=32)
-    shapes = (ShapeConfig("smoke_embed", "serve", global_batch=8),)
+    if spec.family == "lm":
+        moe = None
+        if m.moe is not None:
+            moe = replace(m.moe, n_experts=4, top_k=2, d_ff_expert=64,
+                          n_shared_experts=min(m.moe.n_shared_experts, 1))
+        sm = replace(m, n_layers=4, d_model=64, n_heads=4,
+                     n_kv_heads=min(m.n_kv_heads, 2), d_head=16, d_ff=128,
+                     vocab=512, moe=moe, dtype="float32")
+        shapes = (ShapeConfig("smoke_train", "train", global_batch=4,
+                              seq_len=32),
+                  ShapeConfig("smoke_decode", "decode", global_batch=4,
+                              seq_len=64))
+    elif spec.family == "mem":
+        towers = tuple(
+            replace(t, n_layers=3, d_model=32, n_heads=2, d_ff=64,
+                    n_tokens=min(t.n_tokens, 16), d_input=min(t.d_input, 24),
+                    vocab=min(t.vocab, 256) if t.vocab else 0)
+            for t in m.towers
+        )
+        sm = replace(m, towers=towers, embed_dim=32)
+        shapes = (ShapeConfig("smoke_embed", "serve", global_batch=8),)
+    else:
+        raise ValueError(f"the port carries the mem and lm families, not "
+                         f"{spec.family!r}")
     rc = replace(spec.recall, exit_interval=1, superficial_layers=1)
     return replace(spec, arch_id=spec.arch_id + "-smoke", model=sm,
                    shapes=shapes, recall=rc)
+
+
+def lm_shapes(full_attention: bool) -> Tuple[ShapeConfig, ...]:
+    """The standard LM shape set of every LM arch (the reference's)."""
+    skip = ("pure full-attention arch: 524k-token context needs "
+            "sub-quadratic attention (see DESIGN.md §5); runnable via "
+            "--window sliding-window extension") if full_attention else ""
+    return (
+        ShapeConfig("train_4k", "train", global_batch=256, seq_len=4096),
+        ShapeConfig("prefill_32k", "prefill", global_batch=32, seq_len=32768),
+        ShapeConfig("decode_32k", "decode", global_batch=128, seq_len=32768),
+        ShapeConfig("long_500k", "decode", global_batch=1, seq_len=524288,
+                    skip_reason=skip),
+    )

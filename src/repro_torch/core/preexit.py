@@ -23,7 +23,7 @@ def predictor_schema(d_in: int, hidden: int, n_exits: int) -> Schema:
 
 
 def predictor_init(gen: torch.Generator, d_in: int, hidden: int,
-                   n_exits: int, device="cpu"):
+                   n_exits: int, device="cuda"):
     return L.init_params(gen, predictor_schema(d_in, hidden, n_exits),
                          device=device)
 

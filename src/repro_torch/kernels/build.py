@@ -29,6 +29,9 @@ SOURCES: Dict[str, Path] = {
     "topk_dense": _TOPK / "topk_dense.cu",
     "flash_fwd": KERNELS_DIR / "flash_attention" / "csrc" / "flash_fwd.cu",
     "int4_cache": KERNELS_DIR / "int4_cache" / "csrc" / "int4_cache.cu",
+    "decode_attn": KERNELS_DIR / "decode_attention" / "csrc"
+    / "decode_attn.cu",
+    "moe_gemm": KERNELS_DIR / "moe_gemm" / "csrc" / "moe_gemm.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -35,7 +35,8 @@ def tower_lm_cfg(t: TowerConfig, mem: MEMConfig) -> LMConfig:
 
 def tower_schema(t: TowerConfig, mem: MEMConfig, recall: RecallConfig) -> Schema:
     cfg = tower_lm_cfg(t, mem)
-    s = T.lm_schema(cfg, recall, embed_out=mem.embed_dim)
+    s = T.lm_schema(cfg, recall, embed_out=mem.embed_dim,
+                    with_lm_head=False)
     del s["embed"]
     if t.vocab:  # discrete-token frontend
         s["tok_emb"] = ParamDef((t.vocab, t.d_model), ("vocab", "embed"), "embed")
@@ -54,7 +55,7 @@ def mem_schema(cfg: MEMConfig, recall: RecallConfig) -> Schema:
 
 
 def mem_init(gen: torch.Generator, cfg: MEMConfig, recall: RecallConfig,
-             device="cpu"):
+             device="cuda"):
     """Random MEM params from ``gen`` (a generator on ``device``)."""
     dtype = L.torch_dtype(cfg.dtype)
     p = L.init_params(gen, mem_schema(cfg, recall), dtype=dtype, device=device)

@@ -60,10 +60,11 @@ def _init_leaf(gen: torch.Generator, d: ParamDef, dtype: torch.dtype,
 
 
 def init_params(gen: torch.Generator, schema: Schema, dtype=torch.float32,
-                device="cpu"):
+                device="cuda"):
     """Initialize a nested param dict from a schema (keys in sorted order,
     one draw per leaf from ``gen``, which must live on ``device``)."""
-    device = torch.device(device)
+    from repro_torch import resolve_device
+    device = resolve_device(device)
     dtype = torch_dtype(dtype)
 
     def walk(s):
@@ -95,7 +96,32 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention projections / MLPs (schemas; the apply functions live in
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)  # (head_dim//2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int. The
+    rotation runs in fp32 and the result is cast back to x's dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    angles = positions[..., None].float() * freqs     # (..., seq, hd/2)
+    sin = torch.sin(angles)[..., None, :]             # (..., seq, 1, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention projections / MLPs (the attention apply functions live in
 # models/transformer.py)
 # ---------------------------------------------------------------------------
 
@@ -128,6 +154,14 @@ def swiglu_schema(d_model: int, d_ff: int,
     }
 
 
+def swiglu(p: Schema, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU FFN: the gate's SiLU in fp32, cast back, times up."""
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["w_down"].to(x.dtype)
+
+
 def mlp_schema(dims: Sequence[int], name_axes: Tuple[str, str] = ("embed", "mlp"),
                bias: bool = True) -> Schema:
     """Plain feed-forward stack ``dims[0] -> dims[1] -> ... -> dims[-1]``."""
@@ -158,6 +192,12 @@ def mlp_apply(p: Schema, x: torch.Tensor, *, act=torch.relu,
 
 def embed_schema(vocab: int, d: int) -> ParamDef:
     return ParamDef((vocab, d), ("vocab", "embed"), "embed")
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` by id; out-of-range ids are clamped, as the
+    reference's ``jnp.take(..., mode="clip")`` does."""
+    return table[ids.long().clamp(0, table.shape[0] - 1)]
 
 
 # ---------------------------------------------------------------------------

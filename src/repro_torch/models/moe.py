@@ -1,0 +1,128 @@
+"""Mixture-of-Experts: top-k router + GShard group-wise capacity semantics,
+with the expert FFN on the grouped expert GEMM.
+
+The reference dispatches each group's (batch row's) tokens into a
+(B, E, C, d) capacity buffer and runs the experts as dense einsums. The
+port computes the same function without the buffer: every one of the
+B * S * K assignments goes through ``kernels.moe_gemm`` (gate, up and down
+on one sort/pad plan), and the assignments the reference drops
+(position-in-expert >= C) are zeroed at the combine, as the reference's
+``jnp.where(keep, y_tok, 0)`` does. No data-dependent shape reaches the
+host.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.kernels.moe_gemm import ops as gemm
+from repro_torch.models import layers as L
+from repro_torch.models.layers import ParamDef, Schema
+
+
+def moe_schema(d_model: int, moe: MoEConfig,
+               layer_dims: Tuple[int, ...] = ()) -> Schema:
+    Ld = layer_dims
+    la = tuple("layer" for _ in Ld)
+    E, Fe = moe.n_experts, moe.d_ff_expert
+    s: Schema = {
+        "router": ParamDef(Ld + (d_model, E), la + ("embed", "expert"), "fan_in"),
+        "w_gate": ParamDef(Ld + (E, d_model, Fe), la + ("expert", "embed", "mlp"), "fan_in"),
+        "w_up": ParamDef(Ld + (E, d_model, Fe), la + ("expert", "embed", "mlp"), "fan_in"),
+        "w_down": ParamDef(Ld + (E, Fe, d_model), la + ("expert", "mlp", "embed"), "fan_in"),
+    }
+    if moe.n_shared_experts:
+        s["shared"] = L.swiglu_schema(d_model, Fe * moe.n_shared_experts,
+                                      layer_dims=Ld)
+    return s
+
+
+def capacity(n_tokens: int, moe: MoEConfig) -> int:
+    c = int(np.ceil(n_tokens * moe.top_k * moe.capacity_factor / moe.n_experts))
+    return max(8, int(np.ceil(c / 8)) * 8)  # pad to lane multiple
+
+
+def _route(p: Schema, x: torch.Tensor, moe: MoEConfig):
+    """fp32 softmax router, top-k, renormalised: (probs, top_p, top_i)."""
+    logits = x.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_i = torch.topk(probs, moe.top_k, dim=-1)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    return probs, top_p, top_i
+
+
+def expert_ffn(p: Schema, x: torch.Tensor, expert_ids: torch.Tensor,
+               top_k: int) -> torch.Tensor:
+    """(T * K, d) outputs of assignment a = token a // top_k of x (T, d)
+    through expert ``expert_ids[a]``'s SwiGLU: three grouped GEMMs on one
+    sort/pad plan, the gate's SiLU in fp32 cast back, times up."""
+    E = p["w_gate"].shape[0]
+    bt = gemm.block_t_for(expert_ids.shape[0], E)
+    plan = gemm.plan(expert_ids, E, bt)
+    xs = gemm.scatter_rows(x, plan, token_of=lambda a: a // top_k)
+
+    def grouped(h, w):
+        return gemm.moe_gemm_sorted(h, plan.block_expert, w.to(x.dtype), bt,
+                                    plan.used)
+
+    g = grouped(xs, p["w_gate"])
+    u = grouped(xs, p["w_up"])
+    h = F.silu(g.float()).to(x.dtype) * u
+    return gemm.gather_rows(grouped(h, p["w_down"]), plan)
+
+
+def moe_apply(p: Schema, x: torch.Tensor,
+              moe: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss). Group-wise (per batch row) capacity,
+    as the reference's ``moe_apply``."""
+    B, S, d = x.shape
+    E, K = moe.n_experts, moe.top_k
+    C = capacity(S, moe)  # per-group capacity
+
+    probs, top_p, top_i = _route(p, x, moe)            # (B, S, E), (B, S, K)
+
+    experts = torch.arange(E, device=x.device)
+    # Switch-style load-balancing auxiliary loss (per group, then averaged)
+    frac_tokens = (top_i[..., 0, None] == experts).float().mean(1)  # (B, E)
+    mean_probs = probs.mean(1)                                     # (B, E)
+    aux = moe.router_aux_coef * E * torch.mean(
+        torch.sum(frac_tokens * mean_probs, -1))
+
+    # position-in-expert via a per-group cumsum over (token-major)
+    # assignments; the reference drops an assignment at pos >= C
+    flat_e = top_i.reshape(B, S * K)
+    onehot = (flat_e[..., None] == experts).to(torch.int32)        # (B, SK, E)
+    pos = torch.sum((torch.cumsum(onehot, 1, dtype=torch.int32) - 1) * onehot,
+                    -1)
+    keep = pos < C
+
+    y_tok = expert_ffn(p, x.reshape(B * S, d), flat_e.reshape(-1), K)
+    y_tok = torch.where(keep.reshape(-1, 1), y_tok, torch.zeros_like(y_tok))
+    y = torch.sum(y_tok.reshape(B, S, K, d)
+                  * top_p.reshape(B, S, K, 1).to(x.dtype), dim=2)
+    if "shared" in p:
+        y = y + L.swiglu(p["shared"], x)
+    return y, aux
+
+
+def moe_apply_dense(p: Schema, x: torch.Tensor,
+                    moe: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle path: run every expert densely, weight by router (tests
+    only)."""
+    B, S, d = x.shape
+    xt = x.reshape(-1, d)
+    probs, top_p, top_i = _route(p, xt, moe)
+    gate = torch.zeros_like(probs).scatter(1, top_i, top_p)
+    g = torch.einsum("td,edf->tef", xt, p["w_gate"].to(x.dtype))
+    u = torch.einsum("td,edf->tef", xt, p["w_up"].to(x.dtype))
+    h = F.silu(g.float()).to(x.dtype) * u
+    out = torch.einsum("tef,efd->ted", h, p["w_down"].to(x.dtype))
+    y = torch.einsum("ted,te->td", out.float(), gate).to(x.dtype)
+    y = y.reshape(B, S, d)
+    if "shared" in p:
+        y = y + L.swiglu(p["shared"], x)
+    return y, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,37 +1,47 @@
-"""Transformer encoder stack with Recall exits (the reference's encoder path).
+"""Transformer stack (decoder LM / bidirectional encoder) with Recall exits.
 
 Layer parameters are *stacked* (leading ``n_layers`` dim, the reference's
 layout); ``forward_hidden`` runs layers ``[layer_start, layer_end)`` as a
 Python loop over that dim, which is how coarse (early-exited) encoding and
-live-encoder refinement (paper §3.4) reuse one weight set. Attention goes
-through the flash kernel's dispatch and both norms through the rmsnorm
-kernel's; the QKV, O and SwiGLU projections are plain ``torch.matmul``.
+live-encoder refinement (paper §3.4) reuse one weight set. The LM serving
+path is ``prefill`` (a prompt batch into a preallocated, padded KV cache,
+with the exit embeddings) and ``decode_step`` (one greedy token against
+that cache, written in place).
+
+Attention goes through the flash kernel's dispatch at prefill and the
+decode kernel's at decode, the norms through the rmsnorm kernel's and MoE
+layers through the grouped expert GEMM's (``models/moe.py``); the QKV, O,
+SwiGLU, router and logits projections are plain ``torch.matmul``. LoRA
+deltas are not ported (ROADMAP queue A.4): ``lora`` must be None or empty.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig, RecallConfig
+from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import ParamDef, Schema
 
 
-def lm_schema(cfg: LMConfig, recall: RecallConfig, *,
-              embed_out: int = 1024) -> Schema:
-    """Encoder schema (the reference's ``lm_schema`` without an lm_head)."""
+def lm_schema(cfg: LMConfig, recall: RecallConfig, *, embed_out: int = 1024,
+              with_lm_head: bool = True) -> Schema:
     Ld = (cfg.n_layers,)
     layer: Schema = {
         "norm1": L.rmsnorm_schema(cfg.d_model, Ld),
         "norm2": L.rmsnorm_schema(cfg.d_model, Ld),
         "attn": L.attn_schema(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.head_dim, cfg.qkv_bias, layer_dims=Ld),
-        "mlp": L.swiglu_schema(cfg.d_model, cfg.d_ff, layer_dims=Ld),
     }
-    return {
+    if cfg.moe is not None:
+        layer["moe"] = MOE.moe_schema(cfg.d_model, cfg.moe, layer_dims=Ld)
+    else:
+        layer["mlp"] = L.swiglu_schema(cfg.d_model, cfg.d_ff, layer_dims=Ld)
+    s: Schema = {
         "embed": L.embed_schema(cfg.vocab, cfg.d_model),
         "layers": layer,
         "final_norm": L.rmsnorm_schema(cfg.d_model),
@@ -42,6 +52,24 @@ def lm_schema(cfg: LMConfig, recall: RecallConfig, *,
                              "fan_in"),
         },
     }
+    if with_lm_head and not cfg.tie_embeddings:
+        s["lm_head"] = ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                                "fan_in")
+    return s
+
+
+def lm_init(gen: torch.Generator, cfg: LMConfig, recall: RecallConfig, *,
+            device="cuda", **kw):
+    """Random LM params from ``gen`` (a generator on ``device``), in the
+    config's dtype."""
+    return L.init_params(gen, lm_schema(cfg, recall, **kw),
+                         dtype=L.torch_dtype(cfg.dtype), device=device)
+
+
+def check_no_lora(lora) -> None:
+    if lora:
+        raise NotImplementedError("LoRA deltas in the transformer are not "
+                                  "ported yet: ROADMAP queue A.4 (training)")
 
 
 def layer_slice(tree, i: int):
@@ -51,8 +79,11 @@ def layer_slice(tree, i: int):
     return {k: layer_slice(v, i) for k, v in tree.items()}
 
 
-def _proj_qkv(p: Schema, x: torch.Tensor):
-    """x (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd), contiguous."""
+def _proj_qkv(p: Schema, x: torch.Tensor,
+              positions: Optional[torch.Tensor] = None,
+              rope_theta: float = 0.0):
+    """x (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd), contiguous; RoPE at
+    ``positions`` (B, S) when ``rope_theta`` > 0."""
     B, S, d = x.shape
     out = []
     for name, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
@@ -61,7 +92,11 @@ def _proj_qkv(p: Schema, x: torch.Tensor):
         if bias in p:
             y = y + p[bias].to(x.dtype)
         out.append(y)
-    return tuple(out)
+    q, k, v = out
+    if rope_theta > 0:
+        q = L.apply_rope(q, positions, rope_theta)
+        k = L.apply_rope(k, positions, rope_theta)
+    return q, k, v
 
 
 def _attn_out(p: Schema, o: torch.Tensor) -> torch.Tensor:
@@ -70,51 +105,116 @@ def _attn_out(p: Schema, o: torch.Tensor) -> torch.Tensor:
     return (o.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).view(B, S, -1)
 
 
-def _swiglu(p: Schema, x: torch.Tensor) -> torch.Tensor:
-    g = x @ p["w_gate"].to(x.dtype)
-    u = x @ p["w_up"].to(x.dtype)
-    h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"].to(x.dtype)
+def _ffn(pl_: Schema, h: torch.Tensor, cfg: LMConfig):
+    """(y, aux): the MoE layer (aux its loss) or the dense SwiGLU (aux
+    None)."""
+    if cfg.moe is not None:
+        return MOE.moe_apply(pl_["moe"], h, cfg.moe)
+    return L.swiglu(pl_["mlp"], h), None
 
 
-def layer_full(pl_: Schema, x: torch.Tensor, cfg: LMConfig, *,
-               window: int) -> torch.Tensor:
-    """Self-attention layer over the full (own) sequence."""
+def layer_full(pl_: Schema, x: torch.Tensor, cfg: LMConfig,
+               positions: Optional[torch.Tensor], *, window: int):
+    """Self-attention layer over the full (own) sequence -> (x, (k, v),
+    aux or None)."""
     h = L.rmsnorm(x, pl_["norm1"], cfg.norm_eps)
-    q, k, v = _proj_qkv(pl_["attn"], h)
+    q, k, v = _proj_qkv(pl_["attn"], h, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=cfg.causal, window=window)
     x = x + _attn_out(pl_["attn"], o)
     h2 = L.rmsnorm(x, pl_["norm2"], cfg.norm_eps)
-    return x + _swiglu(pl_["mlp"], h2)
+    y, aux = _ffn(pl_, h2, cfg)
+    return x + y, (k, v), aux
+
+
+def layer_decode(pl_: Schema, x: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, lengths: torch.Tensor, cfg: LMConfig,
+                 *, window: int):
+    """One-token step. x (B,1,d); k/v_cache (B,S,KV,hd) of this layer;
+    lengths (B,) int32 is the sequence length *including* the new token
+    (the query sits at lengths-1). The new token's k/v are written into the
+    caches in place at lengths-1, placed as the reference's
+    ``dynamic_update_slice_in_dim`` places it: a negative index counts from
+    the end, then the index is clamped to [0, S-1]. Returns (x, aux or
+    None)."""
+    B, S = k_cache.shape[:2]
+    h = L.rmsnorm(x, pl_["norm1"], cfg.norm_eps)
+    positions = (lengths - 1)[:, None]
+    q, k_new, v_new = _proj_qkv(pl_["attn"], h, positions, cfg.rope_theta)
+    rows = torch.arange(B, device=x.device)
+    at = lengths.long() - 1
+    at = torch.clamp(torch.where(at < 0, at + S, at), 0, S - 1)
+    k_cache[rows, at] = k_new[:, 0]
+    v_cache[rows, at] = v_new[:, 0]
+    o = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths,
+                         window=window)
+    x = x + _attn_out(pl_["attn"], o[:, None])
+    h2 = L.rmsnorm(x, pl_["norm2"], cfg.norm_eps)
+    y, aux = _ffn(pl_, h2, cfg)
+    return x + y, aux
 
 
 def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
-                   embeds: torch.Tensor,
+                   tokens: Optional[torch.Tensor] = None,
+                   embeds: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None,
+                   lora=None,
                    layer_start: int = 0, layer_end: Optional[int] = None,
                    collect_pooled: bool = False, pool: str = "mean",
+                   return_kv: bool = False,
+                   kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                    window: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Run layers [layer_start, layer_end) on ``embeds`` (B, S, d). Returns
-    {"h": (B, S, d) final hidden, "pooled": (L', B, d) per-layer pooled
-    hidden (if collect_pooled)}."""
-    if cfg.rope_theta > 0:
-        raise NotImplementedError("RoPE belongs to the LM path, which is not "
-                                  "ported yet: ROADMAP queue A, model zoo")
+    """Run layers [layer_start, layer_end) on ``embeds`` (B, S, d) or on
+    the embedding rows of ``tokens`` (B, S). Returns {"h": (B, S, d) final
+    hidden, "aux": f32 scalar (the MoE layers' aux loss), "pooled":
+    (L', B, d) per-layer pooled hidden (if collect_pooled; ``mask`` (B, S)
+    makes the mean pool a masked mean), "kv": (k, v) caches of shape
+    (L', B, S', KV, hd) (if return_kv)}. With ``kv_cache`` the layers' k/v
+    are written into those caches at [i - layer_start, :, :S] (S' >= S; a
+    prefill into a preallocated padded cache); without it caches of exactly
+    S are allocated."""
+    check_no_lora(lora)
     if pool not in ("cls", "mean"):
         raise ValueError(f"pool={pool!r}")
+    if embeds is None:
+        embeds = L.embed_lookup(params["embed"], tokens).to(
+            L.torch_dtype(cfg.dtype))
     x = embeds
+    B, S, _ = x.shape
+    positions = None
+    if cfg.rope_theta > 0:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     layer_end = cfg.n_layers if layer_end is None else layer_end
     window = cfg.window if window is None else window
-    pooled = []
+    if return_kv and kv_cache is None:
+        shape = (layer_end - layer_start, B, S, cfg.n_kv_heads, cfg.head_dim)
+        kv_cache = (x.new_empty(shape), x.new_empty(shape))
+    pooled, aux = [], None
     for i in range(layer_start, layer_end):
-        x = layer_full(layer_slice(params["layers"], i), x, cfg,
-                       window=window)
+        x, (k, v), aux_l = layer_full(layer_slice(params["layers"], i), x,
+                                      cfg, positions, window=window)
+        if aux_l is not None:
+            aux = aux_l if aux is None else aux + aux_l
+        if return_kv:
+            kv_cache[0][i - layer_start, :, :S] = k
+            kv_cache[1][i - layer_start, :, :S] = v
         if collect_pooled:
-            p = x[:, 0] if pool == "cls" else x.float().mean(1).to(x.dtype)
+            if pool == "cls":
+                p = x[:, 0]
+            elif mask is not None:
+                m = mask[..., None].float()
+                p = ((x.float() * m).sum(1)
+                     / torch.clamp_min(m.sum(1), 1.0)).to(x.dtype)
+            else:
+                p = x.float().mean(1).to(x.dtype)
             pooled.append(p)
-    out = {"h": x}
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = {"h": x, "aux": aux}
     if collect_pooled:
         out["pooled"] = torch.stack(pooled) if pooled else \
             x.new_zeros((0,) + x.shape[:1] + x.shape[2:])
+    if return_kv:
+        out["kv"] = kv_cache
     return out
 
 
@@ -125,3 +225,55 @@ def exit_embedding(params: Schema, pooled: torch.Tensor,
     h = L.rmsnorm(pooled, params["exit_head"]["norm"], eps)
     e = h.float() @ params["exit_head"]["proj"].float()
     return L.l2_normalize(e)
+
+
+# ---------------------------------------------------------------------------
+# LM serving steps
+# ---------------------------------------------------------------------------
+
+
+def lm_head(params: Schema, cfg: LMConfig) -> torch.Tensor:
+    """The (d, V) logits head: the embedding table's transpose when tied."""
+    if cfg.tie_embeddings or "lm_head" not in params:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def prefill(params: Schema, cfg: LMConfig, recall: RecallConfig,
+            tokens: torch.Tensor, pad_to: Optional[int] = None, **fw_kw):
+    """Prefill: the KV caches (L, B, max(S, pad_to), KV, hd), zero past S,
+    the final hidden, the exit embeddings (n_exits, B, E) and the aux loss.
+    The caches are allocated once at their padded size and each layer's k/v
+    written into them (the reference stacks, then pads)."""
+    B, S = tokens.shape
+    S_cache = max(S, pad_to or 0)
+    shape = (cfg.n_layers, B, S_cache, cfg.n_kv_heads, cfg.head_dim)
+    dt = L.torch_dtype(cfg.dtype)
+    caches = (torch.zeros(shape, dtype=dt, device=tokens.device),
+              torch.zeros(shape, dtype=dt, device=tokens.device))
+    out = forward_hidden(params, cfg, recall, tokens=tokens, return_kv=True,
+                         kv_cache=caches, collect_pooled=True, **fw_kw)
+    exits = recall.exit_layers(cfg.n_layers)
+    idx = torch.tensor([e - 1 for e in exits], device=tokens.device)
+    embs = exit_embedding(params, out["pooled"][idx], cfg.norm_eps)
+    return {"k_cache": caches[0], "v_cache": caches[1], "h": out["h"],
+            "exit_embs": embs, "aux": out["aux"]}
+
+
+def decode_step(params: Schema, cfg: LMConfig, recall: RecallConfig,
+                token: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, lengths: torch.Tensor, *, lora=None,
+                window: Optional[int] = None):
+    """token (B,); caches (L,B,S,KV,hd); lengths (B,) incl. the new token.
+    Returns (logits (B,V) f32, k_cache, v_cache): the caches are the same
+    tensors, the new token's k/v written in place."""
+    check_no_lora(lora)
+    x = L.embed_lookup(params["embed"], token[:, None]).to(
+        L.torch_dtype(cfg.dtype))
+    window = cfg.window if window is None else window
+    lengths = lengths.to(torch.int32)
+    for i in range(cfg.n_layers):
+        x, _ = layer_decode(layer_slice(params["layers"], i), x, k_cache[i],
+                            v_cache[i], lengths, cfg, window=window)
+    h = L.rmsnorm(x[:, 0], params["final_norm"], cfg.norm_eps)
+    return h.float() @ lm_head(params, cfg).float(), k_cache, v_cache

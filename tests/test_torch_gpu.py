@@ -227,3 +227,107 @@ def test_async_refresh_epoch_on_the_card_with_a_racing_scan(gen):
     torch.cuda.synchronize()
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
     st.set_bank_refresh("sync")
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,dtype,window,lengths", [
+    (2, 100, 8, 2, 128, torch.float32, 0, (1, 100)),
+    (3, 77, 6, 1, 64, torch.bfloat16, 10, (77, 5, 40)),
+    (1, 40, 4, 4, 16, torch.float32, 0, (0,)),       # no valid position
+    (2, 50, 16, 2, 32, torch.bfloat16, 0, (50, 60))])  # G = 8, length > S
+def test_decode_kernel_matches_plain(gen, B, S, H, KV, D, dtype, window,
+                                     lengths):
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_reference)
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    before = ops.launches
+    o = ops.decode_attention(q, k, v, lens, window=window)
+    assert ops.launches == before + 1
+    o_p = decode_attention_reference(q, k, v, lens, window=window)
+    assert o.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    assert (o.float() - o_p.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("T,d,E,F,bt,dtype,kind", [
+    (300, 64, 8, 128, 64, torch.bfloat16, "random"),
+    (77, 40, 8, 768, 16, torch.bfloat16, "empty"),   # d, T ragged; F = 768
+    (128, 16, 8, 32, 16, torch.float32, "one"),      # all on one expert
+    (50, 256, 4, 100, 16, torch.bfloat16, "random")])  # F ragged
+def test_moe_gemm_kernel_matches_plain(gen, T, d, E, F, bt, dtype, kind):
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import (moe_gemm_reference,
+                                                  moe_gemm_sorted_reference)
+    if kind == "one":
+        eid = torch.full((T,), 3, dtype=torch.int32, device="cuda")
+    else:
+        eid = torch.randint(0, E, (T,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        if kind == "empty":
+            eid = eid // 2 * 2
+    x = torch.randn((T, d), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((E, d, F), generator=gen, device="cuda") * 0.1).to(dtype)
+    p = ops.plan(eid, E, bt)
+    xs = ops.scatter_rows(x, p)
+    before = ops.launches
+    ys = ops.moe_gemm_sorted(xs, p.block_expert, w, bt, p.used)
+    assert ops.launches == before + 1
+    ys_p = moe_gemm_sorted_reference(xs, p.block_expert, w, bt, p.used)
+    n = int(p.used)
+    scale = max(1.0, ys_p[:n].float().abs().max().item())
+    # f32: another summation order; bf16: one output rounding step
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert (ys[:n].float() - ys_p[:n].float()).abs().max().item() <= \
+        rel * scale
+    y = ops.moe_gemm(x, eid, w, block_t=bt)
+    y_p = moe_gemm_reference(x, eid, w)
+    assert (y.float() - y_p.float()).abs().max().item() <= rel * scale
+
+
+def test_lm_prefill_and_decode_on_the_card_match_the_cpu(gen):
+    """A small fp32 MoE LM (head dim 64, GQA 2:1, 8 experts top-2) through
+    prefill and two greedy decode steps on the card (flash, rmsnorm,
+    decode attention and the grouped GEMM kernels) against the same
+    weights on the CPU (the plain versions)."""
+    from repro_torch.configs.base import LMConfig, MoEConfig, RecallConfig
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.models import transformer as T
+    cfg = LMConfig(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                   d_head=64, d_ff=0, vocab=300, rope_theta=1e4,
+                   moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=96),
+                   dtype="float32")
+    rc = RecallConfig(exit_interval=1)
+    params = T.lm_init(gen, cfg, rc, device="cuda")
+
+    def to(tree, dev):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(dev)
+        return {k: to(v, dev) for k, v in tree.items()}
+
+    p_cpu = to(params, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (3, 20), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    outs = {}
+    for dev, p in (("cuda", params), ("cpu", p_cpu)):
+        before = (dec_ops.launches, moe_ops.launches)
+        pre = T.prefill(p, cfg, rc, tokens.to(dev), pad_to=32)
+        k, v = pre["k_cache"], pre["v_cache"]
+        lengths = torch.tensor([21, 15, 21], dtype=torch.int32, device=dev)
+        token = tokens[:, -1].to(dev)
+        logits = []
+        for _ in range(2):
+            lg, k, v = T.decode_step(p, cfg, rc, token, k, v, lengths)
+            logits.append(lg)
+            token = lg.argmax(-1).to(torch.int32)
+            lengths = lengths + 1
+        outs[dev] = (pre["exit_embs"], k, torch.stack(logits))
+        if dev == "cuda":
+            assert dec_ops.launches == before[0] + 2 * cfg.n_layers
+            assert moe_ops.launches == before[1] + 3 * 3 * cfg.n_layers
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        scale = max(1.0, want.abs().max().item())
+        assert (got.cpu() - want).abs().max().item() <= 1e-4 * scale

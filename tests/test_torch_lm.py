@@ -1,0 +1,270 @@
+"""Port parity: the LM serving path (configs, schema, RoPE, prefill into a
+padded KV cache, greedy decode steps, the step builders) against the
+reference, on the smoke variants of qwen2-1.5b and qwen3-moe-30b-a3b with
+the reference's params carried across by ``params_from_jax``, fp32."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as JC
+from repro.launch import steps as JS
+from repro.models import layers as JL
+from repro.models import transformer as JT
+from repro_torch.configs import base as TC
+from repro_torch.kernels.decode_attention import ops as DO
+from repro_torch.kernels.moe_gemm import ops as MO
+from repro_torch.launch import steps as TS
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+from repro_torch.models.convert import params_from_jax
+
+LM_ARCHS = ["qwen2-1.5b", "qwen3-moe-30b-a3b", "minitron-8b", "deepseek-67b",
+            "moonshot-v1-16b-a3b"]
+
+
+def _fields(obj):
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _same_spec(port, ref):
+    assert port.arch_id == ref.arch_id and port.family == ref.family
+    assert port.source == ref.source and port.notes == ref.notes
+    assert dataclasses.asdict(port.model) == dataclasses.asdict(ref.model)
+    assert _fields(port.recall) == _fields(ref.recall)
+    assert len(port.shapes) == len(ref.shapes)
+    for sp, sr in zip(port.shapes, ref.shapes):
+        assert {k: v for k, v in _fields(sp).items()} == \
+            {k: getattr(sr, k) for k in _fields(sp)}
+    assert port.model.n_params == ref.model.n_params
+    assert port.model.n_active_params == ref.model.n_active_params
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_configs_and_smoke_variants_match_reference(arch):
+    port, ref = TC.get_arch(arch), JC.get_arch(arch)
+    _same_spec(port, ref)
+    _same_spec(TC.smoke_variant(port), JC.smoke_variant(ref))
+    assert TC.lm_shapes(True) == tuple(
+        TC.ShapeConfig(**{k: getattr(s, k) for k in _fields(
+            TC.ShapeConfig("x", "y"))}) for s in JC.lm_shapes(True))
+
+
+def _leaf_shapes(tree, prefix=()):
+    if hasattr(tree, "shape") and not isinstance(tree, dict):
+        return {prefix: tuple(tree.shape)}
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaf_shapes(v, prefix + (k,)))
+    return out
+
+
+@pytest.mark.parametrize("arch,head", [("qwen2-1.5b", "tied"),
+                                       ("minitron-8b", "untied"),
+                                       ("qwen3-moe-30b-a3b", "moe"),
+                                       ("moonshot-v1-16b-a3b", "moe")])
+def test_lm_schema_matches_reference(arch, head):
+    port = TC.smoke_variant(TC.get_arch(arch))
+    ref = JC.smoke_variant(JC.get_arch(arch))
+    for kw in ({}, {"with_lm_head": False}, {"embed_out": 48}):
+        ours = _leaf_shapes(TT.lm_schema(port.model, port.recall, **kw))
+        theirs = _leaf_shapes(JT.lm_schema(ref.model, ref.recall, **kw))
+        assert ours == theirs
+        assert (("lm_head",) in ours) == (head != "tied" and
+                                          "with_lm_head" not in kw)
+        assert any(k[:2] == ("layers", "moe") for k in ours) == (head == "moe")
+
+
+@pytest.mark.parametrize("theta,dtype,tol", [(1e6, np.float32, 1e-5),
+                                             (1e4, np.float32, 1e-5),
+                                             (1e6, "bfloat16", 1e-2)])
+def test_apply_rope_matches_reference(theta, dtype, tol):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 7, 3, 16)).astype(np.float32)
+    pos = np.stack([np.arange(7), 32760 + np.arange(7)]).astype(np.int32)
+    xj = jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    want = np.asarray(JL.apply_rope(xj, jnp.asarray(pos), theta), np.float32)
+    xt = torch.from_numpy(np.array(xj, np.float32)).to(
+        torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    got = TL.apply_rope(xt, torch.from_numpy(pos), theta)
+    assert got.dtype == xt.dtype
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol)
+    np.testing.assert_allclose(
+        TL.rope_frequencies(16, theta).numpy(),
+        np.asarray(JL.rope_frequencies(16, theta)), rtol=1e-6)
+
+
+def test_embed_lookup_clamps_ids_as_the_reference():
+    table = np.arange(12, dtype=np.float32).reshape(4, 3)
+    ids = np.array([[0, 3, -2, 9]], np.int32)
+    want = np.asarray(JL.embed_lookup(jnp.asarray(table), jnp.asarray(ids)))
+    got = TL.embed_lookup(torch.from_numpy(table), torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _close(got, want, what):
+    """fp32 through a few random-init layers: 1e-4 of the tensor's scale."""
+    want = np.asarray(want, np.float32)
+    got = got.detach().float().numpy()
+    assert got.shape == want.shape, what
+    err = np.abs(got - want).max()
+    assert err <= 1e-4 * max(1.0, np.abs(want).max()), (what, err)
+
+
+@pytest.fixture(scope="module")
+def models():
+    out = {}
+    for arch in ("qwen2-1.5b", "qwen3-moe-30b-a3b"):
+        ref = JC.smoke_variant(JC.get_arch(arch))
+        port = TC.smoke_variant(TC.get_arch(arch))
+        jp = JT.lm_init(jax.random.PRNGKey(0), ref.model, ref.recall)
+        tp = params_from_jax(jax.tree.map(np.asarray, jp))
+        out[arch] = (ref, port, jp, tp)
+    return out
+
+
+@pytest.mark.parametrize("arch,window", [("qwen2-1.5b", 0),
+                                         ("qwen3-moe-30b-a3b", 0),
+                                         ("qwen2-1.5b", 4)])
+def test_prefill_and_decode_match_reference(models, arch, window):
+    ref, port, jp, tp = models[arch]
+    B, S, pad_to = 2, 8, 12
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, ref.model.vocab, (B, S)).astype(np.int32)
+    j = JT.prefill(jp, ref.model, ref.recall, jnp.asarray(tokens),
+                   pad_to=pad_to, window=window)
+    t = TT.prefill(tp, port.model, port.recall, torch.from_numpy(tokens),
+                   pad_to=pad_to, window=window)
+    for key in ("k_cache", "v_cache", "h", "exit_embs", "aux"):
+        _close(t[key], j[key], key)
+    assert tuple(t["k_cache"].shape) == (4, B, pad_to, 2, 16)
+    kj, vj = j["k_cache"], j["v_cache"]
+    kt, vt = t["k_cache"], t["v_cache"]
+    # per-sequence lengths: the second sequence rewrites prompt positions
+    lengths = np.array([S + 1, S - 3], np.int32)
+    token = np.asarray(tokens[:, -1])
+    before = (DO.launches, MO.launches)
+    for step in range(3):
+        lj, kj, vj = JT.decode_step(jp, ref.model, ref.recall,
+                                    jnp.asarray(token), kj, vj,
+                                    jnp.asarray(lengths), window=window)
+        lt, kt2, vt2 = TT.decode_step(tp, port.model, port.recall,
+                                      torch.from_numpy(token), kt, vt,
+                                      torch.from_numpy(lengths),
+                                      window=window)
+        assert kt2 is kt and vt2 is vt  # written in place
+        _close(lt, lj, f"logits step {step}")
+        _close(kt, kj, f"k_cache step {step}")
+        _close(vt, vj, f"v_cache step {step}")
+        assert lt.dtype == torch.float32
+        token = np.asarray(jnp.argmax(lj, -1)).astype(np.int32)  # greedy
+        lengths = lengths + 1
+    assert (DO.launches, MO.launches) == before  # CPU: plain versions only
+
+
+def test_decode_clamps_the_cache_write_as_the_reference(models):
+    ref, port, jp, tp = models["qwen2-1.5b"]
+    B, S = 2, 6
+    tokens = np.random.default_rng(2).integers(0, 512, (B, S)).astype(
+        np.int32)
+    j = JT.prefill(jp, ref.model, ref.recall, jnp.asarray(tokens))
+    t = TT.prefill(tp, port.model, port.recall, torch.from_numpy(tokens))
+    lengths = np.array([S + 3, 0], np.int32)  # past the end; before it
+    token = tokens[:, 0]
+    lj, kj, _ = JT.decode_step(jp, ref.model, ref.recall, jnp.asarray(token),
+                               j["k_cache"], j["v_cache"],
+                               jnp.asarray(lengths))
+    lt, kt, _ = TT.decode_step(tp, port.model, port.recall,
+                               torch.from_numpy(token), t["k_cache"],
+                               t["v_cache"], torch.from_numpy(lengths))
+    _close(lt, lj, "logits")
+    _close(kt, kj, "k_cache")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b"])
+def test_build_step_on_cpu(models, arch):
+    ref, port, jp, tp = models[arch]
+    cfg = port.model
+    pre = TS.build_step(port, TC.ShapeConfig("p", "prefill", 2, 8),
+                        device="cpu", pad_to=16)
+    dec = TS.build_step(port, port.shape("smoke_decode"), device="cpu")
+    assert pre.model_flops == 2.0 * cfg.n_active_params * 16
+    assert dec.model_flops == (2.0 * cfg.n_active_params * 4
+                               + 2.0 * 2 * 4 * 64 * cfg.n_heads * cfg.head_dim)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    out = pre.fn(tp, tokens)
+    want = TT.prefill(tp, cfg, port.recall, tokens, pad_to=16)
+    assert out["k_cache"].shape == (cfg.n_layers, 2, 16, 2, 16)
+    torch.testing.assert_close(out["exit_embs"], want["exit_embs"])
+    lengths = torch.tensor([9, 9], dtype=torch.int32)
+    token = tokens[:, -1]
+    kc, vc = out["k_cache"].clone(), out["v_cache"].clone()
+    logits, kc, vc = dec.fn(tp, token, kc, vc, lengths)
+    lw, kw, vw = TT.decode_step(tp, cfg, port.recall, token,
+                                out["k_cache"].clone(),
+                                out["v_cache"].clone(), lengths)
+    torch.testing.assert_close(logits, lw)
+    torch.testing.assert_close(kc, kw)
+    torch.testing.assert_close(vc, vw)
+    # the bundle's fp32 head follows an in-place update of the weights
+    tp2 = {k: v.clone() if isinstance(v, torch.Tensor) else v
+           for k, v in tp.items()}
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    dec.fn(tp2, token, kc.clone(), vc.clone(), lengths)
+    tp2[head].mul_(2.0)
+    got = dec.fn(tp2, token, kc.clone(), vc.clone(), lengths)[0]
+    want = TT.decode_step(tp2, cfg, port.recall, token, kc.clone(),
+                          vc.clone(), lengths)[0]
+    torch.testing.assert_close(got, want)
+    with pytest.raises(NotImplementedError, match="A.4"):
+        TS.build_step(port, port.shape("smoke_train"), device="cpu")
+    with pytest.raises(NotImplementedError, match="A.6"):
+        TS.build_step(TC.get_arch("recall-imagebind"),
+                      TC.ShapeConfig("e", "serve", 8), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b"])
+def test_forward_hidden_mask_pool_and_kv_match_reference(models, arch):
+    """``tokens=`` with a ``mask=`` mean pool and ``return_kv=`` over a
+    layer range, against the reference's ``forward_hidden``."""
+    ref, port, jp, tp = models[arch]
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, 512, (3, 10)).astype(np.int32)
+    mask = (rng.random((3, 10)) < 0.7).astype(np.float32)
+    mask[2] = 0.0  # a row with nothing to pool
+    kw = dict(mask=None, collect_pooled=True, return_kv=True, layer_start=1,
+              layer_end=3)
+    for m in (None, mask):
+        kw["mask"] = m
+        j = JT.forward_hidden(jp, ref.model, ref.recall,
+                              tokens=jnp.asarray(tokens),
+                              **{**kw, "mask": None if m is None
+                                 else jnp.asarray(m)})
+        t = TT.forward_hidden(tp, port.model, port.recall,
+                              tokens=torch.from_numpy(tokens),
+                              **{**kw, "mask": None if m is None
+                                 else torch.from_numpy(m)})
+        for key in ("h", "pooled", "aux"):
+            _close(t[key], j[key], key)
+        _close(t["kv"][0], j["kv"][0], "k")
+        _close(t["kv"][1], j["kv"][1], "v")
+        assert t["kv"][0].shape[0] == 2
+
+
+def test_decode_hbm_bytes_matches_reference():
+    for arch in LM_ARCHS:
+        for B, S, n in ((128, 32768, 1), (32, 2048, 4)):
+            assert TS.lm_decode_hbm_bytes(TC.get_arch(arch).model, B, S, n) \
+                == JS.lm_decode_hbm_bytes(JC.get_arch(arch).model, B, S, n)
+
+
+def test_lora_is_refused(models):
+    ref, port, jp, tp = models["qwen2-1.5b"]
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="A.4"):
+        TT.prefill(tp, port.model, port.recall, tokens, lora={"wq": {}})
+    TT.prefill(tp, port.model, port.recall, tokens, lora={})

@@ -68,7 +68,8 @@ def test_config_copy_matches_reference():
 
 def test_param_tree_matches_reference(both):
     jp, tp, _ = both
-    ours = TIB.mem_init(torch.Generator().manual_seed(0), TCFG, TRC)
+    ours = TIB.mem_init(torch.Generator().manual_seed(0), TCFG, TRC,
+                        device="cpu")
     flat_j = jax.tree_util.tree_flatten_with_path(jp)[0]
     for path, leaf in flat_j:
         node_t, node_o = tp, ours

@@ -1,0 +1,104 @@
+"""Port parity: the grouped expert GEMM's sort/pad plan equals the
+reference's, and the port's moe_gemm (plan + the plain sorted version on
+the CPU) equals the reference's Pallas path (interpret mode) and its
+oracle."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.moe_gemm.ops import moe_gemm as jax_moe_gemm
+from repro.kernels.moe_gemm.ops import sort_by_expert as jax_sort_by_expert
+from repro.kernels.moe_gemm.ref import moe_gemm_reference as jax_reference
+from repro_torch.kernels.moe_gemm import kernel as MK
+from repro_torch.kernels.moe_gemm import ops as MO
+from repro_torch.kernels.moe_gemm.ref import (moe_gemm_reference,
+                                              moe_gemm_sorted_reference)
+
+
+def _ids(kind, T, E, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "one_expert":
+        return np.full(T, min(3, E - 1), np.int32)
+    if kind == "empty_experts":  # only even experts are used
+        return (2 * rng.integers(0, (E + 1) // 2, T)).astype(np.int32)
+    return rng.integers(0, E, T).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind,E,T,bt", [
+    ("random", 2, 10, 8), ("random", 6, 200, 64), ("random", 4, 64, 16),
+    ("one_expert", 8, 128, 32), ("empty_experts", 8, 77, 16),
+    ("random", 128, 128, 16)])
+def test_plan_matches_reference(kind, E, T, bt):
+    eid = _ids(kind, T, E, seed=E * T + bt)
+    order, slot, block_expert, T_pad = jax_sort_by_expert(jnp.asarray(eid),
+                                                          E, bt)
+    t = MO.sort_by_expert(torch.from_numpy(eid), E, bt)
+    assert t[3] == T_pad
+    np.testing.assert_array_equal(t[0].numpy(), np.asarray(order))
+    np.testing.assert_array_equal(t[1].numpy(), np.asarray(slot))
+    np.testing.assert_array_equal(t[2].numpy(), np.asarray(block_expert))
+    assert t[2].dtype == torch.int32 and t[1].dtype == torch.int32
+    p = MO.plan(torch.from_numpy(eid), E, bt)
+    counts = np.bincount(eid, minlength=E)
+    assert int(p.used) == int((-(-counts // bt) * bt).sum())
+
+
+CASES = [  # T, d, E, F, bt, ids
+    (300, 64, 8, 128, 32, "random"),     # the reference's kernel cases
+    (64, 32, 4, 64, 16, "random"),
+    (1000, 128, 16, 256, 64, "random"),
+    (128, 16, 8, 32, 32, "one_expert"),  # all tokens on one expert
+    (77, 40, 8, 768, 16, "empty_experts"),  # F = 768, T not a multiple
+]
+
+
+@pytest.mark.parametrize("T,d,E,F,bt,kind", CASES)
+def test_moe_gemm_matches_reference_pallas(T, d, E, F, bt, kind):
+    rng = np.random.default_rng(T + d)
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    eid = _ids(kind, T, E, seed=T)
+    w = (rng.standard_normal((E, d, F)) * 0.1).astype(np.float32)
+    want = np.asarray(jax_reference(jnp.asarray(x), jnp.asarray(eid),
+                                    jnp.asarray(w)))
+    if F % min(64, F) == 0:  # the Pallas kernel asserts F % block_f == 0
+        pal = np.asarray(jax_moe_gemm(jnp.asarray(x), jnp.asarray(eid),
+                                      jnp.asarray(w), impl="pallas",
+                                      block_t=bt, block_f=min(64, F)))
+        np.testing.assert_allclose(pal, want, atol=1e-4)
+    tx, te, tw = (torch.from_numpy(a) for a in (x, eid, w))
+    before = MO.launches
+    got = MO.moe_gemm(tx, te, tw, block_t=bt).numpy()
+    assert MO.launches == before  # a CPU tensor launches no kernel
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    np.testing.assert_allclose(moe_gemm_reference(tx, te, tw).numpy(), want,
+                               atol=1e-4)
+    np.testing.assert_allclose(MO.moe_gemm(tx, te, tw).numpy(), want,
+                               atol=1e-4)  # the automatic token block
+
+
+def test_sorted_plain_version_leaves_unused_rows_zero():
+    rng = np.random.default_rng(3)
+    eid = torch.from_numpy(_ids("empty_experts", 50, 8, seed=3))
+    x = torch.from_numpy(rng.standard_normal((50, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((8, 16, 24)).astype(np.float32))
+    p = MO.plan(eid, 8, 16)
+    xs = MO.scatter_rows(x, p)
+    ys = moe_gemm_sorted_reference(xs, p.block_expert, w, 16, p.used)
+    assert ys.shape == (p.T_pad, 24)
+    assert not ys[int(p.used):].any()
+    be = p.block_expert.long().repeat_interleave(16)[:int(p.used)]
+    want = torch.einsum("td,tdf->tf", xs[:int(p.used)], w[be])
+    torch.testing.assert_close(ys[:int(p.used)], want, atol=1e-5, rtol=1e-5)
+
+
+def test_block_t_for():
+    assert MO.block_t_for(131072, 128) == 64   # a prefill's assignments
+    assert MO.block_t_for(128, 128) == 16      # a decode step's
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    p = MO.plan(torch.zeros(4, dtype=torch.int32), 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        MK.moe_gemm_cuda(torch.zeros((p.T_pad, 8)), p.block_expert,
+                         torch.zeros((2, 8, 8)), 16, p.used)
