@@ -9,7 +9,8 @@ It prints the card's name and power limit, builds the port's CUDA kernels
 from the sources in this checkout (one ``nvcc`` per source, all at once,
 sm_90a; the Triton rmsnorm compiles at its first launch), and holds each
 kernel against its plain PyTorch version at its path's shapes (the int4
-activation-cache kernels bit for bit). Then it drives five paths, each
+activation-cache kernels bit for bit; the grouped GEMM's side cases through
+both of its kernels, wgmma and mma.sync). Then it drives five paths, each
 with every launch counter set to 0 just before it and read just after:
 
   * serve: RECALL end to end at the full width of ``recall-imagebind``
@@ -36,7 +37,8 @@ with every launch counter set to 0 just before it and read just after:
     the expert loads and the assignments the capacity drops.
 
 One prefill and one decode step of each LM are held call by call against
-the plain versions. It ends with one JSON line of kernel measurements and
+the plain versions; the MoE prefill's grouped-GEMM launches must all run
+the wgmma kernel, the decode window's all the mma.sync kernel. It ends with one JSON line of kernel measurements and
 one ``{"ok": true, ...}`` line. Any failed phase or tolerance exits non-zero;
 without a CUDA device it exits non-zero at once. It never imports JAX or
 the JAX package.
@@ -372,21 +374,63 @@ def _flash_case(B, Sq, Skv, H, KV, D, dtype, *, causal, window, q_offset,
     return q, k, v, err
 
 
+# bf16 side cases of the wgmma kernel (128-row q tiles, 128-key tiles):
+# causal with q_offset, windows below and above the tile, Sq and Skv not
+# multiples of the tile, Skv below one tile, rows that see no key, GQA 6:1
+# and 8:1, D 64, 80 and 128
+FLASH_BF16_CASES = (  # B, Sq, Skv, H, KV, D, causal, window, q_offset
+    (2, 77, 130, 12, 2, 128, True, 0, 53),
+    (2, 300, 300, 32, 4, 128, True, 0, 0),
+    (3, 100, 300, 6, 1, 128, True, 17, 0),
+    (2, 300, 300, 8, 1, 128, True, 200, 0),
+    (2, 33, 257, 6, 3, 80, False, 0, 0),
+    (2, 78, 78, 16, 16, 64, False, 0, 0),
+    (1, 64, 40, 2, 2, 64, True, 0, -30),     # rows before every key
+    (1, 200, 50, 2, 2, 64, False, 5, 60),    # windows past every key
+    (2, 150, 90, 4, 2, 80, True, 40, 70))    # both, in a mixed tile
+
+
 def check_flash(gen):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
-    # f32 side cases: GQA, causal, window, q_offset, every head dim
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_fwd_reference, attention_mask)
+    # f32 side cases: GQA, causal, window, q_offset, every head dim, rows
+    # that see no key
     for B, Sq, Skv, H, KV, D, causal, window, qoff in [
             (2, 77, 130, 8, 4, 128, True, 0, 53),
             (3, 100, 100, 4, 2, 64, True, 17, 0),
-            (2, 33, 257, 6, 3, 80, False, 0, 0)]:
+            (2, 33, 257, 6, 3, 80, False, 0, 0),
+            (1, 200, 50, 2, 2, 64, False, 5, 60)]:
         _flash_case(B, Sq, Skv, H, KV, D, torch.float32, causal=causal,
                     window=window, q_offset=qoff, gen=gen, tol=1e-5,
                     lse_tol=1e-5)
         print(f"  flash f32 side case B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
               f"D={D} causal={causal} window={window} q_offset={qoff}: ok")
+    # bf16 output: one rounding of values of |o| < 4 is < 2e-2
+    for B, Sq, Skv, H, KV, D, causal, window, qoff in FLASH_BF16_CASES:
+        q, k, v, err = _flash_case(B, Sq, Skv, H, KV, D, torch.bfloat16,
+                                   causal=causal, window=window,
+                                   q_offset=qoff, gen=gen, tol=2e-2,
+                                   lse_tol=1e-3)
+        keyless = ~attention_mask(Sq, Skv, causal=causal, window=window,
+                                  q_offset=qoff, device="cuda").any(1)
+        n_keyless = int(keyless.sum())
+        if n_keyless:  # the plain version's uniform softmax over Skv keys
+            o_k, _ = flash_fwd_cuda(q, k, v, causal=causal, window=window,
+                                    q_offset=qoff)
+            mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)
+            kerr = (o_k[:, keyless].float()
+                    - mean_v[:, None]).abs().max().item()
+            if not kerr <= 2e-2:
+                _fail(f"flash bf16 rows that see no key: error {kerr} "
+                      f"against the mean of V (tol 2e-2)")
+        print(f"  flash bf16 side case B={B} Sq={Sq} Skv={Skv} H={H} "
+              f"KV={KV} D={D} causal={causal} window={window} "
+              f"q_offset={qoff}: max_abs_err {err:.3e}"
+              + (f", {n_keyless} rows that see no key" if n_keyless else "")
+              + ": ok")
     rows = []
     # the serving path's dtypes in the bf16 config: the vision tower runs
     # fp32 activations (as the reference's promotion gives), the text tower
@@ -642,36 +686,42 @@ def check_decode(gen):
     return rows
 
 
-def _moe_case(T, d, E, F, dtype, ids, gen):
+def _moe_case(T, d, E, F, dtype, ids, gen, kernels=None, bt=None):
     """The kernel against the plain sorted version on one plan: rows below
     ``used`` within one output rounding step (bf16) or 1e-5 (f32) of the
-    output's scale."""
+    output's scale. ``kernels`` (default: ``kernel_for``'s choice) are run
+    in turn on the same inputs; returns the largest error."""
     import torch
     from repro_torch.kernels.moe_gemm import ops
     from repro_torch.kernels.moe_gemm.kernel import moe_gemm_cuda
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
-    bt = ops.block_t_for(T, E)
+    bt = bt or ops.block_t_for(T, E)
     p = ops.plan(ids, E, bt)
     x = torch.randn((T, d), generator=gen, device="cuda").to(dtype)
     w = (torch.randn((E, d, F), generator=gen, device="cuda")
          * d ** -0.5).to(dtype)
     xs = ops.scatter_rows(x, p)
     del x
-    ys = moe_gemm_cuda(xs, p.block_expert, w, bt, p.used)
     ys_p = moe_gemm_sorted_reference(xs, p.block_expert, w, bt, p.used)
     n = int(p.used)
     scale = max(1.0, ys_p[:n].float().abs().max().item())
-    err = (ys[:n].float() - ys_p[:n].float()).abs().max().item() / scale
     rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
-    if not err <= rel:
-        _fail(f"moe_gemm T={T} d={d} E={E} F={F} {dtype}: error {err:.3e} "
-              f"of the output's scale > {rel}")
+    err = 0.0
+    for kernel in kernels or (None,):
+        ys = moe_gemm_cuda(xs, p.block_expert, w, bt, p.used, kernel=kernel)
+        e = (ys[:n].float() - ys_p[:n].float()).abs().max().item() / scale
+        if not e <= rel:
+            _fail(f"moe_gemm T={T} d={d} E={E} F={F} {dtype} block_t {bt} "
+                  f"kernel {kernel}: error {e:.3e} of the output's scale > "
+                  f"{rel}")
+        err = max(err, e)
     return xs, w, p, bt, err, rel
 
 
 def check_moe_gemm(gen):
     import torch
-    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_cuda
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.kernel import kernel_for, moe_gemm_cuda
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
     bf16 = torch.bfloat16
 
@@ -680,20 +730,36 @@ def check_moe_gemm(gen):
             return torch.full((T,), E // 2, dtype=torch.int32, device="cuda")
         e = torch.randint(0, E, (T,), generator=gen, device="cuda",
                           dtype=torch.int32)
+        if kind == "one-row group":  # expert E - 1 gets exactly one row
+            e = e % (E - 1)
+            e[T // 3] = E - 1
         return e // 4 * 4 if kind == "empty experts" else e
 
-    # side cases: every token on one expert, empty experts, T not a
-    # multiple of the token block, F = 768 and 1408 (no multiple of the
-    # TPU kernel's 512), ragged d and F, the f32 path
-    for T, d, E, F, dtype, kind in (
-            (4096, 2048, 128, 768, bf16, "one expert"),
-            (1000, 2048, 64, 1408, bf16, "empty experts"),
-            (8191, 512, 128, 768, bf16, "random"),
-            (333, 200, 16, 100, bf16, "random"),
-            (777, 256, 8, 384, torch.float32, "random")):
-        _moe_case(T, d, E, F, dtype, ids(T, E, kind), gen)
+    # side cases: every token on one expert, empty experts, an expert whose
+    # group is a single row, T not a multiple of the token block, F = 768
+    # and 1408 (no multiple of the TPU kernel's 512), ragged d and F, the
+    # f32 path; at the token block ``block_t_for`` picks (None) and at the
+    # wgmma kernel's blocks, each through both kernels where the wgmma one
+    # takes it
+    for T, d, E, F, dtype, kind, bt in (
+            (4096, 2048, 128, 768, bf16, "one expert", None),
+            (1000, 2048, 64, 1408, bf16, "empty experts", None),
+            (8191, 512, 128, 768, bf16, "random", None),
+            (333, 200, 16, 100, bf16, "random", None),
+            (777, 256, 8, 384, torch.float32, "random", None),
+            (4096, 2048, 128, 768, bf16, "one expert", 128),
+            (1000, 2048, 64, 1408, bf16, "empty experts", 64),
+            (8191, 512, 128, 768, bf16, "random", 128),
+            (20000, 2048, 128, 768, bf16, "one-row group", 128),
+            (333, 200, 16, 104, bf16, "random", 64)):
+        bt = bt or ops.block_t_for(T, E)
+        both = kernel_for(dtype, bt, d, F) == "wgmma"
+        kernels = ("wgmma", "mma_sync") if both else ("mma_sync",)
+        _moe_case(T, d, E, F, dtype, ids(T, E, kind), gen, kernels=kernels,
+                  bt=bt)
         print(f"  moe_gemm side case T={T} d={d} E={E} F={F} {dtype} "
-              f"({kind}): ok")
+              f"({kind}, token block {bt}) through {' and '.join(kernels)}: "
+              "ok")
     rows = []
     # the MoE paths' shapes at qwen3-moe's d = 2048, E = 128, top-8:
     # prefill (16 x 1,024 tokens x 8) gate/up and down, decode (16 x 8)
@@ -703,6 +769,7 @@ def check_moe_gemm(gen):
         E = 128
         xs, w, p, bt, err, rel = _moe_case(T, d, E, F, bf16,
                                            ids(T, E, "random"), gen)
+        kernel = kernel_for(bf16, bt, d, F)
         ms = time_ms(lambda: moe_gemm_cuda(xs, p.block_expert, w, bt,
                                            p.used), reps=10)
         plain_ms = time_ms(lambda: moe_gemm_sorted_reference(
@@ -732,12 +799,31 @@ def check_moe_gemm(gen):
         e_used = len(groups)
         n_bytes = T * d * 2 + e_used * d * F * 2 + T * F * 2
         b_ms, b_by = bound_ms(n_bytes, 2.0 * T * d * F, "bf16")
+        other = ""
+        if kernel == "wgmma":
+            # beside it on the same card: the same call through the mma.sync
+            # kernel at the 64-row token block the prefill used before the
+            # wgmma kernel, and through the wgmma kernel at 64 rows
+            xs64, w64, p64, _, _, _ = _moe_case(T, d, E, F, bf16,
+                                                ids(T, E, "random"), gen,
+                                                kernels=("mma_sync", "wgmma"),
+                                                bt=64)
+            t_old = time_ms(lambda: moe_gemm_cuda(
+                xs64, p64.block_expert, w64, 64, p64.used,
+                kernel="mma_sync"), reps=10)
+            t_64 = time_ms(lambda: moe_gemm_cuda(
+                xs64, p64.block_expert, w64, 64, p64.used, kernel="wgmma"),
+                reps=10)
+            other = (f", mma.sync kernel at token block 64 {t_old:.4f} ms, "
+                     f"wgmma kernel at token block 64 {t_64:.4f} ms")
+            del xs64, w64
         print(f"  moe_gemm {what} T={T} d={d} F={F} E={E} (experts used "
               f"{e_used}, token block {bt}, rows {int(p.used)} of "
-              f"{p.T_pad}) bf16: error {err:.3e} of the output's scale (tol "
-              f"{rel:.2e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"per-expert torch.matmul loop {loop_ms:.4f} ms, "
-              f"torch._grouped_mm "
+              f"{p.T_pad}) bf16, {kernel} kernel: error {err:.3e} of the "
+              f"output's scale (tol {rel:.2e}) kernel {ms:.4f} ms "
+              f"({2.0 * T * d * F / ms / 1e9:.1f} TFLOP/s){other}, plain "
+              f"{plain_ms:.4f} ms, per-expert torch.matmul loop "
+              f"{loop_ms:.4f} ms, torch._grouped_mm "
               + (f"{gmm_ms:.4f} ms" if gmm_ms is not None else "n/a")
               + f", bound {b_ms:.4f} ms ({b_by})")
         if what != "prefill down":
@@ -755,36 +841,55 @@ def check_moe_gemm(gen):
 
 
 def check_flash_lm(gen):
-    """The flash forward at qwen2-1.5b's prefill: 32 prompts of 2,048,
-    12 heads of 128 over 2 kv heads, bf16, causal."""
+    """The flash forward at the LM prefills, bf16, causal: qwen2-1.5b's
+    (32 prompts of 2,048, 12 heads of 128 over 2 kv heads) and qwen3-moe's
+    (16 of 1,024, 32 heads over 4). The same shape without the causal mask
+    visits every key tile: the ratio shows the tiles the causal q tiles
+    skip."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
     from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
-    B, S, H, KV, D = 32, 2048, 12, 2, 128
-    # bf16 output: one rounding of values of |o| < 4 is < 2e-2
-    q, k, v, err = _flash_case(B, S, S, H, KV, D, torch.bfloat16, causal=True,
-                               window=0, q_offset=0, gen=gen, tol=2e-2,
-                               lse_tol=1e-3)
-    ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=True), reps=3,
-                 trials=3)
-    plain_ms = time_ms(lambda: attention_fwd_reference(q, k, v, causal=True),
-                       reps=1, trials=2)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
-    n_bytes = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 + B * H * S * 4
-    b_ms, b_by = bound_ms(n_bytes, 4.0 * B * H * D * S * (S + 1) / 2, "bf16")
-    print(f"  flash lm_prefill (qwen2-1.5b) B={B} S={S} H={H} KV={KV} D={D} "
-          f"bf16 causal: max_abs_err {err:.3e} (tol 2e-2) kernel {ms:.3f} "
-          f"ms, plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})")
-    return {"name": "flash_attention_fwd[lm_prefill]", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_fwd.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:31",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    rows = []
+    for what, arch, B, S, H, KV in (("lm_prefill", "qwen2-1.5b", 32, 2048, 12,
+                                     2),
+                                    ("moe_prefill", "qwen3-moe-30b-a3b", 16,
+                                     1024, 32, 4)):
+        D = 128
+        # bf16 output: one rounding of values of |o| < 4 is < 2e-2
+        q, k, v, err = _flash_case(B, S, S, H, KV, D, torch.bfloat16,
+                                   causal=True, window=0, q_offset=0, gen=gen,
+                                   tol=2e-2, lse_tol=1e-3)
+        ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=True), reps=5,
+                     trials=5)
+        full_ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=False),
+                          reps=5, trials=5)
+        plain_ms = time_ms(lambda: attention_fwd_reference(q, k, v,
+                                                           causal=True),
+                           reps=1, trials=2)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
+        n_bytes = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 + B * H * S * 4
+        n_ops = 4.0 * B * H * D * S * (S + 1) / 2
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
+        print(f"  flash {what} ({arch}) B={B} S={S} H={H} KV={KV} D={D} "
+              f"bf16 causal: max_abs_err {err:.3e} (tol 2e-2) kernel "
+              f"{ms:.4f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), the same "
+              f"without the causal mask {full_ms:.4f} ms (causal / full "
+              f"{ms / full_ms:.3f}), plain {plain_ms:.3f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows.append({"name": f"flash_attention_fwd[{what}]", "route": "cuda",
+                     "source": "src/repro_torch/kernels/flash_attention/"
+                               "csrc/flash_fwd.cu",
+                     "replaces": "src/repro/kernels/flash_attention/"
+                                 "kernel.py:31",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_phase():
@@ -804,7 +909,7 @@ def kernel_phase():
     torch.cuda.empty_cache()
     rows += check_decode(gen)
     rows += check_moe_gemm(gen)
-    rows.append(check_flash_lm(gen))
+    rows += check_flash_lm(gen)
     torch.cuda.empty_cache()
     return rows
 
@@ -837,6 +942,7 @@ def _reset_launches() -> None:
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
     _counters()["flash_attention_fwd"][0].launches_by_head_dim.clear()
+    _counters()["moe_gemm"][0].launches_by_kernel.clear()
 
 
 def _read_launches(cfg) -> dict:
@@ -1486,10 +1592,12 @@ def async_phase():
     return launches
 
 
-_LAYERS = (("flash_fwd_kernel", "attention (flash kernel)"),
+_LAYERS = (("flash_fwd_wgmma", "attention (flash wgmma kernel, bf16)"),
+           ("flash_fwd_f32", "attention (flash FMA kernel, f32)"),
            ("decode_split", "decode attention (CUDA kernel, split pass)"),
            ("decode_merge", "decode attention (CUDA kernel, merge pass)"),
-           ("moe_gemm_kernel", "grouped expert GEMM (CUDA kernel)"),
+           ("moe_gemm_wgmma", "grouped expert GEMM (wgmma kernel)"),
+           ("moe_gemm_kernel", "grouped expert GEMM (mma.sync kernel)"),
            ("int4_quant", "int4 quantize (cache kernel)"),
            ("int4_dequant", "int4 dequantize (cache kernel)"),
            ("Memcpy DtoH", "copies device to host"),
@@ -1591,9 +1699,15 @@ def profile_windows(windows):
 
 
 def _lm_launches() -> dict:
+    """The LM kernels' counts, and the grouped GEMM's split by kernel
+    (``moe_gemm/wgmma``, ``moe_gemm/mma_sync``)."""
     c = _counters()
-    return {name: getattr(*c[name]) for name in
-            ("flash_attention_fwd", "decode_attention", "moe_gemm", "rmsnorm")}
+    out = {name: getattr(*c[name]) for name in
+           ("flash_attention_fwd", "decode_attention", "moe_gemm", "rmsnorm")}
+    by_kernel = c["moe_gemm"][0].launches_by_kernel
+    out.update({f"moe_gemm/{k}": by_kernel.get(k, 0)
+                for k in ("wgmma", "mma_sync")})
+    return out
 
 
 def check_lm_calls(run, what, *, record_plan=None):
@@ -1687,8 +1801,9 @@ def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
               long_lo=0, n_long=0, record_plan=None):
     """One LM through ``build_step`` with random weights from a CUDA
     generator: a call-by-call check of a prefill of ``check_batch``
-    prompts; the timed prefill of B prompts of S seeded tokens into caches
-    padded to ``pad_to`` (then once more under the profiler); a warm-up
+    prompts; three timed prefills of B prompts of S seeded tokens into
+    caches padded to ``pad_to`` (the first counted; then once more under
+    the profiler); a warm-up
     step and ``n_steps`` timed greedy decode steps; one decode step checked
     call by call; with ``n_long``, a window of decode steps over caches of
     seeded K/V filled to per-sequence lengths in [long_lo, pad_to); each
@@ -1744,10 +1859,21 @@ def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
                                            cfg.head_dim):
             _fail(f"{arch} prefill: cache {tuple(out['k_cache'].shape)}")
         del out
-        print(f"  init {t_init:.2f} s; prefill {B} x {S}: {t_pre:.3f} s = "
+        # two more timed prefills: the host's clock on a shared host can
+        # stall one run, so the line reports the median of three
+        walls = [t_pre]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = pre.fn(params, tokens)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            del out
+        t_pre = statistics.median(walls)
+        print(f"  init {t_init:.2f} s; prefill {B} x {S}: {t_pre:.3f} s "
+              f"(median of {', '.join(f'{w:.3f}' for w in walls)}) = "
               f"{B * S / t_pre:.0f} tokens/s, "
               f"{pre.model_flops / t_pre / 1e12:.1f} model TFLOP/s; "
-              f"launches {counts['prefill']}")
+              f"launches (first run) {counts['prefill']}")
         held = {}
 
         def prefill_again():  # frees the last caches before making new ones
@@ -1798,12 +1924,15 @@ def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
                               lambda: dec.fn(params, token, k, v, lengths),
                               "decode_split"),))
     # rmsnorm: two a layer, then the exit head's (prefill) or the final
-    # norm (decode)
+    # norm (decode); the grouped GEMM's prefill launches all on the wgmma
+    # kernel, its decode launches all on the mma.sync kernel
+    n_moe = 3 * L if cfg.moe else 0
     for name, want in (("flash_attention_fwd", ("prefill", L)),
                        ("decode_attention", ("decode", L * n_steps)),
-                       ("moe_gemm", ("prefill", 3 * L if cfg.moe else 0)),
-                       ("moe_gemm", ("decode",
-                                     3 * L * n_steps if cfg.moe else 0)),
+                       ("moe_gemm", ("prefill", n_moe)),
+                       ("moe_gemm/wgmma", ("prefill", n_moe)),
+                       ("moe_gemm", ("decode", n_moe * n_steps)),
+                       ("moe_gemm/mma_sync", ("decode", n_moe * n_steps)),
                        ("rmsnorm", ("prefill", 2 * L + 1)),
                        ("rmsnorm", ("decode", (2 * L + 1) * n_steps))):
         window, n = want
@@ -1852,10 +1981,17 @@ def moe_phase():
           f"{int(loads_.min())} (mean {B * S * K / E:.0f}); dropped "
           f"{sum(drops)} of {B * S * K * len(drops)} over {len(drops)} "
           f"layers")
+    print(f"  grouped GEMM launches by kernel: prefill wgmma "
+          f"{c['prefill']['moe_gemm/wgmma']}, mma.sync "
+          f"{c['prefill']['moe_gemm/mma_sync']}; decode window wgmma "
+          f"{c['decode']['moe_gemm/wgmma']}, mma.sync "
+          f"{c['decode']['moe_gemm/mma_sync']}")
     return {"decode_attention[qwen3-moe-30b-a3b]":
                 c["decode"]["decode_attention"],
-            "moe_gemm[prefill]": c["prefill"]["moe_gemm"],
-            "moe_gemm[decode]": c["decode"]["moe_gemm"]}
+            "flash_attention_fwd[moe_prefill]":
+                c["prefill"]["flash_attention_fwd"],
+            "moe_gemm[prefill]": c["prefill"]["moe_gemm/wgmma"],
+            "moe_gemm[decode]": c["decode"]["moe_gemm/mma_sync"]}
 
 
 def build_phase():

@@ -2,8 +2,12 @@
 shared library with a plain C interface, loaded with ``ctypes``.
 
 A library is built at first use, and again when its source (or a header
-beside it) is newer than the ``.so``, into ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``). ``build_all`` starts one ``nvcc`` per source at once, so a
+beside it, or ``hopper.cuh`` here, which the wgmma kernels share) is newer
+than the ``.so``, into ``build/repro_torch/`` at the repository root
+(listed in ``.gitignore``). The TMA kernels' tensor maps come from the
+driver's ``cuTensorMapEncodeTiled``, fetched at run time through
+``cudaGetDriverEntryPoint`` (``hopper.cuh``), so no library links
+``-lcuda``. ``build_all`` starts one ``nvcc`` per source at once, so a
 cold start pays for the slowest source, not the sum. Nothing here runs at
 import time: the CPU tests import every module on machines without ``nvcc``.
 """
@@ -63,7 +67,8 @@ def _stale(name: str) -> bool:
         return True
     src = SOURCES[name]
     newest = max(f.stat().st_mtime
-                 for f in [src, *src.parent.glob("*.cuh")])
+                 for f in [src, *src.parent.glob("*.cuh"),
+                           *KERNELS_DIR.glob("*.cuh")])
     return so.stat().st_mtime < newest
 
 

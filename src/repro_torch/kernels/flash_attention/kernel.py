@@ -2,7 +2,12 @@
 
 Takes the wrapper's layout as it is (q (B, Sq, H, D), k/v (B, Skv, KV, D),
 contiguous) and returns (out (B, Sq, H, D) in the input dtype, lse
-(B, H, Sq) f32).
+(B, H, Sq) f32). The dtype picks the path: bf16 runs the wgmma kernel
+(128-row q tiles, 128-key tiles), f32 the FMA kernel (32 and 64).
+
+``kv_tile_range`` and ``keyless_row`` mirror the CUDA arithmetic that
+decides which key tiles a q tile visits; the CPU tests hold them against
+the reference's ``_kv_block_live``.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# (q rows, keys) of a tile, by path
+TILES = {torch.bfloat16: (128, 128), torch.float32: (32, 64)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -27,6 +34,32 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd_launch.argtypes = ([_P] * 5 + [_I] * 7 + [ctypes.c_float]
                                      + [_I] * 3 + [_P])
     return lib
+
+
+def keyless_row(q0: int, bq: int, Sq: int, Skv: int, *, causal: bool,
+                window: int, q_offset: int) -> bool:
+    """Does a real row of the q tile [q0, q0 + bq) see no key? (Such a row
+    gets the reference's uniform softmax over the Skv keys.)"""
+    first = q0 + q_offset
+    last = min(q0 + bq, Sq) - 1 + q_offset
+    return bool((causal and first < 0)
+                or (window > 0 and last - window >= Skv - 1))
+
+
+def kv_tile_range(q0: int, bq: int, bk: int, Sq: int, Skv: int, *,
+                  causal: bool, window: int, q_offset: int) -> Tuple[int, int]:
+    """[lo, hi): the bk-key tiles the q tile [q0, q0 + bq) visits, as
+    ``csrc/flash_fwd.cu::kv_tile_range`` computes them: every tile when a
+    row sees no key, else the tiles where the reference's
+    ``_kv_block_live`` holds."""
+    nkt = -(-Skv // bk)
+    if keyless_row(q0, bq, Sq, Skv, causal=causal, window=window,
+                   q_offset=q_offset):
+        return 0, nkt
+    hi = min(nkt, (q0 + bq - 1 + q_offset) // bk + 1) if causal else nkt
+    x = q0 + q_offset - window + 1
+    lo = x // bk if window > 0 and x > 0 else 0
+    return lo, hi
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -15,6 +15,19 @@ import torch
 NEG_INF = -1e30
 
 
+def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int,
+                   q_offset: int, device=None) -> torch.Tensor:
+    """(Sq, Skv) bool: may query i (at position i + q_offset) see key j?"""
+    qi = torch.arange(Sq, device=device)[:, None] + q_offset
+    kj = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window and window > 0:
+        mask &= kj > (qi - window)
+    return mask
+
+
 def attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: int = 0, q_offset: int = 0,
@@ -27,13 +40,8 @@ def attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qg = q.reshape(B, Sq, KV, G, D).float()
     s = torch.einsum("bqkgd,bjkd->bkgqj", qg, k.float()) * scale
-    qi = torch.arange(Sq, device=q.device)[:, None] + q_offset
-    kj = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kj <= qi
-    if window and window > 0:
-        mask &= kj > (qi - window)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     lse = torch.logsumexp(s, dim=-1)                       # (B, KV, G, Sq)
     p = torch.softmax(s, dim=-1)

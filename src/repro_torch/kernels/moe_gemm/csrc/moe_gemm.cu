@@ -1,4 +1,4 @@
-// Grouped ("ragged") expert GEMM for Hopper, bf16 on tensor cores or f32.
+// Grouped ("ragged") expert GEMM for Hopper: two kernels of one function.
 //
 // Replaces the TPU kernel repro/kernels/moe_gemm/kernel.py::_gemm_kernel
 // (entry moe_gemm_pallas). The JAX package's MoE layer computes the same
@@ -10,27 +10,41 @@
 // names the expert of each bt-row block; used (1,) int32 on the device is
 // the row count of the real groups. ys[r] = xs[r] @ w[block_expert[r / bt]]
 // for r < used, products accumulated in fp32 and written in xs's dtype;
-// rows from used on are not written. Any d and F: ragged edges are masked
-// in place (the TPU kernel asserts F % block_f == 0; 768 and 1408 fail it).
+// rows from used on are not written. Ragged d and F are handled in place
+// (the TPU kernel asserts F % block_f == 0; 768 and 1408 fail it). In both
+// kernels a block reads its expert id and the used count from device
+// memory, so blocks past the last real group exit and the host never syncs.
+// kernel.py::kernel_for picks the kernel from (dtype, bt, d, F) alone.
 //
-// What bounds it on the H100: at a prefill (T = 131,072 assignments, d =
-// 2048, F = 768) 2 * T * d * F operations on bf16 tensor cores,
-// 989 TFLOP/s; at decode (T = 128) the expert weights' read,
-// E_used * d * F * 2 bytes / 3.35e12.
+// moe_gemm_wgmma (bf16, bt 64 or 128, d % 8 == 0, F % 8 == 0: the prefill).
+// What bounds it: 2 * T * d * F operations on bf16 tensor cores, 989
+// TFLOP/s (T = 131,072 assignments, d = 2048, F = 768). Design: one block
+// per (bt token rows, 256 output columns), three warpgroups. Warpgroup 0's
+// first thread loads, by TMA, each 64-deep slice of the xs tile (a 2-D map
+// over (d, T_pad)) and of w[e] (a 3-D map over (F, d, E), four 64-column
+// boxes) into a ring of 4 (bt 128) or 5 (bt 64) stages guarded by
+// mbarriers; TMA zero-fills past d and F. It gives its registers to the
+// consumers (setmaxnreg). Warpgroups 1 and 2 run wgmma m64nNk16 from shared
+// memory, w read MN-major through the descriptor's transpose bit: at bt 128
+// each owns 64 rows x 256 columns, at bt 64 each 64 rows x 128 columns of
+// the one 64-row tile. A consumer keeps one wgmma group in flight and
+// releases a stage as soon as the group reading it has completed. Columns
+// past F are masked at the store.
 //
-// Design: one block per (64 or 16 token rows, 128 output columns), 4 warps.
-// The block reads its expert id and the used count from device memory, so
-// blocks past the last real group exit and the host never syncs. The d
-// dimension is walked in 64-deep stages: x and w tiles are loaded 16 bytes a
-// thread into registers for the next stage while the current one runs from
-// shared memory (rows padded by 8 halves so the fragment reads are
-// conflict-free), and bf16 products run on mma.sync.m16n8k16 with fp32
-// accumulators (f32 inputs take fp32 FMAs on the same fragment layout).
-// Within a group every 64-row tile re-reads its expert's w slice, mostly from
-// L2 (one expert's gate weights are 3 MB).
+// moe_gemm_kernel (the decode regime: bt 16, T = 128; also f32 and shapes
+// that break TMA's 16-byte strides). What bounds it at decode: the expert
+// weights' read, E_used * d * F * 2 bytes / 3.35e12. Design: one block per
+// (64 or 16 token rows, 128 output columns), 4 warps. The d dimension is
+// walked in 64-deep stages: x and w tiles are loaded 16 bytes a thread into
+// registers for the next stage while the current one runs from shared
+// memory (rows padded by 8 halves so the fragment reads are conflict-free),
+// and bf16 products run on mma.sync.m16n8k16 with fp32 accumulators (f32
+// inputs take fp32 FMAs on the same fragment layout).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "../../hopper.cuh"
 
 namespace {
 
@@ -229,6 +243,140 @@ int launch_bm(const void* xs, const int* block_expert, const void* w,
   return launch<T, 16>(xs, block_expert, w, used, ys, T_pad, d, F, bt, stream);
 }
 
+
+// ------------------------------------------------------- bf16, wgmma + TMA
+
+namespace gm {
+constexpr int BN = 256, BK = 64;
+constexpr int THREADS = 384;          // producer + two consumer warpgroups
+constexpr int CONSUMERS = 256;
+constexpr int B_ATOM = BK * 128;      // [64 rows of d][64 columns of F]
+constexpr int B_BYTES = (BN / 64) * B_ATOM;
+template <int BM> struct Cfg {
+  static constexpr int STAGES = BM == 128 ? 4 : 5;
+  static constexpr int A_BYTES = BM * 128;  // [BM rows][64 of d]
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int BAR = STAGES * STAGE;
+  static constexpr int BYTES = BAR + 16 * STAGES + 1024;  // + align
+  static constexpr int WN = BM == 128 ? 256 : 128;  // columns a consumer owns
+};
+}  // namespace gm
+
+template <int BM>
+__global__ void __launch_bounds__(gm::THREADS, 1)
+moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_w,
+               const int* __restrict__ block_expert,
+               const int* __restrict__ used, __nv_bfloat16* __restrict__ ys,
+               int d, int F, int bt) {
+  using namespace hopper;
+  using C = gm::Cfg<BM>;
+  constexpr int STAGES = C::STAGES, WN = C::WN;
+  const int row0 = blockIdx.y * BM;
+  if (row0 >= *used) return;  // past the last real group
+  const int e = block_expert[row0 / bt];
+  const int n0 = blockIdx.x * gm::BN;
+  const int nk = (d + gm::BK - 1) / gm::BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], gm::CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      // w boxes that start inside F (a box past F would only read zeros)
+      const int n_atoms = min(gm::BN / 64, (F - n0 + 63) / 64);
+      const uint32_t bytes = C::A_BYTES + n_atoms * gm::B_ATOM;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        if (kt >= STAGES) mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
+        uint8_t* st = sm + s * C::STAGE;
+        mbar_expect_tx(&full[s], bytes);
+        tma_load_2d(st, &map_x, &full[s], kt * gm::BK, row0);
+        for (int a = 0; a < n_atoms; ++a)
+          tma_load_3d(st + C::A_BYTES + a * gm::B_ATOM, &map_w, &full[s],
+                      n0 + 64 * a, kt * gm::BK, e);
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int wm = BM == 128 ? cw : 0, wn = BM == 128 ? 0 : cw;
+    float acc[WN / 2];
+#pragma unroll
+    for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      const uint8_t* st = sm + s * C::STAGE;
+      mbar_wait(&full[s], (kt / STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < gm::BK / 16; ++kk) {
+        const uint64_t da = desc_sw128(st + wm * 64 * 128 + kk * 32, 16, 1024);
+        const uint64_t db = desc_sw128(
+            st + C::A_BYTES + (wn * WN / 64) * gm::B_ATOM + kk * 2048, gm::B_ATOM,
+            1024);
+        Wgmma<WN>::template ss<1>(acc, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous slice's group is done: free its stage
+      if (kt > 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int row = row0 + wm * 64 + warp * 16 + g;
+    __nv_bfloat16* y0 = ys + (size_t)row * F;
+    __nv_bfloat16* y1 = y0 + (size_t)8 * F;
+#pragma unroll
+    for (int c = 0; c < WN / 8; ++c) {
+      const int col = n0 + wn * WN + 8 * c + 2 * t;
+      if (col < F) {
+        *reinterpret_cast<uint32_t*>(y0 + col) = pack_bf16(acc[4 * c], acc[4 * c + 1]);
+        *reinterpret_cast<uint32_t*>(y1 + col) = pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
+      }
+    }
+  }
+}
+
+template <int BM>
+int launch_wgmma(const void* xs, const int* block_expert, const void* w,
+                 const int* used, void* ys, int T_pad, int d, int F, int E,
+                 cudaStream_t stream) {
+  CUtensorMap mx, mw;
+  const uint64_t dx[2] = {(uint64_t)d, (uint64_t)T_pad};
+  const uint64_t sx[1] = {(uint64_t)d * 2};
+  const uint32_t bx[2] = {64, BM};
+  const uint64_t dw[3] = {(uint64_t)F, (uint64_t)d, (uint64_t)E};
+  const uint64_t sw[2] = {(uint64_t)F * 2, (uint64_t)d * F * 2};
+  const uint32_t bw[3] = {64, gm::BK, 1};
+  int err = hopper::encode_bf16_map(&mx, xs, 2, dx, sx, bx);
+  if (!err) err = hopper::encode_bf16_map(&mw, w, 3, dw, sw, bw);
+  if (err) return err;
+  const int smem = gm::Cfg<BM>::BYTES;
+  auto kern = moe_gemm_wgmma<BM>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((F + gm::BN - 1) / gm::BN, T_pad / BM);
+  kern<<<grid, gm::THREADS, smem, stream>>>(
+      mx, mw, block_expert, used, static_cast<__nv_bfloat16*>(ys), d, F, BM);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // bt: rows per expert block, a multiple of 16 dividing T_pad. Returns a
@@ -244,5 +392,22 @@ extern "C" int moe_gemm_launch(const void* xs, const int* block_expert,
     return launch_bm<__nv_bfloat16>(xs, block_expert, w, used, ys, T_pad, d,
                                     F, bt, stream);
   return launch_bm<float>(xs, block_expert, w, used, ys, T_pad, d, F, bt,
+                          stream);
+}
+
+// bf16 only; bt 64 or 128 rows per expert block dividing T_pad; d and F
+// multiples of 8 (TMA's 16-byte strides); E experts in w. Returns a
+// cudaError_t.
+extern "C" int moe_gemm_wgmma_launch(const void* xs, const int* block_expert,
+                                     const void* w, const int* used, void* ys,
+                                     int T_pad, int d, int F, int E, int bt,
+                                     cudaStream_t stream) {
+  if (T_pad < 1 || d < 8 || F < 8 || E < 1 || d % 8 || F % 8 ||
+      (bt != 64 && bt != 128) || T_pad % bt || T_pad / bt > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (bt == 128)
+    return launch_wgmma<128>(xs, block_expert, w, used, ys, T_pad, d, F, E,
+                             stream);
+  return launch_wgmma<64>(xs, block_expert, w, used, ys, T_pad, d, F, E,
                           stream);
 }

@@ -5,17 +5,19 @@ plan (``sort_by_expert``) is torch ops on the tensors' device with static
 shapes: no host sync, no data-dependent shape. ``moe_gemm_sorted`` is the
 kernel's dispatch: a CPU tensor takes the plain version (``ref.py``), a CUDA
 tensor launches the hand-written grouped GEMM (``kernel.py``) or raises.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches, and ``launches_by_kernel`` splits that
+count by the kernel that ran (``kernel.kernel_for``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
 
 launches = 0
+launches_by_kernel: Dict[str, int] = {}
 
 
 class Plan(NamedTuple):
@@ -27,10 +29,14 @@ class Plan(NamedTuple):
 
 
 def block_t_for(T: int, n_experts: int) -> int:
-    """Token-block rows: 64 where the average group fills a 64-row tile,
-    else 16, so a sparse batch (decode) pads each expert's few tokens to 16
-    rows instead of 64."""
-    return 64 if T >= 64 * n_experts else 16
+    """Token-block rows: 128 or 64 where the average group fills a tile of
+    that many rows (a prefill: the wgmma kernel, whose 128-row tile reads
+    each slice of an expert's weights once for twice the rows), else 16, so
+    a sparse batch (decode) pads each expert's few tokens to 16 rows."""
+    for bt in (128, 64):
+        if T >= bt * n_experts:
+            return bt
+    return 16
 
 
 def plan(expert_ids: torch.Tensor, n_experts: int, block_t: int) -> Plan:
@@ -76,9 +82,11 @@ def moe_gemm_sorted(xs: torch.Tensor, block_expert: torch.Tensor,
         return moe_gemm_sorted_reference(xs, block_expert, w, block_t, used)
     if xs.device.type != "cuda":
         raise ValueError(f"moe_gemm: no kernel for {xs.device}")
-    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_cuda
+    from repro_torch.kernels.moe_gemm.kernel import kernel_for, moe_gemm_cuda
     out = moe_gemm_cuda(xs, block_expert, w, block_t, used)
     launches += 1
+    name = kernel_for(xs.dtype, block_t, xs.shape[1], w.shape[2])
+    launches_by_kernel[name] = launches_by_kernel.get(name, 0) + 1
     return out
 
 

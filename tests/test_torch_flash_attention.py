@@ -88,3 +88,49 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 4, 2, 2, 64, seed=0))
     with pytest.raises(ValueError, match="CUDA"):
         flash_fwd_cuda(q, k, v, causal=False)
+
+
+def _window(kind, bk):
+    return {"none": 0, "below_tile": bk // 2 - 3, "spans_tiles": 2 * bk + 7}[
+        kind]
+
+
+def _q_offset(kind, bk):
+    return {"negative": -bk - 5, "zero": 0, "positive": bk + 3}[kind]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window_kind", ["none", "below_tile", "spans_tiles"])
+@pytest.mark.parametrize("q_offset_kind", ["negative", "zero", "positive"])
+def test_kv_tile_range_is_the_reference_live_set(dtype, causal, window_kind,
+                                                 q_offset_kind):
+    """Each q tile of the CUDA kernel visits the key tiles where the
+    reference's _kv_block_live holds, or every tile when one of its rows
+    sees no key; that predicate is the plain version's all-false mask
+    rows. Ragged Sq and Skv, and an Skv below one tile."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    bq, bk = FK.TILES[torch.bfloat16 if dtype == "bf16" else torch.float32]
+    window = _window(window_kind, bk)
+    q_offset = _q_offset(q_offset_kind, bk)
+    for Sq, Skv in ((3 * bq + 5, 4 * bk + 9), (2 * bq - 7, bk - 17)):
+        cfg = JO._Cfg(causal=causal, window=window, q_offset=q_offset,
+                      scale=1.0, block_q=bq, block_kv=bk, skv_real=Skv,
+                      sq_real=Sq, use_pallas=False, block_skip=True,
+                      unroll=False)
+        nkt = -(-Skv // bk)
+        mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                              q_offset=q_offset)
+        for q0 in range(0, Sq, bq):
+            live = np.asarray(JO._kv_block_live(cfg, q0,
+                                                jnp.arange(nkt) * bk))
+            kw = dict(causal=causal, window=window, q_offset=q_offset)
+            keyless = FK.keyless_row(q0, bq, Sq, Skv, **kw)
+            assert keyless == bool((~mask[q0:q0 + bq].any(1)).any())
+            lo, hi = FK.kv_tile_range(q0, bq, bk, Sq, Skv, **kw)
+            if keyless:
+                assert (lo, hi) == (0, nkt)
+            else:
+                np.testing.assert_array_equal(
+                    np.flatnonzero(live), np.arange(lo, hi))

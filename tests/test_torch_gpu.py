@@ -66,6 +66,44 @@ def test_flash_kernel_matches_plain(gen, D, dtype, causal, window, q_offset,
     assert (lse - lse_p).abs().max().item() <= 1e-4
 
 
+# bf16 side cases of the wgmma kernel (128-row q tiles, 128-key tiles):
+# causal with q_offset, windows below and above the tile, ragged Sq and Skv,
+# Skv below one tile, rows that see no key, GQA 6:1 and 8:1, D 64/80/128
+FLASH_BF16_CASES = [  # B, Sq, Skv, H, KV, D, causal, window, q_offset
+    (2, 77, 130, 12, 2, 128, True, 0, 53),
+    (2, 300, 300, 32, 4, 128, True, 0, 0),
+    (3, 100, 300, 6, 1, 128, True, 17, 0),
+    (2, 300, 300, 8, 1, 128, True, 200, 0),
+    (2, 33, 257, 6, 3, 80, False, 0, 0),
+    (2, 78, 78, 16, 16, 64, False, 0, 0),
+    (1, 64, 40, 2, 2, 64, True, 0, -30),     # rows before every key
+    (1, 200, 50, 2, 2, 64, False, 5, 60),    # windows past every key
+    (2, 150, 90, 4, 2, 80, True, 40, 70)]    # both, in a mixed tile
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,q_offset",
+                         FLASH_BF16_CASES)
+def test_flash_bf16_side_cases_match_plain(gen, B, Sq, Skv, H, KV, D, causal,
+                                           window, q_offset):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_fwd_reference, attention_mask)
+    bf = torch.bfloat16
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(bf)
+    k = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(bf)
+    v = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(bf)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    o_p, lse_p = attention_fwd_reference(q, k, v, **kw)
+    assert (o.float() - o_p.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_p).abs().max().item() <= 1e-4
+    keyless = ~attention_mask(Sq, Skv, **kw).any(1)
+    if keyless.any():  # the reference's uniform softmax over the Skv keys
+        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)
+        got = o[:, keyless].float()
+        assert (got - mean_v[:, None]).abs().max().item() <= 2e-2
+
+
 @pytest.mark.parametrize("shape,dtype", [((33, 1280), torch.bfloat16),
                                          ((5, 7, 64), torch.float32)])
 def test_rmsnorm_kernel_matches_plain(gen, shape, dtype):
@@ -285,6 +323,40 @@ def test_moe_gemm_kernel_matches_plain(gen, T, d, E, F, bt, dtype, kind):
     y = ops.moe_gemm(x, eid, w, block_t=bt)
     y_p = moe_gemm_reference(x, eid, w)
     assert (y.float() - y_p.float()).abs().max().item() <= rel * scale
+
+
+@pytest.mark.parametrize("T,d,E,F,bt,kind", [
+    (4096, 512, 16, 768, 128, "single"),   # one expert's group is one row
+    (1000, 256, 8, 1408, 64, "random"),
+    (777, 200, 8, 384, 128, "random"),     # d ragged against the 64-deep slice
+    (300, 64, 8, 104, 64, "empty")])       # F ragged against 256 columns
+def test_moe_gemm_both_kernels_match_plain(gen, T, d, E, F, bt, kind):
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.kernel import kernel_for, moe_gemm_cuda
+    from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
+    bf = torch.bfloat16
+    eid = torch.randint(0, E - 1, (T,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if kind == "single":
+        eid[T // 3] = E - 1
+    elif kind == "empty":
+        eid = eid // 2 * 2
+    x = torch.randn((T, d), generator=gen, device="cuda").to(bf)
+    w = (torch.randn((E, d, F), generator=gen, device="cuda") * 0.1).to(bf)
+    p = ops.plan(eid, E, bt)
+    xs = ops.scatter_rows(x, p)
+    ys_p = moe_gemm_sorted_reference(xs, p.block_expert, w, bt, p.used)
+    n = int(p.used)
+    lim = 2.0 ** -7 * max(1.0, ys_p[:n].float().abs().max().item())
+    assert kernel_for(bf, bt, d, F) == "wgmma"
+    for kernel in ("wgmma", "mma_sync"):
+        ys = moe_gemm_cuda(xs, p.block_expert, w, bt, p.used, kernel=kernel)
+        assert (ys[:n].float() - ys_p[:n].float()).abs().max().item() <= lim
+    before = dict(ops.launches_by_kernel)
+    ops.moe_gemm_sorted(xs, p.block_expert, w, bt, p.used)
+    assert ops.launches_by_kernel["wgmma"] == before.get("wgmma", 0) + 1
+    assert ops.launches_by_kernel.get("mma_sync", 0) == \
+        before.get("mma_sync", 0)
 
 
 def test_lm_prefill_and_decode_on_the_card_match_the_cpu(gen):

@@ -28,7 +28,8 @@ def _ids(kind, T, E, seed):
 @pytest.mark.parametrize("kind,E,T,bt", [
     ("random", 2, 10, 8), ("random", 6, 200, 64), ("random", 4, 64, 16),
     ("one_expert", 8, 128, 32), ("empty_experts", 8, 77, 16),
-    ("random", 128, 128, 16)])
+    ("random", 128, 128, 16), ("random", 128, 16384, 128),
+    ("one_expert", 16, 2048, 128)])
 def test_plan_matches_reference(kind, E, T, bt):
     eid = _ids(kind, T, E, seed=E * T + bt)
     order, slot, block_expert, T_pad = jax_sort_by_expert(jnp.asarray(eid),
@@ -93,8 +94,23 @@ def test_sorted_plain_version_leaves_unused_rows_zero():
 
 
 def test_block_t_for():
-    assert MO.block_t_for(131072, 128) == 64   # a prefill's assignments
+    assert MO.block_t_for(131072, 128) == 128  # a prefill's assignments
+    assert MO.block_t_for(12000, 128) == 64    # a short prefill's
     assert MO.block_t_for(128, 128) == 16      # a decode step's
+
+
+@pytest.mark.parametrize("dtype,bt,d,F,want", [
+    (torch.bfloat16, 128, 2048, 768, "wgmma"),    # qwen3-moe prefill
+    (torch.bfloat16, 128, 768, 2048, "wgmma"),    # its down projection
+    (torch.bfloat16, 64, 2048, 1408, "wgmma"),
+    (torch.bfloat16, 16, 2048, 768, "mma_sync"),  # a decode step
+    (torch.float32, 128, 2048, 768, "mma_sync"),  # f32
+    (torch.bfloat16, 64, 200, 100, "mma_sync"),   # F % 8: no TMA stride
+    (torch.bfloat16, 128, 36, 768, "mma_sync"),   # d % 8
+    (torch.bfloat16, 32, 2048, 768, "mma_sync")])
+def test_kernel_for(dtype, bt, d, F, want):
+    assert MK.kernel_for(dtype, bt, d, F) == want
+    assert want in MK.KERNELS
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
