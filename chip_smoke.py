@@ -10,7 +10,9 @@ from the sources in this checkout (one ``nvcc`` per source, all at once,
 sm_90a; the Triton rmsnorm compiles at its first launch), and holds each
 kernel against its plain PyTorch version at its path's shapes (the int4
 activation-cache kernels bit for bit; the grouped GEMM's side cases through
-both of its kernels, wgmma and mma.sync). Then it drives five paths, each
+both of its kernels, wgmma and mma.sync; the bf16 flash kernel against the
+plain variant that rounds P to bf16 per key tile, as the TPU kernel does,
+within one bf16 step of each element at max(|o|, 1)). Then it drives five paths, each
 with every launch counter set to 0 just before it and read just after:
 
   * serve: RECALL end to end at the full width of ``recall-imagebind``
@@ -45,6 +47,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -314,6 +317,23 @@ def _dense_case(q, bank, k, *, n_valid, normalize, what):
     return err
 
 
+# dense side cases: Q not a multiple of the query tile (1, 37, 193), N and
+# n_valid off the 128-row tile, n_valid < k, E of 1, 41, 201 and 2048
+# (E % 4 != 0 takes 4-byte copies), k 1 to 64, normalize on and off;
+# ``ties`` makes 18 rows equal to query 0 across tile boundaries (250..255,
+# 4090..4101; chunks are whole tiles)
+DENSE_CASES = (  # Q, N, E, k, n_valid, normalize, ties
+    (37, 50_001, 1024, 64, 49_002, True, False),
+    (5, 3_000, 201, 1, 3_000, False, False),
+    (3, 100, 64, 10, 5, False, False),
+    (1, 4_500, 1024, 10, 4_321, True, False),
+    (193, 9_000, 41, 16, 8_999, False, False),
+    (7, 700, 1, 3, 650, True, False),
+    (9, 5_000, 2048, 10, 5_000, True, False),
+    (4, 9_000, 41, 10, 8_999, False, True),
+    (192, 8_200, 1024, 10, 8_200, True, True))
+
+
 def check_dense(gen):
     """The dense fp32 scan (search impl 'pallas'/'xla'): side cases and the
     serving shape Q = 192, N = 2^20, E = 1024, normalize off and on, with
@@ -321,13 +341,22 @@ def check_dense(gen):
     import torch
     from repro_torch.kernels.retrieval_topk import ref as R
     from repro_torch.kernels.retrieval_topk.kernel import retrieval_topk_cuda
-    for Q, N, E, k, nv, nz in [(37, 50_001, 1024, 64, 49_002, True),
-                               (5, 3_000, 201, 1, 3_000, False),
-                               (3, 100, 64, 10, 5, False)]:
-        _dense_case(_unit((Q, E), gen), _unit((N, E), gen), k, n_valid=nv,
-                    normalize=nz, what=f"Q={Q} N={N} E={E} k={k}")
-        print(f"  dense side case Q={Q} N={N} E={E} k={k} n_valid={nv} "
-              f"normalize={nz}: ok")
+    tied = torch.cat([torch.arange(250, 256), torch.arange(4090, 4102)])
+    for Q, N, E, k, nv, nz, ties in DENSE_CASES:
+        q, bank = _unit((Q, E), gen), _unit((N, E), gen)
+        if ties:
+            bank[tied.cuda()] = q[0]
+        what = f"Q={Q} N={N} E={E} k={k} n_valid={nv} normalize={nz}"
+        _dense_case(q, bank, k, n_valid=nv, normalize=nz, what=what)
+        if ties:  # equal scores: the lowest ids, across tiles and chunks
+            s_k, i_k = retrieval_topk_cuda(q, bank, k, normalize=nz,
+                                           n_valid=nv)
+            if not (torch.equal(i_k[0].cpu(), tied[:k].int())
+                    and bool((s_k[0] == s_k[0, 0]).all())):
+                _fail(f"retrieval_topk_dense {what}: tied rows give ids "
+                      f"{i_k[0].tolist()}, want {tied[:k].tolist()}")
+        print(f"  dense side case {what}" + (", tied rows" if ties else "")
+              + ": ok")
     Q, N, E, k = 192, 1 << 20, 1024, 10
     q, bank = _unit((Q, E), gen), _unit((N, E), gen)
     errs = [_dense_case(q, bank, k, n_valid=nv, normalize=nz,
@@ -339,12 +368,13 @@ def check_dense(gen):
         q, bank, k, normalize=False, n_valid=N, block_n=65536), reps=1,
         trials=3)
     lib_ms = time_ms(lambda: torch.topk(q @ bank.T, k), reps=1, trials=3)
+    mm_ms = time_ms(lambda: q @ bank.T, reps=1, trials=3)
     n_bytes = N * E * 4 + Q * E * 4 + Q * k * 8
     b_ms, b_by = bound_ms(n_bytes, 2.0 * Q * N * E, "fp32")
     print(f"  dense Q={Q} N={N} E={E} k={k}: max_abs_err {max(errs):.3e} "
           f"(tol 1e-5) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"torch.topk(q @ bank.T) {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
-          f"({b_by})")
+          f"torch.topk(q @ bank.T) {lib_ms:.3f} ms (the product alone "
+          f"{mm_ms:.3f} ms), bound {b_ms:.3f} ms ({b_by})")
     return {"name": "retrieval_topk_dense", "route": "cuda",
             "source": "src/repro_torch/kernels/retrieval_topk/csrc/"
                       "topk_dense.cu",
@@ -354,24 +384,48 @@ def check_dense(gen):
 
 
 def _flash_case(B, Sq, Skv, H, KV, D, dtype, *, causal, window, q_offset,
-                gen, tol, lse_tol):
+                gen, lse_tol):
+    """One flash case against the plain version that rounds as the kernel
+    does (``kernel.plain_like_kernel``): f32 within 1e-5; bf16 (P rounded
+    to bf16 before P.V, as the TPU kernel does, in both) per element within
+    one bf16 step at max(|o|, 1) (``ref.bf16_step_limit``: no looser than
+    2e-2 below |o| = 4, and a rounding flip at |o| >= 4 passes). Rows that
+    see no key are held against the mean of V within the same limit."""
     import torch
-    from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
+    from repro_torch.kernels.flash_attention.kernel import (flash_fwd_cuda,
+                                                            plain_like_kernel)
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         bf16_step_limit)
     q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     o_k, l_k = flash_fwd_cuda(q, k, v, **kw)
-    o_p, l_p = attention_fwd_reference(q, k, v, **kw)
+    o_p, l_p = plain_like_kernel(q, k, v, **kw)
     torch.cuda.synchronize()
-    err = (o_k.float() - o_p.float()).abs().max().item()
+
+    def limit(want):
+        if dtype == torch.float32:
+            return torch.full_like(want, 1e-5, dtype=torch.float32)
+        return bf16_step_limit(want)
+    diff = (o_k.float() - o_p.float()).abs()
+    err = diff.max().item()
+    over = (diff / limit(o_p)).max().item()
     lerr = (l_k - l_p).abs().max().item()
-    if not (err <= tol and lerr <= lse_tol):
-        _fail(f"flash_attention B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
-              f"{dtype} {kw}: out err {err} (tol {tol}), lse err {lerr} "
-              f"(tol {lse_tol})")
-    return q, k, v, err
+    what = (f"flash_attention B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
+            f"{dtype} {kw}")
+    if not (over <= 1.0 and lerr <= lse_tol):
+        _fail(f"{what}: out err {err} ({over:.3f} of its limit), lse err "
+              f"{lerr} (tol {lse_tol})")
+    keyless = ~attention_mask(Sq, Skv, device="cuda", **kw).any(1)
+    n_keyless = int(keyless.sum())
+    if n_keyless:  # the plain version's uniform softmax over Skv keys
+        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)[:, None]
+        got = o_k[:, keyless].float()
+        if not ((got - mean_v).abs() <= limit(mean_v)).all():
+            _fail(f"{what}: rows that see no key differ from the mean of V "
+                  f"by {(got - mean_v).abs().max().item()}")
+    return q, k, v, err, over, n_keyless
 
 
 # bf16 side cases of the wgmma kernel (128-row q tiles, 128-key tiles):
@@ -390,45 +444,46 @@ FLASH_BF16_CASES = (  # B, Sq, Skv, H, KV, D, causal, window, q_offset
     (2, 150, 90, 4, 2, 80, True, 40, 70))    # both, in a mixed tile
 
 
+# f32 side cases of the FMA kernel (64-row q tiles, 64-key tiles): the
+# vision shape at small B (S 257 = 4 * 64 + 1, D 80), causal with q_offset
+# at D 64 and 128, windows below and across tiles, GQA, rows that see no
+# key
+FLASH_F32_CASES = (  # B, Sq, Skv, H, KV, D, causal, window, q_offset
+    (2, 257, 257, 16, 16, 80, False, 0, 0),
+    (2, 77, 130, 8, 4, 128, True, 0, 53),
+    (2, 100, 130, 6, 2, 64, True, 0, 30),
+    (3, 100, 100, 4, 2, 64, True, 17, 0),
+    (2, 150, 150, 4, 2, 80, False, 70, 0),
+    (2, 33, 257, 6, 3, 80, False, 0, 0),
+    (1, 64, 40, 2, 2, 64, True, 0, -30),     # rows before every key
+    (1, 200, 50, 2, 2, 64, False, 5, 60),    # windows past every key
+    (2, 150, 90, 4, 2, 128, True, 40, 70))   # both, in a mixed tile
+
+
 def check_flash(gen):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
-    from repro_torch.kernels.flash_attention.ref import (
-        attention_fwd_reference, attention_mask)
-    # f32 side cases: GQA, causal, window, q_offset, every head dim, rows
-    # that see no key
-    for B, Sq, Skv, H, KV, D, causal, window, qoff in [
-            (2, 77, 130, 8, 4, 128, True, 0, 53),
-            (3, 100, 100, 4, 2, 64, True, 17, 0),
-            (2, 33, 257, 6, 3, 80, False, 0, 0),
-            (1, 200, 50, 2, 2, 64, False, 5, 60)]:
-        _flash_case(B, Sq, Skv, H, KV, D, torch.float32, causal=causal,
-                    window=window, q_offset=qoff, gen=gen, tol=1e-5,
-                    lse_tol=1e-5)
+    from repro_torch.kernels.flash_attention.kernel import (flash_fwd_cuda,
+                                                            plain_like_kernel)
+    # f32 side cases of the FMA kernel: the vision shape at small B, GQA,
+    # causal with q_offset at every head dim, windows, rows that see no key
+    for B, Sq, Skv, H, KV, D, causal, window, qoff in FLASH_F32_CASES:
+        *_, err, _, n_keyless = _flash_case(
+            B, Sq, Skv, H, KV, D, torch.float32, causal=causal,
+            window=window, q_offset=qoff, gen=gen, lse_tol=1e-5)
         print(f"  flash f32 side case B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} "
-              f"D={D} causal={causal} window={window} q_offset={qoff}: ok")
-    # bf16 output: one rounding of values of |o| < 4 is < 2e-2
+              f"D={D} causal={causal} window={window} q_offset={qoff}: "
+              f"max_abs_err {err:.3e}"
+              + (f", {n_keyless} rows that see no key" if n_keyless else "")
+              + ": ok")
     for B, Sq, Skv, H, KV, D, causal, window, qoff in FLASH_BF16_CASES:
-        q, k, v, err = _flash_case(B, Sq, Skv, H, KV, D, torch.bfloat16,
-                                   causal=causal, window=window,
-                                   q_offset=qoff, gen=gen, tol=2e-2,
-                                   lse_tol=1e-3)
-        keyless = ~attention_mask(Sq, Skv, causal=causal, window=window,
-                                  q_offset=qoff, device="cuda").any(1)
-        n_keyless = int(keyless.sum())
-        if n_keyless:  # the plain version's uniform softmax over Skv keys
-            o_k, _ = flash_fwd_cuda(q, k, v, causal=causal, window=window,
-                                    q_offset=qoff)
-            mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)
-            kerr = (o_k[:, keyless].float()
-                    - mean_v[:, None]).abs().max().item()
-            if not kerr <= 2e-2:
-                _fail(f"flash bf16 rows that see no key: error {kerr} "
-                      f"against the mean of V (tol 2e-2)")
+        *_, err, over, n_keyless = _flash_case(
+            B, Sq, Skv, H, KV, D, torch.bfloat16, causal=causal,
+            window=window, q_offset=qoff, gen=gen, lse_tol=1e-3)
         print(f"  flash bf16 side case B={B} Sq={Sq} Skv={Skv} H={H} "
               f"KV={KV} D={D} causal={causal} window={window} "
-              f"q_offset={qoff}: max_abs_err {err:.3e}"
+              f"q_offset={qoff}: max_abs_err {err:.3e} ({over:.2f} of the "
+              "per-element limit)"
               + (f", {n_keyless} rows that see no key" if n_keyless else "")
               + ": ok")
     rows = []
@@ -439,14 +494,12 @@ def check_flash(gen):
                                ("text", 78, 64, torch.bfloat16)):
         B, H = 64, 16
         fp32 = dtype == torch.float32
-        # bf16 output: one rounding of values of |o| < 4 is < 2e-2
-        tol, lse_tol = (1e-5, 1e-5) if fp32 else (2e-2, 1e-3)
-        q, k, v, err = _flash_case(B, S, S, H, H, D, dtype, causal=False,
-                                   window=0, q_offset=0, gen=gen, tol=tol,
-                                   lse_tol=lse_tol)
+        q, k, v, err, over, _ = _flash_case(
+            B, S, S, H, H, D, dtype, causal=False, window=0, q_offset=0,
+            gen=gen, lse_tol=1e-5 if fp32 else 1e-3)
+        tol = "1e-5" if fp32 else f"{over:.2f} of the per-element limit"
         ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=False))
-        plain_ms = time_ms(lambda: attention_fwd_reference(q, k, v,
-                                                           causal=False),
+        plain_ms = time_ms(lambda: plain_like_kernel(q, k, v, causal=False),
                            reps=2, trials=3)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
@@ -454,7 +507,7 @@ def check_flash(gen):
         b_ms, b_by = bound_ms(n_bytes, 4.0 * B * H * S * S * D,
                               "fp32" if fp32 else "bf16")
         print(f"  flash {tower} B={B} S={S} H={H} D={D} {dtype}: max_abs_err "
-              f"{err:.3e} (tol {tol}) kernel {ms:.3f} ms, plain "
+              f"{err:.3e} ({tol}) kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by})")
         rows.append({"name": f"flash_attention_fwd[{tower}]", "route": "cuda",
@@ -848,24 +901,22 @@ def check_flash_lm(gen):
     skip."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
+    from repro_torch.kernels.flash_attention.kernel import (flash_fwd_cuda,
+                                                            plain_like_kernel)
     rows = []
     for what, arch, B, S, H, KV in (("lm_prefill", "qwen2-1.5b", 32, 2048, 12,
                                      2),
                                     ("moe_prefill", "qwen3-moe-30b-a3b", 16,
                                      1024, 32, 4)):
         D = 128
-        # bf16 output: one rounding of values of |o| < 4 is < 2e-2
-        q, k, v, err = _flash_case(B, S, S, H, KV, D, torch.bfloat16,
-                                   causal=True, window=0, q_offset=0, gen=gen,
-                                   tol=2e-2, lse_tol=1e-3)
+        q, k, v, err, over, _ = _flash_case(
+            B, S, S, H, KV, D, torch.bfloat16, causal=True, window=0,
+            q_offset=0, gen=gen, lse_tol=1e-3)
         ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=True), reps=5,
                      trials=5)
         full_ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=False),
                           reps=5, trials=5)
-        plain_ms = time_ms(lambda: attention_fwd_reference(q, k, v,
-                                                           causal=True),
+        plain_ms = time_ms(lambda: plain_like_kernel(q, k, v, causal=True),
                            reps=1, trials=2)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -874,7 +925,8 @@ def check_flash_lm(gen):
         n_ops = 4.0 * B * H * D * S * (S + 1) / 2
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
         print(f"  flash {what} ({arch}) B={B} S={S} H={H} KV={KV} D={D} "
-              f"bf16 causal: max_abs_err {err:.3e} (tol 2e-2) kernel "
+              f"bf16 causal: max_abs_err {err:.3e} ({over:.2f} of the "
+              f"per-element limit) kernel "
               f"{ms:.4f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), the same "
               f"without the causal mask {full_ms:.4f} ms (causal / full "
               f"{ms / full_ms:.3f}), plain {plain_ms:.3f} ms, sdpa "
@@ -1085,6 +1137,13 @@ def _call_checker(rel_tol):
     return both, worst, calls
 
 
+def _flash_plain(q, k, v, **kw):
+    """The plain flash output a call is held to: for bf16 the variant that
+    rounds P to bf16 as the kernel (and the TPU kernel) does."""
+    from repro_torch.kernels.flash_attention.kernel import plain_like_kernel
+    return plain_like_kernel(q, k, v, **kw)[0]
+
+
 def check_calls_vs_plain(params, spec, vision, text):
     """Every kernel call of one full-width forward of both towers (4 items
     each) against its plain version on the same real activations.
@@ -1097,7 +1156,6 @@ def check_calls_vs_plain(params, spec, vision, text):
     import torch
     from unittest import mock
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import attention_reference
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
     from repro_torch.models import imagebind as IB
@@ -1108,7 +1166,7 @@ def check_calls_vs_plain(params, spec, vision, text):
             mock.patch.object(T, "flash_attention",
                               both("flash_attention_fwd",
                                    flash_ops.flash_attention,
-                                   attention_reference)), \
+                                   _flash_plain)), \
             mock.patch.object(layers, "rmsnorm_op",
                               both("rmsnorm", rms_ops.rmsnorm_op,
                                    rmsnorm_reference)):
@@ -1119,6 +1177,50 @@ def check_calls_vs_plain(params, spec, vision, text):
           f"vs plain versions on the same activations: {calls}, worst error "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + f" of the output's scale (tol {rel_tol:.2e})")
+
+
+@contextlib.contextmanager
+def _recording_f32_flash_shapes():
+    """Counts the (q, k) shapes of the f32 flash calls made inside (the
+    vision tower's refinement in a query_batch); each call still goes
+    through the kernel's dispatch and its launch counter."""
+    import collections
+    from unittest import mock
+    import torch
+    from repro_torch.models import transformer as T
+    shapes = collections.Counter()
+    real = T.flash_attention
+
+    def recording(q, k, v, **kw):
+        if q.dtype == torch.float32:
+            shapes[(tuple(q.shape), tuple(k.shape))] += 1
+        return real(q, k, v, **kw)
+    with mock.patch.object(T, "flash_attention", recording):
+        yield shapes
+
+
+def time_refine_flash(shapes):
+    """The f32 flash kernel against SDPA at the refinement shape that the
+    query_batch launched most often."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
+    if not shapes:
+        _fail("the query_batch made no f32 flash call (refinement)")
+    (qs, ks), n = shapes.most_common(1)[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    q = torch.randn(qs, generator=gen, device="cuda")
+    k, v = (torch.randn(ks, generator=gen, device="cuda") for _ in range(2))
+    ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=False))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    B, S, H, D = qs
+    b_ms, b_by = bound_ms(4 * B * S * H * D * 4 + B * H * S * 4,
+                          4.0 * B * H * S * ks[1] * D, "fp32")
+    print(f"  flash f32 at the query_batch's refinement shape q {qs} "
+          f"({n} of {sum(shapes.values())} f32 calls): kernel {ms:.4f} ms, "
+          f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
 def serve_phase():
@@ -1149,8 +1251,9 @@ def serve_phase():
     in_drain = _read_launches(cfg)
     d2h_drain = engine.store.act_d2h_bytes
     t0 = time.perf_counter()
-    results = query.query_batch(data.items["text"][:n_queries], k=k)
-    torch.cuda.synchronize()
+    with _recording_f32_flash_shapes() as refine_shapes:
+        results = query.query_batch(data.items["text"][:n_queries], k=k)
+        torch.cuda.synchronize()
     t_query = time.perf_counter() - t0
     launches = _read_launches(cfg)
 
@@ -1205,6 +1308,7 @@ def serve_phase():
     print(f"  device-bank scan vs numpy scan ({qg.shape[0]} queries x "
           f"{n_items} rows): max score err {err:.2e} (tol 1e-5), ids equal "
           "where separated")
+    time_refine_flash(refine_shapes)
     check_calls_vs_plain(engine.params, spec, data.items["vision"][:4],
                          data.items["text"][:4])
     check_fp32_end_to_end(engine.params, spec, data.items["vision"][:4],
@@ -1721,7 +1825,6 @@ def check_lm_calls(run, what, *, record_plan=None):
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_reference)
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import attention_reference
     from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
     from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -1740,7 +1843,7 @@ def check_lm_calls(run, what, *, record_plan=None):
             mock.patch.object(T, "flash_attention",
                               both("flash_attention_fwd",
                                    flash_ops.flash_attention,
-                                   attention_reference)), \
+                                   _flash_plain)), \
             mock.patch.object(T, "decode_attention",
                               both("decode_attention",
                                    dec_ops.decode_attention,

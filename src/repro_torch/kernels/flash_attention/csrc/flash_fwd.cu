@@ -42,14 +42,21 @@
 // D = 80 uses two 64-column atoms, the second zero-filled past column 80 by
 // TMA.
 //
-// f32 (the vision tower: D = 80, S = 257, not causal): 4 * B * H * S^2 * D
-// operations on 67 TFLOP/s of fp32 FMAs (no TF32: the parity rule). One
-// block per (b, h, 32-row q tile), 8 warps x 4 query rows. The block loops
-// over its 64-key tiles staged in shared memory (K rows padded to D+1 words
-// so the per-lane key reads are conflict-free); lane j scores keys j and
-// j+32 for its warp's 4 rows, keeps m / l / acc in fp32 registers (acc:
-// output dims lane, lane+32, lane+64, lane+96), and broadcasts each p with
-// a shuffle for the P.V update.
+// f32 (the vision tower and refinement: D = 80, S = 257, not causal):
+// 4 * B * H * Sq * Skv * D operations on 67 TFLOP/s of fp32 FMAs (no TF32:
+// the parity rule). Design: an online-softmax flash forward built from two
+// register-blocked SIMT products. One block of 256 threads (a 16 x 16
+// grid) per (b, h, 64-row q tile); 64-key K/V tiles arrive by cp.async
+// (16-byte copies, zero past Skv) into a double buffer, so the next tile's
+// copy runs under this tile's math. S = Q K^T: thread (ty, tx) scores rows
+// 4 ty .. 4 ty + 3 against keys tx + 16 j from LDS.128 fragments along D;
+// a row's 64 scores lie on 16 lanes of one warp, so its max and sum are
+// shuffles. P goes to shared memory over the K stage S has just read, then
+// O += P V on the same rows, each thread owning D / 16 output columns (a
+// float4 at 4 tx + 64 c, and at D = 80 one more column at 64 + tx: no idle
+// lane). A warp whose 8 rows all lie past Sq skips the math, and key groups
+// of 16 past Skv are skipped, so at S = 257 the work tracks 257^2 rather
+// than 320^2. expf is the accurate one.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -438,147 +445,215 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 // -------------------------------------------------------------- f32, FMAs
 
 namespace f32 {
-constexpr int NWARPS = 8;
-constexpr int THREADS = NWARPS * 32;
-constexpr int ROWS = 4;              // query rows per warp
-constexpr int BQ = NWARPS * ROWS;    // query rows per block
-constexpr int BK = 64;               // keys per kv tile
+constexpr int THREADS = 256;         // a 16 x 16 thread grid
+constexpr int BQ = 64, BK = 64;      // q rows and keys of a tile
+constexpr int RM = 4;                // q rows per thread (4 ty .. 4 ty + 3)
+constexpr int KJ = 4;                // keys per thread (tx + 16 j)
+constexpr int PS = BK + 4;           // P row stride (conflict-free)
+
+template <int D> struct Layout {
+  static constexpr int QS = D + 4;           // Q and K row stride
+  static constexpr int NV4 = D / 64;         // float4 output columns a thread
+  static constexpr int NS = (D % 64) / 16;   // scalar output columns a thread
+  static constexpr int Q = 0;                // BQ x QS
+  static constexpr int K = Q + BQ * QS;      // 2 x (BK x QS), P over K's stage
+  static constexpr int V = K + 2 * BK * QS;  // 2 x (BK x D)
+  static constexpr int FLOATS = V + 2 * BK * D;
+  static_assert(BQ * PS <= BK * QS, "P fits in a K stage");
+  static_assert(16 * (4 * NV4 + NS) == D, "output columns tile D");
+};
 }  // namespace f32
 
 template <int D>
-__global__ void __launch_bounds__(f32::THREADS)
+__global__ void __launch_bounds__(f32::THREADS, D <= 80 ? 2 : 1)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
               float* __restrict__ lse, int Sq, int Skv, int H, int KV,
               float scale, int causal, int window, int q_offset) {
   using namespace f32;
-  constexpr int DP = (D + 31) / 32;  // output dims per lane
-  constexpr int KS = D + 1;          // padded K row stride
+  using L = Layout<D>;
+  constexpr int QS = L::QS, NV4 = L::NV4, NS = L::NS, DT = 4 * NV4 + NS;
+  constexpr int D4 = D / 4;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                  // BQ * D
-  float* ks = qs + BQ * D;           // BK * KS
-  float* vs = ks + BK * KS;          // BK * D
+  float* qs = smem + L::Q;
 
   const int n_qt = (Sq + BQ - 1) / BQ;
   const int qt = blockIdx.x % n_qt;
   const int bh = blockIdx.x / n_qt;
   const int h = bh % H, b = bh / H;
   const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int q0 = qt * BQ;
   int lo, hi;
   kv_tile_range(q0, BQ, BK, Sq, Skv, causal, window, q_offset, lo, hi);
-  const int p_lo = q0 + warp * ROWS + q_offset, p_hi = p_lo + ROWS - 1;
+  const int n = hi - lo;
+  // this warp's 8 rows (ty = 2w, 2w + 1); a warp whose rows all lie past Sq
+  // only helps with the copies and the barriers
+  const bool active = q0 + 8 * (tid / 32) < Sq;
+  const int p_lo = q0 + RM * ty + q_offset, p_hi = p_lo + RM - 1;
 
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D, qi = q0 + r;
-    qs[idx] = qi < Sq ? q[(((size_t)b * Sq + qi) * H + h) * D + d] : 0.f;
+  for (int c = tid; c < BQ * D4; c += THREADS) {
+    const int r = c / D4, d = (c % D4) * 4, qi = q0 + r;
+    const bool live = qi < Sq;
+    const float* src = live ? q + (((size_t)b * Sq + qi) * H + h) * D + d : q;
+    hopper::cp_async16(qs + r * QS + d, src, live ? 16 : 0);
   }
+  auto load_kv = [&](int tile, int st) {
+    float* ks = smem + L::K + st * BK * QS;
+    float* vs = smem + L::V + st * BK * D;
+    for (int c = tid; c < BK * D4; c += THREADS) {
+      const int j = c / D4, d = (c % D4) * 4, kj = tile * BK + j;
+      const bool live = kj < Skv;  // keys past Skv read as 0
+      const size_t off = (((size_t)b * Skv + kj) * KV + kvh) * D + d;
+      hopper::cp_async16(ks + j * QS + d, live ? k + off : k, live ? 16 : 0);
+      hopper::cp_async16(vs + j * D + d, live ? v + off : v, live ? 16 : 0);
+    }
+  };
+  load_kv(lo, 0);
+  hopper::cp_async_commit();
 
-  float m[ROWS], l[ROWS], acc[ROWS][DP];
+  float m[RM], l[RM], o[RM][DT];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
+  for (int r = 0; r < RM; ++r) {
     m[r] = NEG;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DP; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < DT; ++i) o[r][i] = 0.f;
   }
-  const float* qw = qs + warp * ROWS * D;
 
-  for (int t0 = lo * BK; t0 < hi * BK; t0 += BK) {
-    __syncthreads();  // the previous tile's readers are done (and q staged)
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int j = idx / D, d = idx % D, kj = t0 + j;
-      float kx = 0.f, vx = 0.f;
-      if (kj < Skv) {
-        const size_t off = (((size_t)b * Skv + kj) * KV + kvh) * D + d;
-        kx = k[off];
-        vx = v[off];
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1, t0 = (lo + it) * BK;
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // tile it landed; the other stage's readers are done
+    if (it + 1 < n) load_kv(lo + it + 1, st ^ 1);
+    hopper::cp_async_commit();
+    float* ks = smem + L::K + st * BK * QS;
+    const float* vs = smem + L::V + st * BK * D;
+    const int n_live = imin(BK, Skv - t0);    // keys of this tile
+    const int jmax = (n_live + 15) / 16;      // key groups that hold one
+
+    float s[RM][KJ];
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) s[r][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        float4 a[RM];
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          a[r] = *reinterpret_cast<const float4*>(qs + (RM * ty + r) * QS + d);
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          if (j < jmax) {
+            const float4 kb =
+                *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * QS + d);
+#pragma unroll
+            for (int r = 0; r < RM; ++r)
+              s[r][j] = fmaf(a[r].w, kb.w, fmaf(a[r].z, kb.z,
+                        fmaf(a[r].y, kb.y, fmaf(a[r].x, kb.x, s[r][j]))));
+          }
+        }
       }
-      ks[j * KS + d] = kx;
-      vs[j * D + d] = vx;
+      // the online softmax: a row's 64 scores lie on the 16 lanes of one ty
+      const bool masked = tile_needs_mask(t0, BK, p_lo, p_hi, Skv, causal,
+                                          window);
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const int qp = p_lo + r;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const int kj = t0 + tx + 16 * j;
+          float x = s[r][j] * scale;
+          if (j >= jmax || kj >= Skv) x = -INFINITY;  // not a key: weight 0
+          else if (masked && ((causal && kj > qp) ||
+                              (window > 0 && kj <= qp - window)))
+            x = NEG;
+          s[r][j] = x;
+          mx = fmaxf(mx, x);
+        }
+#pragma unroll
+        for (int o_ = 8; o_; o_ >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+        const float m_new = fmaxf(m[r], mx);
+        const float alpha = expf(m[r] - m_new);
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[r][j] = expf(s[r][j] - m_new);
+          ps += s[r][j];
+        }
+#pragma unroll
+        for (int o_ = 8; o_; o_ >>= 1)
+          ps += __shfl_xor_sync(0xffffffffu, ps, o_);
+        l[r] = l[r] * alpha + ps;
+        m[r] = m_new;
+#pragma unroll
+        for (int i = 0; i < DT; ++i) o[r][i] *= alpha;
+      }
+    }
+    __syncthreads();  // every read of this K stage is done: P goes there
+    float* ps_ = ks;
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int j = 0; j < KJ; ++j)
+          ps_[(RM * ty + r) * PS + tx + 16 * j] = s[r][j];
     }
     __syncthreads();
-
-    float s[ROWS][2];
+    if (active) {  // O += P V over the tile's keys, 4 at a time
+      const int n4 = (n_live + 3) & ~3;
+      for (int j = 0; j < n4; j += 4) {
+        float4 p4[RM];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* k0 = ks + lane * KS;
-    const float* k1 = ks + (lane + 32) * KS;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      const float a0 = k0[d], a1 = k0[d + 1], a2 = k0[d + 2], a3 = k0[d + 3];
-      const float b0 = k1[d], b1 = k1[d + 1], b2 = k1[d + 2], b3 = k1[d + 3];
+        for (int r = 0; r < RM; ++r)
+          p4[r] = *reinterpret_cast<const float4*>(ps_ + (RM * ty + r) * PS + j);
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(qw + r * D + d);
-        s[r][0] = fmaf(x.w, a3, fmaf(x.z, a2, fmaf(x.y, a1, fmaf(x.x, a0, s[r][0]))));
-        s[r][1] = fmaf(x.w, b3, fmaf(x.z, b2, fmaf(x.y, b1, fmaf(x.x, b0, s[r][1]))));
-      }
-    }
-
-    const bool masked = tile_needs_mask(t0, BK, p_lo, p_hi, Skv, causal,
-                                        window);
+        for (int jj = 0; jj < 4; ++jj) {
+          const float* vr = vs + (j + jj) * D;
+          float vv[DT];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int qp = p_lo + r;
+          for (int c = 0; c < NV4; ++c) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(vr + 4 * tx + 64 * c);
+            vv[4 * c] = x.x;
+            vv[4 * c + 1] = x.y;
+            vv[4 * c + 2] = x.z;
+            vv[4 * c + 3] = x.w;
+          }
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int kj = t0 + lane + 32 * c;
-        float x = s[r][c] * scale;
-        if (masked) {
-          if (kj >= Skv) x = -INFINITY;  // not a key: weight exactly 0
-          else if ((causal && kj > qp) || (window > 0 && kj <= qp - window))
-            x = NEG;
+          for (int c = 0; c < NS; ++c) vv[4 * NV4 + c] = vr[64 * NV4 + tx + 16 * c];
+#pragma unroll
+          for (int r = 0; r < RM; ++r) {
+            const float p = jj == 0 ? p4[r].x : jj == 1 ? p4[r].y
+                          : jj == 2 ? p4[r].z : p4[r].w;
+#pragma unroll
+            for (int i = 0; i < DT; ++i) o[r][i] = fmaf(p, vv[i], o[r][i]);
+          }
         }
-        s[r][c] = x;
-      }
-      float mx = fmaxf(s[r][0], s[r][1]);
-#pragma unroll
-      for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[r], mx);
-      const float p0 = expf(s[r][0] - m_new), p1 = expf(s[r][1] - m_new);
-      const float alpha = expf(m[r] - m_new);
-      float ps = p0 + p1;
-#pragma unroll
-      for (int o = 16; o; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      l[r] = l[r] * alpha + ps;
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < DP; ++i) acc[r][i] *= alpha;
-      s[r][0] = p0;
-      s[r][1] = p1;
-    }
-
-#pragma unroll 8
-    for (int j = 0; j < BK; ++j) {
-      float vv[DP];
-#pragma unroll
-      for (int i = 0; i < DP; ++i) {
-        const int d = lane + 32 * i;
-        vv[i] = d < D ? vs[j * D + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float p = __shfl_sync(0xffffffffu, j < 32 ? s[r][0] : s[r][1], j & 31);
-#pragma unroll
-        for (int i = 0; i < DP; ++i) acc[r][i] = fmaf(p, vv[i], acc[r][i]);
       }
     }
   }
 
+  if (!active) return;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int qi = q0 + warp * ROWS + r;
+  for (int r = 0; r < RM; ++r) {
+    const int qi = q0 + RM * ty + r;
     if (qi >= Sq) continue;
     const float l_safe = fmaxf(l[r], 1e-30f);
-    float* o = out + (((size_t)b * Sq + qi) * H + h) * D;
+    float* orow = out + (((size_t)b * Sq + qi) * H + h) * D;
 #pragma unroll
-    for (int i = 0; i < DP; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) o[d] = acc[r][i] / l_safe;
-    }
-    if (lane == 0) lse[((size_t)b * H + h) * Sq + qi] = m[r] + logf(l_safe);
+    for (int c = 0; c < NV4; ++c)
+      *reinterpret_cast<float4*>(orow + 4 * tx + 64 * c) =
+          make_float4(o[r][4 * c] / l_safe, o[r][4 * c + 1] / l_safe,
+                      o[r][4 * c + 2] / l_safe, o[r][4 * c + 3] / l_safe);
+#pragma unroll
+    for (int c = 0; c < NS; ++c)
+      orow[64 * NV4 + tx + 16 * c] = o[r][4 * NV4 + c] / l_safe;
+    if (tx == 0) lse[((size_t)b * H + h) * Sq + qi] = m[r] + logf(l_safe);
   }
 }
 
@@ -587,7 +662,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int Sq, int Skv, int H, int KV, float scale,
                int causal, int window, int q_offset, cudaStream_t stream) {
   using namespace f32;
-  const size_t smem = sizeof(float) * ((size_t)BQ * D + BK * (D + 1) + BK * D);
+  const size_t smem = sizeof(float) * Layout<D>::FLOATS;
   auto kern = flash_fwd_f32<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -3,7 +3,7 @@
 Takes the wrapper's layout as it is (q (B, Sq, H, D), k/v (B, Skv, KV, D),
 contiguous) and returns (out (B, Sq, H, D) in the input dtype, lse
 (B, H, Sq) f32). The dtype picks the path: bf16 runs the wgmma kernel
-(128-row q tiles, 128-key tiles), f32 the FMA kernel (32 and 64).
+(128-row q tiles, 128-key tiles), f32 the FMA kernel (64 and 64).
 
 ``kv_tile_range`` and ``keyless_row`` mirror the CUDA arithmetic that
 decides which key tiles a q tile visits; the CPU tests hold them against
@@ -18,11 +18,12 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
 
 HEAD_DIMS = (64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # (q rows, keys) of a tile, by path
-TILES = {torch.bfloat16: (128, 128), torch.float32: (32, 64)}
+TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +63,16 @@ def kv_tile_range(q0: int, bq: int, bk: int, Sq: int, Skv: int, *,
     return lo, hi
 
 
+def plain_like_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version that rounds as this kernel does: a bf16 input
+    rounds P to bf16 against the running max of each key tile (as the
+    wgmma kernel and the TPU kernel do), f32 keeps P in fp32."""
+    if q.dtype == torch.bfloat16:
+        kw.update(p_dtype=torch.bfloat16, block_kv=TILES[torch.bfloat16][1])
+    return attention_fwd_reference(q, k, v, **kw)
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, window: int = 0, q_offset: int = 0,
                    scale: Optional[float] = None
@@ -84,6 +95,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_fwd_cuda wants contiguous q, k, v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_fwd_cuda wants 16-byte aligned q, k, v")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)

@@ -4,6 +4,14 @@ masks and outputs.
 q (B, Sq, H, D); k, v (B, Skv, KV, D) with H % KV == 0 (GQA: head h reads
 kv head h // (H // KV)). ``q_offset`` shifts query positions (query i sits
 at absolute position i + q_offset). Scores and softmax in fp32.
+
+``p_dtype`` gives the variant that rounds P as the TPU kernel does
+(``p.astype(v.dtype)`` before P·V, ``repro/kernels/flash_attention/
+kernel.py``): an online softmax over key blocks of ``block_kv`` (the whole
+row when None), p = exp(s - m) in fp32 against the running row max m,
+rounded to ``p_dtype``, (p · V) summed in fp32, l summed from the unrounded
+p. A kernel with that rounding is held to this variant, per element, within
+``bf16_step_limit``.
 """
 from __future__ import annotations
 
@@ -31,7 +39,9 @@ def attention_mask(Sq: int, Skv: int, *, causal: bool, window: int,
 def attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: int = 0, q_offset: int = 0,
-                            scale: Optional[float] = None
+                            scale: Optional[float] = None,
+                            p_dtype: Optional[torch.dtype] = None,
+                            block_kv: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) f32)."""
     B, Sq, H, D = q.shape
@@ -44,9 +54,48 @@ def attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                           q_offset=q_offset, device=q.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     lse = torch.logsumexp(s, dim=-1)                       # (B, KV, G, Sq)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqj,bjkd->bqkgd", p, v.float())
+    if p_dtype is None:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqj,bjkd->bqkgd", p, v.float())
+    else:
+        o = _pv_rounding_p(s, v.float(), p_dtype, block_kv or Skv)
     return o.reshape(B, Sq, H, D).to(q.dtype), lse.reshape(B, H, Sq)
+
+
+def _pv_rounding_p(s: torch.Tensor, v: torch.Tensor, p_dtype: torch.dtype,
+                   block_kv: int) -> torch.Tensor:
+    """softmax(s) V with p rounded to ``p_dtype`` against the running max
+    over blocks of ``block_kv`` keys, as the TPU kernel's online softmax
+    rounds it. s (B, KV, G, Sq, Skv) masked fp32 scores, v (B, Skv, KV, D)
+    fp32 -> (B, Sq, KV, G, D)."""
+    m = torch.full(s.shape[:-1], NEG_INF, device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + v.shape[-1:], device=s.device)
+    for j0 in range(0, s.shape[-1], block_kv):
+        sj = s[..., j0:j0 + block_kv]
+        m_new = torch.maximum(m, sj.amax(-1))
+        p = torch.exp(sj - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bkgqj,bjkd->bkgqd", p.to(p_dtype).float(),
+                          v[:, j0:j0 + block_kv])
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4)
+
+
+def bf16_step_limit(o_plain: torch.Tensor) -> torch.Tensor:
+    """Per-element limit of a bf16 kernel output against the plain variant
+    that rounds P as the kernel does: one bf16 step at max(|o_plain|, 1),
+    i.e. 2^-7 below |o| = 2, 2^-6 in [2, 4), 2^-5 in [4, 8). Below |o| = 4
+    that is no looser than an absolute 2e-2, and above it a flip of the
+    final rounding at the element's own magnitude passes. It stays at 2^-7
+    below |o| = 1: an element near 0 is a cancelled sum of terms the size
+    of V, and another summation order moves it by more than its own bf16
+    step."""
+    mag = torch.clamp_min(o_plain.float().abs(), 1.0)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

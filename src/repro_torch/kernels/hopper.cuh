@@ -1,7 +1,9 @@
-// Hopper building blocks shared by the port's wgmma kernels
-// (flash_attention/csrc/flash_fwd.cu, moe_gemm/csrc/moe_gemm.cu): tensor
-// maps for TMA, mbarriers, TMA loads, wgmma shared-memory descriptors and
-// the wgmma instructions themselves, as inline PTX for sm_90a.
+// Hopper building blocks shared by the port's kernels
+// (flash_attention/csrc/flash_fwd.cu, moe_gemm/csrc/moe_gemm.cu,
+// retrieval_topk/csrc/topk_dense.cu): tensor maps for TMA, mbarriers, TMA
+// loads, wgmma shared-memory descriptors and the wgmma instructions
+// themselves, and the cp.async copies of the fp32 FMA kernels, as inline
+// PTX for sm_90a.
 //
 // Shared-memory layout used throughout: an operand tile is a row of
 // "atoms", each atom [rows][64] 16-bit elements with the 128-byte swizzle
@@ -147,6 +149,31 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
          | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32)
          | ((uint64_t)1 << 62);
+}
+
+// cp.async: global -> shared copies that bypass registers. The copy of
+// 16 bytes reads `src_bytes` (0, 4, ..., 16) and zero-fills the rest; with
+// 0 it reads nothing, so `src` only has to be a valid address. Copies
+// issued since the last commit form one group; wait<N> returns when at
+// most N groups are still in flight (then a block barrier makes the data
+// visible to the other threads).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+// The same for 4 bytes (`src_bytes` 0 or 4), for rows not 16-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

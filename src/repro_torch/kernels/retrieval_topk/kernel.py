@@ -17,8 +17,8 @@ import torch
 from repro_torch.kernels import build
 
 K_MAX = 64
-E_MAX = 2048
-CHUNK_ROWS = 4096  # bank rows per pass-1 block
+E_MAX = 2048       # the int4 scans stage whole query rows in shared memory
+CHUNK_ROWS = 4096  # bank rows per pass-1 block of the int4 scan
 CHUNK_L = 1024     # candidates per pass-1 block of the gathered scan
 GATHER_WARPS = 8   # partial lists per gathered pass-1 block (one per warp;
                    # the launch refuses another count)
@@ -139,6 +139,22 @@ def retrieval_topk_int4_gathered_cuda(query: torch.Tensor,
     return out_s, out_i
 
 
+def _dense_query_tile(Q: int) -> int:
+    """Query rows per pass-1 block of the dense scan, as
+    ``csrc/topk_dense.cu::topk_dense_launch`` picks them: 96, or 64 where
+    that pads Q less."""
+    return 96 if -(-Q // 96) * 96 <= -(-Q // 64) * 64 else 64
+
+
+def _dense_chunk_rows(Q: int, n_valid: int, dev: torch.device) -> int:
+    """Bank rows per pass-1 block of the dense scan: the live rows split in
+    whole 128-row tiles so that the grid is one wave at two blocks an SM
+    (the kernel's occupancy), the query blocks of a chunk side by side."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = max(1, 2 * n_sm // -(-Q // _dense_query_tile(Q)))
+    return max(128, -(-n_valid // (parts * 128)) * 128)
+
+
 def retrieval_topk_cuda(query: torch.Tensor, bank: torch.Tensor, k: int, *,
                         normalize: bool = True,
                         n_valid: Optional[int] = None
@@ -148,10 +164,11 @@ def retrieval_topk_cuda(query: torch.Tensor, bank: torch.Tensor, k: int, *,
     what = "retrieval_topk_cuda"
     _check_common(what, query, bank, (), k, bank.shape[0])
     Q, E = query.shape
-    if bank.dtype != torch.float32 or bank.dim() != 2 or bank.shape[1] != E \
-            or E > E_MAX:
-        raise ValueError(f"{what} wants an (N, {E}) f32 bank with E <= "
-                         f"{E_MAX}, got {bank.dtype} {tuple(bank.shape)}")
+    if bank.dtype != torch.float32 or bank.dim() != 2 or bank.shape[1] != E:
+        raise ValueError(f"{what} wants an (N, {E}) f32 bank, got "
+                         f"{bank.dtype} {tuple(bank.shape)}")
+    if query.data_ptr() % 16:
+        raise ValueError(f"{what}: the query must be 16-byte aligned")
     N = bank.shape[0]
     dev = bank.device
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
@@ -159,7 +176,8 @@ def retrieval_topk_cuda(query: torch.Tensor, bank: torch.Tensor, k: int, *,
     if Q == 0:
         return out_s, out_i
     nv = N if n_valid is None else max(0, min(int(n_valid), N))
-    n_chunks = max(1, -(-nv // CHUNK_ROWS))
+    chunk_rows = _dense_chunk_rows(Q, nv, dev)
+    n_chunks = max(1, -(-nv // chunk_rows))
     part_s = torch.empty((Q, n_chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Q, n_chunks, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -167,6 +185,6 @@ def retrieval_topk_cuda(query: torch.Tensor, bank: torch.Tensor, k: int, *,
         err = _lib("topk_dense").topk_dense_launch(
             query.data_ptr(), bank.data_ptr(), part_s.data_ptr(),
             part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Q, E, k,
-            nv, int(bool(normalize)), CHUNK_ROWS, n_chunks, stream)
+            nv, int(bool(normalize)), chunk_rows, n_chunks, stream)
     build.check(err, "retrieval_topk_dense")
     return out_s, out_i

@@ -83,6 +83,55 @@ def test_bf16_matches_pallas():
     np.testing.assert_allclose(l_t.numpy(), l_j, atol=2e-2)
 
 
+# the CASES shapes, plus one whose first rows see no key (causal, before
+# every key)
+P_ROUNDING_CASES = CASES + [(1, 16, 32, 2, 2, 64, True, 0, -8)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,qoff",
+                         P_ROUNDING_CASES)
+def test_bf16_p_rounding_plain_matches_pallas(B, Sq, Skv, H, KV, D, causal,
+                                              window, qoff):
+    """The plain variant that rounds P to bf16 as the TPU kernel does
+    (against the running max of each key block) holds the Pallas kernel's
+    bf16 output per element within bf16_step_limit; with p_dtype=None the
+    plain version is today's materialised softmax, bit for bit."""
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         bf16_step_limit)
+    q, k, v = _qkv(B, Sq, Skv, H, KV, D, seed=Sq * D + 1)
+    bf = jnp.bfloat16
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    block = 8
+    o_j, l_j = _jax_pallas_fwd(jnp.asarray(q, bf), jnp.asarray(k, bf),
+                               jnp.asarray(v, bf), block=block, **kw)
+    qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    o_t, l_t = attention_fwd_reference(qt, kt, vt, p_dtype=torch.bfloat16,
+                                       block_kv=min(block, Skv), **kw)
+    assert o_t.dtype == torch.bfloat16
+    o_j = torch.from_numpy(np.asarray(o_j, np.float32))
+    err = (o_t.float() - o_j).abs()
+    assert (err <= bf16_step_limit(o_t)).all(), err.max().item()
+    np.testing.assert_allclose(l_t.numpy(), l_j, atol=1e-5, rtol=0)
+    keyless = ~attention_mask(Sq, Skv, **kw).any(1)
+    if keyless.any():  # the uniform softmax over the Skv keys
+        mean_v = vt.float().mean(1).repeat_interleave(H // KV, dim=1)
+        got = o_t[:, keyless].float()
+        assert ((got - mean_v[:, None]).abs()
+                <= bf16_step_limit(mean_v[:, None])).all()
+    # p_dtype=None: the materialised softmax, as before the variant existed
+    o_n, l_n = attention_fwd_reference(qt, kt, vt, p_dtype=None, **kw)
+    G = H // KV
+    s = torch.einsum("bqkgd,bjkd->bkgqj",
+                     qt.reshape(B, Sq, KV, G, D).float(), kt.float())
+    s = s * (1.0 / np.sqrt(D))
+    s = torch.where(attention_mask(Sq, Skv, **kw), s,
+                    torch.full_like(s, -1e30))
+    o_old = torch.einsum("bkgqj,bjkd->bqkgd", torch.softmax(s, dim=-1),
+                         vt.float()).reshape(B, Sq, H, D).to(torch.bfloat16)
+    assert torch.equal(o_n, o_old)
+    assert torch.equal(l_n, torch.logsumexp(s, dim=-1).reshape(B, H, Sq))
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
     q, k, v = (torch.from_numpy(x) for x in _qkv(1, 4, 4, 2, 2, 64, seed=0))

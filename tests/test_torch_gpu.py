@@ -43,14 +43,26 @@ def test_topk_kernel_matches_plain(gen, Q, N, E, k, n_valid, normalize):
     assert torch.equal(i[sep], i_p[sep])
 
 
-@pytest.mark.parametrize("D,dtype,causal,window,q_offset,kv", [
-    (64, torch.float32, True, 0, 5, 2), (80, torch.bfloat16, False, 0, 0, 4),
-    (128, torch.float32, True, 7, 0, 1)])
-def test_flash_kernel_matches_plain(gen, D, dtype, causal, window, q_offset,
-                                    kv):
+# f32 cases cover the FMA kernel's edges: the vision shape at small B
+# (S 257 = 4 * 64 + 1, D 80), causal with q_offset at D 64 and 128, a
+# window, GQA, and rows that see no key (before every key, past every
+# window); bf16 runs the wgmma kernel
+@pytest.mark.parametrize("B,Sq,Skv,H,kv,D,dtype,causal,window,q_offset", [
+    (2, 37, 45, 4, 2, 64, torch.float32, True, 0, 5),
+    (2, 37, 45, 4, 4, 80, torch.bfloat16, False, 0, 0),
+    (2, 37, 45, 4, 1, 128, torch.float32, True, 7, 0),
+    (2, 257, 257, 4, 4, 80, torch.float32, False, 0, 0),
+    (2, 100, 130, 6, 2, 64, torch.float32, True, 0, 30),
+    (1, 70, 200, 4, 1, 128, torch.float32, True, 0, 129),
+    (2, 150, 150, 4, 2, 80, torch.float32, False, 33, 0),
+    (1, 64, 40, 2, 2, 64, torch.float32, True, 0, -30),
+    (1, 200, 50, 2, 2, 80, torch.float32, False, 5, 60)])
+def test_flash_kernel_matches_plain(gen, B, Sq, Skv, H, kv, D, dtype, causal,
+                                    window, q_offset):
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
-    B, Sq, Skv, H = 2, 37, 45, 4
+    from repro_torch.kernels.flash_attention.kernel import plain_like_kernel
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         bf16_step_limit)
     q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Skv, kv, D), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, Skv, kv, D), generator=gen, device="cuda").to(dtype)
@@ -60,10 +72,17 @@ def test_flash_kernel_matches_plain(gen, D, dtype, causal, window, q_offset,
     o, lse = ops.flash_attention_fwd(q, k, v, **kw)
     assert ops.launches == before + 1
     assert ops.launches_by_head_dim[D] == before_d + 1
-    o_p, lse_p = attention_fwd_reference(q, k, v, **kw)
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
-    assert (o.float() - o_p.float()).abs().max().item() <= tol
+    o_p, lse_p = plain_like_kernel(q, k, v, **kw)
+    err = (o.float() - o_p.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5
+    else:
+        assert (err <= bf16_step_limit(o_p)).all()
     assert (lse - lse_p).abs().max().item() <= 1e-4
+    keyless = ~attention_mask(Sq, Skv, **kw).any(1)
+    if keyless.any():  # the reference's uniform softmax over the Skv keys
+        mean_v = v.float().mean(1).repeat_interleave(H // kv, dim=1)
+        assert (o[:, keyless].float() - mean_v[:, None]).abs().max() <= 1e-5
 
 
 # bf16 side cases of the wgmma kernel (128-row q tiles, 128-key tiles):
@@ -86,22 +105,25 @@ FLASH_BF16_CASES = [  # B, Sq, Skv, H, KV, D, causal, window, q_offset
 def test_flash_bf16_side_cases_match_plain(gen, B, Sq, Skv, H, KV, D, causal,
                                            window, q_offset):
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import (
-        attention_fwd_reference, attention_mask)
+    from repro_torch.kernels.flash_attention.kernel import plain_like_kernel
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         bf16_step_limit)
     bf = torch.bfloat16
     q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(bf)
     k = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(bf)
     v = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(bf)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     o, lse = ops.flash_attention_fwd(q, k, v, **kw)
-    o_p, lse_p = attention_fwd_reference(q, k, v, **kw)
-    assert (o.float() - o_p.float()).abs().max().item() <= 2e-2
+    # the plain variant that rounds P to bf16 as the kernel does, per
+    # element within one bf16 step at max(|o|, 1) (ref.bf16_step_limit)
+    o_p, lse_p = plain_like_kernel(q, k, v, **kw)
+    assert ((o.float() - o_p.float()).abs() <= bf16_step_limit(o_p)).all()
     assert (lse - lse_p).abs().max().item() <= 1e-4
     keyless = ~attention_mask(Sq, Skv, **kw).any(1)
     if keyless.any():  # the reference's uniform softmax over the Skv keys
-        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)
+        mean_v = v.float().mean(1).repeat_interleave(H // KV, dim=1)[:, None]
         got = o[:, keyless].float()
-        assert (got - mean_v[:, None]).abs().max().item() <= 2e-2
+        assert ((got - mean_v).abs() <= bf16_step_limit(mean_v)).all()
 
 
 @pytest.mark.parametrize("shape,dtype", [((33, 1280), torch.bfloat16),
@@ -171,16 +193,32 @@ def test_gathered_kernel_matches_plain(gen, Q, N, E, L, k, n_valid):
     assert torch.equal(i_g, rows[i_x.long()].int())
 
 
-@pytest.mark.parametrize("Q,N,E,k,n_valid,normalize", [
-    (7, 5000, 256, 10, 4990, False), (3, 300, 96, 64, 300, True),
-    (2, 40, 41, 10, 6, False)])
-def test_dense_kernel_matches_plain(gen, Q, N, E, k, n_valid, normalize):
+# Q not a multiple of the query tile (1, 193), N and n_valid off the
+# 128-row tile, n_valid < k, E of 1, 41, 201 and 2048, normalize on and
+# off; ``ties`` makes 18 rows equal to query 0 across tile boundaries
+# (250..255, 4090..4101; chunks are whole tiles): its top 10 must be the
+# lowest ids
+@pytest.mark.parametrize("Q,N,E,k,n_valid,normalize,ties", [
+    (7, 5000, 256, 10, 4990, False, False),
+    (3, 300, 96, 64, 300, True, False),
+    (2, 40, 41, 10, 6, False, False),
+    (1, 4500, 1024, 10, 4321, True, False),
+    (193, 5000, 201, 16, 4999, False, False),
+    (5, 700, 1, 3, 650, True, False),
+    (9, 1000, 2048, 10, 1000, True, False),
+    (4, 9000, 41, 10, 8999, False, True),
+    (192, 8200, 1024, 10, 8200, True, True)])
+def test_dense_kernel_matches_plain(gen, Q, N, E, k, n_valid, normalize,
+                                    ties):
     from repro_torch.kernels.retrieval_topk import ops
     from repro_torch.kernels.retrieval_topk.ref import retrieval_topk_reference
     bank = torch.randn((N, E), generator=gen, device="cuda")
     bank = bank / bank.norm(dim=1, keepdim=True)
     q = torch.randn((Q, E), generator=gen, device="cuda")
     q = q / q.norm(dim=1, keepdim=True)
+    tied = torch.cat([torch.arange(250, 256), torch.arange(4090, 4102)])
+    if ties:
+        bank[tied] = q[0]
     before = ops.launches_dense
     s, i = ops.retrieval_topk(q, bank, k, normalize=normalize,
                               n_valid=n_valid)
@@ -189,6 +227,9 @@ def test_dense_kernel_matches_plain(gen, Q, N, E, k, n_valid, normalize):
                                         n_valid=n_valid)
     assert (s - s_p).abs().max().item() <= 1e-5
     assert torch.equal(i[_sep(s_p)], i_p[_sep(s_p)])
+    if ties:
+        assert torch.equal(i[0].cpu(), tied[:k].int())
+        assert (s[0] == s[0, 0]).all()
 
 
 def _int4_rows(gen, N, D, dtype):
