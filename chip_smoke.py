@@ -92,6 +92,45 @@ def time_ms(fn, *, reps: int = 10, trials: int = 5) -> float:
     return statistics.median(out)
 
 
+def graph_time_ms(fn, *, reps: int = 20, trials: int = 5) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph,
+    the replay timed as ``time_ms`` times a call, divided by ``reps``. Set
+    beside ``time_ms`` for calls whose host dispatch can outlast their
+    device work (a decode step's kernels)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(graph.replay, reps=1, trials=trials) / reps
+    del graph
+    return ms
+
+
+def dispatch_us(fn, *, calls: int = 20, trials: int = 20) -> float:
+    """Host time of one call in microseconds: median over ``trials`` of the
+    host wall of ``calls`` back-to-back calls over ``calls``, each trial
+    started on an idle device (too few calls to fill the launch queue, so
+    the host never waits on the device)."""
+    import torch
+    fn()
+    out = []
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -160,7 +199,7 @@ def check_topk(gen):
         _topk_case(Q, N, E, k, n_valid=nv, normalize=nz, gen=gen)
         print(f"  topk side case Q={Q} N={N} E={E} k={k} n_valid={nv} "
               f"normalize={nz}: ok")
-    # ragged serving-size case: N not a multiple of the 4096-row chunk
+    # ragged serving-size case: N and n_valid off the 128-row tile
     N = (1 << 20) - 777
     _, _, _, err_r = _topk_case(192, N, 1024, 10, n_valid=N - 12345,
                                 normalize=False, gen=gen)
@@ -685,7 +724,7 @@ def check_decode(gen):
         decode_attention_reference)
     bf16, f32 = torch.bfloat16, torch.float32
     # side cases: lengths 1 and S, a window, G = 1 (MHA, moonshot's
-    # shape), f32 and bf16, S not a multiple of the 32-key step, a
+    # shape), f32 and bf16, S not a multiple of the 32-key tile, a
     # sequence with no valid position
     for B, S, H, KV, D, dtype, window, lengths in (
             (3, 1000, 8, 2, 128, bf16, 0, (1, 1000, 517)),
@@ -709,22 +748,35 @@ def check_decode(gen):
         q, k, v, lens, err, tol = _decode_case(B, S, H, KV, D, bf16,
                                                window=0, lengths=lens,
                                                gen=gen)
-        ms = time_ms(lambda: decode_attn_cuda(q, k, v, lens), reps=20)
+        # eager times (``ms``, ``library_ms``), with graph replays beside
+        # them (a call's host dispatch can outlast a short kernel) and the
+        # wrapper's host time a call (the decode step is host-bound)
+        def kernel():
+            return decode_attn_cuda(q, k, v, lens)
+
+        ms, graph_ms = time_ms(kernel, reps=20), graph_time_ms(kernel)
+        host_us = dispatch_us(kernel)
         plain_ms = time_ms(lambda: decode_attention_reference(q, k, v, lens),
                            reps=2, trials=3)
         qt = q[:, :, None]                                # (B, H, 1, D)
         kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
         mask = (torch.arange(S, device="cuda")[None, :]
                 < lens[:, None])[:, None, None, :]         # (B, 1, 1, S)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), reps=20)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_ms, lib_graph_ms = time_ms(sdpa, reps=20), graph_time_ms(sdpa)
         n_valid = int(torch.clamp(lens.long(), max=S).sum())
         n_bytes = (2 * n_valid * KV * D + 2 * B * H * D) * 2
         b_ms, b_by = bound_ms(n_bytes, 4.0 * n_valid * H * D, "bf16")
         print(f"  decode_attention {arch} B={B} S={S} H={H} KV={KV} D={D} "
               f"bf16, sum(lengths) {n_valid}: max_abs_err {err:.3e} (tol "
-              f"{tol:.3e}, 2^-7 of max|out|) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"(bool mask, GQA) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"{tol:.3e}, 2^-7 of max|out|) kernel {ms:.4f} ms (graph "
+              f"replay {graph_ms:.4f}, host {host_us:.1f} us a call), plain "
+              f"{plain_ms:.4f} ms, sdpa (bool mask, GQA) {lib_ms:.4f} ms "
+              f"(graph replay {lib_graph_ms:.4f}), bound {b_ms:.4f} ms "
               f"({b_by})")
         rows.append({"name": f"decode_attention[{arch}]", "route": "cuda",
                      "source": "src/repro_torch/kernels/decode_attention/"
@@ -733,7 +785,8 @@ def check_decode(gen):
                                  "kernel.py:30",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms})
+                     "library_ms": lib_ms, "graph_ms": graph_ms,
+                     "library_graph_ms": lib_graph_ms, "host_us": host_us})
         del q, k, v, kt, vt
         torch.cuda.empty_cache()
     return rows
@@ -1867,7 +1920,9 @@ def check_lm_calls(run, what, *, record_plan=None):
 
 def _decode_window(dec, params, token, k, v, lengths, n_steps):
     """``n_steps`` greedy steps (argmax feeds the next token), one sync at
-    the end: (token, lengths, wall s, all logits finite)."""
+    the end: (token, lengths, wall s, all logits finite, s the closing sync
+    waited: what the device still had to run once the host had enqueued
+    every step)."""
     import torch
     ok = torch.ones((), dtype=torch.bool, device="cuda")
     torch.cuda.synchronize()
@@ -1877,8 +1932,10 @@ def _decode_window(dec, params, token, k, v, lengths, n_steps):
         logits, k, v = dec.fn(params, token, k, v, lengths)
         ok &= torch.isfinite(logits).all()
         token = logits.argmax(-1).to(torch.int32)
+    t1 = time.perf_counter()
     torch.cuda.synchronize()
-    return token, lengths, time.perf_counter() - t0, bool(ok)
+    t2 = time.perf_counter()
+    return token, lengths, t2 - t0, bool(ok), t2 - t1
 
 
 def _step_bytes(cfg, sum_len: float, B: int) -> float:
@@ -1890,14 +1947,15 @@ def _step_bytes(cfg, sum_len: float, B: int) -> float:
             * 2.0 + 2.0 * B * cfg.vocab * 4.0)
 
 
-def _report_decode(arch, what, cfg, B, wall, n_steps, sum_len):
+def _report_decode(arch, what, cfg, B, wall, n_steps, sum_len, sync):
     ms = wall / n_steps * 1e3
     n_bytes = _step_bytes(cfg, sum_len, B)
     print(f"  {arch} decode, {what}: {n_steps} steps of {B} in {wall:.3f} s "
           f"= {ms:.2f} ms/step, {B / ms * 1e3:.1f} tokens/s; bytes/step "
           f"{n_bytes / 1e9:.3f} GB (weights + sum(lengths) {sum_len:.0f} of "
           f"K/V + logits) = {n_bytes / ms / 1e6:.1f} GB/s, byte bound "
-          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/step")
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/step; the closing sync "
+          f"waited {sync * 1e3:.1f} ms")
 
 
 def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
@@ -1990,17 +2048,17 @@ def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
         lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
         token = tokens[:, -1].contiguous()
         # a warm-up step, then the timed window
-        token, lengths, _, _ = _decode_window(dec, params, token, k, v,
-                                              lengths, 1)
+        token, lengths, _, _, _ = _decode_window(dec, params, token, k, v,
+                                                 lengths, 1)
         _reset_launches()
         len0 = float(lengths.sum())
-        token, lengths, wall, ok = _decode_window(dec, params, token, k, v,
-                                                  lengths, n_steps)
+        token, lengths, wall, ok, sync = _decode_window(
+            dec, params, token, k, v, lengths, n_steps)
         counts["decode"] = _lm_launches()
         if not ok:
             _fail(f"{arch} decode: non-finite logits")
         _report_decode(arch, f"context {S + 1}-{S + 1 + n_steps}", cfg, B,
-                       wall, n_steps, len0 + B * (n_steps + 1) / 2)
+                       wall, n_steps, len0 + B * (n_steps + 1) / 2, sync)
         print(f"  launches in the decode window: {counts['decode']}")
         lengths = lengths + 1
         check_lm_calls(lambda: dec.fn(params, token, k, v, lengths),
@@ -2015,13 +2073,13 @@ def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
                                     generator=gen, device="cuda",
                                     dtype=torch.int32)
             len0 = float(lengths.sum())
-            token, lengths, wall, ok = _decode_window(dec, params, token, k,
-                                                      v, lengths, n_long)
+            token, lengths, wall, ok, sync = _decode_window(
+                dec, params, token, k, v, lengths, n_long)
             if not ok:
                 _fail(f"{arch} long-context decode: non-finite logits")
             _report_decode(arch, f"caches of seeded K/V, lengths in "
                            f"[{long_lo}, {pad_to})", cfg, B, wall, n_long,
-                           len0 + B * (n_long + 1) / 2)
+                           len0 + B * (n_long + 1) / 2, sync)
             profile_windows(((f"{arch} decode step at lengths in "
                               f"[{long_lo}, {pad_to})",
                               lambda: dec.fn(params, token, k, v, lengths),

@@ -119,6 +119,24 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, queried once per device
+    (the decode step calls the kernels' wrappers every layer)."""
+    import torch
+    idx = (device if isinstance(device, torch.device)
+           else torch.device(device)).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    n = _SM_COUNT.get(idx)
+    if n is None:
+        n = _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return n
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch function."""
     if err != 0:

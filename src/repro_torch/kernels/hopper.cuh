@@ -1,9 +1,9 @@
 // Hopper building blocks shared by the port's kernels
 // (flash_attention/csrc/flash_fwd.cu, moe_gemm/csrc/moe_gemm.cu,
-// retrieval_topk/csrc/topk_dense.cu): tensor maps for TMA, mbarriers, TMA
-// loads, wgmma shared-memory descriptors and the wgmma instructions
-// themselves, and the cp.async copies of the fp32 FMA kernels, as inline
-// PTX for sm_90a.
+// retrieval_topk/csrc/topk_tile.cuh, decode_attention/csrc/decode_attn.cu):
+// tensor maps for TMA, mbarriers, TMA loads, wgmma shared-memory
+// descriptors and the wgmma instructions themselves, mma.sync, and the
+// cp.async copies of the FMA kernels, as inline PTX for sm_90a.
 //
 // Shared-memory layout used throughout: an operand tile is a row of
 // "atoms", each atom [rows][64] 16-bit elements with the 128-byte swizzle
@@ -174,6 +174,19 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// mma.sync m16n8k16, bf16 inputs, fp32 accumulators: c (16 x 8) += a
+// (16 x 16, row) * b (16 x 8, col) in the fragment layout of the PTX ISA
+// (g = lane / 4, t = lane % 4: a {[g][2t..], [g+8][2t..], [g][2t+8..],
+// [g+8][2t+8..]}, b {[2t..][g], [2t+8..][g]}, c {[g][2t..], [g+8][2t..]}).
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -1,13 +1,26 @@
 // Pieces shared by the port's top-k scans (topk_int4.cu, topk_int4_gather.cu,
-// topk_dense.cu): the (score, id) order, the nibble decode, the sorted-list
-// insert, the warp-wide merge, the row dots, and the pass-2 merge of the
-// partial lists that pass 1 of every scan writes.
+// topk_dense.cu, and the scan tile of topk_tile.cuh): the (score, id) order,
+// the nibble decode, the sorted-list insert, the warp-wide merge, the int4
+// row dot, and the pass-2 merge of the partial lists that pass 1 of every
+// scan writes.
 //
-// The row dots are the one place a row's score is computed. Each is a single
-// fmaf chain in element order e = 0 .. E-1 per query, so every kernel that
-// calls int4_row_dot scores a row bit for bit alike: the IVF pruned scan
-// (gathered ids) and the exhaustive scan return the same float for the same
-// row, and pruning can only drop rows, never re-score them.
+// The int4 scan contract. Every int4 scan scores a bank row as follows, so
+// that the IVF pruned scan (gathered ids, int4_row_dot below) and the
+// exhaustive scan (the register-blocked tile of topk_tile.cuh) return the
+// same float for the same row, and pruning can only drop rows, never
+// re-score them (chip_smoke.py's check_gathered holds the two kernels to
+// torch.equal on one shared candidate set):
+//   * acc = one fmaf chain per (query, row) in element order e = 0 .. E-1,
+//     starting from 0, of query value times the UNSCALED nibble value
+//     (nib2f); zeros past E may be added (they change nothing);
+//   * score = acc * sr, sr the row's scale, one multiply;
+//   * with `normalize` (the exhaustive scan only): the query values are
+//     q * rsqrt(max(ss_q, 1e-16)) rounded once before the chain, ss_q one
+//     lane-strided fmaf chain per lane of a warp over the row (lane l: e = l,
+//     l + 32, ...) then a butterfly of adds (offsets 16 .. 1); the row's
+//     nibble sum of squares ss is one fmaf chain in element order; score =
+//     acc * sr * rsqrt(max(sr * sr * ss, 1e-16)), left to right.
+// A kernel that changes this order changes the bits: change both scans.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,21 +85,16 @@ __device__ void warp_merge(int n, Get get, float* ls, int* li, int* cnt,
   }
 }
 
-// NQ query rows in shared memory (row stride E floats) against one packed
-// int4 row (E/2 bytes; low nibble = element 2i, high = 2i+1). acc[i] is the
-// unscaled dot, one fmaf chain in element order; ss is the nibbles' sum of
-// squares when `norm`. 16-byte loads (32 nibbles) when E/2 is a multiple of
-// 16 (the caller guarantees 16-byte aligned rows then), else byte loads.
-template <int NQ>
-__device__ __forceinline__ void int4_row_dot(const float* __restrict__ qs,
-                                             int E,
-                                             const int8_t* __restrict__ prow,
-                                             bool norm, float (&acc)[NQ],
-                                             float& ss) {
+// One query row in shared memory against one packed int4 row (E/2 bytes;
+// low nibble = element 2i, high = 2i+1): the unscaled dot, one fmaf chain in
+// element order (the scan contract above). 16-byte loads (32 nibbles) when
+// E/2 is a multiple of 16 (the caller guarantees 16-byte aligned rows then),
+// else byte loads.
+__device__ __forceinline__ float int4_row_dot(const float* __restrict__ qs,
+                                              int E,
+                                              const int8_t* __restrict__ prow) {
   const int E2 = E / 2;
-#pragma unroll
-  for (int i = 0; i < NQ; ++i) acc[i] = 0.f;
-  ss = 0.f;
+  float acc = 0.f;
   if ((E2 & 15) == 0) {
     const int4* pv = reinterpret_cast<const int4*>(prow);
     for (int vi = 0; vi < E2 / 16; ++vi) {
@@ -96,61 +104,23 @@ __device__ __forceinline__ void int4_row_dot(const float* __restrict__ qs,
 #pragma unroll
       for (int w = 0; w < 4; ++w) {
         // nibble j of word w is element 32*vi + 8*w + j
-        float f[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) f[j] = nib2f((words[w] >> (4 * j)) & 0xFu);
-        if (norm) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) ss = fmaf(f[j], f[j], ss);
-        }
         const int e0 = 32 * vi + 8 * w;
+        const float4 a = *reinterpret_cast<const float4*>(qs + e0);
+        const float4 b = *reinterpret_cast<const float4*>(qs + e0 + 4);
+        const float qv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-        for (int i = 0; i < NQ; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(qs + i * E + e0);
-          const float4 b = *reinterpret_cast<const float4*>(qs + i * E + e0 + 4);
-          float x = acc[i];
-          x = fmaf(a.x, f[0], x); x = fmaf(a.y, f[1], x);
-          x = fmaf(a.z, f[2], x); x = fmaf(a.w, f[3], x);
-          x = fmaf(b.x, f[4], x); x = fmaf(b.y, f[5], x);
-          x = fmaf(b.z, f[6], x); x = fmaf(b.w, f[7], x);
-          acc[i] = x;
-        }
+        for (int j = 0; j < 8; ++j)
+          acc = fmaf(qv[j], nib2f((words[w] >> (4 * j)) & 0xFu), acc);
       }
     }
   } else {
     for (int j = 0; j < E2; ++j) {
       const unsigned byte = (unsigned char)prow[j];
-      const float f0 = nib2f(byte & 0xFu), f1 = nib2f(byte >> 4);
-      if (norm) ss = fmaf(f0, f0, fmaf(f1, f1, ss));
-#pragma unroll
-      for (int i = 0; i < NQ; ++i)
-        acc[i] = fmaf(qs[i * E + 2 * j + 1], f1,
-                      fmaf(qs[i * E + 2 * j], f0, acc[i]));
+      acc = fmaf(qs[2 * j], nib2f(byte & 0xFu), acc);
+      acc = fmaf(qs[2 * j + 1], nib2f(byte >> 4), acc);
     }
   }
-}
-
-// Stage NQ query rows in shared memory (zero rows past Q), L2-normalised
-// with rsqrt(max(sum x^2, 1e-16)) when `norm`. Ends with __syncthreads().
-template <int NQ, int THREADS>
-__device__ void stage_queries(const float* __restrict__ q, int Q, int E,
-                              int q0, bool norm, float* qs) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int idx = tid; idx < NQ * E; idx += THREADS) {
-    const int qi = idx / E;
-    qs[idx] = q0 + qi < Q ? q[(size_t)(q0 + qi) * E + idx % E] : 0.f;
-  }
-  __syncthreads();
-  if (norm) {
-    for (int qi = warp; qi < NQ; qi += THREADS / 32) {
-      float ss = 0.f;
-      for (int e = lane; e < E; e += 32) ss += qs[qi * E + e] * qs[qi * E + e];
-      for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      const float r = rsqrtf(fmaxf(ss, 1e-16f));
-      for (int e = lane; e < E; e += 32) qs[qi * E + e] *= r;
-    }
-    __syncthreads();
-  }
+  return acc;
 }
 
 // Pass 2: one warp per query merges its n_parts partial lists (k entries

@@ -22,9 +22,9 @@
 //    each thread reads its candidate's row by id straight from the bank
 //    (16-byte loads of 32 nibbles), so the gathered copy never exists in
 //    device memory. Dead ids are never read.
-//  * the score is int4_row_dot (topk_common.cuh) times the row scale, the
-//    same fmaf chain and the same final multiply as the exhaustive scan
-//    (topk_int4.cu), so a row scores bit for bit alike in both.
+//  * the score is int4_row_dot times the row scale, the int4 scan contract
+//    of topk_common.cuh that the exhaustive scan (topk_int4.cu) keeps too,
+//    so a row scores bit for bit alike in both.
 //  * pass 1: grid (Q, ceil(L / CHUNK_L)); the block stages its query row in
 //    shared memory; each warp walks its share of the chunk 32 candidates
 //    at a time, one per lane, and merges them into its own sorted list with
@@ -70,12 +70,7 @@ topk_int4_gather_pass1(const float* __restrict__ q,
     const int id = j < l1 ? idrow[j] : -1;
     const bool live = id >= 0 && id < n_valid;
     float s = -INFINITY;
-    if (live) {
-      float acc[1];
-      float ss;
-      int4_row_dot<1>(qs, E, packed + (size_t)id * E2, false, acc, ss);
-      s = acc[0] * scales[id];
-    }
+    if (live) s = int4_row_dot(qs, E, packed + (size_t)id * E2) * scales[id];
     warp_merge(32,
                [&](int, float& s_out, int& id_out) {
                  s_out = s;

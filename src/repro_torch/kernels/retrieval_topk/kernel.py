@@ -5,7 +5,10 @@ scan (``csrc/topk_dense.cu``).
 
 Each wrapper checks devices, types, shapes, contiguity and alignment,
 allocates the outputs and the pass-1 scratch, and launches on PyTorch's
-current stream.
+current stream. The two exhaustive scans share one pass-1 tile
+(``csrc/topk_tile.cuh``: 96 or 64 queries x 128 bank rows a block, two
+blocks an SM); ``query_tile`` and ``chunk_rows`` size their grids as one
+wave of it.
 """
 from __future__ import annotations
 
@@ -17,8 +20,10 @@ import torch
 from repro_torch.kernels import build
 
 K_MAX = 64
-E_MAX = 2048       # the int4 scans stage whole query rows in shared memory
-CHUNK_ROWS = 4096  # bank rows per pass-1 block of the int4 scan
+E_MAX = 2048       # the int4 scans' widest row (the gathered scan stages
+                   # whole query rows in shared memory)
+TILE_ROWS = 128    # bank rows per tile of the exhaustive scans' pass 1
+BLOCKS_PER_SM = 2  # their pass-1 occupancy (256 threads, 128 registers)
 CHUNK_L = 1024     # candidates per pass-1 block of the gathered scan
 GATHER_WARPS = 8   # partial lists per gathered pass-1 block (one per warp;
                    # the launch refuses another count)
@@ -62,15 +67,18 @@ def retrieval_topk_int4_cuda(query: torch.Tensor, packed: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """query (Q, E) f32; packed (N, E//2) int8; scales (N, 1) f32, all on
     one CUDA device -> ((Q, k) f32 scores, (Q, k) int32 row ids)."""
-    Q, E, N = _check_int4("retrieval_topk_int4_cuda", query, packed,
-                          scales, k, packed.shape[0])
+    what = "retrieval_topk_int4_cuda"
+    Q, E, N = _check_int4(what, query, packed, scales, k, packed.shape[0])
+    if query.data_ptr() % 16:
+        raise ValueError(f"{what}: the query must be 16-byte aligned")
     dev = packed.device
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return out_s, out_i
     nv = N if n_valid is None else max(0, min(int(n_valid), N))
-    n_chunks = max(1, -(-nv // CHUNK_ROWS))
+    rows = chunk_rows(Q, nv, build.sm_count(dev))
+    n_chunks = max(1, -(-nv // rows))
     part_s = torch.empty((Q, n_chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Q, n_chunks, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -78,7 +86,7 @@ def retrieval_topk_int4_cuda(query: torch.Tensor, packed: torch.Tensor,
         err = _lib("topk_int4").topk_int4_launch(
             query.data_ptr(), packed.data_ptr(), scales.data_ptr(),
             part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), Q, E, k, nv, int(bool(normalize)), CHUNK_ROWS,
+            out_i.data_ptr(), Q, E, k, nv, int(bool(normalize)), rows,
             n_chunks, stream)
     build.check(err, "retrieval_topk_int4")
     return out_s, out_i
@@ -139,20 +147,19 @@ def retrieval_topk_int4_gathered_cuda(query: torch.Tensor,
     return out_s, out_i
 
 
-def _dense_query_tile(Q: int) -> int:
-    """Query rows per pass-1 block of the dense scan, as
-    ``csrc/topk_dense.cu::topk_dense_launch`` picks them: 96, or 64 where
-    that pads Q less."""
+def query_tile(Q: int) -> int:
+    """Query rows per pass-1 block of the exhaustive scans (int4 and
+    dense), as ``csrc/topk_tile.cuh::wide_query_tile`` picks them: 96, or
+    64 where that pads Q less."""
     return 96 if -(-Q // 96) * 96 <= -(-Q // 64) * 64 else 64
 
 
-def _dense_chunk_rows(Q: int, n_valid: int, dev: torch.device) -> int:
-    """Bank rows per pass-1 block of the dense scan: the live rows split in
-    whole 128-row tiles so that the grid is one wave at two blocks an SM
-    (the kernel's occupancy), the query blocks of a chunk side by side."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    parts = max(1, 2 * n_sm // -(-Q // _dense_query_tile(Q)))
-    return max(128, -(-n_valid // (parts * 128)) * 128)
+def chunk_rows(Q: int, n_valid: int, n_sm: int) -> int:
+    """Bank rows per pass-1 block of the exhaustive scans: the live rows
+    split in whole tiles so that the grid (query blocks x chunks, the query
+    blocks of a chunk side by side) is one wave at ``BLOCKS_PER_SM``."""
+    parts = max(1, BLOCKS_PER_SM * n_sm // -(-Q // query_tile(Q)))
+    return max(TILE_ROWS, -(-n_valid // (parts * TILE_ROWS)) * TILE_ROWS)
 
 
 def retrieval_topk_cuda(query: torch.Tensor, bank: torch.Tensor, k: int, *,
@@ -176,8 +183,8 @@ def retrieval_topk_cuda(query: torch.Tensor, bank: torch.Tensor, k: int, *,
     if Q == 0:
         return out_s, out_i
     nv = N if n_valid is None else max(0, min(int(n_valid), N))
-    chunk_rows = _dense_chunk_rows(Q, nv, dev)
-    n_chunks = max(1, -(-nv // chunk_rows))
+    rows = chunk_rows(Q, nv, build.sm_count(dev))
+    n_chunks = max(1, -(-nv // rows))
     part_s = torch.empty((Q, n_chunks, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Q, n_chunks, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -185,6 +192,6 @@ def retrieval_topk_cuda(query: torch.Tensor, bank: torch.Tensor, k: int, *,
         err = _lib("topk_dense").topk_dense_launch(
             query.data_ptr(), bank.data_ptr(), part_s.data_ptr(),
             part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), Q, E, k,
-            nv, int(bool(normalize)), chunk_rows, n_chunks, stream)
+            nv, int(bool(normalize)), rows, n_chunks, stream)
     build.check(err, "retrieval_topk_dense")
     return out_s, out_i

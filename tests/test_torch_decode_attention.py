@@ -82,15 +82,19 @@ def test_bf16_matches_reference():
 
 
 @pytest.mark.parametrize("B,KV,S,n_sm", [(32, 2, 32768, 132), (16, 4, 4096, 132),
-                                         (1, 1, 10, 132), (128, 8, 64, 132)])
+                                         (1, 1, 10, 132), (128, 8, 64, 132),
+                                         (3, 2, 1000, 132), (1, 1, 500, 114)])
 def test_split_count(B, KV, S, n_sm):
-    """Enough warps for the card, a multiple of the warps per block, and
-    never more 32-key steps than the cache has (rounded up to a block)."""
+    """Full waves of pass-1 blocks (``WAVES`` x ``BLOCKS_PER_SM`` an SM),
+    no split of a full cache under ``SPLIT_TILES`` 32-key tiles, and no
+    split more than the waves need."""
     ns = DK.n_splits(B, KV, S, n_sm)
-    assert ns % DK.WARPS == 0 and ns >= DK.WARPS
-    assert ns <= max(DK.WARPS, -(-S // 32) + DK.WARPS - 1)
-    if -(-S // 32) >= n_sm * DK.WARPS_PER_SM // (B * KV) + DK.WARPS:
-        assert B * KV * ns >= n_sm * DK.WARPS_PER_SM
+    slots = DK.WAVES * DK.BLOCKS_PER_SM * n_sm
+    cap = -(-S // (DK.SPLIT_TILES * DK.TILE))
+    assert 1 <= ns <= cap
+    if ns < cap:
+        assert B * KV * ns >= slots
+    assert ns == 1 or B * KV * (ns - 1) < slots
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -15,9 +15,16 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+# the register-blocked int4 tile's edges: E not a multiple of the 32-element
+# slice (96, 40, 200; 202 also takes 4-byte query copies), E = 2048, Q not a
+# multiple of the 96-row query tile (97), k = 64 with normalize, n_valid < k,
+# ragged N and n_valid against the 128-row tile
 @pytest.mark.parametrize("Q,N,E,k,n_valid,normalize", [
     (7, 5000, 256, 10, 4990, False), (3, 300, 96, 64, 300, True),
-    (2, 40, 40, 10, 6, False)])
+    (2, 40, 40, 10, 6, False), (5, 3000, 200, 10, 3000, False),
+    (4, 5000, 2048, 10, 4999, True), (97, 3000, 1024, 10, 2990, False),
+    (6, 2000, 256, 64, 2000, True), (3, 300, 64, 10, 7, True),
+    (3, 700, 202, 10, 650, True)])
 def test_topk_kernel_matches_plain(gen, Q, N, E, k, n_valid, normalize):
     from repro_torch.core.quantize import quantize_int4
     from repro_torch.kernels.retrieval_topk import ops
@@ -308,11 +315,22 @@ def test_async_refresh_epoch_on_the_card_with_a_racing_scan(gen):
     st.set_bank_refresh("sync")
 
 
+# the streamed kernel's edges: lengths off the 32-key tile, a length of 1,
+# a split shorter than a tile (splits of 128 keys at least, the last one the
+# remainder), G 1 to 8, D 16 / 32 / 64 / 128 in both dtypes, windows that
+# start mid-tile
 @pytest.mark.parametrize("B,S,H,KV,D,dtype,window,lengths", [
     (2, 100, 8, 2, 128, torch.float32, 0, (1, 100)),
     (3, 77, 6, 1, 64, torch.bfloat16, 10, (77, 5, 40)),
     (1, 40, 4, 4, 16, torch.float32, 0, (0,)),       # no valid position
-    (2, 50, 16, 2, 32, torch.bfloat16, 0, (50, 60))])  # G = 8, length > S
+    (2, 50, 16, 2, 32, torch.bfloat16, 0, (50, 60)),  # G = 8, length > S
+    (3, 1000, 12, 2, 128, torch.bfloat16, 0, (77, 1000, 1)),
+    (1, 20000, 8, 1, 64, torch.bfloat16, 0, (270,)),  # a 14-key last split
+    (2, 200, 4, 4, 32, torch.bfloat16, 0, (150, 200)),  # G = 1
+    (2, 300, 16, 2, 16, torch.bfloat16, 0, (299, 64)),  # G = 8, D = 16
+    (2, 400, 12, 2, 128, torch.bfloat16, 45, (300, 400)),
+    (2, 333, 32, 4, 128, torch.float32, 70, (333, 100)),
+    (1, 129, 2, 2, 64, torch.float32, 0, (129,))])
 def test_decode_kernel_matches_plain(gen, B, S, H, KV, D, dtype, window,
                                      lengths):
     from repro_torch.kernels.decode_attention import ops
@@ -329,6 +347,32 @@ def test_decode_kernel_matches_plain(gen, B, S, H, KV, D, dtype, window,
     assert o.dtype == dtype
     tol = 1e-5 if dtype == torch.float32 else 3e-2
     assert (o.float() - o_p.float()).abs().max().item() <= tol
+
+
+def test_decode_kernel_is_deterministic_and_never_syncs(gen):
+    """Two calls on the same inputs give the same bits, and the wrapper
+    issues nothing that waits for the device (no .item(), .cpu() or
+    .tolist() on lengths; torch's sync debug mode would raise)."""
+    import inspect
+    from repro_torch.kernels.decode_attention import kernel as DK
+    src = inspect.getsource(DK.decode_attn_cuda)
+    assert not any(w in src for w in (".item(", ".cpu(", ".tolist("))
+    bf = torch.bfloat16
+    B, S, H, KV, D = 4, 3000, 12, 2, 128
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(bf)
+    k = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(bf)
+    v = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(bf)
+    lens = torch.tensor([3000, 1777, 31, 2048], dtype=torch.int32,
+                        device="cuda")
+    DK.decode_attn_cuda(q, k, v, lens)  # built and loaded before the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        o1 = DK.decode_attn_cuda(q, k, v, lens)
+        o2 = DK.decode_attn_cuda(q, k, v, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(o1, o2)
 
 
 @pytest.mark.parametrize("T,d,E,F,bt,dtype,kind", [

@@ -242,3 +242,25 @@ def test_new_cuda_wrappers_refuse_cpu_tensors(entry):
                 3)
         else:
             K.retrieval_topk_cuda(torch.from_numpy(q), torch.randn(16, 8), 3)
+
+
+@pytest.mark.parametrize("Q,n_valid,n_sm", [
+    (192, 1 << 20, 132), (192, (1 << 20) - 12345, 132), (97, 3000, 132),
+    (1, 5, 132), (64, 1 << 20, 132), (193, 8200, 114), (37, 50_001, 132)])
+def test_exhaustive_scan_grid_is_one_wave(Q, n_valid, n_sm):
+    """The exhaustive scans' query tile pads Q least of 64 and 96 rows (the
+    C rule), and the chunks are whole 128-row tiles that cover the live rows
+    in at most one wave of two blocks an SM, a tile at least per chunk."""
+    from repro_torch.kernels.retrieval_topk import kernel as K
+    bq = K.query_tile(Q)
+    assert bq in (64, 96)
+    assert -(-Q // bq) * bq <= -(-Q // (160 - bq)) * (160 - bq)
+    rows = K.chunk_rows(Q, n_valid, n_sm)
+    assert rows % K.TILE_ROWS == 0 and rows >= K.TILE_ROWS
+    n_chunks = max(1, -(-n_valid // rows))
+    blocks = -(-Q // bq) * n_chunks
+    assert blocks <= max(K.BLOCKS_PER_SM * n_sm, -(-Q // bq))
+    # one tile fewer a chunk would need more than one wave
+    if rows > K.TILE_ROWS:
+        assert -(-Q // bq) * -(-n_valid // (rows - K.TILE_ROWS)) > \
+            K.BLOCKS_PER_SM * n_sm
