@@ -266,21 +266,32 @@ def check_gathered(gen):
     """The IVF per-query pruned scan: side cases, the bit-equality of its
     per-row scores with the exhaustive kernel's, and the serving shape
     (Q = 192 = 64 queries x 3 granularities, L = 8192 candidates each, from
-    a 2^20-row bank)."""
+    a 2^20-row bank). The grid rule's blocks an SM (``gather_blocks_per_sm``)
+    must equal the card's occupancy query."""
     import torch
     from repro_torch.core.quantize import dequantize_int4, quantize_int4
     from repro_torch.kernels.retrieval_topk import ref as R
     from repro_torch.kernels.retrieval_topk.kernel import (
-        retrieval_topk_int4_cuda, retrieval_topk_int4_gathered_cuda)
+        gather_blocks_per_sm, gather_occupancy, retrieval_topk_int4_cuda,
+        retrieval_topk_int4_gathered_cuda)
+    for e in (1024, 2048, 200):
+        if gather_occupancy(e) != gather_blocks_per_sm(e):
+            _fail(f"gathered pass 1 at E={e}: the card holds "
+                  f"{gather_occupancy(e)} blocks an SM, the grid rule "
+                  f"assumes {gather_blocks_per_sm(e)}")
+    print(f"  gathered pass-1 blocks an SM (card = grid rule): E=1024 "
+          f"{gather_blocks_per_sm(1024)}, E=2048 {gather_blocks_per_sm(2048)}")
     N, E = 1 << 20, 1024
     packed, scales = quantize_int4(_unit((N, E), gen))
     # side cases: -1 padding, ids >= n_valid, rows with fewer than k live
-    # ids, L not a multiple of the 1024-candidate chunk, k = 64, the byte
-    # path (E/2 % 16 != 0)
-    for Q, L, k, nv, pad, short, e_small in [
-            (37, 1500, 10, N - 999_999, 3, 4, None),
-            (5, 300, 64, N, 0, 2, None),
-            (3, 64, 10, N, 2, 1, 200)]:
+    # ids, L not a multiple of a group of 32, k = 64, the byte path
+    # (E/2 % 16 != 0), L below one warp's 32, a query with no live id
+    for Q, L, k, nv, pad, short, e_small, dead in [
+            (37, 1500, 10, N - 999_999, 3, 4, None, False),
+            (5, 300, 64, N, 0, 2, None, False),
+            (3, 64, 10, N, 2, 1, 200, False),
+            (3, 20, 10, N, 0, 1, None, True),
+            (6, 2000, 16, N - 7, 4, 2, 200, True)]:
         p, sc = (packed, scales) if e_small is None else quantize_int4(
             _unit((5000, e_small), gen))
         n_rows = p.shape[0]
@@ -291,24 +302,35 @@ def check_gathered(gen):
         if pad:
             ids[:, ::pad] = -1
         ids[Q - short:, 5:] = -1  # fewer than k live candidates
+        if dead:
+            ids[0] = -1  # every candidate of query 0 dead
         _gather_case(q, p, sc, ids, k, n_valid=nv,
                      what=f"Q={Q} L={L} k={k} n_valid={nv}")
         print(f"  gathered side case Q={Q} L={L} E={p.shape[1] * 2} k={k} "
-              f"n_valid={nv} pad every {pad} short rows {short}: ok")
+              f"n_valid={nv} pad every {pad} short rows {short} "
+              f"all-dead query {dead}: ok")
     Q, L, k = 192, 8192, 10
     q = _unit((Q, E), gen)
     # one shared candidate set in id order through both kernels: the
-    # exhaustive scan of the same rows returns the same floats
+    # exhaustive scan of the same rows returns the same floats; again with
+    # query elements of 1e-39 .. 1e-45 (subnormal) and 1e-30 in every row
     rows = torch.randperm(N, generator=gen, device="cuda")[:L].sort().values
     ids = rows.int()[None].expand(Q, -1).contiguous()
-    s_g, i_g = retrieval_topk_int4_gathered_cuda(q, packed, scales, ids, k)
-    s_x, i_x = retrieval_topk_int4_cuda(q, packed.index_select(0, rows),
-                                        scales.index_select(0, rows), k)
-    if not (torch.equal(s_g, s_x) and torch.equal(i_g, rows[i_x.long()].int())):
-        _fail("gathered vs exhaustive int4 kernel on one candidate set: "
-              "scores or ids not bit-equal")
-    print(f"  gathered vs exhaustive kernel, Q={Q}, the same {L} rows: "
-          "scores and ids bit-equal (torch.equal)")
+    tiny = q.clone()
+    tiny[:, 1::4] *= 1e-39
+    tiny[:, 2::8] = 1e-45
+    tiny[:, 3::16] *= 1e-30
+    for qq, what in ((q, "unit queries"), (tiny, "subnormal query elements")):
+        s_g, i_g = retrieval_topk_int4_gathered_cuda(qq, packed, scales, ids,
+                                                     k)
+        s_x, i_x = retrieval_topk_int4_cuda(qq, packed.index_select(0, rows),
+                                            scales.index_select(0, rows), k)
+        if not (torch.equal(s_g, s_x)
+                and torch.equal(i_g, rows[i_x.long()].int())):
+            _fail(f"gathered vs exhaustive int4 kernel on one candidate set "
+                  f"({what}): scores or ids not bit-equal")
+        print(f"  gathered vs exhaustive kernel, Q={Q}, the same {L} rows, "
+              f"{what}: scores and ids bit-equal (torch.equal)")
     ids = torch.randint(0, N, (Q, L), generator=gen, device="cuda",
                         dtype=torch.int32)
     err = _gather_case(q, packed, scales, ids, k, n_valid=N,
@@ -320,19 +342,66 @@ def check_gathered(gen):
     lib_ms = time_ms(lambda: torch.topk(torch.bmm(
         dequantize_int4(packed[ids.long()], scales[ids.long()]),
         q[:, :, None])[..., 0], k), reps=1, trials=3)
-    live = int(((ids >= 0) & (ids < N)).sum())  # every live id is one row read
-    n_bytes = live * (E // 2 + 4 + 4) + Q * E * 4 + Q * k * 8
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * live * E, "fp32")
+    b_ms, b_by = gathered_bound(ids, N, E, k)
+    slots = sass_slots_per_nibble("topk_int4_gather", "gather_pass1")
     print(f"  gathered Q={Q} L={L} E={E} k={k} (ids from {N} rows): "
-          f"max_abs_err {err:.3e} (tol 1e-5) kernel {ms:.3f} ms, plain "
+          f"max_abs_err {err:.3e} (tol 1e-5) kernel {ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, torch.topk(bmm) {lib_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})")
+          f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} of it); issue slots a "
+          "nibble in the unrolled slice (SASS): "
+          + (f"{slots:.2f}" if slots else "not measured"))
     return {"name": "retrieval_topk_int4_gathered", "route": "cuda",
             "source": "src/repro_torch/kernels/retrieval_topk/csrc/"
                       "topk_int4_gather.cu",
             "replaces": "src/repro/kernels/retrieval_topk/kernel.py:104",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "sass_slots_per_nibble": slots}
+
+
+def sass_slots_per_nibble(lib: str, kernel: str):
+    """Issue slots a nibble in the gathered scan's unrolled slice: the
+    instructions from the first to the last FFMA of the longest run of
+    FFMAs at most 40 instructions apart in ``kernel``'s SASS (cuobjdump of
+    the built ``lib``), over the FFMAs in it, one a nibble. The per-stage
+    copies and waits around the slice are not in it. None where the
+    toolkit has no cuobjdump."""
+    import re
+    import shutil
+    from repro_torch.kernels import build
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    so = str(build.BUILD_DIR / f"lib{lib}.so")
+    try:
+        sass = subprocess.run([exe, "-sass", so], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    opcode = re.compile(
+        r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+    for part in sass.split("Function : ")[1:]:
+        if kernel not in part.split("\n", 1)[0]:
+            continue
+        ops = opcode.findall(part)
+        ffma = [i for i, op in enumerate(ops) if op == "FFMA"]
+        best, start = (0, 0, 0), 0
+        for j in range(1, len(ffma) + 1):
+            if j == len(ffma) or ffma[j] - ffma[j - 1] > 40:
+                if j - start > best[0]:
+                    best = (j - start, ffma[start], ffma[j - 1])
+                start = j
+        n, a, b = best
+        return (b - a + 1) / n if n else None
+    return None
+
+
+def gathered_bound(ids, n_valid, E, k):
+    """The gathered scan's bound on these ids: every live id one row read
+    (E/2 bytes + scale + id), the queries read and the top-k written once,
+    against 2 E operations a live row."""
+    live = int(((ids >= 0) & (ids < n_valid)).sum())
+    Q = ids.shape[0]
+    n_bytes = live * (E // 2 + 4 + 4) + Q * E * 4 + Q * k * 8
+    return bound_ms(n_bytes, 2.0 * live * E, "fp32")
 
 
 def _dense_case(q, bank, k, *, n_valid, normalize, what):
@@ -618,22 +687,55 @@ def _int4_rows(gen, N, D, dtype):
     return x
 
 
+def _int4_tie_rows(gen, N, D):
+    """N rows of width D whose quotients x / scale sit within 4 ulps of the
+    rounding ties k + 1/2 (k = -7 .. 6), at a scale of its own a row (e^-20
+    .. e^20): element 0 is the row's absmax 7 s_t, every other element
+    RN((k + 1/2) s) moved by -4 .. 4 ulps, s = RN(RN(7 s_t) / 7) the scale
+    the quantize computes. Which side of a tie each lands on rests on the
+    last bit of the quotient."""
+    import torch
+    s_t = torch.empty((N, 1), device="cuda").uniform_(-20, 20,
+                                                      generator=gen).exp()
+    amax = s_t * 7
+    s = torch.clamp_min(amax / torch.tensor(7.0, device="cuda"), 1e-12)
+    k = torch.randint(-7, 7, (N, D), generator=gen, device="cuda") + 0.5
+    step = torch.randint(-4, 5, (N, D), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    x = ((k * s).view(torch.int32) + step).view(torch.float32)
+    x[:, 0] = amax[:, 0]
+    return x
+
+
 def check_int4_cache(gen):
     """The activation-cache quantize and dequantize against their plain
     versions, bit for bit (torch.equal), and the quantize against the
     host's ``quantize_int4_np``, in the edge cases and at the serving
     path's shapes: the drain's (64 items x 257 tokens, 1280) f32
-    hidden states and the refinement's dequantize of as many rows."""
+    hidden states and the refinement's dequantize of as many rows. Each
+    case's quantize path (registers or looped) must be the one
+    ``kernel.quant_path`` predicts."""
     import numpy as np
     import torch
     from repro_torch.core.quantize import quantize_int4_np
     from repro_torch.kernels.int4_cache.kernel import (int4_dequant_cuda,
-                                                       int4_quant_cuda)
+                                                       int4_quant_cuda,
+                                                       quant_path,
+                                                       quant_path_cuda)
     from repro_torch.kernels.int4_cache.ref import (
         dequantize_int4_reference, quantize_int4_reference)
 
-    def case(N, D, dtype):
+    def case(N, D, dtype, offset=0):
         x = _int4_rows(gen, N, D, dtype)
+        if offset:  # x starts `offset` elements into its storage
+            buf = torch.empty(N * D + offset, dtype=dtype, device="cuda")
+            buf[offset:] = x.reshape(-1)
+            x = buf[offset:].view(N, D)
+        path = quant_path(D, dtype, aligned=x.data_ptr() % 16 == 0)
+        if quant_path_cuda(x) != path:
+            _fail(f"int4_quant ({N}, {D}) {dtype} offset {offset}: the card "
+                  f"takes the {quant_path_cuda(x)} path, kernel.quant_path "
+                  f"says {path}")
         p, s = int4_quant_cuda(x)
         p_p, s_p = quantize_int4_reference(x)
         ys = [(int4_dequant_cuda(p, s, out),
@@ -656,17 +758,55 @@ def check_int4_cache(gen):
                     1e-12).item() and ys[0][0][1, :8].tolist()
                 == [7, 0, 2, 2, 0, -2, -2, -4]):
             _fail(f"int4 ({N}, {D}) {dtype}: ties or the zero row wrong")
-        return x, p, s
+        return x, p, s, path
 
-    for N, D, dtype in ((1, 1280, torch.float32), (333, 1280, torch.float32),
-                        (4097, 1280, torch.bfloat16), (7, 2, torch.float32),
-                        (65, 10, torch.bfloat16)):
-        case(N, D, dtype)
-        print(f"  int4_cache side case ({N}, {D}) {dtype}: quant and "
-              "dequant (f32, bf16 out) bit-equal")
+    # register path: N off the 8 rows a block (333, 13), a partial pair of
+    # 128-element blocks (1032 f32), the widest rows (1536 f32, 3072 bf16);
+    # looped path: D % 8 != 0 (2, 10), rows wider than the registers hold
+    # (1544 f32, 3080 bf16), x not 16-byte aligned
+    for N, D, dtype, offset in (
+            (1, 1280, torch.float32, 0), (333, 1280, torch.float32, 0),
+            (4097, 1280, torch.bfloat16, 0), (7, 2, torch.float32, 0),
+            (65, 10, torch.bfloat16, 0), (13, 1280, torch.bfloat16, 0),
+            (7, 1032, torch.float32, 0), (9, 1536, torch.float32, 0),
+            (11, 3072, torch.bfloat16, 0), (9, 1544, torch.float32, 0),
+            (5, 3080, torch.bfloat16, 0), (6, 1280, torch.float32, 2),
+            (64 * 257, 1280, torch.bfloat16, 0)):
+        path = case(N, D, dtype, offset)[3]
+        print(f"  int4_cache side case ({N}, {D}) {dtype} offset {offset}: "
+              f"{path} path; quant and dequant (f32, bf16 out) bit-equal")
+    # quotients at the rounding ties, a scale of their own a row
+    x = _int4_tie_rows(gen, 4096, 1280)
+    p, s = int4_quant_cuda(x)
+    p_p, s_p = quantize_int4_reference(x)
+    p_np, s_np = quantize_int4_np(x.cpu().numpy())
+    if not (torch.equal(p, p_p) and torch.equal(s, s_p)
+            and np.array_equal(p.cpu().numpy(), p_np)
+            and np.array_equal(s.cpu().numpy(), s_np)):
+        _fail("int4_quant at the rounding ties: not bit-equal with the plain "
+              "version and quantize_int4_np")
+    # a row holding infinities (its scale is inf): the finite elements
+    # quantize to 0 as x / inf does; the infinities themselves (inf / inf)
+    # are left out, their NaN's integer conversion differs by platform
+    x = _int4_rows(gen, 9, 1280, torch.float32)
+    x[3, 5], x[3, 700] = float("inf"), -float("inf")
+    p, s = int4_quant_cuda(x)
+    p_p, s_p = quantize_int4_reference(x)
+    lo, hi = (p.int() << 28) >> 28, p.int() >> 4
+    lo_p, hi_p = (p_p.int() << 28) >> 28, p_p.int() >> 4
+    finite = torch.isfinite(x)
+    if not (torch.equal(s, s_p) and torch.equal(lo[finite[:, 0::2]],
+                                                lo_p[finite[:, 0::2]])
+            and torch.equal(hi[finite[:, 1::2]], hi_p[finite[:, 1::2]])):
+        _fail("int4_quant of a row holding infinities: scales or the finite "
+              "elements' nibbles differ from the plain version")
+    print("  int4_quant at the rounding ties (4096 rows at scales e^-20 .. "
+          "e^20, +-4 ulps) and on a row holding infinities: bit-equal")
     N, D = 64 * 257, 1280
-    x, p, s = case(N, D, torch.float32)
+    x, p, s, _ = case(N, D, torch.float32)
     q_ms = time_ms(lambda: int4_quant_cuda(x), reps=20)
+    q_graph = graph_time_ms(lambda: int4_quant_cuda(x))
+    q_host = dispatch_us(lambda: int4_quant_cuda(x))
     q_plain = time_ms(lambda: quantize_int4_reference(x), reps=5)
     d_ms = time_ms(lambda: int4_dequant_cuda(p, s), reps=20)
     d_plain = time_ms(lambda: dequantize_int4_reference(p, s), reps=5)
@@ -674,8 +814,10 @@ def check_int4_cache(gen):
     # divide, round, clamp per element (quant), and a multiply (dequant)
     q_b, q_by = bound_ms(N * D * 4 + N * D // 2 + N * 4, 5.0 * N * D, "fp32")
     d_b, d_by = bound_ms(N * D // 2 + N * 4 + N * D * 4, 1.0 * N * D, "fp32")
-    print(f"  int4_quant ({N}, {D}) f32: bit-equal; kernel {q_ms:.4f} ms, "
-          f"plain {q_plain:.4f} ms, bound {q_b:.4f} ms ({q_by})")
+    print(f"  int4_quant ({N}, {D}) f32: bit-equal; kernel {q_ms:.4f} ms "
+          f"(graph replay {q_graph:.4f}, host {q_host:.1f} us a call), "
+          f"plain {q_plain:.4f} ms, bound {q_b:.4f} ms ({q_by}, "
+          f"{q_b / q_ms:.0%} of it)")
     print(f"  int4_dequant ({N}, {D // 2}) -> f32: bit-equal; kernel "
           f"{d_ms:.4f} ms, plain {d_plain:.4f} ms, bound {d_b:.4f} ms "
           f"({d_by})")
@@ -683,7 +825,8 @@ def check_int4_cache(gen):
     return [{"name": "int4_quant", "route": "cuda", "source": src,
              "replaces": "src/repro/kernels/int4_cache/kernel.py:25",
              "max_abs_err": 0.0, "ms": q_ms, "plain_ms": q_plain,
-             "bound_ms": q_b, "bound_by": q_by, "library_ms": None},
+             "bound_ms": q_b, "bound_by": q_by, "library_ms": None,
+             "graph_ms": q_graph, "host_us": q_host},
             {"name": "int4_dequant", "route": "cuda", "source": src,
              "replaces": "src/repro/kernels/int4_cache/kernel.py:37",
              "max_abs_err": 0.0, "ms": d_ms, "plain_ms": d_plain,
@@ -1564,6 +1707,7 @@ def ivf_phase():
           f"({q_u / q_ex:.2f}x), gathered {q_g:.1f} ({q_g / q_ex:.2f}x); "
           f"of a batch's host wall, building candidates takes {host_u:.2f} ms "
           f"(union) and {host_g:.2f} ms (gathered)")
+    time_gathered_at_ivf(store, queries, cand, k)
     profile_windows((
         ("exhaustive device scan, 64 queries",
          lambda: store.search_batch(queries, k, impl="device"), "topk_int4"),
@@ -1577,6 +1721,40 @@ def ivf_phase():
           f"dense path uploads {store.upload_calls} x "
           f"{store.upload_bytes // max(store.upload_calls, 1)} bytes")
     return launches
+
+
+# the gathered kernel timed on the IVF phase's own candidates, merged into
+# its kernels row by main()
+IVF_GATHERED: dict = {}
+
+
+def time_gathered_at_ivf(store, queries, cand, k):
+    """The gathered kernel alone on the IVF phase's real candidate rows
+    (Q = 64, L = the bucketed probed mass) and on three copies of them
+    (Q = 192, as a query_batch scans 3 granularities), over the store's
+    published bank snapshot."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.retrieval_topk.kernel import (
+        retrieval_topk_int4_gathered_cuda)
+    snap = store.device_bank._state(None)
+    ids = torch.from_numpy(np.ascontiguousarray(cand, np.int32)).cuda()
+    q = torch.from_numpy(np.asarray(queries, np.float32)).cuda()
+    E = q.shape[1]
+    for reps in (1, 3):
+        ids_r, q_r = ids.repeat(reps, 1), q.repeat(reps, 1)
+        ms = time_ms(lambda: retrieval_topk_int4_gathered_cuda(
+            q_r, snap.packed, snap.scales, ids_r, k, n_valid=snap.n),
+            reps=10)
+        b_ms, b_by = gathered_bound(ids_r, snap.n, E, k)
+        Q, L = ids_r.shape
+        live = int(((ids_r >= 0) & (ids_r < snap.n)).sum())
+        print(f"  gathered kernel at the IVF phase's candidates: Q={Q} "
+              f"L={L} ({live / Q:.1f} live a query, bank {snap.n} rows): "
+              f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {b_ms / ms:.0%} "
+              "of it)")
+        IVF_GATHERED[f"ivf_q{Q}"] = {"L": L, "live": live, "ms": ms,
+                                     "bound_ms": b_ms}
 
 
 ASYNC_KERNELS = ("retrieval_topk_int4", "int4_quant")
@@ -2195,6 +2373,10 @@ def main() -> None:
                      walls[p][0]),
                     "ivf" if row["name"] in IVF_KERNELS else "serve")
         row["launches"] = walls[path][0][row["name"]]
+        if row["name"] == "retrieval_topk_int4_gathered":
+            row.update(IVF_GATHERED)
+    print("share of the bound: " + ", ".join(
+        f"{row['name']} {row['bound_ms'] / row['ms']:.0%}" for row in rows))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

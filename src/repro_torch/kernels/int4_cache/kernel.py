@@ -2,11 +2,14 @@
 (``csrc/int4_cache.cu``): per-row quantize + nibble pack, and its inverse.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs, and launches on PyTorch's current stream.
+outputs, and launches on PyTorch's current stream. The quantize keeps a
+row in registers where ``quant_path`` says so, and reads it twice in a
+loop otherwise.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -17,14 +20,38 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+QUANT_VECTORS = 12  # 16-byte vectors of a row a lane keeps on the
+                    # quantize's register path (csrc/int4_cache.cu VMAX)
 
+
+@functools.cache  # typed once: the quantize runs a dozen times a drain
 def _lib() -> ctypes.CDLL:
     lib = build.load("int4_cache")
     lib.int4_quant_launch.restype = ctypes.c_int
     lib.int4_quant_launch.argtypes = [_P, _I, _P, _P, _L, _I, _P]
     lib.int4_dequant_launch.restype = ctypes.c_int
     lib.int4_dequant_launch.argtypes = [_P, _P, _P, _I, _L, _I, _P]
+    lib.int4_quant_path.restype = ctypes.c_int
+    lib.int4_quant_path.argtypes = [_I, _I, _P]
     return lib
+
+
+def quant_path(D: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """The quantize's path for rows of width D, as
+    ``csrc/int4_cache.cu::quant_in_registers`` picks it: "registers" (the
+    row read once into a warp's registers, packed words stored 128 bytes
+    an instruction) for D a multiple of 8 within 32 lanes x QUANT_VECTORS
+    16-byte vectors and x 16-byte aligned, else "looped" (two reads)."""
+    per_vector = 16 // (4 if dtype == torch.float32 else 2)
+    fits = D % 8 == 0 and D <= 32 * QUANT_VECTORS * per_vector
+    return "registers" if fits and aligned else "looped"
+
+
+def quant_path_cuda(x: torch.Tensor) -> str:
+    """The path the card's launch takes for ``x`` (``int4_quant_path``)."""
+    return ("registers" if _lib().int4_quant_path(
+        x.shape[-1], int(x.dtype == torch.bfloat16), x.data_ptr())
+        else "looped")
 
 
 def _stream(dev: torch.device) -> int:

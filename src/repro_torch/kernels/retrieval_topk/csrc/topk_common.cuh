@@ -1,18 +1,18 @@
 // Pieces shared by the port's top-k scans (topk_int4.cu, topk_int4_gather.cu,
 // topk_dense.cu, and the scan tile of topk_tile.cuh): the (score, id) order,
-// the nibble decode, the sorted-list insert, the warp-wide merge, the int4
-// row dot, and the pass-2 merge of the partial lists that pass 1 of every
-// scan writes.
+// the nibble decode, the sorted-list insert, the warp-wide merge, and the
+// pass-2 merge of the partial lists that pass 1 of every scan writes.
 //
 // The int4 scan contract. Every int4 scan scores a bank row as follows, so
-// that the IVF pruned scan (gathered ids, int4_row_dot below) and the
+// that the IVF pruned scan (gathered ids, topk_int4_gather.cu) and the
 // exhaustive scan (the register-blocked tile of topk_tile.cuh) return the
 // same float for the same row, and pruning can only drop rows, never
 // re-score them (chip_smoke.py's check_gathered holds the two kernels to
 // torch.equal on one shared candidate set):
 //   * acc = one fmaf chain per (query, row) in element order e = 0 .. E-1,
 //     starting from 0, of query value times the UNSCALED nibble value
-//     (nib2f); zeros past E may be added (they change nothing);
+//     (nib2f's value; topk_int4_gather.cu's nib_at gives the same float by
+//     another decode); zeros past E may be added (they change nothing);
 //   * score = acc * sr, sr the row's scale, one multiply;
 //   * with `normalize` (the exhaustive scan only): the query values are
 //     q * rsqrt(max(ss_q, 1e-16)) rounded once before the chain, ss_q one
@@ -83,44 +83,6 @@ __device__ void warp_merge(int n, Get get, float* ls, int* li, int* cnt,
       __syncwarp();
     }
   }
-}
-
-// One query row in shared memory against one packed int4 row (E/2 bytes;
-// low nibble = element 2i, high = 2i+1): the unscaled dot, one fmaf chain in
-// element order (the scan contract above). 16-byte loads (32 nibbles) when
-// E/2 is a multiple of 16 (the caller guarantees 16-byte aligned rows then),
-// else byte loads.
-__device__ __forceinline__ float int4_row_dot(const float* __restrict__ qs,
-                                              int E,
-                                              const int8_t* __restrict__ prow) {
-  const int E2 = E / 2;
-  float acc = 0.f;
-  if ((E2 & 15) == 0) {
-    const int4* pv = reinterpret_cast<const int4*>(prow);
-    for (int vi = 0; vi < E2 / 16; ++vi) {
-      const int4 w4 = __ldg(pv + vi);
-      const unsigned words[4] = {(unsigned)w4.x, (unsigned)w4.y,
-                                 (unsigned)w4.z, (unsigned)w4.w};
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        // nibble j of word w is element 32*vi + 8*w + j
-        const int e0 = 32 * vi + 8 * w;
-        const float4 a = *reinterpret_cast<const float4*>(qs + e0);
-        const float4 b = *reinterpret_cast<const float4*>(qs + e0 + 4);
-        const float qv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc = fmaf(qv[j], nib2f((words[w] >> (4 * j)) & 0xFu), acc);
-      }
-    }
-  } else {
-    for (int j = 0; j < E2; ++j) {
-      const unsigned byte = (unsigned char)prow[j];
-      acc = fmaf(qs[2 * j], nib2f(byte & 0xFu), acc);
-      acc = fmaf(qs[2 * j + 1], nib2f(byte >> 4), acc);
-    }
-  }
-  return acc;
 }
 
 // Pass 2: one warp per query merges its n_parts partial lists (k entries

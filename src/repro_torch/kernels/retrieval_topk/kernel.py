@@ -8,7 +8,10 @@ allocates the outputs and the pass-1 scratch, and launches on PyTorch's
 current stream. The two exhaustive scans share one pass-1 tile
 (``csrc/topk_tile.cuh``: 96 or 64 queries x 128 bank rows a block, two
 blocks an SM); ``query_tile`` and ``chunk_rows`` size their grids as one
-wave of it.
+wave of it. The gathered scan's pass 1 is a block of four warps on a share
+of one query's candidates, as many blocks an SM as its shared memory
+allows (``gather_blocks_per_sm``); ``gather_blocks`` sizes its grid as one
+wave of them.
 """
 from __future__ import annotations
 
@@ -24,9 +27,16 @@ E_MAX = 2048       # the int4 scans' widest row (the gathered scan stages
                    # whole query rows in shared memory)
 TILE_ROWS = 128    # bank rows per tile of the exhaustive scans' pass 1
 BLOCKS_PER_SM = 2  # their pass-1 occupancy (256 threads, 128 registers)
-CHUNK_L = 1024     # candidates per pass-1 block of the gathered scan
-GATHER_WARPS = 8   # partial lists per gathered pass-1 block (one per warp;
-                   # the launch refuses another count)
+GATHER_WARPS = 4   # warps (and partial lists) per gathered pass-1 block
+                   # (csrc/topk_int4_gather.cu; the launch refuses another
+                   # count)
+# the gathered pass 1's shared memory, as csrc/topk_int4_gather.cu lays it
+# out: the query row, each warp's 2-stage ring of 32 row slices of 256
+# bytes at a 272-byte stride, each warp's list and count, 5 decode keys
+GATHER_RING_BYTES = GATHER_WARPS * 2 * 32 * 272
+SMEM_PER_SM = 233_472           # an H100 SM's shared memory (228 KB, the
+                                # whole carveout, as the kernel asks)
+SMEM_RESERVED_PER_BLOCK = 1024  # of it kept back for each resident block
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +49,9 @@ def _lib(name: str) -> ctypes.CDLL:
     fn.argtypes = {"topk_int4": [_P] * 7 + [_I] * 7 + [_P],
                    "topk_int4_gather": [_P] * 8 + [_I] * 7 + [_P],
                    "topk_dense": [_P] * 6 + [_I] * 7 + [_P]}[name]
+    if name == "topk_int4_gather":
+        lib.topk_int4_gather_occupancy.restype = ctypes.c_int
+        lib.topk_int4_gather_occupancy.argtypes = [_I, ctypes.POINTER(_I)]
     return lib
 
 
@@ -132,8 +145,8 @@ def retrieval_topk_int4_gathered_cuda(query: torch.Tensor,
     if Q == 0:
         return out_s, out_i
     nv = N if n_valid is None else max(0, min(int(n_valid), N))
-    n_chunks = -(-L // CHUNK_L)
-    n_parts = n_chunks * GATHER_WARPS
+    n_blocks = gather_blocks(Q, L, E, build.sm_count(dev))
+    n_parts = n_blocks * GATHER_WARPS
     part_s = torch.empty((Q, n_parts, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((Q, n_parts, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -141,10 +154,44 @@ def retrieval_topk_int4_gathered_cuda(query: torch.Tensor,
         err = _lib("topk_int4_gather").topk_int4_gather_launch(
             query.data_ptr(), packed.data_ptr(), scales.data_ptr(),
             row_ids.data_ptr(), part_s.data_ptr(), part_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), Q, E, L, k, nv, CHUNK_L,
+            out_s.data_ptr(), out_i.data_ptr(), Q, E, L, k, nv, n_blocks,
             n_parts, stream)
     build.check(err, "retrieval_topk_int4_gathered")
     return out_s, out_i
+
+
+def gather_smem_bytes(E: int) -> int:
+    """Shared memory of one gathered pass-1 block at width E
+    (``csrc/topk_int4_gather.cu::smem_bytes``)."""
+    return (-(-E // 4) * 16 + GATHER_RING_BYTES
+            + GATHER_WARPS * K_MAX * 8 + GATHER_WARPS * 4 + 5 * 4)
+
+
+def gather_blocks_per_sm(E: int) -> int:
+    """Gathered pass-1 blocks an H100 SM holds at width E: its shared
+    memory is the limit (the kernel's launch bounds keep its registers
+    within three blocks; ``chip_smoke.py`` holds this to the card's
+    occupancy query)."""
+    return SMEM_PER_SM // (gather_smem_bytes(E) + SMEM_RESERVED_PER_BLOCK)
+
+
+def gather_blocks(Q: int, L: int, E: int, n_sm: int) -> int:
+    """Pass-1 blocks per query of the gathered scan: as many as one wave of
+    ``gather_blocks_per_sm`` blocks on ``n_sm`` SMs gives each query (one
+    if Q alone fills the wave), and no more than give every warp one group
+    of 32 of the L candidates (the kernel deals the groups round-robin)."""
+    per_q = max(1, gather_blocks_per_sm(E) * n_sm // Q)
+    return min(per_q, -(-L // (GATHER_WARPS * 32)))
+
+
+def gather_occupancy(E: int, device=None) -> int:
+    """The card's own count of gathered pass-1 blocks an SM holds at width
+    E (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    blocks = _I(0)
+    with torch.cuda.device(device):
+        build.check(_lib("topk_int4_gather").topk_int4_gather_occupancy(
+            E, ctypes.byref(blocks)), "topk_int4_gather_occupancy")
+    return blocks.value
 
 
 def query_tile(Q: int) -> int:

@@ -158,10 +158,22 @@ def _sep(s_p, tol=1e-5):
     return sep
 
 
-@pytest.mark.parametrize("Q,N,E,L,k,n_valid", [
-    (7, 5000, 256, 300, 10, 4990), (3, 300, 96, 64, 64, 300),
-    (2, 40, 40, 16, 10, 30)])
-def test_gathered_kernel_matches_plain(gen, Q, N, E, L, k, n_valid):
+# the gathered pass 1's paths: 16-byte rows in whole slices (256, 1024) and
+# a partial slice (96: three chunks), the byte path (E/2 % 16 != 0: 40,
+# 200), L below one warp's 32 on both (16, 20), many blocks of a query
+# (L = 9000, 3000 at small Q), E = 2048 (two blocks an SM), a query whose
+# every candidate is dead, and query elements that are subnormal or tiny
+@pytest.mark.parametrize("Q,N,E,L,k,n_valid,dead_query,tiny", [
+    (7, 5000, 256, 300, 10, 4990, False, False),
+    (3, 300, 96, 64, 64, 300, False, False),
+    (2, 40, 40, 16, 10, 30, False, False),
+    (3, 500, 256, 20, 10, 500, True, False),
+    (4, 3000, 200, 700, 16, 2999, True, False),
+    (2, 20000, 1024, 9000, 10, 20000, False, True),
+    (5, 30000, 1024, 3000, 10, 29000, True, False),
+    (3, 4000, 2048, 700, 16, 4000, False, True)])
+def test_gathered_kernel_matches_plain(gen, Q, N, E, L, k, n_valid,
+                                       dead_query, tiny):
     """Gathered scan vs its plain version, with -1 padding, ids >= n_valid
     and rows of fewer than k live ids; every live row's score equals the
     exhaustive kernel's bit for bit."""
@@ -173,10 +185,16 @@ def test_gathered_kernel_matches_plain(gen, Q, N, E, L, k, n_valid):
     packed, scales = quantize_int4(bank / bank.norm(dim=1, keepdim=True))
     q = torch.randn((Q, E), generator=gen, device="cuda")
     q = q / q.norm(dim=1, keepdim=True)
+    if tiny:  # subnormal (1e-39 .. 1e-45) and tiny (1e-30) query elements
+        q[:, 1::4] *= 1e-39
+        q[:, 2::8] = 1e-45
+        q[:, 3::16] *= 1e-30
     ids = torch.randint(0, N, (Q, L), generator=gen, device="cuda",
                         dtype=torch.int32)
     ids[:, ::5] = -1
     ids[-1, 3:] = -1  # the last query has fewer than k live ids
+    if dead_query:
+        ids[1] = -1  # query 1 has no live id
     before = ops.launches_gathered
     s, i = ops.retrieval_topk_int4_gathered(q, packed, scales, ids, k,
                                             n_valid=n_valid)
@@ -248,17 +266,33 @@ def _int4_rows(gen, N, D, dtype):
     return x
 
 
-@pytest.mark.parametrize("N,D,dtype", [(300, 1280, torch.float32),
-                                       (257, 64, torch.bfloat16),
-                                       (1, 2, torch.float32),
-                                       (33, 10, torch.float32)])
-def test_int4_cache_kernels_match_plain_bit_for_bit(gen, N, D, dtype):
+# the quantize's register path: N off the 8 rows a block (300, 257, 13),
+# more rows than one wave of warps holds (5000: each warp walks rows two at
+# a time, an odd count on some), a partial pair of 128-element blocks (1032
+# f32), the widest rows (1536 f32, 3072 bf16); its looped path: D % 8 != 0
+# (2, 10), rows wider than the registers hold (1544 f32, 3080 bf16), x not
+# 16-byte aligned (offset)
+@pytest.mark.parametrize("N,D,dtype,offset", [
+    (300, 1280, torch.float32, 0), (257, 64, torch.bfloat16, 0),
+    (1, 2, torch.float32, 0), (33, 10, torch.float32, 0),
+    (13, 1280, torch.bfloat16, 0), (5000, 136, torch.float32, 0),
+    (7, 1032, torch.float32, 0), (9, 1536, torch.float32, 0),
+    (11, 3072, torch.bfloat16, 0), (9, 1544, torch.float32, 0),
+    (5, 3080, torch.bfloat16, 0), (6, 1280, torch.float32, 2),
+    (5, 64, torch.bfloat16, 4)])
+def test_int4_cache_kernels_match_plain_bit_for_bit(gen, N, D, dtype, offset):
     import numpy as np
     from repro_torch.core.quantize import quantize_int4_np
-    from repro_torch.kernels.int4_cache import ops
+    from repro_torch.kernels.int4_cache import kernel, ops
     from repro_torch.kernels.int4_cache.ref import (
         dequantize_int4_reference, quantize_int4_reference)
     x = _int4_rows(gen, N, D, dtype)
+    if offset:  # x starts `offset` elements into its storage
+        buf = torch.empty(N * D + offset, dtype=dtype, device="cuda")
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(N, D)
+    assert kernel.quant_path_cuda(x) == kernel.quant_path(
+        D, dtype, aligned=x.data_ptr() % 16 == 0)
     before = (ops.launches, ops.launches_dequant)
     p, s = ops.quantize(x)
     p_p, s_p = quantize_int4_reference(x)
@@ -273,6 +307,44 @@ def test_int4_cache_kernels_match_plain_bit_for_bit(gen, N, D, dtype):
         assert torch.equal(y, dequantize_int4_reference(p_p, s_p, dtype=out))
     assert (ops.launches, ops.launches_dequant) == (before[0] + 1,
                                                     before[1] + 2)
+
+
+def test_int4_quant_at_rounding_ties_and_infinite_rows(gen):
+    """The quantize's register path divides by the row's reciprocal with a
+    correction step: quotients within 4 ulps of the ties k + 1/2, at a
+    scale of their own a row, land where the IEEE quotient puts them (the
+    plain version and quantize_int4_np); a row holding infinities takes
+    `/` and gives its finite elements 0, as x / inf does."""
+    import numpy as np
+    from repro_torch.core.quantize import quantize_int4_np
+    from repro_torch.kernels.int4_cache import ops
+    from repro_torch.kernels.int4_cache.ref import quantize_int4_reference
+    g = torch.Generator(device="cuda").manual_seed(1)
+    s_t = torch.empty((256, 1), device="cuda").uniform_(-20, 20,
+                                                        generator=g).exp()
+    amax = s_t * 7
+    s = torch.clamp_min(amax / torch.tensor(7.0, device="cuda"), 1e-12)
+    k = torch.randint(-7, 7, (256, 1024), generator=g, device="cuda") + 0.5
+    step = torch.randint(-4, 5, (256, 1024), generator=g, device="cuda",
+                         dtype=torch.int32)
+    x = ((k * s).view(torch.int32) + step).view(torch.float32)
+    x[:, 0] = amax[:, 0]
+    p, sc = ops.quantize(x)
+    p_p, s_p = quantize_int4_reference(x)
+    assert torch.equal(p, p_p) and torch.equal(sc, s_p)
+    p_np, s_np = quantize_int4_np(x.cpu().numpy())
+    assert np.array_equal(p.cpu().numpy(), p_np)
+    x = _int4_rows(gen, 9, 1280, torch.float32)
+    x[3, 5], x[3, 700] = float("inf"), -float("inf")
+    p, sc = ops.quantize(x)
+    p_p, s_p = quantize_int4_reference(x)
+    assert torch.equal(sc, s_p) and sc[3].item() == float("inf")
+    fin = torch.isfinite(x)
+    lo, hi = (p.int() << 28) >> 28, p.int() >> 4
+    lo_p, hi_p = (p_p.int() << 28) >> 28, p_p.int() >> 4
+    assert torch.equal(lo[fin[:, 0::2]], lo_p[fin[:, 0::2]])
+    assert torch.equal(hi[fin[:, 1::2]], hi_p[fin[:, 1::2]])
+    assert (lo[3][fin[3, 0::2]] == 0).all() and (hi[3][fin[3, 1::2]] == 0).all()
 
 
 def test_async_refresh_epoch_on_the_card_with_a_racing_scan(gen):

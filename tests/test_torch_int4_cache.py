@@ -104,3 +104,23 @@ def test_cpu_tensors_take_the_plain_versions():
     assert (ops.launches, ops.launches_dequant) == before
     with pytest.raises(ValueError, match="no kernel"):
         ops.quantize(torch.ones(3, 4, device="meta"))
+
+
+@pytest.mark.parametrize("D,dtype,aligned,path", [
+    (1280, torch.float32, True, "registers"),
+    (1024, torch.bfloat16, True, "registers"),
+    (8, torch.float32, True, "registers"),
+    (1536, torch.float32, True, "registers"),
+    (3072, torch.bfloat16, True, "registers"),
+    (1544, torch.float32, True, "looped"),
+    (3080, torch.bfloat16, True, "looped"),
+    (10, torch.float32, True, "looped"),
+    (1284, torch.bfloat16, True, "looped"),
+    (1280, torch.float32, False, "looped")])
+def test_quant_path_by_width(D, dtype, aligned, path):
+    """The quantize keeps a row in registers (12 16-byte vectors a lane: D
+    up to 1536 f32, 3072 bf16) when D is a multiple of 8 and x 16-byte
+    aligned, and loops over it twice otherwise; the card's tests hold the
+    kernel's own choice to this rule."""
+    from repro_torch.kernels.int4_cache import kernel
+    assert kernel.quant_path(D, dtype, aligned=aligned) == path

@@ -264,3 +264,32 @@ def test_exhaustive_scan_grid_is_one_wave(Q, n_valid, n_sm):
     if rows > K.TILE_ROWS:
         assert -(-Q // bq) * -(-n_valid // (rows - K.TILE_ROWS)) > \
             K.BLOCKS_PER_SM * n_sm
+
+
+@pytest.mark.parametrize("Q,L,E,n_sm", [
+    (192, 8192, 1024, 132), (192, 4096, 1024, 132), (64, 8192, 1024, 132),
+    (192, 8192, 2048, 132), (1, 5, 1024, 132), (37, 1500, 1024, 132),
+    (3, 20, 200, 132), (2, 9000, 1024, 114), (1000, 70_000, 96, 132),
+    (5, 1 << 20, 1024, 132)])
+def test_gathered_scan_grid_is_one_wave(Q, L, E, n_sm):
+    """The gathered scan's blocks cover a query's L candidates in at most
+    one wave of ``gather_blocks_per_sm`` blocks (Q blocks where Q alone is
+    more), and no more blocks than give every warp a group of 32; the
+    blocks an SM follow the kernel's shared memory (three at E <= 1024,
+    two at 2048)."""
+    from repro_torch.kernels.retrieval_topk import kernel as K
+    assert K.gather_blocks_per_sm(1024) == 3
+    assert K.gather_blocks_per_sm(2048) == 2
+    bps = K.gather_blocks_per_sm(E)
+    assert (bps + 1) * (K.gather_smem_bytes(E) + K.SMEM_RESERVED_PER_BLOCK) \
+        > K.SMEM_PER_SM >= bps * (K.gather_smem_bytes(E)
+                                  + K.SMEM_RESERVED_PER_BLOCK)
+    n_blocks = K.gather_blocks(Q, L, E, n_sm)
+    assert n_blocks >= 1
+    assert Q * n_blocks <= max(bps * n_sm, Q)
+    groups = -(-L // 32)
+    assert (n_blocks - 1) * K.GATHER_WARPS < groups  # every block has work
+    # one block more a query would need more than one wave, or leave a
+    # whole block without a group of candidates
+    assert Q * (n_blocks + 1) > bps * n_sm or \
+        n_blocks * K.GATHER_WARPS * 32 >= L
