@@ -12,14 +12,24 @@ kernel against its plain PyTorch version at its path's shapes (the int4
 activation-cache kernels bit for bit; the grouped GEMM's side cases through
 both of its kernels, wgmma and mma.sync; the bf16 flash kernel against the
 plain variant that rounds P to bf16 per key tile, as the TPU kernel does,
-within one bf16 step of each element at max(|o|, 1)). Then it drives five paths, each
-with every launch counter set to 0 just before it and read just after:
+within one bf16 step of each element at max(|o|, 1)). Then it drives six
+paths, each with every launch counter set to 0 just before it and read
+just after:
 
   * serve: RECALL end to end at the full width of ``recall-imagebind``
     (random weights from a seed): drain (the activation cache quantized on
     the card), then query_batch (exhaustive int4 scan, refinement
     dequantized on the card); afterwards one more query_batch through an
     IVF-indexed engine (the pruned union scan);
+  * heal: P-LoRA healing of the vision tower at full width and depth
+    (``core.healing.heal_tower``, batch 32, 2 steps in each of its six
+    phases) through the flash-attention and RMSNorm backward kernels, which
+    are first held against their plain versions and timed; one step's
+    backward calls held call by call, and a step's LoRA gradient against
+    autograd of plain float64 ops; RECALL served with the healed LoRA
+    (drain, query_batch); ``heal_lm`` on qwen2-1.5b at full width and
+    depth, and on a 2-layer qwen3-moe-30b-a3b, where it must raise at the
+    grouped GEMM (no backward yet);
   * IVF: a 2^17-row ``clustered_sphere`` store at E = 1024 with an online
     IVF index (256 clusters, nprobe 8), queried through both pruned
     strategies and the dense fp32 path, held against the numpy oracles and
@@ -40,15 +50,19 @@ with every launch counter set to 0 just before it and read just after:
 
 One prefill and one decode step of each LM are held call by call against
 the plain versions; the MoE prefill's grouped-GEMM launches must all run
-the wgmma kernel, the decode window's all the mma.sync kernel. It ends with one JSON line of kernel measurements and
-one ``{"ok": true, ...}`` line. Any failed phase or tolerance exits non-zero;
+the wgmma kernel, the decode window's all the mma.sync kernel. It ends
+with one JSON line of kernel measurements (sixteen rows: the fourteen
+forward rows and the two backward kernels) and one ``{"ok": true, ...}``
+line. Any failed phase or tolerance exits non-zero;
 without a CUDA device it exits non-zero at once. It never imports JAX or
 the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1181,7 +1195,9 @@ def _counters():
             "retrieval_topk_int4_gathered": (topk_ops, "launches_gathered"),
             "retrieval_topk_dense": (topk_ops, "launches_dense"),
             "flash_attention_fwd": (flash_ops, "launches"),
+            "flash_attention_bwd": (flash_ops, "bwd_launches"),
             "rmsnorm": (rms_ops, "launches"),
+            "rmsnorm_bwd": (rms_ops, "bwd_launches"),
             "decode_attention": (decode_ops, "launches"),
             "moe_gemm": (moe_ops, "launches")}
 
@@ -1340,9 +1356,11 @@ def _flash_plain(q, k, v, **kw):
     return plain_like_kernel(q, k, v, **kw)[0]
 
 
-def check_calls_vs_plain(params, spec, vision, text):
+def check_calls_vs_plain(params, spec, vision, text, lora=None):
     """Every kernel call of one full-width forward of both towers (4 items
-    each) against its plain version on the same real activations.
+    each; the vision tower alone, with the vision ``lora``, where ``text``
+    is None) against its plain version on the same real activations, every
+    exit's embedding computed.
 
     The random-init towers' attention is near one-hot (q/k weights are
     (d, H, hd) with fan-in taken as H, so logits have a std of ~80), which
@@ -1367,10 +1385,17 @@ def check_calls_vs_plain(params, spec, vision, text):
                               both("rmsnorm", rms_ops.rmsnorm_op,
                                    rmsnorm_reference)):
         for modality, items in (("vision", vision), ("text", text)):
-            IB.mem_embed_all_exits(params, spec.model, spec.recall, modality,
-                                   torch.as_tensor(items).cuda())
-    print(f"  kernel calls of a full-width forward (4 vision + 4 text items) "
-          f"vs plain versions on the same activations: {calls}, worst error "
+            if items is None:
+                continue
+            embs = IB.mem_embed_all_exits(
+                params, spec.model, spec.recall, modality,
+                torch.as_tensor(items).cuda(), lora=lora)["exit_embs"]
+            if not torch.isfinite(embs).all():
+                _fail(f"{modality} exit embeddings not finite")
+    print(f"  kernel calls of a full-width forward ("
+          + ("4 vision items with the healed LoRA" if lora is not None else
+             "4 vision + 4 text items")
+          + f") vs plain versions on the same activations: {calls}, worst error "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
           + f" of the output's scale (tol {rel_tol:.2e})")
 
@@ -1941,6 +1966,9 @@ _LAYERS = (("flash_fwd_wgmma", "attention (flash wgmma kernel, bf16)"),
            ("topk_int4", "int4 scan (top-k kernel)"),
            ("topk_dense", "dense scan (top-k kernel)"),
            ("topk_pass2", "top-k merge (pass 2)"),
+           ("flash_bwd_dq", "attention backward (dQ kernel)"),
+           ("flash_bwd_dkdv", "attention backward (dK/dV kernel)"),
+           ("rmsnorm_bwd", "rmsnorm backward (Triton kernel)"),
            ("rmsnorm", "rmsnorm (Triton kernel)"),
            ("gemm", "matmul (cuBLAS)"), ("sm90_", "matmul (cuBLAS)"),
            ("nvjet", "matmul (cuBLAS)"), ("cutlass", "matmul (cuBLAS)"))
@@ -2332,6 +2360,563 @@ def moe_phase():
             "moe_gemm[prefill]": c["prefill"]["moe_gemm/wgmma"],
             "moe_gemm[decode]": c["decode"]["moe_gemm/mma_sync"]}
 
+# ---------------------------------------------------------------------------
+# P-LoRA healing on the card: the backward kernels, heal_tower, healed
+# serving, heal_lm
+# ---------------------------------------------------------------------------
+
+# the backward rows of the kernels line (the heal phase fills them)
+HEAL_ROWS: list = []
+
+
+def _grad_err(got, want):
+    """(max abs err, largest share of the per-element limit ``bwd_limit``,
+    max abs err over the tensor's largest |element|) of one gradient."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import bwd_limit
+    w = want.float() if want.dtype == torch.float32 else want
+    diff = (got.float() - want.float()).abs()
+    scale = max(want.float().abs().max().item(), 1e-30)
+    return (diff.max().item(), (diff / bwd_limit(w)).max().item(),
+            diff.max().item() / scale)
+
+
+def check_flash_bwd(gen):
+    """The flash backward (dQ and dK/dV kernels) against the plain
+    ``attention_bwd_reference`` at the forward kernel's out and lse: the
+    heal shape (vision tower, B 32, fp32), the text tower's (B 64, bf16)
+    and qwen2-1.5b's prefill (B 2, causal, GQA 6:1, bf16), per element
+    within ``ref.bwd_limit`` (1e-5 at max(|g|, 1) fp32, one bf16 step
+    bf16); timed beside the plain version and SDPA's backward (autograd of
+    ``F.scaled_dot_product_attention``, for comparison only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import (flash_bwd_cuda,
+                                                            flash_fwd_cuda)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_reference, attention_mask)
+    row, side = None, {}
+    for what, B, S, H, KV, D, dtype, causal in (
+            ("heal", 32, 257, 16, 16, 80, torch.float32, False),
+            ("text", 64, 78, 16, 16, 64, torch.bfloat16, False),
+            ("lm", 2, 2048, 12, 2, 128, torch.bfloat16, True)):
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, S, KV, D), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        out, lse = flash_fwd_cuda(q, k, v, causal=causal)
+        got = flash_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        want = attention_bwd_reference(q, k, v, out, lse, do, causal=causal)
+        again = flash_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        errs = [_grad_err(g, w) for g, w in zip(got, want)]
+        err, over = max(e[0] for e in errs), max(e[1] for e in errs)
+        if not over <= 1.0:
+            _fail(f"flash backward {what}: err {err} ({over:.3f} of the "
+                  "per-element limit)")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            _fail(f"flash backward {what}: two runs differ")
+        ms = time_ms(lambda: flash_bwd_cuda(q, k, v, out, lse, do,
+                                            causal=causal), reps=5)
+        plain_ms = time_ms(lambda: attention_bwd_reference(
+            q, k, v, out, lse, do, causal=causal), reps=1, trials=3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        o_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=KV != H)
+        do_t = do.transpose(1, 2).contiguous()
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            o_t, (qt, kt, vt), do_t, retain_graph=True), reps=5)
+        pairs = int(attention_mask(S, S, causal=causal, window=0, q_offset=0,
+                                   device="cuda").sum())
+        n_ops = 5 * 2.0 * B * H * pairs * D
+        # q, out, dout read and dq written; k, v read and dk, dv written;
+        # lse read
+        n_bytes = 4 * (B * S * H * D + B * S * KV * D) * q.element_size() \
+            + B * H * S * 4
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "fp32" if dtype ==
+                              torch.float32 else "bf16")
+        print(f"  flash backward {what} B={B} S={S} H={H} KV={KV} D={D} "
+              f"{str(dtype)[6:]}{' causal' if causal else ''}: max_abs_err "
+              f"{err:.3e} ({over:.2f} of the per-element limit, "
+              f"{max(e[2] for e in errs):.1e} of the largest gradient), "
+              f"the same bits twice; kernel {ms:.4f} ms "
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+              f"SDPA backward {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        m = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+        if what == "heal":
+            row = {"name": "flash_attention_bwd", "route": "cuda",
+                   "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                             "flash_bwd.cu",
+                   "replaces": "src/repro/kernels/flash_attention/ops.py:118",
+                   **m}
+        else:
+            side[what] = m
+        del q, k, v, do, out, lse, got, want, again, qt, kt, vt, o_t, do_t
+        torch.cuda.empty_cache()
+    row["side"] = side
+    return row
+
+
+def check_rmsnorm_bwd(gen):
+    """The Triton RMSNorm backward against ``rmsnorm_bwd_reference``: dx
+    per element within ``bwd_limit``, dscale (a sum over rows) within 1e-5
+    (fp32) or one bf16 step (bf16) of its largest element, at the heal
+    step's norms (32 x 257 rows of 1,280, fp32) and qwen2's (4,096 rows of
+    1,536, bf16); timed beside the plain version and autograd of
+    ``F.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_triton
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_reference
+    row, side = None, {}
+    for what, rows_, D, dtype in (("heal", 32 * 257, 1280, torch.float32),
+                                  ("lm", 4096, 1536, torch.bfloat16)):
+        x = (torch.randn((rows_, D), generator=gen, device="cuda") * 3).to(
+            dtype)
+        s = (1 + 0.1 * torch.randn((D,), generator=gen,
+                                   device="cuda")).to(dtype)
+        dy = torch.randn((rows_, D), generator=gen, device="cuda").to(dtype)
+        dx, ds = rmsnorm_bwd_triton(x, s, dy, 1e-6)
+        dx2, ds2 = rmsnorm_bwd_triton(x, s, dy, 1e-6)
+        dx_p, ds_p = rmsnorm_bwd_reference(x, s, dy, 1e-6)
+        torch.cuda.synchronize()
+        err, over, _ = _grad_err(dx, dx_p)
+        rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        ds_err = (ds.float() - ds_p.float()).abs().max().item()
+        ds_lim = rel * max(1.0, ds_p.float().abs().max().item())
+        if not (over <= 1.0 and ds_err <= ds_lim):
+            _fail(f"rmsnorm backward {what}: dx err {err} ({over:.3f} of "
+                  f"the limit), dscale err {ds_err} (tol {ds_lim})")
+        if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
+            _fail(f"rmsnorm backward {what}: two runs differ")
+        ms = time_ms(lambda: rmsnorm_bwd_triton(x, s, dy, 1e-6), reps=20)
+        plain_ms = time_ms(lambda: rmsnorm_bwd_reference(x, s, dy, 1e-6),
+                           reps=5)
+        xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
+        yl = F.rms_norm(xl, (D,), sl, 1e-6)
+        lib_ms = time_ms(lambda: torch.autograd.grad(yl, (xl, sl), dy,
+                                                     retain_graph=True),
+                         reps=20)
+        esz = x.element_size()
+        b_ms, b_by = bound_ms(3 * rows_ * D * esz + 2 * D * esz,
+                              10.0 * rows_ * D, "fp32")
+        print(f"  rmsnorm backward {what} ({rows_}, {D}) "
+              f"{str(dtype)[6:]}: dx max_abs_err {err:.3e} ({over:.2f} of "
+              f"the per-element limit), dscale err {ds_err:.3e} (tol "
+              f"{ds_lim:.1e}), the same bits twice; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, autograd of F.rms_norm "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        m = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+        if what == "heal":
+            row = {"name": "rmsnorm_bwd", "route": "triton",
+                   "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
+                   "replaces": "src/repro/models/layers.py:91 (autodiff of "
+                               "rmsnorm; no Pallas backward)", **m}
+        else:
+            side[what] = m
+        del x, s, dy, dx, dx2, dx_p, xl, sl, yl
+        torch.cuda.empty_cache()
+    row["side"] = side
+    return row
+
+
+def _bwd_launches() -> dict:
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    return {"flash_attention_fwd": flash_ops.launches,
+            "flash_attention_bwd": flash_ops.bwd_launches,
+            "rmsnorm": rms_ops.launches, "rmsnorm_bwd": rms_ops.bwd_launches}
+
+
+def _lora_leaves(lora):
+    """A copy of ``lora`` whose leaves need a gradient, and the leaves."""
+    leaves = {t: {k: v.detach().requires_grad_() for k, v in ab.items()}
+              for t, ab in lora.items()}
+    return leaves, [leaves[t][k] for t in leaves for k in leaves[t]]
+
+
+def check_heal_step_calls(params, spec, lora, x):
+    """Every backward kernel call of one heal step (the loss of every exit)
+    against its plain version on the same inputs, both measured against
+    the plain version run in float64 (``compute_dtype``): each gradient of
+    the kernel within twice the fp32 plain version's own error, or within
+    1e-5 of its largest element where that is larger, plus one bf16 step of
+    the element for a bf16 output (a norm's dscale in the scale's bf16,
+    whose rounding may flip). (The per-element
+    ``bwd_limit`` holds the random-input gates; on these activations the
+    init's attention logits reach ~80, whose fp32 rounding alone puts
+    ~5e-6 of relative error into P before dS = P (dP - delta) cancels, and
+    a norm's dscale sums 8,224 rows that cancel to 1e-3 of their size, so
+    an fp32 result's error follows the terms, not the result.)"""
+    import torch
+    from unittest import mock
+    from repro_torch.core import healing as H
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_reference
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_reference
+    cfg, rc = spec.model, spec.recall
+    worst, calls = {}, {}
+
+    def both(name, kernel_fn, plain_fn):
+        def run(*args, **kw):
+            got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
+            exact = plain_fn(*args, compute_dtype=torch.float64, **kw)
+            calls[name] = calls.get(name, 0) + 1
+            for i, (g, w, e) in enumerate(zip(got, want, exact)):
+                e = e.double()
+                diff = (g.double() - e).abs()
+                e_k = diff.max().item()
+                e_p = (w.double() - e).abs().max().item()
+                lim = max(2 * e_p, 1e-5 * e.abs().max().item())
+                if g.dtype == torch.bfloat16:  # the output's own rounding
+                    diff = diff - 2.0 ** -7 * e.abs()
+                old = worst.get(name, (0.0, 0.0))
+                worst[name] = (max(old[0], diff.max().item() / lim),
+                               max(old[1], e_k / e.abs().max().item()))
+                if not diff.max().item() <= lim:
+                    _fail(f"{name} call {calls[name]} output {i} "
+                          f"{tuple(g.shape)}: kernel err {e_k:.3e} "
+                          f"against float64, the fp32 plain version's "
+                          f"{e_p:.3e}, limit {lim:.3e}")
+            return got
+        return run
+
+    n_exits = len(rc.exit_layers(cfg.tower("vision").n_layers))
+    t = _vision_targets(params, spec, x)
+    leaves, flat = _lora_leaves(lora)
+    w = torch.full((n_exits,), 1.0 / n_exits, device="cuda")
+    ones = torch.ones(n_exits, device="cuda")
+    with mock.patch.object(flash_ops, "flash_attention_bwd",
+                           both("flash_attention_bwd",
+                                flash_ops.flash_attention_bwd,
+                                attention_bwd_reference)), \
+            mock.patch.object(rms_ops, "rmsnorm_bwd",
+                              both("rmsnorm_bwd", rms_ops.rmsnorm_bwd,
+                                   rmsnorm_bwd_reference)):
+        loss = H.exit_distill_loss(
+            H.tower_exit_embs(params, cfg, rc, "vision", x, leaves), t, w,
+            ones)
+        grads = torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+    print(f"  backward kernel calls of one heal step ({x.shape[0]} items, "
+          f"every exit weighted) vs plain versions on the same inputs, "
+          f"errors against the plain version in float64: {calls}; worst "
+          "share of the limit / worst kernel error over the largest "
+          "gradient: " + ", ".join(
+              f"{k} {o:.2f} / {r:.1e}" for k, (o, r) in worst.items())
+          + " (limit: twice the plain version's error, or 1e-5 of the "
+          "largest gradient)")
+    norm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
+    print(f"  that step's LoRA gradient: |g| {norm:.3e} (the loss is bounded "
+          "by 2; the init's near one-hot attention makes it this steep)")
+    return calls
+
+
+def _attention64(q, k, v, *, causal, window, **kw):
+    """Plain attention for the float64 yardstick, differentiable by
+    autograd (the vision tower's: no mask, one kv head a head)."""
+    import torch
+    if causal or window or q.shape[2] != k.shape[2]:
+        _fail("the float64 yardstick takes the vision tower's attention only")
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k)
+                      / math.sqrt(q.shape[-1]), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _rmsnorm64(x, scale, eps=1e-6):
+    import torch
+    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) \
+        * scale.to(x.dtype)
+
+
+def check_heal_gradient(params, spec, lora, x):
+    """The LoRA gradient of a heal step's loss through the kernels
+    (forward and backward, fp32 activations) against autograd of plain
+    float64 ops on the same weights (the exit head and the loss stay
+    fp32), with the attention projections at fan-in d (``_fan_in_d``), so
+    that the gradient is well conditioned: on the serving init its norm
+    reads ~1e14 (``check_heal_step_calls`` prints it). Relative error of
+    the whole gradient, tol 1e-3."""
+    import torch
+    from unittest import mock
+    from repro_torch.core import healing as H
+    from repro_torch.models import layers, transformer as T
+
+    def cast(tree, dt):
+        if isinstance(tree, dict):
+            return {k: cast(v, dt) for k, v in tree.items()}
+        return tree.to(dt) if tree.is_floating_point() else tree
+
+    cfg, rc = spec.model, spec.recall
+    p32 = _fan_in_d(params)
+    n_exits = len(rc.exit_layers(cfg.tower("vision").n_layers))
+    w = torch.full((n_exits,), 1.0 / n_exits, device="cuda")
+    ones = torch.ones(n_exits, device="cuda")
+    t = _vision_targets(p32, spec, x)
+    grads = {}
+    for what, p, xx, dt in (("kernels", p32, x, torch.float32),
+                            ("float64", cast(p32, torch.float64),
+                             x.double(), torch.float64)):
+        leaves, flat = _lora_leaves(cast(lora, dt))
+        with contextlib.ExitStack() as stack:
+            if dt == torch.float64:
+                stack.enter_context(mock.patch.object(
+                    T, "flash_attention", _attention64))
+                stack.enter_context(mock.patch.object(
+                    layers, "rmsnorm_op", _rmsnorm64))
+            loss = H.exit_distill_loss(H.tower_exit_embs(
+                p, cfg, rc, "vision", xx, leaves), t, w, ones)
+            grads[what] = torch.autograd.grad(loss, flat)
+    num = sum(float(((a.double() - b.double()) ** 2).sum())
+              for a, b in zip(grads["kernels"], grads["float64"]))
+    den = sum(float((b.double() ** 2).sum()) for b in grads["float64"])
+    rel = math.sqrt(num / den)
+    print(f"  heal step gradient on fan-in d weights ({x.shape[0]} items, "
+          f"every exit): kernels (fp32) vs autograd of plain float64 ops, "
+          f"|g| {math.sqrt(den):.4e}, relative error {rel:.2e} (tol 1e-3)")
+    if not rel <= 1e-3:
+        _fail(f"heal step gradient through the kernels is off by {rel:.2e} "
+              "of the float64 gradient")
+
+
+def _vision_targets(params, spec, x):
+    """The frozen fine-grained embeddings of ``x``, the heal targets."""
+    import torch
+    from repro_torch.models import imagebind as IB
+    with torch.no_grad():
+        return IB.mem_embed(params, spec.model, spec.recall, "vision", x)
+
+
+def profile_heal_step(params, spec, lora, x):
+    """One heal step's forward and backward (every exit weighted) under
+    torch.profiler: device time by layer and the busy share."""
+    import torch
+    from repro_torch.core import healing as H
+    cfg, rc = spec.model, spec.recall
+    n_exits = len(rc.exit_layers(cfg.tower("vision").n_layers))
+    t = _vision_targets(params, spec, x)
+    w = torch.full((n_exits,), 1.0 / n_exits, device="cuda")
+    ones = torch.ones(n_exits, device="cuda")
+
+    def step():
+        leaves, flat = _lora_leaves(lora)
+        loss = H.exit_distill_loss(H.tower_exit_embs(
+            params, cfg, rc, "vision", x, leaves), t, w, ones)
+        torch.autograd.grad(loss, flat)
+
+    profile_windows(((f"heal step of {x.shape[0]} items (forward and "
+                      "backward)", step, "flash_bwd"),))
+
+
+def serve_healed(params, spec, lora, items, texts, k=10):
+    """RECALL served with the healed LoRA: a predictor fit on the healed
+    tower's exit labels, an EmbeddingEngine(lora=healed) draining
+    ``items``, a QueryEngine (the text tower un-healed) running one
+    query_batch that refines on the healed tower; then one forward with the
+    LoRA held call by call against the plain versions, every exit
+    compared."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preexit as PE
+    from repro_torch.core.store import EmbeddingStore
+    from repro_torch.launch.serve import _calibrate
+    from repro_torch.serving.engine import EmbeddingEngine
+    from repro_torch.serving.query import QueryEngine
+    cfg, rc = spec.model, spec.recall
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    t0 = time.perf_counter()
+    sup, labels, n_exits = _calibrate(params, cfg, rc,
+                                      torch.as_tensor(items[:64]).cuda(),
+                                      lora)
+    predictor, pstats = PE.train_predictor(gen, sup, labels,
+                                           n_exits=n_exits,
+                                           hidden=rc.predictor_hidden,
+                                           steps=150)
+    store = EmbeddingStore(cfg.embed_dim, device="cuda")
+    engine = EmbeddingEngine(params, cfg, rc, lora=lora,
+                             predictor_params=predictor, store=store,
+                             device="cuda")
+    query = QueryEngine(params, cfg, rc, store=store,
+                        refine_fn=engine.refine_fn(), query_modality="text",
+                        device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    _reset_launches()
+    t0 = time.perf_counter()
+    engine.submit_batch(np.arange(len(items)), items)
+    stats = engine.drain()
+    torch.cuda.synchronize()
+    t_drain = time.perf_counter() - t0
+    in_drain = _read_launches(cfg)
+    t0 = time.perf_counter()
+    results = query.query_batch(texts, k=k)
+    torch.cuda.synchronize()
+    t_query = time.perf_counter() - t0
+    launches = _read_launches(cfg)
+    n_ref = sum(r.n_refined for r in results)
+    print(f"  healed serving: predictor on the healed exits {pstats} "
+          f"({t_build:.2f} s with the calibration); drain {len(items)} "
+          f"items in {t_drain:.3f} s = {len(items) / t_drain:.1f} items/s, "
+          f"avg layers {stats.avg_layers:.2f}; query_batch of {len(texts)} "
+          f"in {t_query:.3f} s, {n_ref} refinements; launches {launches}")
+    missing = [n for n in SERVE_KERNELS if launches[n] == 0]
+    if missing:
+        _fail(f"kernels never launched serving the healed LoRA: {missing}")
+    if in_drain["int4_quant"] == 0 or \
+            launches["int4_dequant"] == in_drain["int4_dequant"]:
+        _fail("healed serving did not quantize in the drain or dequantize "
+              "in the query_batch")
+    _check_results(results, store, k)
+    check_calls_vs_plain(params, spec, items[:4], None, lora=lora)
+    return launches
+
+
+def heal_lm_phase():
+    """heal_lm on qwen2-1.5b at full width and depth (bf16: the causal GQA
+    backward on a path), then on a 2-layer qwen3-moe-30b-a3b, which must
+    raise at the grouped GEMM (no backward yet, ROADMAP A.4b)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import healing as H
+    from repro_torch.models import transformer as T
+    spec = get_arch("qwen2-1.5b")
+    cfg, rc = spec.model, spec.recall
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    with torch.no_grad():
+        params = T.lm_init(gen, cfg, rc, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (8, 512), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    hc = H.HealConfig(batch=8, steps_per_phase=1)
+    torch.cuda.reset_peak_memory_stats()
+    before = _bwd_launches()
+    t0 = time.perf_counter()
+    lora, log = H.heal_lm(gen, params, cfg, rc, tokens, heal_cfg=hc,
+                          device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: v - before[k] for k, v in _bwd_launches().items()}
+    L, n = cfg.n_layers, len(log) * hc.steps_per_phase
+    want = {"flash_attention_fwd": (n + 1) * L, "flash_attention_bwd": n * L,
+            "rmsnorm": (n + 1) * (2 * L + 1), "rmsnorm_bwd": n * 2 * L}
+    print(f"  heal_lm qwen2-1.5b (bf16, {L} layers, tokens 8 x 512, batch 8, "
+          f"1 step a phase): {len(log)} phases in {wall:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+          + "; ".join(f"{p['window']} loss {p['loss_first']:.4f} "
+                      f"{p['step_s']:.3f} s" for p in log)
+          + f"; launches {got}")
+    if got != want:
+        _fail(f"heal_lm launches {got}, want {want}")
+    if not all(math.isfinite(p["loss_first"]) for p in log):
+        _fail(f"heal_lm: non-finite loss {log}")
+    del params, lora, tokens
+    torch.cuda.empty_cache()
+    moe = get_arch("qwen3-moe-30b-a3b")
+    mcfg = dataclasses.replace(moe.model, n_layers=2)
+    with torch.no_grad():
+        mparams = T.lm_init(gen, mcfg, moe.recall, device="cuda")
+    mtok = torch.randint(0, mcfg.vocab, (2, 64), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    try:
+        H.heal_lm(gen, mparams, mcfg, moe.recall, mtok,
+                  heal_cfg=H.HealConfig(batch=2, steps_per_phase=1),
+                  device="cuda")
+    except NotImplementedError as e:
+        if "A.4b" not in str(e):
+            _fail(f"heal_lm on MoE raised without naming A.4b: {e}")
+        print(f"  heal_lm qwen3-moe-30b-a3b (2 layers): raised as it must: "
+              f"{e}")
+    else:
+        _fail("heal_lm on a MoE config trained through the grouped GEMM, "
+              "which has no backward")
+    del mparams
+    torch.cuda.empty_cache()
+
+
+def heal_phase():
+    """P-LoRA healing of recall-imagebind's vision tower at full width and
+    depth (32 layers, d 1,280, S 257, fp32 activations): the backward
+    kernels gated and timed, ``heal_tower`` over its six phases (batch 32,
+    2 steps a phase) with exact launch counts, one step's backward calls
+    held to the plain versions, a profiled step, RECALL served with the
+    healed LoRA, then ``heal_lm``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import healing as H
+    from repro_torch.data import synthetic as SYN
+    from repro_torch.models import imagebind as IB
+    spec = get_arch("recall-imagebind")
+    cfg, rc = spec.model, spec.recall
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    print("heal: backward kernels vs plain versions:")
+    HEAL_ROWS[:] = [check_flash_bwd(gen), check_rmsnorm_bwd(gen)]
+    with torch.no_grad():
+        params = IB.mem_init(gen, cfg, rc, device="cuda")
+    data = SYN.multimodal_pairs(2, 64 + 128 + 16, cfg)
+    vis, texts = data.items["vision"], data.items["text"]
+    hc = H.HealConfig(batch=32, steps_per_phase=2)
+    L = cfg.tower("vision").n_layers
+    print(f"heal recall-imagebind vision tower ({L} layers, d="
+          f"{cfg.tower('vision').d_model}, S={cfg.tower('vision').n_tokens + 1}"
+          f", fp32 activations, bf16 weights): 64 items, batch {hc.batch} "
+          f"(HealConfig's 64 cut to 32 for memory), {hc.steps_per_phase} "
+          f"steps a phase")
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lora, log = H.heal_tower(gen, params, cfg, rc, "vision", vis[:64],
+                             heal_cfg=hc, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = _bwd_launches()
+    n = len(log) * hc.steps_per_phase
+    # the targets' forward, then per step: flash forward and backward one a
+    # layer; rmsnorm forward two a layer plus the exit head's, backward the
+    # same less layer 0's first norm (its input, the frontend's output,
+    # needs no gradient)
+    want = {"flash_attention_fwd": (n + 1) * L, "flash_attention_bwd": n * L,
+            "rmsnorm": (n + 1) * (2 * L + 1), "rmsnorm_bwd": n * 2 * L}
+    for p in log:
+        print(f"  phase {p['phase']} window {p['window']}: loss "
+              f"{p['loss_first']:.5f} -> {p['loss_last']:.5f}, "
+              f"{p['step_s']:.3f} s a step")
+    print(f"  heal_tower: {n} steps in {wall:.2f} s (targets included), "
+          f"peak device memory {peak / 2**30:.2f} GiB; launches {got}")
+    windows = [p["window"] for p in log]
+    if windows != [(0, 4), (4, 8), (8, 12), (12, 16), (16, 24), (24, 32)]:
+        _fail(f"heal_tower phases {windows}")
+    if got != want:
+        _fail(f"heal_tower launches {got}, want {want}")
+    if not all(math.isfinite(p["loss_first"]) and
+               math.isfinite(p["loss_last"]) for p in log):
+        _fail(f"heal_tower: non-finite loss {log}")
+    leaves = [v for ab in lora.values() for v in ab.values()]
+    if not all(torch.isfinite(v).all() for v in leaves) or \
+            all(bool((lora[t]["b"] == 0).all()) for t in lora):
+        _fail("healed LoRA non-finite or its B matrices never moved")
+    x = torch.as_tensor(vis[:32]).cuda()
+    check_heal_step_calls(params, spec, lora, x)
+    check_heal_gradient(params, spec, lora, x[:4])
+    profile_heal_step(params, spec, lora, x)
+    del x
+    torch.cuda.empty_cache()
+    serve_healed(params, spec, lora, vis[64:192], texts[192:208])
+    del params, lora
+    torch.cuda.empty_cache()
+    heal_lm_phase()
+    return {"flash_attention_bwd": got["flash_attention_bwd"],
+            "rmsnorm_bwd": got["rmsnorm_bwd"]}
+
+
 
 def build_phase():
     from repro_torch.kernels import build
@@ -2359,17 +2944,19 @@ def main() -> None:
     print(smi.splitlines()[0])
     walls = {}
     for name, phase in (("build", build_phase), ("kernels", kernel_phase),
-                        ("serve", serve_phase), ("ivf", ivf_phase),
+                        ("serve", serve_phase), ("heal", heal_phase),
+                        ("ivf", ivf_phase),
                         ("async", async_phase), ("lm", lm_phase),
                         ("moe", moe_phase)):
         t0 = time.perf_counter()
         walls[name] = (phase(), time.perf_counter() - t0)
+        gc.collect()  # a phase's engines hold cycles (refine_fn closures)
         torch.cuda.empty_cache()
     print("phase wall times: " + ", ".join(
         f"{name} {wall:.1f} s" for name, (_, wall) in walls.items()))
-    rows = walls["kernels"][0]
+    rows = walls["kernels"][0] + HEAL_ROWS
     for row in rows:  # each kernel's count from the path that runs it
-        path = next((p for p in ("lm", "moe") if row["name"] in
+        path = next((p for p in ("lm", "moe", "heal") if row["name"] in
                      walls[p][0]),
                     "ivf" if row["name"] in IVF_KERNELS else "serve")
         row["launches"] = walls[path][0][row["name"]]

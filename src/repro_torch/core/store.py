@@ -60,8 +60,6 @@ _META_DTYPE = np.dtype([("uid", np.int64), ("exit_idx", np.int32),
 _NOT_PORTED = {
     "shard": "sharded device banks are not ported yet (ROADMAP queue A, "
              "multi-GPU slice)",
-    "lora": "LoRA deltas (P-LoRA) are not ported yet (ROADMAP queue A, "
-            "training slice)",
 }
 
 

@@ -32,6 +32,7 @@ SOURCES: Dict[str, Path] = {
     "topk_int4_gather": _TOPK / "topk_int4_gather.cu",
     "topk_dense": _TOPK / "topk_dense.cu",
     "flash_fwd": KERNELS_DIR / "flash_attention" / "csrc" / "flash_fwd.cu",
+    "flash_bwd": KERNELS_DIR / "flash_attention" / "csrc" / "flash_bwd.cu",
     "int4_cache": KERNELS_DIR / "int4_cache" / "csrc" / "int4_cache.cu",
     "decode_attn": KERNELS_DIR / "decode_attention" / "csrc"
     / "decode_attn.cu",

@@ -5,13 +5,18 @@ contiguous) and returns (out (B, Sq, H, D) in the input dtype, lse
 (B, H, Sq) f32). The dtype picks the path: bf16 runs the wgmma kernel
 (128-row q tiles, 128-key tiles), f32 the FMA kernel (64 and 64).
 
+``flash_bwd_cuda`` binds the backward (``csrc/flash_bwd.cu``): the same
+layouts plus out, lse and dout, returning (dq, dk, dv) in the input dtype.
+
 ``kv_tile_range`` and ``keyless_row`` mirror the CUDA arithmetic that
-decides which key tiles a q tile visits; the CPU tests hold them against
-the reference's ``_kv_block_live``.
+decides which key tiles a q tile visits, and ``tiles_meet`` the
+backward's test of a (q tile, key tile) pair; the CPU tests hold them
+against the reference's ``_kv_block_live`` and the element mask.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -35,6 +40,14 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd_launch.argtypes = ([_P] * 5 + [_I] * 7 + [ctypes.c_float]
                                      + [_I] * 3 + [_P])
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fn():
+    fn = build.load("flash_bwd").flash_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P]
+    return fn
 
 
 def keyless_row(q0: int, bq: int, Sq: int, Skv: int, *, causal: bool,
@@ -61,6 +74,18 @@ def kv_tile_range(q0: int, bq: int, bk: int, Sq: int, Skv: int, *,
     x = q0 + q_offset - window + 1
     lo = x // bk if window > 0 and x > 0 else 0
     return lo, hi
+
+
+def tiles_meet(q0: int, bq: int, k0: int, bk: int, Sq: int, *, causal: bool,
+               window: int, q_offset: int) -> bool:
+    """Can a query of [q0, q0 + bq) (rows below Sq) see a key of
+    [k0, k0 + bk)? ``csrc/flash_bwd.cu::tiles_meet``: true whenever one pair
+    is visible; both backward kernels skip the pairs where it fails."""
+    p_lo = q0 + q_offset
+    p_hi = min(q0 + bq, Sq) - 1 + q_offset
+    if causal and k0 > p_hi:
+        return False
+    return not (window > 0 and k0 + bk - 1 <= p_lo - window)
 
 
 def plain_like_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,3 +136,63 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             int(window), int(q_offset), stream)
     build.check(err, "flash_fwd")
     return out, lse
+
+
+def _check_like(ref: torch.Tensor, *ts: torch.Tensor, what: str) -> None:
+    for t in ts:
+        if t.device != ref.device or t.dtype != ref.dtype:
+            raise ValueError(f"{what}: {t.dtype} on {t.device}, want "
+                             f"{ref.dtype} on {ref.device}")
+
+
+def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   *, causal: bool, window: int = 0, q_offset: int = 0,
+                   scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention at (q, k, v), given the forward's ``out``
+    and ``lse`` and the cotangent ``dout`` of ``out`` (any strides: it is
+    made contiguous here)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("flash_bwd_cuda: q, k, v must be on one CUDA device")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_bwd_cuda takes f32 or bf16, got {q.dtype}")
+    _check_like(q, k, v, out, dout, what="flash_bwd_cuda")
+    if lse.device != dev or lse.dtype != torch.float32:
+        raise ValueError("flash_bwd_cuda: lse must be f32 on q's device")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or H % KV or Skv == 0:
+        raise ValueError(f"incompatible q {tuple(q.shape)} / kv "
+                         f"{tuple(k.shape)}")
+    if out.shape != q.shape or dout.shape != q.shape or \
+            tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, "
+                         f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    dout = dout.contiguous()
+    ins = (q, k, v, out, lse, dout)
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("flash_bwd_cuda wants contiguous q, k, v, out, lse")
+    if any(t.data_ptr() % 16 for t in ins):
+        raise ValueError("flash_bwd_cuda wants 16-byte aligned inputs")
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B * Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bwd_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, KV, D,
+            int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
+            int(window), int(q_offset), stream)
+    build.check(err, "flash_bwd")
+    return dq, dk, dv

@@ -1,10 +1,14 @@
-"""Dispatch for attention forward.
+"""Dispatch for attention, forward and backward.
 
 Layouts: q (B, Sq, H, D); k, v (B, Skv, KV, D); GQA via H = KV * G. A CPU
-tensor takes the plain version (``ref.py``); a CUDA tensor launches the
-hand-written flash kernel (``kernel.py``) or raises. ``launches`` counts
-kernel launches, and ``launches_by_head_dim`` splits that count by D (one
-shape per tower on the serving path).
+tensor takes the plain versions (``ref.py``); a CUDA tensor launches the
+hand-written kernels (``kernel.py``) or raises. ``flash_attention`` is a
+``torch.autograd.Function`` (the reference's ``custom_vjp``): its forward
+saves q, k, v, out and lse, its backward runs the backward kernel on CUDA
+and ``attention_bwd_reference`` on the CPU. ``launches`` counts forward
+kernel launches, ``launches_by_head_dim`` splits that count by D (one
+shape per tower on the serving path), ``bwd_launches`` counts backward
+kernel launches (one a call: the dQ kernel and the dK/dV kernel).
 """
 from __future__ import annotations
 
@@ -12,17 +16,19 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_reference,
+                                                     attention_fwd_reference)
 
 launches = 0
 launches_by_head_dim: Dict[int, int] = {}
+bwd_launches = 0
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         q_offset: int = 0, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) f32)."""
+    """(out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) f32), no autograd."""
     global launches
     if q.device.type == "cpu":
         return attention_fwd_reference(q, k, v, causal=causal, window=window,
@@ -38,9 +44,51 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0,
+                        scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's out and lse and the cotangent
+    ``dout`` of out."""
+    global bwd_launches
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, out, lse, dout, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention backward: no kernel for "
+                         f"{q.device}")
+    from repro_torch.kernels.flash_attention.kernel import flash_bwd_cuda
+    grads = flash_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    bwd_launches += 1
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attention forward. q (B,Sq,H,D), k/v (B,Skv,KV,D) -> (B,Sq,H,D)."""
+    """Attention, differentiable in q, k, v. q (B,Sq,H,D), k/v
+    (B,Skv,KV,D) -> (B,Sq,H,D)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset, scale)
     return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, scale=scale)[0]

@@ -12,6 +12,10 @@ row when None), p = exp(s - m) in fp32 against the running row max m,
 rounded to ``p_dtype``, (p · V) summed in fp32, l summed from the unrounded
 p. A kernel with that rounding is held to this variant, per element, within
 ``bf16_step_limit``.
+
+``attention_bwd_reference`` is the plain backward (the reference's
+``_bwd_blocked``), the CPU path of the autograd function in ``ops.py`` and
+the yardstick of the CUDA backward kernel (``bwd_limit``).
 """
 from __future__ import annotations
 
@@ -101,3 +105,60 @@ def bf16_step_limit(o_plain: torch.Tensor) -> torch.Tensor:
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         **kw) -> torch.Tensor:
     return attention_fwd_reference(q, k, v, **kw)[0]
+
+
+def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0,
+                            scale: Optional[float] = None,
+                            compute_dtype: torch.dtype = torch.float32
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(dq, dk, dv) in q's, k's, v's dtypes: the reference's recomputing
+    backward ``_bwd_blocked`` (repro/kernels/flash_attention/ops.py),
+    materialised. ``out``, ``lse`` are the forward's; ``do`` the cotangent
+    of ``out``. delta = rowsum(dO * O), P = exp(S * scale - lse) and 0 where
+    the mask hides a key (so a row that sees no key, which the forward
+    gives a uniform softmax, passes no gradient), dV = P^T dO,
+    dS = P * (dO V^T - delta) * scale, dQ = dS K, dK = dS^T Q, products in
+    fp32 with the reference's roundings in between: P to dO's dtype before
+    dV, dS to k's (q's) dtype before dQ (dK), dO to v's dtype before
+    dO V^T. ``compute_dtype=torch.float64`` runs the same arithmetic in
+    float64 (the roundings kept): a yardstick of the fp32 versions' own
+    error."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    cd = compute_dtype
+    low = lambda x, dt: x.to(dt).to(cd)  # a rounding to dt, kept in cd
+    qg = q.reshape(B, Sq, KV, G, D).to(cd)
+    dog = do.reshape(B, Sq, KV, G, D)
+    kf, vf = k.to(cd), v.to(cd)
+    delta = (dog.to(cd) * out.reshape(B, Sq, KV, G, D).to(cd)).sum(-1)
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qg, kf) * scale
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None]
+                                    .to(cd)), torch.zeros_like(s))
+    dp = torch.einsum("bqkgd,bjkd->bkgqj", low(dog, v.dtype), vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+    dq = torch.einsum("bkgqj,bjkd->bqkgd", low(ds, k.dtype), kf)
+    dk = torch.einsum("bkgqj,bqkgd->bjkd", low(ds, q.dtype), qg)
+    dv = torch.einsum("bkgqj,bqkgd->bjkd", low(p, do.dtype),
+                      low(dog, do.dtype))
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def bwd_limit(g_plain: torch.Tensor) -> torch.Tensor:
+    """Per-element limit of a backward kernel's gradient against the plain
+    version: 1e-5 relative at max(|g|, 1) in f32 (the fp32 sums run in
+    another order), one bf16 step at max(|g|, 1) in bf16
+    (``bf16_step_limit``: the final rounding, or a rounding of P or dS, may
+    flip)."""
+    if g_plain.dtype == torch.float32:
+        return 1e-5 * torch.clamp_min(g_plain.abs(), 1.0)
+    return bf16_step_limit(g_plain)

@@ -6,7 +6,9 @@ shapes: no host sync, no data-dependent shape. ``moe_gemm_sorted`` is the
 kernel's dispatch: a CPU tensor takes the plain version (``ref.py``), a CUDA
 tensor launches the hand-written grouped GEMM (``kernel.py``) or raises.
 ``launches`` counts kernel launches, and ``launches_by_kernel`` splits that
-count by the kernel that ran (``kernel.kernel_for``).
+count by the kernel that ran (``kernel.kernel_for``). The kernel has no
+backward yet (ROADMAP A.4b): under grad mode an input that needs a gradient
+raises (``grad_guard``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
 
 launches = 0
@@ -82,6 +85,7 @@ def moe_gemm_sorted(xs: torch.Tensor, block_expert: torch.Tensor,
         return moe_gemm_sorted_reference(xs, block_expert, w, block_t, used)
     if xs.device.type != "cuda":
         raise ValueError(f"moe_gemm: no kernel for {xs.device}")
+    refuse_grad("moe_gemm", "ROADMAP A.4b: the grouped GEMM backward", xs, w)
     from repro_torch.kernels.moe_gemm.kernel import kernel_for, moe_gemm_cuda
     out = moe_gemm_cuda(xs, block_expert, w, block_t, used)
     launches += 1

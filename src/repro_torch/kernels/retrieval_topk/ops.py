@@ -5,7 +5,9 @@ The device of the bank decides: a CPU bank takes the plain version
 kernel (``kernel.py``) or raises. One plain-int launch counter per kernel:
 ``launches`` (the exhaustive int4 scan, which the IVF union strategy also
 runs), ``launches_gathered`` (the per-query gathered int4 scan) and
-``launches_dense`` (the dense fp32 scan).
+``launches_dense`` (the dense fp32 scan). The kernels have no backward
+(nor has the reference): under grad mode an input that needs a gradient
+raises (``grad_guard``).
 
   * ``retrieval_topk``: dense fp32 bank.
   * ``retrieval_topk_int4``: packed int4 bank, the device bank's scan.
@@ -22,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.grad_guard import NO_REFERENCE_GRAD, refuse_grad
 from repro_torch.kernels.retrieval_topk.ref import (
     retrieval_topk_int4_gathered_reference, retrieval_topk_int4_reference,
     retrieval_topk_reference)
@@ -33,9 +36,10 @@ launches_gathered = 0
 launches_dense = 0
 
 
-def _on_cuda(t: torch.Tensor, what: str) -> None:
+def _on_cuda(t: torch.Tensor, what: str, *inputs) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for {t.device}")
+    refuse_grad(what, NO_REFERENCE_GRAD, t, *inputs)
 
 
 def retrieval_topk(query: torch.Tensor, bank: torch.Tensor, k: int, *,
@@ -48,7 +52,7 @@ def retrieval_topk(query: torch.Tensor, bank: torch.Tensor, k: int, *,
     if bank.device.type == "cpu":
         return retrieval_topk_reference(query, bank, k, normalize=normalize,
                                         n_valid=n_valid, block_n=PLAIN_BLOCK_N)
-    _on_cuda(bank, "retrieval_topk")
+    _on_cuda(bank, "retrieval_topk", query)
     from repro_torch.kernels.retrieval_topk.kernel import retrieval_topk_cuda
     out = retrieval_topk_cuda(query, bank, k, normalize=normalize,
                               n_valid=n_valid)
@@ -71,7 +75,7 @@ def retrieval_topk_int4(query: torch.Tensor, packed: torch.Tensor,
                                              normalize=normalize,
                                              n_valid=n_valid,
                                              block_n=PLAIN_BLOCK_N)
-    _on_cuda(packed, "retrieval_topk_int4")
+    _on_cuda(packed, "retrieval_topk_int4", query, scales)
     from repro_torch.kernels.retrieval_topk.kernel import (
         retrieval_topk_int4_cuda)
     out = retrieval_topk_int4_cuda(query, packed, scales, k,
@@ -100,7 +104,7 @@ def retrieval_topk_int4_gathered(query: torch.Tensor, packed: torch.Tensor,
         return retrieval_topk_int4_gathered_reference(
             query, packed, scales, row_ids, k, normalize=normalize,
             n_valid=n_valid, block_l=PLAIN_BLOCK_L)
-    _on_cuda(packed, "retrieval_topk_int4_gathered")
+    _on_cuda(packed, "retrieval_topk_int4_gathered", query, scales)
     if normalize:
         raise ValueError("the gathered int4 kernel scans raw inner products; "
                          "normalize=True is for CPU tensors (plain version)")

@@ -28,7 +28,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import get_arch, smoke_variant
 from repro_torch.core import exits as EX
 from repro_torch.core import preexit as PE
-from repro_torch.core.store import EmbeddingStore, not_ported
+from repro_torch.core.store import EmbeddingStore
 from repro_torch.data import synthetic as SYN
 from repro_torch.models import imagebind as IB
 from repro_torch.serving.engine import EmbeddingEngine
@@ -36,12 +36,14 @@ from repro_torch.serving.query import QueryEngine
 
 
 @torch.no_grad()
-def _calibrate(params, cfg, recall, vis):
-    all_exits = IB.mem_embed_all_exits(params, cfg, recall, "vision", vis)
+def _calibrate(params, cfg, recall, vis, lora):
+    all_exits = IB.mem_embed_all_exits(params, cfg, recall, "vision", vis,
+                                       lora=lora)
     labels = EX.optimal_exit_labels(all_exits["exit_embs"],
                                     all_exits["exit_embs"][-1])
     sup = IB.tower_forward(params, cfg, recall, "vision", vis,
-                           layer_end=recall.superficial_layers)["pooled"][-1]
+                           layer_end=recall.superficial_layers,
+                           lora=lora)["pooled"][-1]
     return sup, labels, len(all_exits["exits"])
 
 
@@ -52,9 +54,10 @@ def build_service(spec, *, n_train: int = 256, seed: int = 0,
     calibration set, then stand up the embedding + query engines on
     ``device``. ``query_kw`` goes to ``QueryEngine`` (``bank_refresh``,
     ``bank_max_lag_rows``, ``bank_max_lag_ms``, ``freshness``, ``index``,
-    ...)."""
-    if lora is not None:
-        raise not_ported("lora")
+    ...). ``lora`` (a healed vision-tower LoRA) goes to the calibration and
+    to both engines, as the reference passes it: the text tower of the
+    query engine gets the vision tower's suite too, which fits only when
+    the two towers share their widths (ROADMAP C.4)."""
     device = resolve_device(device)
     cfg, recall = spec.model, spec.recall
     gen = torch.Generator(device=device)
@@ -63,7 +66,7 @@ def build_service(spec, *, n_train: int = 256, seed: int = 0,
         params = IB.mem_init(gen, cfg, recall, device=device)
     data = SYN.multimodal_pairs(seed, n_train, cfg)
     vis = torch.as_tensor(data.items["vision"]).to(device)
-    sup, labels, n_exits = _calibrate(params, cfg, recall, vis)
+    sup, labels, n_exits = _calibrate(params, cfg, recall, vis, lora)
     del vis
     predictor, stats = PE.train_predictor(
         gen, sup, labels, n_exits=n_exits, hidden=recall.predictor_hidden,
@@ -71,11 +74,11 @@ def build_service(spec, *, n_train: int = 256, seed: int = 0,
 
     store = EmbeddingStore(cfg.embed_dim, device=device)
     engine = EmbeddingEngine(params, cfg, recall, modality="vision",
-                             predictor_params=predictor, policy=policy,
-                             store=store, device=device)
+                             lora=lora, predictor_params=predictor,
+                             policy=policy, store=store, device=device)
     query = QueryEngine(params, cfg, recall, store=store,
                         refine_fn=engine.refine_fn(), query_modality="text",
-                        search_impl=search_impl, device=device,
+                        lora=lora, search_impl=search_impl, device=device,
                         **query_kw)
     return engine, query, {"predictor": stats,
                            "labels": labels.cpu().numpy()}

@@ -15,7 +15,7 @@ refinement in fp32.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -82,33 +82,36 @@ def tower_forward(params: Schema, cfg: MEMConfig, recall: RecallConfig,
                   modality: str, inputs: Optional[torch.Tensor], *,
                   layer_start: int = 0, layer_end: Optional[int] = None,
                   h_state: Optional[torch.Tensor] = None,
-                  collect_pooled: bool = True):
+                  lora: Optional[Dict] = None, collect_pooled: bool = True):
     """Generic tower run over layers [start, end); ``h_state`` skips the
-    frontend (cached-activation reuse, §3.4)."""
+    frontend (cached-activation reuse, §3.4); ``lora`` is the tower's
+    stacked LoRA (P-LoRA healing)."""
     t = cfg.tower(modality)
     tcfg = tower_lm_cfg(t, cfg)
     tp = params["towers"][modality]
     x = _frontend(tp, t, inputs) if h_state is None else h_state
-    return T.forward_hidden(tp, tcfg, recall, embeds=x,
+    return T.forward_hidden(tp, tcfg, recall, embeds=x, lora=lora,
                             layer_start=layer_start, layer_end=layer_end,
                             collect_pooled=collect_pooled, pool="cls")
 
 
 def mem_embed(params: Schema, cfg: MEMConfig, recall: RecallConfig,
               modality: str, inputs: torch.Tensor, *,
-              exit_layer: Optional[int] = None) -> torch.Tensor:
+              exit_layer: Optional[int] = None,
+              lora: Optional[Dict] = None) -> torch.Tensor:
     """Fine-grained (exit_layer=None) or coarse embedding: (B, embed_dim)."""
     out = tower_forward(params, cfg, recall, modality, inputs,
-                        layer_end=exit_layer)
+                        layer_end=exit_layer, lora=lora)
     tp = params["towers"][modality]
     return T.exit_embedding(tp, out["pooled"][-1], cfg.norm_eps)
 
 
 def mem_embed_all_exits(params: Schema, cfg: MEMConfig, recall: RecallConfig,
-                        modality: str, inputs: torch.Tensor):
+                        modality: str, inputs: torch.Tensor,
+                        lora: Optional[Dict] = None):
     """(n_exits, B, E) embeddings at every exit + per-layer hidden pool."""
     t = cfg.tower(modality)
-    out = tower_forward(params, cfg, recall, modality, inputs)
+    out = tower_forward(params, cfg, recall, modality, inputs, lora=lora)
     exits = recall.exit_layers(t.n_layers)
     idx = torch.tensor([e - 1 for e in exits], device=out["pooled"].device)
     tp = params["towers"][modality]
@@ -117,11 +120,11 @@ def mem_embed_all_exits(params: Schema, cfg: MEMConfig, recall: RecallConfig,
 
 
 def mem_refine(params: Schema, cfg: MEMConfig, recall: RecallConfig,
-               modality: str, h_cached: torch.Tensor,
-               start: int) -> torch.Tensor:
+               modality: str, h_cached: torch.Tensor, start: int,
+               lora: Optional[Dict] = None) -> torch.Tensor:
     """Live-encoder refinement from cached layer-``start`` activations."""
     out = tower_forward(params, cfg, recall, modality, inputs=None,
-                        h_state=h_cached, layer_start=start)
+                        h_state=h_cached, layer_start=start, lora=lora)
     tp = params["towers"][modality]
     return T.exit_embedding(tp, out["pooled"][-1], cfg.norm_eps)
 

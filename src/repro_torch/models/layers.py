@@ -4,7 +4,8 @@ Parameters are nested dicts of tensors built from a *schema* (nested dicts
 of ``ParamDef``), the same structure as the reference's pytrees, so
 ``models/convert.py`` can carry JAX parameters across leaf by leaf.
 RMSNorm goes through the kernel dispatch (Triton on CUDA, the plain version
-on the CPU); every other op here is plain PyTorch.
+on the CPU); every other op here is plain PyTorch, the P-LoRA delta
+(``lora_delta``) included.
 """
 from __future__ import annotations
 
@@ -154,12 +155,36 @@ def swiglu_schema(d_model: int, d_ff: int,
     }
 
 
-def swiglu(p: Schema, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN: the gate's SiLU in fp32, cast back, times up."""
+def lora_delta(x: torch.Tensor, lora_t: Dict[str, torch.Tensor],
+               scale: float) -> torch.Tensor:
+    """x (..., d_in) -> (..., *out) P-LoRA delta ``scale * ((x @ a) @ b)``
+    in x's dtype, the reference's order; ``a`` is (d_in, r) or (H, hd, r)
+    (``wo``, whose x is the attention output flattened to H * hd), ``b``
+    (r, H, hd) or (r, f)."""
+    a = lora_t["a"].to(x.dtype).reshape(-1, lora_t["a"].shape[-1])
+    b = lora_t["b"].to(x.dtype)
+    h = x.reshape(-1, a.shape[0]) @ a
+    y = (h @ b.reshape(b.shape[0], -1)).view(*x.shape[:-1], *b.shape[1:])
+    return scale * y
+
+
+def swiglu(p: Schema, x: torch.Tensor, lora: Optional[Dict] = None,
+           lora_scale: float = 0.0) -> torch.Tensor:
+    """SwiGLU FFN: the gate's SiLU in fp32, cast back, times up; with the
+    ``lora`` deltas of ``w_gate``/``w_up``/``w_down`` (that of ``w_down``
+    on the post-activation h), as the reference's transformer adds them."""
+    lora = lora or {}
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
+    if "w_gate" in lora:
+        g = g + lora_delta(x, lora["w_gate"], lora_scale)
+    if "w_up" in lora:
+        u = u + lora_delta(x, lora["w_up"], lora_scale)
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"].to(x.dtype)
+    y = h @ p["w_down"].to(x.dtype)
+    if "w_down" in lora:
+        y = y + lora_delta(h, lora["w_down"], lora_scale)
+    return y
 
 
 def mlp_schema(dims: Sequence[int], name_axes: Tuple[str, str] = ("embed", "mlp"),

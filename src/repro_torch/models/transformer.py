@@ -11,8 +11,17 @@ that cache, written in place).
 Attention goes through the flash kernel's dispatch at prefill and the
 decode kernel's at decode, the norms through the rmsnorm kernel's and MoE
 layers through the grouped expert GEMM's (``models/moe.py``); the QKV, O,
-SwiGLU, router and logits projections are plain ``torch.matmul``. LoRA
-deltas are not ported (ROADMAP queue A.4): ``lora`` must be None or empty.
+SwiGLU, router and logits projections are plain ``torch.matmul``.
+
+LoRA deltas (paper §3.3 P-LoRA) ride along as an optional stacked tree
+(``core/plora.py``'s layout, sliced per layer like the params): on the
+targets ``wq``/``wk``/``wv``/``wo``/``w_gate``/``w_up``/``w_down`` each
+projection adds ``scale * ((x @ a) @ b)`` in x's dtype
+(``layers.lora_delta``), where the reference adds it (the ``w_down`` delta,
+in ``layers.swiglu``, reads the post-activation ``h``); the LoRA products
+are plain ``torch.matmul`` too. ``lora=None`` or ``{}`` adds
+nothing. Flash attention and RMSNorm are differentiable (their backward
+kernels), so a loss on ``forward_hidden`` trains the LoRA on the card.
 """
 from __future__ import annotations
 
@@ -66,12 +75,6 @@ def lm_init(gen: torch.Generator, cfg: LMConfig, recall: RecallConfig, *,
                          dtype=L.torch_dtype(cfg.dtype), device=device)
 
 
-def check_no_lora(lora) -> None:
-    if lora:
-        raise NotImplementedError("LoRA deltas in the transformer are not "
-                                  "ported yet: ROADMAP queue A.4 (training)")
-
-
 def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked-layer param dict."""
     if isinstance(tree, torch.Tensor):
@@ -81,14 +84,18 @@ def layer_slice(tree, i: int):
 
 def _proj_qkv(p: Schema, x: torch.Tensor,
               positions: Optional[torch.Tensor] = None,
-              rope_theta: float = 0.0):
+              rope_theta: float = 0.0, lora: Optional[Dict] = None,
+              lora_scale: float = 0.0):
     """x (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd), contiguous; RoPE at
     ``positions`` (B, S) when ``rope_theta`` > 0."""
     B, S, d = x.shape
+    lora = lora or {}
     out = []
     for name, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
         w = p[name].to(x.dtype)                          # (d, H, hd)
         y = (x.reshape(B * S, d) @ w.reshape(d, -1)).view(B, S, *w.shape[1:])
+        if name in lora:
+            y = y + L.lora_delta(x, lora[name], lora_scale)
         if bias in p:
             y = y + p[bias].to(x.dtype)
         out.append(y)
@@ -99,36 +106,45 @@ def _proj_qkv(p: Schema, x: torch.Tensor,
     return q, k, v
 
 
-def _attn_out(p: Schema, o: torch.Tensor) -> torch.Tensor:
+def _attn_out(p: Schema, o: torch.Tensor, lora: Optional[Dict] = None,
+              lora_scale: float = 0.0) -> torch.Tensor:
     B, S, H, hd = o.shape
     wo = p["wo"].to(o.dtype)                             # (H, hd, d)
-    return (o.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).view(B, S, -1)
+    o2 = o.reshape(B * S, H * hd)
+    y = (o2 @ wo.reshape(H * hd, -1)).view(B, S, -1)
+    if lora and "wo" in lora:
+        y = y + L.lora_delta(o2, lora["wo"], lora_scale).view(B, S, -1)
+    return y
 
 
-def _ffn(pl_: Schema, h: torch.Tensor, cfg: LMConfig):
-    """(y, aux): the MoE layer (aux its loss) or the dense SwiGLU (aux
-    None)."""
+def _ffn(pl_: Schema, h: torch.Tensor, cfg: LMConfig,
+         lora: Optional[Dict] = None, lora_scale: float = 0.0):
+    """(y, aux): the MoE layer (aux its loss; LoRA has no MoE target) or
+    the dense SwiGLU (aux None)."""
     if cfg.moe is not None:
         return MOE.moe_apply(pl_["moe"], h, cfg.moe)
-    return L.swiglu(pl_["mlp"], h), None
+    return L.swiglu(pl_["mlp"], h, lora, lora_scale), None
 
 
 def layer_full(pl_: Schema, x: torch.Tensor, cfg: LMConfig,
-               positions: Optional[torch.Tensor], *, window: int):
+               positions: Optional[torch.Tensor], *, window: int,
+               lora: Optional[Dict] = None, lora_scale: float = 0.0):
     """Self-attention layer over the full (own) sequence -> (x, (k, v),
-    aux or None)."""
+    aux or None). ``lora`` is this layer's slice."""
     h = L.rmsnorm(x, pl_["norm1"], cfg.norm_eps)
-    q, k, v = _proj_qkv(pl_["attn"], h, positions, cfg.rope_theta)
+    q, k, v = _proj_qkv(pl_["attn"], h, positions, cfg.rope_theta, lora,
+                        lora_scale)
     o = flash_attention(q, k, v, causal=cfg.causal, window=window)
-    x = x + _attn_out(pl_["attn"], o)
+    x = x + _attn_out(pl_["attn"], o, lora, lora_scale)
     h2 = L.rmsnorm(x, pl_["norm2"], cfg.norm_eps)
-    y, aux = _ffn(pl_, h2, cfg)
+    y, aux = _ffn(pl_, h2, cfg, lora, lora_scale)
     return x + y, (k, v), aux
 
 
 def layer_decode(pl_: Schema, x: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor, cfg: LMConfig,
-                 *, window: int):
+                 *, window: int, lora: Optional[Dict] = None,
+                 lora_scale: float = 0.0):
     """One-token step. x (B,1,d); k/v_cache (B,S,KV,hd) of this layer;
     lengths (B,) int32 is the sequence length *including* the new token
     (the query sits at lengths-1). The new token's k/v are written into the
@@ -139,7 +155,8 @@ def layer_decode(pl_: Schema, x: torch.Tensor, k_cache: torch.Tensor,
     B, S = k_cache.shape[:2]
     h = L.rmsnorm(x, pl_["norm1"], cfg.norm_eps)
     positions = (lengths - 1)[:, None]
-    q, k_new, v_new = _proj_qkv(pl_["attn"], h, positions, cfg.rope_theta)
+    q, k_new, v_new = _proj_qkv(pl_["attn"], h, positions, cfg.rope_theta,
+                                lora, lora_scale)
     rows = torch.arange(B, device=x.device)
     at = lengths.long() - 1
     at = torch.clamp(torch.where(at < 0, at + S, at), 0, S - 1)
@@ -147,9 +164,9 @@ def layer_decode(pl_: Schema, x: torch.Tensor, k_cache: torch.Tensor,
     v_cache[rows, at] = v_new[:, 0]
     o = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths,
                          window=window)
-    x = x + _attn_out(pl_["attn"], o[:, None])
+    x = x + _attn_out(pl_["attn"], o[:, None], lora, lora_scale)
     h2 = L.rmsnorm(x, pl_["norm2"], cfg.norm_eps)
-    y, aux = _ffn(pl_, h2, cfg)
+    y, aux = _ffn(pl_, h2, cfg, lora, lora_scale)
     return x + y, aux
 
 
@@ -171,8 +188,8 @@ def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
     (L', B, S', KV, hd) (if return_kv)}. With ``kv_cache`` the layers' k/v
     are written into those caches at [i - layer_start, :, :S] (S' >= S; a
     prefill into a preallocated padded cache); without it caches of exactly
-    S are allocated."""
-    check_no_lora(lora)
+    S are allocated. ``lora`` (stacked over all n_layers) adds its deltas at
+    scale ``recall.lora_alpha / recall.lora_rank``."""
     if pool not in ("cls", "mean"):
         raise ValueError(f"pool={pool!r}")
     if embeds is None:
@@ -188,10 +205,13 @@ def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
     if return_kv and kv_cache is None:
         shape = (layer_end - layer_start, B, S, cfg.n_kv_heads, cfg.head_dim)
         kv_cache = (x.new_empty(shape), x.new_empty(shape))
+    lora_scale = recall.lora_alpha / recall.lora_rank
     pooled, aux = [], None
     for i in range(layer_start, layer_end):
-        x, (k, v), aux_l = layer_full(layer_slice(params["layers"], i), x,
-                                      cfg, positions, window=window)
+        x, (k, v), aux_l = layer_full(
+            layer_slice(params["layers"], i), x, cfg, positions,
+            window=window, lora=layer_slice(lora, i) if lora else None,
+            lora_scale=lora_scale)
         if aux_l is not None:
             aux = aux_l if aux is None else aux + aux_l
         if return_kv:
@@ -266,14 +286,18 @@ def decode_step(params: Schema, cfg: LMConfig, recall: RecallConfig,
                 window: Optional[int] = None):
     """token (B,); caches (L,B,S,KV,hd); lengths (B,) incl. the new token.
     Returns (logits (B,V) f32, k_cache, v_cache): the caches are the same
-    tensors, the new token's k/v written in place."""
-    check_no_lora(lora)
+    tensors, the new token's k/v written in place. ``lora`` adds its deltas
+    at the scale of the default ``RecallConfig()``, not ``recall``'s, as the
+    reference's ``decode_step`` does."""
+    lora_scale = RecallConfig().lora_alpha / RecallConfig().lora_rank
     x = L.embed_lookup(params["embed"], token[:, None]).to(
         L.torch_dtype(cfg.dtype))
     window = cfg.window if window is None else window
     lengths = lengths.to(torch.int32)
     for i in range(cfg.n_layers):
         x, _ = layer_decode(layer_slice(params["layers"], i), x, k_cache[i],
-                            v_cache[i], lengths, cfg, window=window)
+                            v_cache[i], lengths, cfg, window=window,
+                            lora=layer_slice(lora, i) if lora else None,
+                            lora_scale=lora_scale)
     h = L.rmsnorm(x[:, 0], params["final_norm"], cfg.norm_eps)
     return h.float() @ lm_head(params, cfg).float(), k_cache, v_cache

@@ -1,9 +1,10 @@
-"""AdamW with decoupled weight decay and global-norm clipping.
+"""AdamW with decoupled weight decay, global-norm clipping and gradient
+accumulation.
 
 Functional, on nested dicts of tensors: ``update`` returns new params and a
 new state and leaves its inputs untouched, in the reference's update order
-(clip by the global norm, moments, bias correction, decay on the old
-params). ``m``/``v`` stay in float32 whatever the params' dtype.
+(mask the grads, clip by the global norm, moments, bias correction, decay
+on the old params). ``m``/``v`` stay in float32 whatever the params' dtype.
 """
 from __future__ import annotations
 
@@ -46,9 +47,14 @@ class AdamW:
         return AdamWState(step=0, m=_map(zeros, params), v=_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params
+    def update(self, grads, state: AdamWState, params, grad_mask=None
                ) -> Tuple[Any, AdamWState, dict]:
-        """Returns (new_params, new_state, metrics)."""
+        """Returns (new_params, new_state, metrics). ``grad_mask`` (the
+        grads' structure, 0/1 leaves that broadcast against them) multiplies
+        the grads before the global norm: P-LoRA healing freezes the masked
+        layers' grads this way (their moments still decay and move them)."""
+        if grad_mask is not None:
+            grads = _map(lambda g, k: g * k, grads, grad_mask)
         gnorm = global_norm(grads)
         if self.clip_norm > 0:
             scale = torch.clamp(self.clip_norm / torch.clamp_min(gnorm, 1e-9),
@@ -88,3 +94,27 @@ def global_norm(tree) -> torch.Tensor:
     if not leaves:
         return torch.zeros(())
     return torch.sqrt(sum(leaves))
+
+
+def accumulate_grads(loss_fn, params, batches, *, microbatches: int):
+    """Gradient accumulation over ``microbatches`` equal slices of
+    ``batches`` (a tensor or a dict of tensors, sliced on the leading axis;
+    a remainder past ``microbatches`` slices is dropped, as the reference
+    drops it). ``loss_fn(params, batch)`` returns a scalar. Returns
+    (mean_loss, mean_grads), both float32."""
+    n = _leaves(batches)[0].shape[0] // microbatches
+    loss_acc = None
+    grads_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in _leaves(params)]
+    for i in range(microbatches):
+        mb = _map(lambda x: x[i * n:(i + 1) * n], batches)
+        leaves = _map(lambda p: p.detach().requires_grad_(True), params)
+        loss = loss_fn(leaves, mb)
+        grads = torch.autograd.grad(loss, _leaves(leaves), allow_unused=True)
+        loss = loss.detach().float()
+        loss_acc = loss if loss_acc is None else loss_acc + loss
+        grads_acc = [a if g is None else a + g.float()
+                     for a, g in zip(grads_acc, grads)]
+    inv = 1.0 / microbatches
+    it = iter(grads_acc)
+    return loss_acc * inv, _map(lambda _: next(it) * inv, params)

@@ -10,7 +10,9 @@ Pipeline per drained queue batch:
 
 Policies: "recall" (the above), "branchynet" (run layer-by-layer, exit on
 confidence — no pre-exit, no batching), "fixed" (everyone exits at layer k),
-"full" (no early exit). The model runs on ``device`` (default CUDA); the
+"full" (no early exit). ``lora`` (a healed P-LoRA suite, ``core/healing``)
+rides through every tower pass: superficial, continuation, BranchyNet
+exits and refinement. The model runs on ``device`` (default CUDA); the
 superficial hidden states stay there for the group continuation and are
 quantized there for the store's activation cache (the int4_cache kernel on
 CUDA), so only their packed bytes and scales reach the host. Refinement
@@ -29,7 +31,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import MEMConfig, RecallConfig
 from repro_torch.core import preexit as PE
 from repro_torch.core.scheduler import plan_exit_groups
-from repro_torch.core.store import EmbeddingStore, not_ported
+from repro_torch.core.store import EmbeddingStore
 from repro_torch.kernels.int4_cache import ops as int4_ops
 from repro_torch.models import imagebind as IB
 from repro_torch.models import transformer as T
@@ -62,11 +64,10 @@ class EmbeddingEngine:
                  fixed_exit: Optional[int] = None, max_batch: int = 64,
                  store: Optional[EmbeddingStore] = None,
                  cache_activations: bool = True, device="cuda"):
-        if lora is not None:
-            raise not_ported("lora")
         self.device = resolve_device(device)
         self.params, self.cfg, self.recall = params, cfg, recall
         self.modality = modality
+        self.lora = lora
         self.predictor = predictor_params
         self.policy = policy
         self.fixed_exit = fixed_exit
@@ -86,13 +87,15 @@ class EmbeddingEngine:
         (exits at depth <= N read their embedding straight from these)."""
         out = IB.tower_forward(self.params, self.cfg, self.recall,
                                self.modality, x,
-                               layer_end=self.recall.superficial_layers)
+                               layer_end=self.recall.superficial_layers,
+                               lora=self.lora)
         return out["h"], out["pooled"]  # (B,S,d), (N,B,d)
 
     def _continue(self, h: torch.Tensor, start: int, end: int) -> torch.Tensor:
         out = IB.tower_forward(self.params, self.cfg, self.recall,
                                self.modality, inputs=None, h_state=h,
-                               layer_start=start, layer_end=end)
+                               layer_start=start, layer_end=end,
+                               lora=self.lora)
         tp = self.params["towers"][self.modality]
         return T.exit_embedding(tp, out["pooled"][-1], self.cfg.norm_eps)
 
@@ -178,7 +181,7 @@ class EmbeddingEngine:
             x = torch.as_tensor(items[i:i + 1]).to(self.device)
             embs = _host(IB.mem_embed_all_exits(
                 self.params, self.cfg, self.recall, self.modality,
-                x)["exit_embs"])[:, 0]   # (n_exits, E)
+                x, lora=self.lora)["exit_embs"])[:, 0]   # (n_exits, E)
             exit_i = len(self.exits) - 1
             for e in range(len(self.exits) - 1):
                 if float(embs[e] @ embs[e + 1]) > tau:

@@ -46,8 +46,6 @@ class QueryEngine:
                  index_min_rows: Optional[int] = None,
                  nprobe: Optional[int] = None,
                  index_auto_grow: bool = False, device="cuda"):
-        if lora is not None:
-            raise not_ported("lora")
         self.device = resolve_device(device)
         if search_devices is not None:
             raise not_ported("shard")
@@ -57,6 +55,7 @@ class QueryEngine:
         self.store = store
         self.refine_fn = refine_fn
         self.modality = query_modality
+        self.lora = lora
         # per-query default of the async staleness policy (None = obey the
         # configured bounds; "fresh"/"stale" force a side)
         self.freshness = freshness
@@ -114,7 +113,8 @@ class QueryEngine:
     def _all_exits(self, queries: np.ndarray) -> np.ndarray:
         x = torch.as_tensor(np.asarray(queries)).to(self.device)
         embs = IB.mem_embed_all_exits(self.params, self.cfg, self.recall,
-                                      self.modality, x)["exit_embs"]
+                                      self.modality, x,
+                                      lora=self.lora)["exit_embs"]
         return embs.float().cpu().numpy()
 
     def embed_query(self, query: np.ndarray) -> Dict[int, np.ndarray]:

@@ -183,3 +183,133 @@ def test_kv_tile_range_is_the_reference_live_set(dtype, causal, window_kind,
             else:
                 np.testing.assert_array_equal(
                     np.flatnonzero(live), np.arange(lo, hi))
+
+
+# --------------------------------------------------------------------------
+# the backward: attention_bwd_reference (the plain version of the CUDA
+# backward kernel, and the CPU path of the autograd function)
+# --------------------------------------------------------------------------
+
+BWD_CASES = CASES + [(1, 16, 32, 2, 2, 64, True, 0, -8),   # keyless rows
+                     (2, 20, 20, 6, 2, 128, True, 7, 0)]   # GQA 3:1 window
+
+
+def _jax_grads(q, k, v, do, *, causal, window, q_offset, block=8):
+    """dq, dk, dv of the reference's flash_attention(impl='xla') (its
+    custom_vjp: the recomputing _bwd_blocked) for the cotangent do."""
+    import jax
+    f = lambda q_, k_, v_: JO.flash_attention(
+        q_, k_, v_, causal=causal, window=window, q_offset=q_offset,
+        block_q=block, block_kv=block, impl="xla")
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,qoff", BWD_CASES)
+def test_bwd_plain_matches_jax_grad(B, Sq, Skv, H, KV, D, causal, window,
+                                    qoff):
+    """fp32, per element within ref.bwd_limit (1e-5 at max(|g|, 1)); a row
+    that sees no key passes no gradient to q."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_reference, attention_mask, bwd_limit)
+    q, k, v = _qkv(B, Sq, Skv, H, KV, D, seed=Sq * D + 7)
+    do = np.random.default_rng(Sq).standard_normal(q.shape).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    want = _jax_grads(q, k, v, do, **kw)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = attention_fwd_reference(qt, kt, vt, **kw)
+    got = attention_bwd_reference(qt, kt, vt, out, lse, dot, **kw)
+    for g, w in zip(got, want):
+        w = torch.from_numpy(np.array(w))
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert ((g - w).abs() <= bwd_limit(w)).all(), (g - w).abs().max()
+    keyless = ~attention_mask(Sq, Skv, **kw).any(1)
+    if keyless.any():
+        assert (got[0][:, keyless] == 0).all()
+
+
+@pytest.mark.parametrize("causal,window,qoff", [(False, 0, 0), (True, 0, 0),
+                                                (True, 5, 3)])
+def test_bwd_plain_bf16_rounds_as_the_reference(causal, window, qoff):
+    """bf16: the same (out, lse, dout) through the reference's _bwd_blocked
+    and the plain version, which rounds P, dS and dO where it does; per
+    element within one bf16 step at max(|g|, 1)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_reference, bwd_limit)
+    B, S, H, KV, D = 2, 24, 4, 2, 64
+    q, k, v = _qkv(B, S, S, H, KV, D, seed=11)
+    do = np.random.default_rng(12).standard_normal(q.shape).astype(np.float32)
+    bf = jnp.bfloat16
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    qt, kt, vt, dot = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    out, lse = attention_fwd_reference(qt, kt, vt, **kw)
+    G = H // KV
+    cfg = JO._Cfg(scale=float(1.0 / np.sqrt(D)), block_q=8, block_kv=8,
+                  skv_real=S, sq_real=S, use_pallas=False, block_skip=False,
+                  unroll=False, **kw)
+    grouped = lambda x, n: jnp.moveaxis(
+        jnp.asarray(x.float().numpy(), bf), 2, 1).reshape(B, n, -1, S, D)
+    jq, jo, jdo = (grouped(x, KV) for x in (qt, out, dot))
+    jk, jv = (jnp.moveaxis(jnp.asarray(x.float().numpy(), bf), 2, 1)
+              for x in (kt, vt))
+    jlse = jnp.asarray(lse.numpy()).reshape(B, KV, G, S)
+    dq, dk, dv = JO._bwd_blocked(cfg, jq, jk, jv, jo, jlse, jdo)
+    want = (np.asarray(jnp.moveaxis(dq.reshape(B, H, S, D), 1, 2),
+                       np.float32),
+            np.asarray(jnp.moveaxis(dk, 1, 2), np.float32),
+            np.asarray(jnp.moveaxis(dv, 1, 2), np.float32))
+    got = attention_bwd_reference(qt, kt, vt, out, lse, dot, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        w = torch.from_numpy(w).to(torch.bfloat16)
+        assert ((g.float() - w.float()).abs() <= bwd_limit(w)).all()
+
+
+def test_autograd_on_cpu_takes_the_plain_backward(monkeypatch):
+    """Under grad mode flash_attention is the autograd function: its
+    backward on CPU tensors is attention_bwd_reference (no kernel launch),
+    and its gradients are autograd's own through the plain forward."""
+    from repro_torch.kernels.flash_attention import ref as R
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(2, 9, 9, 4, 2, 64, seed=3))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    calls = []
+    real = FO.attention_bwd_reference
+    monkeypatch.setattr(FO, "attention_bwd_reference",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    before = (FO.launches, FO.bwd_launches)
+    got = torch.autograd.grad(FO.flash_attention(q, k, v, causal=True),
+                              (q, k, v), do)
+    assert calls == [1] and (FO.launches, FO.bwd_launches) == before
+    want = torch.autograd.grad(R.attention_reference(q, k, v, causal=True),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window_kind", ["none", "below_tile", "spans_tiles"])
+@pytest.mark.parametrize("q_offset_kind", ["negative", "zero", "positive"])
+def test_tiles_meet_covers_every_visible_pair(causal, window_kind,
+                                              q_offset_kind):
+    """The backward kernels' tile-pair test (csrc/flash_bwd.cu::tiles_meet)
+    holds wherever a (q, key) pair of the two tiles is visible; 64-row
+    tiles, ragged Sq and Skv."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    bt = 64
+    window = _window(window_kind, bt)
+    q_offset = _q_offset(q_offset_kind, bt)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    for Sq, Skv in ((3 * bt + 5, 4 * bt + 9), (2 * bt - 7, bt - 17)):
+        mask = attention_mask(Sq, Skv, **kw)
+        skipped = 0
+        for q0 in range(0, Sq, bt):
+            for k0 in range(0, Skv, bt):
+                seen = bool(mask[q0:q0 + bt, k0:k0 + bt].any())
+                meet = FK.tiles_meet(q0, bt, k0, bt, Sq, **kw)
+                assert meet or not seen, (q0, k0)
+                skipped += not meet
+        if causal and q_offset <= 0 and Sq > bt and Skv > bt:
+            assert skipped > 0  # the causal corner is skipped

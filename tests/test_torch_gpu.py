@@ -560,3 +560,239 @@ def test_lm_prefill_and_decode_on_the_card_match_the_cpu(gen):
     for got, want in zip(outs["cuda"], outs["cpu"]):
         scale = max(1.0, want.abs().max().item())
         assert (got.cpu() - want).abs().max().item() <= 1e-4 * scale
+
+
+# the backward kernels (flash dQ and dK/dV, RMSNorm dx/dscale) against
+# their plain versions: every head dim, both dtypes, GQA, causal with
+# q_offset, windows, ragged lengths, rows that see no key
+FLASH_BWD_CASES = [  # B, Sq, Skv, H, KV, D, causal, window, q_offset
+    (2, 37, 45, 4, 2, 64, True, 0, 5),
+    (2, 70, 70, 4, 4, 80, False, 0, 0),
+    (1, 100, 130, 6, 2, 128, True, 0, 30),
+    (2, 150, 150, 4, 2, 80, False, 33, 0),
+    (1, 64, 40, 2, 2, 64, True, 0, -30),     # rows before every key
+    (1, 200, 50, 2, 2, 128, False, 5, 60),   # windows past every key
+    (2, 150, 90, 4, 2, 80, True, 40, 70)]    # both, in a mixed tile
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,q_offset",
+                         FLASH_BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(gen, B, Sq, Skv, H, KV, D, causal,
+                                        window, q_offset, dtype):
+    """dq, dk, dv of the CUDA backward against attention_bwd_reference at
+    the same (q, k, v, out, lse, dout), per element within ref.bwd_limit;
+    two runs give the same bits (no atomics)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_reference, attention_mask, bwd_limit)
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    before = ops.bwd_launches
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert ops.bwd_launches == before + 1
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), name
+        err = (g.float() - w.float()).abs()
+        assert (err <= bwd_limit(w.float() if dtype == torch.float32
+                                 else w)).all(), (name, err.max().item())
+    keyless = ~attention_mask(Sq, Skv, **kw).any(1)
+    if keyless.any():  # P is 0 there: no gradient to q
+        assert (got[0][:, keyless] == 0).all()
+
+
+def test_flash_autograd_on_the_card_runs_the_backward_kernel(gen):
+    """flash_attention under grad mode: torch.autograd.grad launches the
+    backward kernel once and matches the plain version's gradients."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_reference, bwd_limit)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").requires_grad_()
+               for s in ((2, 40, 4, 64), (2, 40, 2, 64), (2, 40, 2, 64)))
+    do = torch.randn((2, 40, 4, 64), generator=gen, device="cuda")
+    before = (ops.launches, ops.bwd_launches)
+    out = ops.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (ops.launches, ops.bwd_launches) == (before[0] + 1, before[1] + 1)
+    o, lse = ops.flash_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                     causal=True)
+    want = attention_bwd_reference(q.detach(), k.detach(), v.detach(), o,
+                                   lse, do, causal=True)
+    for g, w in zip(grads, want):
+        assert ((g - w).abs() <= bwd_limit(w)).all()
+
+
+@pytest.mark.parametrize("shape,dtype", [((33, 1280), torch.bfloat16),
+                                         ((5, 7, 64), torch.float32),
+                                         ((3001, 1536), torch.float32),
+                                         ((257, 80), torch.bfloat16)])
+def test_rmsnorm_bwd_kernel_matches_plain(gen, shape, dtype):
+    """dx per element within ref.bwd_limit's rule (1e-5 at max(|g|, 1) f32,
+    one bf16 step bf16); dscale, a sum over rows, within 1e-5 (f32) or one
+    bf16 step (bf16) of its largest element; the same bits twice."""
+    from repro_torch.kernels.flash_attention.ref import bwd_limit
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_reference
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype) * 3
+    s = (torch.rand((shape[-1],), generator=gen, device="cuda")
+         + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    before = ops.bwd_launches
+    dx, ds = ops.rmsnorm_bwd(x, s, dy)
+    assert ops.bwd_launches == before + 1
+    dx2, ds2 = ops.rmsnorm_bwd(x, s, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    dx_p, ds_p = rmsnorm_bwd_reference(x, s, dy)
+    assert dx.dtype == dtype and ds.dtype == dtype
+    assert ((dx.float() - dx_p.float()).abs() <= bwd_limit(dx_p)).all()
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    scale = max(1.0, ds_p.float().abs().max().item())
+    assert (ds.float() - ds_p.float()).abs().max().item() <= rel * scale
+
+
+def test_tower_lora_grads_on_the_card_match_the_cpu(gen):
+    """A 2-layer fp32 tower (head dim 64) with a random non-zero LoRA: the
+    distillation loss's LoRA gradients through the flash and RMSNorm
+    kernels (forward and backward) on the card against the same weights on
+    the CPU (the plain versions); one backward launch a layer for flash,
+    two a layer for RMSNorm less layer 0's first norm (its input needs no
+    gradient) plus the exit head's."""
+    from repro_torch.configs.base import MEMConfig, RecallConfig, TowerConfig
+    from repro_torch.core import healing as H
+    from repro_torch.core import plora
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models import imagebind as IB
+    cfg = MEMConfig(towers=(TowerConfig("vision", 2, 128, 2, 256, 40, 48),),
+                    embed_dim=64, dtype="float32")
+    rc = RecallConfig(exit_interval=1, lora_rank=4)
+    params = IB.mem_init(gen, cfg, rc, device="cuda")
+    # attention projections at fan-in d: the init takes fan-in H for
+    # (d, H, hd) weights, so its attention is near one-hot and the gradient
+    # through it amplifies the two paths' fp32 roundoff
+    a = params["towers"]["vision"]["layers"]["attn"]
+    _, d, n_heads, _ = a["wq"].shape
+    for w in ("wq", "wk", "wv"):
+        a[w] = a[w] * (n_heads / d) ** 0.5
+    a["wo"] = a["wo"] / n_heads ** 0.5
+    lora = plora.lora_init(gen, IB.tower_lm_cfg(cfg.tower("vision"), cfg),
+                           rc, device="cuda")
+    lora = {t: {"a": ab["a"], "b": 0.05 * torch.randn(
+        ab["b"].shape, generator=gen, device="cuda")} for t, ab in lora.items()}
+    x = torch.randn((3, 40, 48), generator=gen, device="cuda")
+    t = torch.nn.functional.normalize(
+        torch.randn((3, 64), generator=gen, device="cuda"), dim=-1)
+    w = torch.tensor([0.3, 0.7], device="cuda")
+    pmask = torch.ones(2, device="cuda")
+
+    def to(tree, dev):
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().to(dev)
+        return {k: to(v, dev) for k, v in tree.items()}
+
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        lp = to(lora, dev)
+        leaves = [lp[n][ab].requires_grad_() for n in sorted(lp)
+                  for ab in ("a", "b")]
+        before = (flash_ops.bwd_launches, rms_ops.bwd_launches)
+        loss = H.exit_distill_loss(
+            H.tower_exit_embs(to(params, dev), cfg, rc, "vision", x.to(dev),
+                              lp), t.to(dev), w.to(dev), pmask.to(dev))
+        grads[dev] = torch.autograd.grad(loss, leaves)
+        if dev == "cuda":
+            assert flash_ops.bwd_launches == before[0] + 2
+            assert rms_ops.bwd_launches == before[1] + 2 * 2
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        scale = max(1e-3, c.abs().max().item())
+        assert (g.cpu() - c).abs().max().item() <= 1e-4 * scale
+
+
+def _guarded_calls():
+    """(name, fn(requires_grad) -> call) for each kernel dispatch without
+    a backward."""
+    from repro_torch.core.quantize import quantize_int4
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.int4_cache import ops as int4_ops
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.retrieval_topk import ops as topk_ops
+    dev = "cuda"
+
+    def g(shape, rg, dtype=torch.float32):
+        return torch.randn(shape, device=dev, dtype=dtype).requires_grad_(rg)
+
+    def topk(rg):
+        bank = torch.nn.functional.normalize(torch.randn(300, 64, device=dev),
+                                             dim=1)
+        p, s = quantize_int4(bank)
+        return lambda: topk_ops.retrieval_topk_int4(g((2, 64), rg), p, s, 5)
+
+    def gathered(rg):
+        bank = torch.randn(300, 64, device=dev)
+        p, s = quantize_int4(bank)
+        ids = torch.arange(40, device=dev, dtype=torch.int32).repeat(2, 1)
+        return lambda: topk_ops.retrieval_topk_int4_gathered(
+            g((2, 64), rg), p, s, ids, 5)
+
+    def dense(rg):
+        return lambda: topk_ops.retrieval_topk(g((2, 64), rg),
+                                               torch.randn(300, 64, device=dev),
+                                               5)
+
+    def decode(rg):
+        return lambda: decode_attention(
+            g((2, 4, 64), rg), torch.randn(2, 32, 2, 64, device=dev),
+            torch.randn(2, 32, 2, 64, device=dev),
+            torch.tensor([20, 32], dtype=torch.int32, device=dev))
+
+    def moe(rg):
+        T, d, E, F, bt = 32, 64, 4, 48, 16
+        xs = g((T, d), rg, torch.bfloat16)
+        be = torch.arange(T // bt, device=dev, dtype=torch.int32) % E
+        w = torch.randn(E, d, F, device=dev, dtype=torch.bfloat16)
+        used = torch.tensor(T, dtype=torch.int32, device=dev)
+        return lambda: moe_ops.moe_gemm_sorted(xs, be, w, bt, used)
+
+    def quant(rg):
+        return lambda: int4_ops.quantize(g((8, 64), rg))
+
+    def dequant(rg):
+        p, s = int4_ops.quantize(torch.randn(8, 64, device=dev))
+        s = s.clone().requires_grad_(rg)
+        return lambda: int4_ops.dequantize(p, s)
+
+    return {"retrieval_topk_int4": (topk, "no gradient in the reference"),
+            "retrieval_topk_int4_gathered": (gathered,
+                                             "no gradient in the reference"),
+            "retrieval_topk": (dense, "no gradient in the reference"),
+            "decode_attention": (decode, "no gradient in the reference"),
+            "moe_gemm": (moe, "A.4b"),
+            "int4_cache.quantize": (quant, "no gradient in the reference"),
+            "int4_cache.dequantize": (dequant,
+                                      "no gradient in the reference")}
+
+
+@pytest.mark.parametrize("name", ["retrieval_topk_int4",
+                                  "retrieval_topk_int4_gathered",
+                                  "retrieval_topk", "decode_attention",
+                                  "moe_gemm", "int4_cache.quantize",
+                                  "int4_cache.dequantize"])
+def test_kernels_without_backward_raise_under_grad_mode(gen, name):
+    """A CUDA dispatch whose kernel has no backward raises, naming why,
+    when grad mode is on and an input needs a gradient; under no_grad, or
+    with no input that needs one, it launches."""
+    make, why = _guarded_calls()[name]
+    with pytest.raises(NotImplementedError, match=why):
+        make(True)()
+    with torch.no_grad():
+        make(True)()
+    make(False)()
+    torch.cuda.synchronize()

@@ -262,9 +262,110 @@ def test_decode_hbm_bytes_matches_reference():
                 == JS.lm_decode_hbm_bytes(JC.get_arch(arch).model, B, S, n)
 
 
-def test_lora_is_refused(models):
+def _lora(ref, seed, scale=0.05):
+    """A non-zero LoRA of the reference's schema (numpy): B is not zero, so
+    every target's delta shows."""
+    from repro.core import plora as JP
+    rng = np.random.default_rng(seed)
+    return {t: {k: (scale * rng.standard_normal(d.shape)).astype(np.float32)
+                for k, d in ab.items()}
+            for t, ab in JP.lora_schema(ref.model, ref.recall).items()}
+
+
+def _close_rel(got, want, what, rel=1e-5):
+    """1e-5 of the tensor's scale (max(|want|, 1)): the exit embeddings and
+    the logits. Hidden states and caches take ``_close``'s 1e-4, as without
+    a LoRA (the random-init residual stream reaches ~75 and the two
+    packages part by ~3e-5 of it there with or without one)."""
+    want = np.asarray(want, np.float32)
+    got = got.detach().float().numpy()
+    assert got.shape == want.shape, what
+    err = np.abs(got - want).max()
+    assert err <= rel * max(1.0, np.abs(want).max()), (what, err)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b"])
+def test_prefill_and_decode_with_lora_match_reference(models, arch):
+    """A non-zero LoRA (all seven targets on the dense model, the four
+    attention ones on the MoE) through prefill and three greedy decode
+    steps, against the reference: exit embeddings and logits at 1e-5 of
+    their scale, hidden states and caches at 1e-4 (``_close_rel``); the
+    LoRA moves every output by far more than that."""
+    ref, port, jp, tp = models[arch]
+    lora = _lora(ref, seed=5)
+    jl, tl = jax.tree.map(jnp.asarray, lora), params_from_jax(lora)
+    B, S, pad_to = 2, 8, 12
+    tokens = np.random.default_rng(6).integers(
+        0, ref.model.vocab, (B, S)).astype(np.int32)
+    j = JT.prefill(jp, ref.model, ref.recall, jnp.asarray(tokens),
+                   pad_to=pad_to, lora=jl)
+    j0 = JT.prefill(jp, ref.model, ref.recall, jnp.asarray(tokens),
+                    pad_to=pad_to)
+    t = TT.prefill(tp, port.model, port.recall, torch.from_numpy(tokens),
+                   pad_to=pad_to, lora=tl)
+    for key in ("k_cache", "v_cache", "h", "exit_embs"):
+        (_close_rel if key == "exit_embs" else _close)(t[key], j[key], key)
+        assert np.abs(np.asarray(j[key]) - np.asarray(j0[key])).max() > 1e-3
+    kj, vj, kt, vt = j["k_cache"], j["v_cache"], t["k_cache"], t["v_cache"]
+    lengths = np.array([S + 1, S - 2], np.int32)
+    token = tokens[:, -1]
+    for step in range(3):
+        lj, kj, vj = JT.decode_step(jp, ref.model, ref.recall,
+                                    jnp.asarray(token), kj, vj,
+                                    jnp.asarray(lengths), lora=jl)
+        lt, kt, vt = TT.decode_step(tp, port.model, port.recall,
+                                    torch.from_numpy(token), kt, vt,
+                                    torch.from_numpy(lengths), lora=tl)
+        _close_rel(lt, lj, f"logits step {step}")
+        _close(kt, kj, f"k_cache step {step}")
+        _close(vt, vj, f"v_cache step {step}")
+        token = np.asarray(jnp.argmax(lj, -1)).astype(np.int32)
+        lengths = lengths + 1
+
+
+def test_decode_lora_scale_is_the_default_recall_configs(models):
+    """The reference's decode_step scales LoRA by the default
+    RecallConfig()'s alpha / rank, whatever ``recall`` it is given
+    (prefill uses ``recall``'s); the port keeps that (ROADMAP C.4)."""
+    import dataclasses
     ref, port, jp, tp = models["qwen2-1.5b"]
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        TT.prefill(tp, port.model, port.recall, tokens, lora={"wq": {}})
-    TT.prefill(tp, port.model, port.recall, tokens, lora={})
+    lora = params_from_jax(_lora(ref, seed=7))
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, ref.model.vocab, (2, 6)).astype(np.int32))
+    pre = TT.prefill(tp, port.model, port.recall, tokens, pad_to=8)
+    lengths = torch.tensor([7, 7], dtype=torch.int32)
+    rank4 = dataclasses.replace(port.recall, lora_rank=4)  # alpha/rank 4
+    outs = [TT.decode_step(tp, port.model, rc, tokens[:, -1],
+                           pre["k_cache"].clone(), pre["v_cache"].clone(),
+                           lengths, lora=lora)[0]
+            for rc in (port.recall, rank4)]
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    jrank4 = dataclasses.replace(ref.recall, lora_rank=4)
+    jpre = JT.prefill(jp, ref.model, ref.recall, jnp.asarray(tokens.numpy()),
+                      pad_to=8)
+    lj, _, _ = JT.decode_step(jp, ref.model, jrank4,
+                              jnp.asarray(tokens[:, -1].numpy()),
+                              jpre["k_cache"], jpre["v_cache"],
+                              jnp.asarray(lengths.numpy()),
+                              lora=jax.tree.map(jnp.asarray,
+                                                _lora(ref, seed=7)))
+    _close_rel(outs[1], lj, "logits")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b"])
+def test_forward_hidden_with_lora_over_a_layer_range(models, arch):
+    """The stacked LoRA is sliced with the layers ([1, 3) here), as the
+    reference's slice_layers does."""
+    ref, port, jp, tp = models[arch]
+    lora = _lora(ref, seed=9)
+    tokens = np.random.default_rng(10).integers(0, 512, (3, 7)).astype(
+        np.int32)
+    kw = dict(collect_pooled=True, layer_start=1, layer_end=3)
+    j = JT.forward_hidden(jp, ref.model, ref.recall,
+                          tokens=jnp.asarray(tokens),
+                          lora=jax.tree.map(jnp.asarray, lora), **kw)
+    t = TT.forward_hidden(tp, port.model, port.recall,
+                          tokens=torch.from_numpy(tokens),
+                          lora=params_from_jax(lora), **kw)
+    for key in ("h", "pooled"):
+        _close(t[key], j[key], key)

@@ -127,26 +127,65 @@ def test_info_nce(both):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
-@pytest.mark.parametrize("entry", ["build_service", "EmbeddingEngine",
-                                   "QueryEngine"])
-def test_lora_is_refused(both, entry):
-    """Every entry point refuses LoRA deltas at construction, an empty dict
-    included, naming the ROADMAP item."""
-    from repro_torch.configs.base import ArchSpec
-    from repro_torch.core.store import EmbeddingStore
-    from repro_torch.launch.serve import build_service
-    from repro_torch.serving.engine import EmbeddingEngine
-    from repro_torch.serving.query import QueryEngine
-    _, tp, _ = both
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if entry == "build_service":
-            build_service(ArchSpec("t", "mem", TCFG, (), recall=TRC), params=tp,
-                          lora={}, device="cpu")
-        elif entry == "EmbeddingEngine":
-            EmbeddingEngine(tp, TCFG, TRC, lora={}, device="cpu")
-        else:
-            QueryEngine(tp, TCFG, TRC, lora={}, device="cpu",
-                        store=EmbeddingStore(TCFG.embed_dim, device="cpu"))
+def _tower_lora(modality, seed, scale=0.05):
+    """A non-zero LoRA (numpy, the reference's schema) for one tower."""
+    from repro.core import plora as JP
+    tcfg = JIB.tower_lm_cfg(CFG.tower(modality), CFG)
+    rng = np.random.default_rng(seed)
+    return {t: {k: (scale * rng.standard_normal(d.shape)).astype(np.float32)
+                for k, d in ab.items()}
+            for t, ab in JP.lora_schema(tcfg, RC).items()}
+
+
+@pytest.mark.parametrize("modality", ["vision", "text"])
+def test_tower_forward_with_lora_matches_reference(both, modality):
+    """tower_forward, mem_embed_all_exits and a coarse mem_embed with a
+    non-zero LoRA (every target) against the reference: embeddings at
+    1e-5, hidden states as without a LoRA; the LoRA moves the embeddings
+    by far more."""
+    jp, tp, inputs = both
+    x = inputs[modality]
+    lora = _tower_lora(modality, seed=3)
+    jl, tl = jax.tree.map(jnp.asarray, lora), params_from_jax(lora)
+    j = JIB.tower_forward(jp, CFG, RC, modality, jnp.asarray(x), lora=jl)
+    t = TIB.tower_forward(tp, TCFG, TRC, modality, torch.from_numpy(x),
+                          lora=tl)
+    _assert_hidden_close(t["h"].numpy(), j["h"])
+    _assert_hidden_close(t["pooled"].numpy(), j["pooled"])
+    ja = JIB.mem_embed_all_exits(jp, CFG, RC, modality, jnp.asarray(x),
+                                 lora=jl)
+    ta = TIB.mem_embed_all_exits(tp, TCFG, TRC, modality, torch.from_numpy(x),
+                                 lora=tl)
+    np.testing.assert_allclose(ta["exit_embs"].numpy(),
+                               np.asarray(ja["exit_embs"]), atol=1e-5)
+    j0 = JIB.mem_embed_all_exits(jp, CFG, RC, modality, jnp.asarray(x))
+    assert np.abs(np.asarray(j0["exit_embs"])
+                  - np.asarray(ja["exit_embs"])).max() > 1e-2
+    c_j = JIB.mem_embed(jp, CFG, RC, modality, jnp.asarray(x), exit_layer=2,
+                        lora=jl)
+    c_t = TIB.mem_embed(tp, TCFG, TRC, modality, torch.from_numpy(x),
+                        exit_layer=2, lora=tl)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), atol=1e-5)
+
+
+def test_mem_refine_with_lora_resumes_the_healed_prefix(both):
+    """Refinement from a cached layer-N state with the LoRA (its layers
+    [N, L)) against the reference, and equal to the full healed forward
+    (the shared suite's prefix property, paper §3.3)."""
+    jp, tp, inputs = both
+    x = inputs["vision"]
+    N = RC.superficial_layers
+    lora = _tower_lora("vision", seed=4)
+    jl, tl = jax.tree.map(jnp.asarray, lora), params_from_jax(lora)
+    h = np.array(JIB.tower_forward(jp, CFG, RC, "vision", jnp.asarray(x),
+                                   layer_end=N, lora=jl)["h"])
+    r_j = JIB.mem_refine(jp, CFG, RC, "vision", jnp.asarray(h), N, lora=jl)
+    r_t = TIB.mem_refine(tp, TCFG, TRC, "vision", torch.from_numpy(h), N,
+                         lora=tl)
+    np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), atol=1e-5)
+    full = TIB.mem_embed(tp, TCFG, TRC, "vision", torch.from_numpy(x),
+                         lora=tl)
+    np.testing.assert_allclose(r_t.numpy(), full.numpy(), atol=1e-5)
 
 
 # the same towers in bf16: the reference promotes the vision tower (fp32

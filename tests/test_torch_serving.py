@@ -122,6 +122,91 @@ def test_drain_and_query_batch_match_reference(service):
     assert [m.launches for m in (flash_ops, topk_ops, rms_ops)] == counts
 
 
+def _vision_lora(seed=3, scale=0.05):
+    """A non-zero vision-tower LoRA (numpy, the reference's schema)."""
+    from repro.core import plora as JP
+    tcfg = IB.tower_lm_cfg(CFG.tower("vision"), CFG)
+    rng = np.random.default_rng(seed)
+    return {t: {k: (scale * rng.standard_normal(d.shape)).astype(np.float32)
+                for k, d in ab.items()}
+            for t, ab in JP.lora_schema(tcfg, RC).items()}
+
+
+@pytest.mark.parametrize("policy", ["recall", "branchynet"])
+def test_drain_and_query_batch_with_lora_match_reference(service, policy):
+    """EmbeddingEngine(lora=) and QueryEngine(lora=None) in both packages:
+    the same exits, stored embeddings, query results and upgrades; the
+    LoRA reaches the superficial pass, the continuations, the BranchyNet
+    exits and the refinement."""
+    params, predictor, t_params, t_predictor = service
+    lora = _vision_lora()
+    jl, tl = jax.tree.map(jnp.asarray, lora), params_from_jax(lora)
+    items = multimodal_pairs(4, 32, CFG).items
+    js, ts = JStore(CFG.embed_dim), TStore(TCFG.embed_dim, device="cpu")
+    j_seen, t_seen = _record_inserts(js), _record_inserts(ts)
+    je = JEngine(params, CFG, RC, lora=jl, predictor_params=predictor,
+                 policy=policy, max_batch=16, store=js, fw_kw=FW)
+    te = TEngine(t_params, TCFG, TRC, lora=tl, predictor_params=t_predictor,
+                 policy=policy, max_batch=16, store=ts, device="cpu")
+    for eng in (je, te):
+        eng.submit_batch(np.arange(32), items["vision"])
+        eng.drain()
+    assert [t_seen[u][1] for u in range(32)] == [j_seen[u][1]
+                                                for u in range(32)]
+    for u in range(32):
+        np.testing.assert_allclose(t_seen[u][0], j_seen[u][0], atol=TOL)
+    jq = JQuery(params, CFG, RC, store=js, refine_fn=je.refine_fn(),
+                fw_kw=FW, search_impl="device")
+    tq = TQuery(t_params, TCFG, TRC, store=ts, refine_fn=te.refine_fn(),
+                search_impl="device", device="cpu")
+    j_res = jq.query_batch(items["text"][:6], k=8)
+    t_res = tq.query_batch(items["text"][:6], k=8)
+    for jr, tr in zip(j_res, t_res):
+        assert tr.n_refined == jr.n_refined
+        np.testing.assert_allclose(tr.scores, jr.scores, atol=TOL)
+    assert sum(r.n_refined for r in t_res) > 0
+    np.testing.assert_array_equal(ts.is_fine(np.arange(32)),
+                                  js.is_fine(np.arange(32)))
+    # the healed suite moved the stored embeddings
+    ps = TStore(TCFG.embed_dim, device="cpu")
+    p_seen = _record_inserts(ps)
+    plain = TEngine(t_params, TCFG, TRC, predictor_params=t_predictor,
+                    policy=policy, max_batch=16, store=ps, device="cpu")
+    plain.submit_batch(np.arange(32), items["vision"])
+    plain.drain()
+    assert max(np.abs(t_seen[u][0] - p_seen[u][0]).max()
+               for u in range(32)) > 1e-2
+
+
+def test_build_service_hands_the_one_lora_to_both_engines(service):
+    """build_service(lora=) passes the one suite to the calibration and to
+    both engines, as the reference does: the text tower of the query
+    engine runs the vision tower's LoRA (its first layers; here the towers
+    share their widths, at recall-imagebind's full width they do not:
+    ROADMAP C.4)."""
+    from repro.launch.serve import build_service as j_build
+    from repro_torch.configs.base import ArchSpec
+    from repro_torch.launch.serve import build_service as t_build
+    params, _, t_params, _ = service
+    lora = _vision_lora(seed=5)
+    jl, tl = jax.tree.map(jnp.asarray, lora), params_from_jax(lora)
+    j_eng, j_query, j_info = j_build(
+        type("S", (), {"model": CFG, "recall": RC})(), n_train=48,
+        params=params, lora=jl, fw_kw=FW)
+    t_eng, t_query, t_info = t_build(ArchSpec("t", "mem", TCFG, (),
+                                              recall=TRC), n_train=48,
+                                     params=t_params, lora=tl, device="cpu")
+    assert t_eng.lora is tl and t_query.lora is tl
+    np.testing.assert_array_equal(t_info["labels"], np.asarray(j_info["labels"]))
+    texts = multimodal_pairs(6, 5, CFG).items["text"]
+    got = t_query._all_exits(texts)
+    want = np.asarray(j_query._jit_all_exits(jnp.asarray(texts)))
+    np.testing.assert_allclose(got, want, atol=TOL)
+    unhealed = IB.mem_embed_all_exits(params, CFG, RC, "text",
+                                      jnp.asarray(texts), **FW)["exit_embs"]
+    assert np.abs(np.asarray(unhealed) - got).max() > 1e-2
+
+
 def test_engine_policies_and_single_query(service):
     _, _, t_params, t_predictor = service
     items = multimodal_pairs(2, 12, CFG).items
@@ -169,8 +254,7 @@ def test_serve_cli_smoke_on_cpu(capsys):
     assert "embedded 24 items" in out and "device bank:" in out
 
 
-@pytest.mark.parametrize("kw", [dict(lora={}),
-                                dict(search_devices=["cuda:0", "cuda:1"])],
+@pytest.mark.parametrize("kw", [dict(search_devices=["cuda:0", "cuda:1"])],
                          ids=lambda kw: next(iter(kw)))
 def test_query_engine_refuses_unported_features(service, kw):
     _, _, t_params, _ = service
