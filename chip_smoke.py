@@ -28,8 +28,8 @@ just after:
     backward calls held call by call, and a step's LoRA gradient against
     autograd of plain float64 ops; RECALL served with the healed LoRA
     (drain, query_batch); ``heal_lm`` on qwen2-1.5b at full width and
-    depth, and on a 2-layer qwen3-moe-30b-a3b, where it must raise at the
-    grouped GEMM (no backward yet);
+    depth, one of its steps profiled, and on a 2-layer qwen3-moe-30b-a3b,
+    where it must raise at the grouped GEMM (no backward yet);
   * IVF: a 2^17-row ``clustered_sphere`` store at E = 1024 with an online
     IVF index (256 clusters, nprobe 8), queried through both pruned
     strategies and the dense fp32 path, held against the numpy oracles and
@@ -106,20 +106,24 @@ def time_ms(fn, *, reps: int = 10, trials: int = 5) -> float:
     return statistics.median(out)
 
 
-def graph_time_ms(fn, *, reps: int = 20, trials: int = 5) -> float:
+def graph_time_ms(fn, *, reps: int = 20, trials: int = 5,
+                  stream=None) -> float:
     """Device time of one call: ``reps`` calls captured in one CUDA graph,
     the replay timed as ``time_ms`` times a call, divided by ``reps``. Set
     beside ``time_ms`` for calls whose host dispatch can outlast their
-    device work (a decode step's kernels)."""
+    device work (a decode step's kernels). ``stream`` is the stream to
+    warm up and capture on: an autograd backward runs on its forward's
+    stream, so a captured ``torch.autograd.grad`` needs its forward run on
+    that stream first."""
     import torch
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture
         fn()
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     ms = time_ms(graph.replay, reps=1, trials=trials) / reps
@@ -1968,6 +1972,7 @@ _LAYERS = (("flash_fwd_wgmma", "attention (flash wgmma kernel, bf16)"),
            ("topk_pass2", "top-k merge (pass 2)"),
            ("flash_bwd_dq", "attention backward (dQ kernel)"),
            ("flash_bwd_dkdv", "attention backward (dK/dV kernel)"),
+           ("reduce_heads", "attention backward (GQA head sum)"),
            ("rmsnorm_bwd", "rmsnorm backward (Triton kernel)"),
            ("rmsnorm", "rmsnorm (Triton kernel)"),
            ("gemm", "matmul (cuBLAS)"), ("sm90_", "matmul (cuBLAS)"),
@@ -2381,13 +2386,27 @@ def _grad_err(got, want):
             diff.max().item() / scale)
 
 
+def _on_side_stream(forward):
+    """(``forward()`` run on a new stream, that stream): an autograd
+    backward runs on its forward's stream, so a CUDA graph captures it on
+    that one (``graph_time_ms(..., stream=)``)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward()
+    torch.cuda.current_stream().wait_stream(side)
+    return out, side
+
+
 def check_flash_bwd(gen):
     """The flash backward (dQ and dK/dV kernels) against the plain
     ``attention_bwd_reference`` at the forward kernel's out and lse: the
-    heal shape (vision tower, B 32, fp32), the text tower's (B 64, bf16)
-    and qwen2-1.5b's prefill (B 2, causal, GQA 6:1, bf16), per element
-    within ``ref.bwd_limit`` (1e-5 at max(|g|, 1) fp32, one bf16 step
-    bf16); timed beside the plain version and SDPA's backward (autograd of
+    heal shape (vision tower, B 32, fp32), the text tower's (B 64, bf16),
+    qwen2-1.5b's prefill (B 2, causal, GQA 6:1, bf16) and its heal_lm
+    batch (B 8, S 512), per element within ``ref.bwd_limit`` (1e-5 at
+    max(|g|, 1) fp32, one bf16 step bf16); timed eager and by graph
+    replay beside the plain version and SDPA's backward (autograd of
     ``F.scaled_dot_product_attention``, for comparison only)."""
     import torch
     import torch.nn.functional as F
@@ -2399,7 +2418,8 @@ def check_flash_bwd(gen):
     for what, B, S, H, KV, D, dtype, causal in (
             ("heal", 32, 257, 16, 16, 80, torch.float32, False),
             ("text", 64, 78, 16, 16, 64, torch.bfloat16, False),
-            ("lm", 2, 2048, 12, 2, 128, torch.bfloat16, True)):
+            ("lm", 2, 2048, 12, 2, 128, torch.bfloat16, True),
+            ("heal_lm", 8, 512, 12, 2, 128, torch.bfloat16, True)):
         q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn((B, S, KV, D), generator=gen,
                             device="cuda").to(dtype) for _ in range(2))
@@ -2414,19 +2434,31 @@ def check_flash_bwd(gen):
         if not over <= 1.0:
             _fail(f"flash backward {what}: err {err} ({over:.3f} of the "
                   "per-element limit)")
+        # the typical |g| of dq, dk, dv: below 1 the bf16 limit is 2^-7
+        med = "/".join(f"{w.float().abs().median().item():.3g}"
+                       for w in want)
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             _fail(f"flash backward {what}: two runs differ")
-        ms = time_ms(lambda: flash_bwd_cuda(q, k, v, out, lse, do,
-                                            causal=causal), reps=5)
+        kernel = lambda: flash_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        ms, graph_ms = time_ms(kernel, reps=5), graph_time_ms(kernel, reps=5)
         plain_ms = time_ms(lambda: attention_bwd_reference(
             q, k, v, out, lse, do, causal=causal), reps=1, trials=3)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, k, v))
+        do_t = do.transpose(1, 2).contiguous()
         o_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                              enable_gqa=KV != H)
-        do_t = do.transpose(1, 2).contiguous()
         lib_ms = time_ms(lambda: torch.autograd.grad(
             o_t, (qt, kt, vt), do_t, retain_graph=True), reps=5)
+
+        def sdpa():  # fresh leaves: the graph's own AccumulateGrad nodes
+            leaves = tuple(x.detach().clone().requires_grad_()
+                           for x in (qt, kt, vt))
+            return F.scaled_dot_product_attention(
+                *leaves, is_causal=causal, enable_gqa=KV != H), leaves
+        (o_g, leaves), lib_stream = _on_side_stream(sdpa)
+        lib_graph_ms = graph_time_ms(lambda: torch.autograd.grad(
+            o_g, leaves, do_t, retain_graph=True), reps=5, stream=lib_stream)
         pairs = int(attention_mask(S, S, causal=causal, window=0, q_offset=0,
                                    device="cuda").sum())
         n_ops = 5 * 2.0 * B * H * pairs * D
@@ -2439,12 +2471,20 @@ def check_flash_bwd(gen):
         print(f"  flash backward {what} B={B} S={S} H={H} KV={KV} D={D} "
               f"{str(dtype)[6:]}{' causal' if causal else ''}: max_abs_err "
               f"{err:.3e} ({over:.2f} of the per-element limit, "
-              f"{max(e[2] for e in errs):.1e} of the largest gradient), "
-              f"the same bits twice; kernel {ms:.4f} ms "
-              f"({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-              f"SDPA backward {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        m = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+              f"{max(e[2] for e in errs):.1e} of the largest gradient; "
+              f"median |g| dq/dk/dv {med}), the same bits twice; kernel "
+              f"{ms:.4f} ms "
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s), graph replay "
+              f"{graph_ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA backward "
+              f"{lib_ms:.4f} ms (graph replay {lib_graph_ms:.4f} ms), bound "
+              f"{b_ms:.4f} ms ({b_by}, {b_ms / graph_ms:.1%} of it by "
+              f"replay)")
+        if causal:  # the split between the dQ, dK/dV and head-sum kernels
+            profile_windows(((f"flash backward {what}", kernel,
+                              "flash_bwd"),))
+        m = {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+             "library_graph_ms": lib_graph_ms, "max_abs_err": err}
         if what == "heal":
             row = {"name": "flash_attention_bwd", "route": "cuda",
                    "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -2454,6 +2494,7 @@ def check_flash_bwd(gen):
         else:
             side[what] = m
         del q, k, v, do, out, lse, got, want, again, qt, kt, vt, o_t, do_t
+        del o_g, leaves, kernel
         torch.cuda.empty_cache()
     row["side"] = side
     return row
@@ -2464,8 +2505,8 @@ def check_rmsnorm_bwd(gen):
     per element within ``bwd_limit``, dscale (a sum over rows) within 1e-5
     (fp32) or one bf16 step (bf16) of its largest element, at the heal
     step's norms (32 x 257 rows of 1,280, fp32) and qwen2's (4,096 rows of
-    1,536, bf16); timed beside the plain version and autograd of
-    ``F.rms_norm``."""
+    1,536, bf16); timed eager, by graph replay and by host time a call,
+    beside the plain version and autograd of ``F.rms_norm``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_triton
@@ -2491,25 +2532,36 @@ def check_rmsnorm_bwd(gen):
                   f"the limit), dscale err {ds_err} (tol {ds_lim})")
         if not (torch.equal(dx, dx2) and torch.equal(ds, ds2)):
             _fail(f"rmsnorm backward {what}: two runs differ")
-        ms = time_ms(lambda: rmsnorm_bwd_triton(x, s, dy, 1e-6), reps=20)
+        kernel = lambda: rmsnorm_bwd_triton(x, s, dy, 1e-6)
+        ms, graph_ms = time_ms(kernel, reps=20), graph_time_ms(kernel)
+        host_us = dispatch_us(kernel)
         plain_ms = time_ms(lambda: rmsnorm_bwd_reference(x, s, dy, 1e-6),
                            reps=5)
-        xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
-        yl = F.rms_norm(xl, (D,), sl, 1e-6)
-        lib_ms = time_ms(lambda: torch.autograd.grad(yl, (xl, sl), dy,
-                                                     retain_graph=True),
-                         reps=20)
+        def norm():  # fresh leaves: the graph's own AccumulateGrad nodes
+            xl, sl = x.clone().requires_grad_(), s.clone().requires_grad_()
+            return F.rms_norm(xl, (D,), sl, 1e-6), (xl, sl)
+        yl, leaves = norm()
+        library = lambda: torch.autograd.grad(yl, leaves, dy,
+                                              retain_graph=True)
+        lib_ms, lib_host_us = time_ms(library, reps=20), dispatch_us(library)
+        (yl, leaves), lib_stream = _on_side_stream(norm)
+        lib_graph_ms = graph_time_ms(library, stream=lib_stream)
         esz = x.element_size()
         b_ms, b_by = bound_ms(3 * rows_ * D * esz + 2 * D * esz,
                               10.0 * rows_ * D, "fp32")
         print(f"  rmsnorm backward {what} ({rows_}, {D}) "
               f"{str(dtype)[6:]}: dx max_abs_err {err:.3e} ({over:.2f} of "
               f"the per-element limit), dscale err {ds_err:.3e} (tol "
-              f"{ds_lim:.1e}), the same bits twice; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, autograd of F.rms_norm "
-              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        m = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+              f"{ds_lim:.1e}), the same bits twice; kernel {ms:.4f} ms "
+              f"(graph replay {graph_ms:.4f} ms, host {host_us:.1f} us a "
+              f"call), plain {plain_ms:.4f} ms, autograd of F.rms_norm "
+              f"{lib_ms:.4f} ms (graph replay {lib_graph_ms:.4f} ms, host "
+              f"{lib_host_us:.1f} us), bound {b_ms:.4f} ms ({b_by}, "
+              f"{b_ms / graph_ms:.1%} of it by replay)")
+        m = {"ms": ms, "graph_ms": graph_ms, "host_us": host_us,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
+             "library_host_us": lib_host_us, "max_abs_err": err}
         if what == "heal":
             row = {"name": "rmsnorm_bwd", "route": "triton",
                    "source": "src/repro_torch/kernels/rmsnorm/kernel.py",
@@ -2517,7 +2569,7 @@ def check_rmsnorm_bwd(gen):
                                "rmsnorm; no Pallas backward)", **m}
         else:
             side[what] = m
-        del x, s, dy, dx, dx2, dx_p, xl, sl, yl
+        del x, s, dy, dx, dx2, dx_p, yl, leaves, kernel, library
         torch.cuda.empty_cache()
     row["side"] = side
     return row
@@ -2712,6 +2764,37 @@ def profile_heal_step(params, spec, lora, x):
                       "backward)", step, "flash_bwd"),))
 
 
+def profile_heal_lm_step(params, cfg, rc, tokens):
+    """One heal_lm step's forward and backward (a fresh LoRA, every exit
+    weighted) under torch.profiler: the flash backward's share of a bf16
+    heal step."""
+    import torch
+    from repro_torch.core import healing as H
+    from repro_torch.core import plora
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    lora = plora.lora_init(gen, cfg, rc, device="cuda")
+    n_exits = len(rc.exit_layers(cfg.n_layers))
+    with torch.no_grad():
+        out = T.forward_hidden(params, cfg, rc, tokens=tokens,
+                               collect_pooled=True)
+        t = T.exit_embedding(params, out["pooled"][-1], cfg.norm_eps)
+        del out
+    w = torch.full((n_exits,), 1.0 / n_exits, device="cuda")
+    ones = torch.ones(n_exits, device="cuda")
+
+    def step():
+        leaves, flat = _lora_leaves(lora)
+        loss = H.exit_distill_loss(H.lm_exit_embs(params, cfg, rc, tokens,
+                                                  leaves), t, w, ones)
+        torch.autograd.grad(loss, flat)
+
+    profile_windows(((f"heal_lm step of {tokens.shape[0]} x "
+                      f"{tokens.shape[1]} tokens (forward and backward)",
+                      step, "flash_bwd"),))
+
+
 def serve_healed(params, spec, lora, items, texts, k=10):
     """RECALL served with the healed LoRA: a predictor fit on the healed
     tower's exit labels, an EmbeddingEngine(lora=healed) draining
@@ -2815,6 +2898,7 @@ def heal_lm_phase():
         _fail(f"heal_lm launches {got}, want {want}")
     if not all(math.isfinite(p["loss_first"]) for p in log):
         _fail(f"heal_lm: non-finite loss {log}")
+    profile_heal_lm_step(params, cfg, rc, tokens)
     del params, lora, tokens
     torch.cuda.empty_cache()
     moe = get_arch("qwen3-moe-30b-a3b")

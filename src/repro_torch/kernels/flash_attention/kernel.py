@@ -7,11 +7,16 @@ contiguous) and returns (out (B, Sq, H, D) in the input dtype, lse
 
 ``flash_bwd_cuda`` binds the backward (``csrc/flash_bwd.cu``): the same
 layouts plus out, lse and dout, returning (dq, dk, dv) in the input dtype.
+bf16 runs the wgmma kernels, f32 the FMA kernels, both on 64 x 64 tiles.
+Under GQA its dK/dV grid has a block per query head, each writing fp32
+partials that a third kernel sums over the group in head order
+(``reduce_head_partials`` is the plain mirror of that sum).
 
 ``kv_tile_range`` and ``keyless_row`` mirror the CUDA arithmetic that
-decides which key tiles a q tile visits, and ``tiles_meet`` the
-backward's test of a (q tile, key tile) pair; the CPU tests hold them
-against the reference's ``_kv_block_live`` and the element mask.
+decides which key tiles a q tile visits, ``tiles_meet`` the backward's
+test of a (q tile, key tile) pair and ``needs_mask`` its test of whether
+a pair needs the element mask at all; the CPU tests hold them against the
+reference's ``_kv_block_live`` and the element mask.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_fn():
     fn = build.load("flash_bwd").flash_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P]
+    fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P]
     return fn
 
 
@@ -86,6 +91,31 @@ def tiles_meet(q0: int, bq: int, k0: int, bk: int, Sq: int, *, causal: bool,
     if causal and k0 > p_hi:
         return False
     return not (window > 0 and k0 + bk - 1 <= p_lo - window)
+
+
+def needs_mask(q0: int, nq: int, k0: int, nk: int, Sq: int, Skv: int, *,
+               causal: bool, window: int, q_offset: int) -> bool:
+    """Does some (query, key) pair of rows [q0, q0 + nq) and keys
+    [k0, k0 + nk) lie past Sq or Skv, or outside the causal or window mask?
+    ``csrc/flash_bwd.cu::needs_mask``: where it is false the bf16 backward
+    skips the element mask, so every pair must be visible there."""
+    return (q0 + nq > Sq or k0 + nk > Skv
+            or (causal and k0 + nk - 1 > q0 + q_offset)
+            or (window > 0 and k0 <= q0 + nq - 1 + q_offset - window))
+
+
+def reduce_head_partials(part: torch.Tensor, KV: int,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """dk or dv (B, Skv, KV, D) in ``dtype`` from the per-query-head fp32
+    partials (B, Skv, H, D) of the GQA backward: the partials of heads
+    kvh G .. kvh G + G - 1 summed in that order, then cast, as
+    ``csrc/flash_bwd.cu::reduce_heads`` sums them."""
+    B, Skv, H, D = part.shape
+    p = part.reshape(B, Skv, KV, H // KV, D)
+    acc = p[:, :, :, 0]
+    for g in range(1, H // KV):
+        acc = acc + p[:, :, :, g]
+    return acc.to(dtype)
 
 
 def plain_like_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -186,12 +216,18 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    # per-query-head fp32 dK and dV under GQA, summed over the group by the
+    # kernel's last pass
+    part = (torch.empty((2, B, Skv, H, D), dtype=torch.float32, device=dev)
+            if H > KV else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _bwd_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, H, KV, D,
+            dv.data_ptr(), delta.data_ptr(),
+            None if part is None else part[0].data_ptr(),
+            None if part is None else part[1].data_ptr(), B, Sq, Skv, H, KV, D,
             int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
             int(window), int(q_offset), stream)
     build.check(err, "flash_bwd")

@@ -83,10 +83,17 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
                :: "r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
+// Make this thread's generic-proxy writes to shared memory (plain stores,
+// cp.async) visible to the async proxy (wgmma operand reads); a block
+// barrier after it covers every thread's.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Make initialised barriers visible to the other threads and to TMA.
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
@@ -228,11 +235,27 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // shared-memory descriptors (A K-major); rs: A from registers, the 16x16
 // fragment of mma.m16n8k16 for the warp's 16 rows. TB: B is MN-major
 // (transposed). scale_d == 0 overwrites d instead of adding to it. Only
-// the shapes the kernels use are here: ss at N 128 and 256 (flash's S,
-// the grouped GEMM), rs at N = D (flash's P V).
+// the shapes the kernels use are here: ss at N 64 (the flash backward's
+// S^T, dP^T), 128 and 256 (flash's S, the grouped GEMM), rs at N = D
+// (flash's P V, the backward's dV, dK).
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<64> {
+  template <int TB>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
     asm volatile(

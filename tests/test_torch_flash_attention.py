@@ -313,3 +313,66 @@ def test_tiles_meet_covers_every_visible_pair(causal, window_kind,
                 skipped += not meet
         if causal and q_offset <= 0 and Sq > bt and Skv > bt:
             assert skipped > 0  # the causal corner is skipped
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window_kind", ["none", "below_tile", "spans_tiles"])
+@pytest.mark.parametrize("q_offset_kind", ["negative", "zero", "positive"])
+def test_needs_mask_holds_only_where_every_pair_is_visible(
+        causal, window_kind, q_offset_kind):
+    """The bf16 backward's test (csrc/flash_bwd.cu::needs_mask): a 64 x 64
+    tile pair it lets through unmasked lies inside Sq and Skv with every
+    (q, key) pair visible, and the tiles wholly inside the causal corner
+    are let through; ragged Sq and Skv."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    bt = 64
+    window = _window(window_kind, bt)
+    q_offset = _q_offset(q_offset_kind, bt)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    for Sq, Skv in ((5 * bt + 5, 5 * bt + 9), (2 * bt - 7, bt - 17)):
+        mask = attention_mask(Sq, Skv, **kw)
+        unmasked = 0
+        for q0 in range(0, Sq, bt):
+            for k0 in range(0, Skv, bt):
+                if not FK.needs_mask(q0, bt, k0, bt, Sq, Skv, **kw):
+                    assert q0 + bt <= Sq and k0 + bt <= Skv
+                    assert bool(mask[q0:q0 + bt, k0:k0 + bt].all()), (q0, k0)
+                    unmasked += 1
+        if window_kind == "none" and q_offset >= 0 and Sq > 4 * bt:
+            assert unmasked > 0  # whole tiles skip the element mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_reduce_head_partials_is_the_gqa_gradient(dtype, causal):
+    """The GQA dK/dV split: per-query-head fp32 partials (the plain backward
+    with each kv head repeated over its group, in fp32) summed over the
+    group in head order by reduce_head_partials (the plain mirror of
+    csrc/flash_bwd.cu::reduce_heads) are the plain backward's dk and dv at
+    G = 6 (H 12, KV 2), per element within ref.bwd_limit."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_reference, bwd_limit)
+    B, S, H, KV, D = 2, 37, 12, 2, 64
+    q, k, v = (torch.from_numpy(x).to(dtype)
+               for x in _qkv(B, S, S, H, KV, D, seed=61))
+    do = torch.from_numpy(np.random.default_rng(62).standard_normal(
+        q.shape).astype(np.float32)).to(dtype)
+    kw = dict(causal=causal, window=0, q_offset=0)
+    out, lse = attention_fwd_reference(q, k, v, **kw)
+    _, dk, dv = attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    rep = lambda x: x.float().repeat_interleave(H // KV, dim=2)
+    _, dk_h, dv_h = attention_bwd_reference(q, rep(k), rep(v), out, lse, do,
+                                            **kw)
+    assert dk_h.dtype == torch.float32 and dk_h.shape == (B, S, H, D)
+    for part, want in ((dk_h, dk), (dv_h, dv)):
+        got = FK.reduce_head_partials(part, KV, dtype)
+        assert got.dtype == dtype and got.shape == want.shape
+        order = part[:, :, 0::6]
+        for g in range(1, 6):
+            order = order + part[:, :, g::6]
+        assert torch.equal(got, order.to(dtype))  # heads kvh G + g, in order
+        w = want.float() if dtype == torch.float32 else want
+        assert ((got.float() - want.float()).abs() <= bwd_limit(w)).all()

@@ -572,7 +572,10 @@ FLASH_BWD_CASES = [  # B, Sq, Skv, H, KV, D, causal, window, q_offset
     (2, 150, 150, 4, 2, 80, False, 33, 0),
     (1, 64, 40, 2, 2, 64, True, 0, -30),     # rows before every key
     (1, 200, 50, 2, 2, 128, False, 5, 60),   # windows past every key
-    (2, 150, 90, 4, 2, 80, True, 40, 70)]    # both, in a mixed tile
+    (2, 150, 90, 4, 2, 80, True, 40, 70),    # both, in a mixed tile
+    (1, 300, 300, 12, 2, 128, True, 0, 0),   # qwen2's ratio, ragged tiles
+    (2, 257, 257, 4, 4, 80, False, 0, 0),    # the vision tower's S and D
+    (2, 33, 9, 4, 1, 64, True, 0, -3)]       # Skv < 16, G = 4, keyless rows
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -633,7 +636,9 @@ def test_flash_autograd_on_the_card_runs_the_backward_kernel(gen):
 @pytest.mark.parametrize("shape,dtype", [((33, 1280), torch.bfloat16),
                                          ((5, 7, 64), torch.float32),
                                          ((3001, 1536), torch.float32),
-                                         ((257, 80), torch.bfloat16)])
+                                         ((257, 80), torch.bfloat16),
+                                         ((4096, 1536), torch.bfloat16),
+                                         ((8224, 1280), torch.float32)])
 def test_rmsnorm_bwd_kernel_matches_plain(gen, shape, dtype):
     """dx per element within ref.bwd_limit's rule (1e-5 at max(|g|, 1) f32,
     one bf16 step bf16); dscale, a sum over rows, within 1e-5 (f32) or one

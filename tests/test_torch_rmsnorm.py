@@ -98,3 +98,25 @@ def test_autograd_on_cpu_takes_the_plain_backward(monkeypatch):
     y = TL.rmsnorm(xg, s)
     (dx,) = torch.autograd.grad(y, (xg,), dy)
     torch.testing.assert_close(dx, got[0])
+
+
+@pytest.mark.parametrize("D", [64, 80, 1024, 1280, 1536, 2048])
+def test_bwd_plan_pieces_tile_the_row(D):
+    """The backward's plan: a row's two power-of-two pieces tile D exactly
+    (no overlap, no gap, no masked lane) at every width the configs ship,
+    and the programs' runs of whole row blocks cover ragged row counts
+    once, at most PROGRAMS_PER_SM programs an SM."""
+    from repro_torch.kernels.rmsnorm import kernel as K
+    (a0, wa), (b0, wb) = K.row_pieces(D)
+    assert (a0, b0, wa + wb) == (0, wa, D)
+    assert all(w & (w - 1) == 0 for w in (wa, wb))
+    for n_rows in (1, 3, 257, 4095, 4096, 8224, 8225):
+        for sms in (1, 132):
+            plan = K.bwd_plan(n_rows, D, sms)
+            assert plan.pieces == K.row_pieces(D)
+            assert (plan.block_r, plan.num_warps) == (K.BWD_BLOCK_R,
+                                                       K.BWD_WARPS)
+            assert plan.rows_per_program % plan.block_r == 0
+            assert plan.programs <= K.PROGRAMS_PER_SM * sms
+            assert (plan.programs - 1) * plan.rows_per_program < n_rows \
+                <= plan.programs * plan.rows_per_program
