@@ -1972,6 +1972,9 @@ _LAYERS = (("flash_fwd_wgmma", "attention (flash wgmma kernel, bf16)"),
            ("topk_pass2", "top-k merge (pass 2)"),
            ("flash_bwd_dq", "attention backward (dQ kernel)"),
            ("flash_bwd_dkdv", "attention backward (dK/dV kernel)"),
+           ("flash_bwd_f32", "attention backward (f32 one-pass kernel)"),
+           ("bwd_delta", "attention backward (delta)"),
+           ("sum_key_tiles", "attention backward (dQ key-tile sum)"),
            ("reduce_heads", "attention backward (GQA head sum)"),
            ("rmsnorm_bwd", "rmsnorm backward (Triton kernel)"),
            ("rmsnorm", "rmsnorm (Triton kernel)"),
@@ -2400,20 +2403,24 @@ def _on_side_stream(forward):
 
 
 def check_flash_bwd(gen):
-    """The flash backward (dQ and dK/dV kernels) against the plain
+    """The flash backward (f32: delta, the one-pass kernel and the dQ
+    key-tile sum; bf16: the dQ and dK/dV wgmma kernels) against the plain
     ``attention_bwd_reference`` at the forward kernel's out and lse: the
     heal shape (vision tower, B 32, fp32), the text tower's (B 64, bf16),
     qwen2-1.5b's prefill (B 2, causal, GQA 6:1, bf16) and its heal_lm
     batch (B 8, S 512), per element within ``ref.bwd_limit`` (1e-5 at
-    max(|g|, 1) fp32, one bf16 step bf16); timed eager and by graph
-    replay beside the plain version and SDPA's backward (autograd of
-    ``F.scaled_dot_product_attention``, for comparison only)."""
+    max(|g|, 1) fp32, one bf16 step bf16) and against a float64 backward
+    by ``ref.bwd_rel_err`` (printed at every shape; at the heal shape held
+    within ``ref.REL_MULTIPLE`` times the plain version's); timed eager
+    and by graph replay beside the plain version and SDPA's backward
+    (autograd of ``F.scaled_dot_product_attention``, for comparison only),
+    and profiled for the split between its kernels."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import (flash_bwd_cuda,
                                                             flash_fwd_cuda)
     from repro_torch.kernels.flash_attention.ref import (
-        attention_bwd_reference, attention_mask)
+        REL_MULTIPLE, attention_bwd_reference, attention_mask, bwd_rel_err)
     row, side = None, {}
     for what, B, S, H, KV, D, dtype, causal in (
             ("heal", 32, 257, 16, 16, 80, torch.float32, False),
@@ -2439,6 +2446,20 @@ def check_flash_bwd(gen):
                        for w in want)
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             _fail(f"flash backward {what}: two runs differ")
+        # each element's error against a float64 backward, kernel and plain
+        g64 = attention_bwd_reference(q, k, v, out, lse, do, causal=causal,
+                                      compute_dtype=torch.float64,
+                                      grad_dtype=torch.float64)
+        rel = [bwd_rel_err(g, w) for g, w in zip(got, g64)]
+        rel_plain = [bwd_rel_err(g, w) for g, w in zip(want, g64)]
+        del g64
+        rel_txt = "/".join(f"{a:.2e} (plain {b:.2e})"
+                           for a, b in zip(rel, rel_plain))
+        if what == "heal" and not all(
+                a <= REL_MULTIPLE * b for a, b in zip(rel, rel_plain)):
+            _fail(f"flash backward {what}: error against float64 relative "
+                  f"to each element, dq/dk/dv {rel_txt}, over "
+                  f"{REL_MULTIPLE} times the plain version's")
         kernel = lambda: flash_bwd_cuda(q, k, v, out, lse, do, causal=causal)
         ms, graph_ms = time_ms(kernel, reps=5), graph_time_ms(kernel, reps=5)
         plain_ms = time_ms(lambda: attention_bwd_reference(
@@ -2472,19 +2493,20 @@ def check_flash_bwd(gen):
               f"{str(dtype)[6:]}{' causal' if causal else ''}: max_abs_err "
               f"{err:.3e} ({over:.2f} of the per-element limit, "
               f"{max(e[2] for e in errs):.1e} of the largest gradient; "
-              f"median |g| dq/dk/dv {med}), the same bits twice; kernel "
+              f"median |g| dq/dk/dv {med}; against float64 relative to "
+              f"each element dq/dk/dv {rel_txt}), the same bits twice; kernel "
               f"{ms:.4f} ms "
               f"({n_ops / ms / 1e9:.1f} TFLOP/s), graph replay "
               f"{graph_ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA backward "
               f"{lib_ms:.4f} ms (graph replay {lib_graph_ms:.4f} ms), bound "
               f"{b_ms:.4f} ms ({b_by}, {b_ms / graph_ms:.1%} of it by "
               f"replay)")
-        if causal:  # the split between the dQ, dK/dV and head-sum kernels
-            profile_windows(((f"flash backward {what}", kernel,
-                              "flash_bwd"),))
+        # the split between the backward's kernels
+        profile_windows(((f"flash backward {what}", kernel, "bwd"),))
         m = {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-             "library_graph_ms": lib_graph_ms, "max_abs_err": err}
+             "library_graph_ms": lib_graph_ms, "max_abs_err": err,
+             "rel_err": max(rel), "plain_rel_err": max(rel_plain)}
         if what == "heal":
             row = {"name": "flash_attention_bwd", "route": "cuda",
                    "source": "src/repro_torch/kernels/flash_attention/csrc/"

@@ -24,29 +24,40 @@
 // written once).
 //
 // Design: deterministic, no atomics, so two runs give the same bits (Adam
-// turns noise in near-zero gradients into different updates). Two kernels
-// one after the other on the stream, each recomputing S and P from lse (7
-// products where the bound counts 5):
-//   * dQ: one block per (64-row q tile, head, sequence). It computes delta
-//     for its rows (a warp a row) and writes it out for the second kernel,
-//     then walks the key tiles that can meet its rows and accumulates
-//     dQ += dS K.
-//   * dK/dV: one block per (64-key tile, query head, sequence); it walks
-//     the q tiles that can meet its keys (the inverse of the forward's
-//     kv_tile_range) and accumulates dV += P^T dO and dK += dS^T Q. Under
-//     GQA (G = H / KV > 1) each block writes its head's fp32 share into
-//     partials (B, Skv, H, D) and reduce_heads sums the G shares of a kv
-//     head in head order (g = 0 .. G - 1), then casts: the grid is G times
-//     the kv heads', and the sum still has one fixed order.
-// The bf16 kernels (namespace wg) are described there. The f32 kernels:
-// 256 threads (a 16 x 16 grid); every product is the forward f32 kernel's
-// register-blocked tile: thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and
-// columns tx + 16 j of a 64 x 64 score tile (LDS.128 fragments along D),
-// and 4 rows x D / 16 columns of a D-wide accumulator (a float4 at
-// 4 tx + 64 c and, at D = 80, one column at 64 + tx); P and dS pass through
-// shared memory. A warp whose 8 rows lie past the sequence only loads and
-// syncs, and column groups of 16 past the tile's live rows are skipped, so
-// at S = 257 the work tracks 257^2. expf is the accurate one in both.
+// turns noise in near-zero gradients into different updates). Under GQA
+// (G = H / KV > 1) a dK/dV block runs per query head and writes its head's
+// fp32 share into partials (B, Skv, H, D); reduce_heads sums the G shares
+// of a kv head in head order (g = 0 .. G - 1), then casts: the grid is G
+// times the kv heads', and the sum still has one fixed order.
+//
+// bf16 (namespace wg, described there): two wgmma kernels, dQ and dK/dV,
+// each recomputing S and P from lse (7 products where the bound counts 5).
+//
+// f32: one pass, the 5 products, in three launches on the stream:
+//   * bwd_delta: delta = rowsum(dout * out), a warp a row;
+//   * flash_bwd_f32: one block per (64-key tile, query head, sequence), K
+//     and V resident; it walks the q tiles that can meet its keys (the
+//     inverse of the forward's kv_tile_range), accumulates dV += P^T dO and
+//     dK += dS^T Q in registers, and writes dS K, its key tile's fp32 share
+//     of those rows' dQ, to a slab of dq_part (B, n_kt, Sq, H, D);
+//   * sum_key_tiles: dQ = the slabs summed in key-tile order (kt = 0 ..
+//     n_kt - 1), the same fixed-order pattern as reduce_heads.
+// 256 threads (a 16 x 16 grid), two blocks an SM at D <= 80 (104 KB of
+// shared memory and 128 registers each; one at D = 128). Every product is
+// the forward f32 kernel's register-blocked tile: thread (ty, tx) owns rows
+// 4 ty .. 4 ty + 3 and columns tx + 16 j of a 64 x 64 score tile (LDS.128
+// fragments along D), and 4 rows x D / 16 columns of a D-wide accumulator
+// (a float4 at 4 tx + 64 c and, at D = 80, one column at 64 + tx); P and dS
+// pass through shared memory, dQ's product reads dS through its transpose.
+// Q, dO, lse and delta come by cp.async into one buffer each: the next q
+// tile's dO is issued once dV has read this one's, its Q once dK has, so
+// the copies fly under dK and dQ's products. A second stage of Q and dO
+// (146 KB, one block an SM) ran slower than the second resident block. A
+// warp whose 8 rows lie past the sequence only loads and syncs, and column
+// groups of 16 past the tile's live rows are skipped; a tile with at most
+// 8 live rows (S = 257 is four tiles and one row) spreads its work over
+// the block (the thin tiles below), so at S = 257 the work tracks 257^2.
+// expf is the accurate one in both paths.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -123,18 +134,32 @@ __device__ __forceinline__ float4 load4(const float* p) {
 }
 
 // Rows [row0, row0 + BT) of x (B, S, NH, D) at (b, h) into a BT x QS fp32
-// tile, zeros past S.
+// tile by 16-byte cp.async, zeros past S.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ x,
-                                          int b, int row0, int S, int NH,
-                                          int h) {
+__device__ __forceinline__ void copy_tile(float* dst,
+                                          const float* __restrict__ x, int b,
+                                          int row0, int S, int NH, int h) {
   constexpr int QS = D + 4, D4 = D / 4;
   for (int c = threadIdx.x; c < BT * D4; c += THREADS) {
     const int r = c / D4, d = (c % D4) * 4, row = row0 + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < S) val = load4(x + (((size_t)b * S + row) * NH + h) * D + d);
-    *reinterpret_cast<float4*>(dst + r * QS + d) = val;
+    const bool live = row < S;
+    const float* src = live ? x + (((size_t)b * S + row) * NH + h) * D + d : x;
+    hopper::cp_async16(dst + r * QS + d, src, live ? 16 : 0);
   }
+}
+
+// lse and delta of q rows [q0, q0 + BT) (the (B, H, Sq) row that starts at
+// `at`) into BT floats each by 4-byte cp.async, zeros past Sq.
+__device__ __forceinline__ void copy_rows(float* lse_s, float* del_s,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
+                                          size_t at, int q0, int Sq) {
+  const int t = threadIdx.x, r = t % BT;
+  if (t >= 2 * BT) return;
+  const bool live = q0 + r < Sq;
+  const float* src = t < BT ? lse : delta;
+  hopper::cp_async4((t < BT ? lse_s : del_s) + r,
+                    live ? src + at + q0 + r : src, live ? 4 : 0);
 }
 
 // s[r][j] = sum_d A[4 ty + r][d] * Bt[tx + 16 j][d], for the column groups
@@ -168,14 +193,36 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* Bt,
   }
 }
 
+// This thread's columns of a row of a D-wide tile: a float4 at
+// 4 tx + 64 c, and at D = 80 one column at 64 + tx.
+template <int D>
+__device__ __forceinline__ void row_cols(const float* row,
+                                         float (&x)[Layout<D>::DT], int tx) {
+  using L = Layout<D>;
+#pragma unroll
+  for (int c = 0; c < L::NV4; ++c) {
+    const float4 f = *reinterpret_cast<const float4*>(row + 4 * tx + 64 * c);
+    x[4 * c] = f.x;
+    x[4 * c + 1] = f.y;
+    x[4 * c + 2] = f.z;
+    x[4 * c + 3] = f.w;
+  }
+#pragma unroll
+  for (int c = 0; c < L::NS; ++c)
+    x[4 * L::NV4 + c] = row[64 * L::NV4 + tx + 16 * c];
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
 // acc[r][i] += sum_{j < n} P[4 ty + r][j] * V[j][column i of this thread],
 // n a multiple of 4 (rows past the live ones are 0 in P's columns).
 template <int D>
 __device__ __forceinline__ void tile_acc(const float* P, const float* V,
                                          int ty, int tx, int n,
                                          float (&acc)[RM][Layout<D>::DT]) {
-  using L = Layout<D>;
-  constexpr int QS = L::QS, NV4 = L::NV4, NS = L::NS, DT = L::DT;
+  constexpr int QS = D + 4, DT = Layout<D>::DT;
   for (int j = 0; j < n; j += 4) {
     float4 p4[RM];
 #pragma unroll
@@ -183,22 +230,11 @@ __device__ __forceinline__ void tile_acc(const float* P, const float* V,
       p4[r] = *reinterpret_cast<const float4*>(P + (RM * ty + r) * PS + j);
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
-      const float* vr = V + (j + jj) * QS;
       float vv[DT];
-#pragma unroll
-      for (int c = 0; c < NV4; ++c) {
-        const float4 x = *reinterpret_cast<const float4*>(vr + 4 * tx + 64 * c);
-        vv[4 * c] = x.x;
-        vv[4 * c + 1] = x.y;
-        vv[4 * c + 2] = x.z;
-        vv[4 * c + 3] = x.w;
-      }
-#pragma unroll
-      for (int c = 0; c < NS; ++c) vv[4 * NV4 + c] = vr[64 * NV4 + tx + 16 * c];
+      row_cols<D>(V + (j + jj) * QS, vv, tx);
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
-        const float p = jj == 0 ? p4[r].x : jj == 1 ? p4[r].y
-                      : jj == 2 ? p4[r].z : p4[r].w;
+        const float p = lane_of(p4[r], jj);
 #pragma unroll
         for (int i = 0; i < DT; ++i) acc[r][i] = fmaf(p, vv[i], acc[r][i]);
       }
@@ -206,123 +242,159 @@ __device__ __forceinline__ void tile_acc(const float* P, const float* V,
   }
 }
 
-// Row r of a 4 ty + r accumulator into y (B, S, NH, D) at (b, h).
+// acc[r][i] += sum_{j < n} P[j][4 ty + r] * K[j][column i of this thread]:
+// tile_acc through P's transpose (P's rows are keys here, the thread's
+// accumulator rows q rows), a float4 of P a key.
+template <int D>
+__device__ __forceinline__ void tile_acc_t(const float* P, const float* K,
+                                           int ty, int tx, int n,
+                                           float (&acc)[RM][Layout<D>::DT]) {
+  constexpr int QS = D + 4, DT = Layout<D>::DT;
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    const float4 p4 = *reinterpret_cast<const float4*>(P + j * PS + RM * ty);
+    float kk[DT];
+    row_cols<D>(K + j * QS, kk, tx);
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const float p = lane_of(p4, r);
+#pragma unroll
+      for (int i = 0; i < DT; ++i) acc[r][i] = fmaf(p, kk[i], acc[r][i]);
+    }
+  }
+}
+
+// Rows row0 + 4 ty + r (those below S) of an accumulator into y, row i at
+// y + i * stride.
 template <int D>
 __device__ __forceinline__ void store_rows(float* __restrict__ y,
+                                           size_t stride,
                                            const float (&acc)[RM][Layout<D>::DT],
-                                           int b, int row0, int S, int NH,
-                                           int h, int ty, int tx) {
+                                           int row0, int S, int ty, int tx) {
   using L = Layout<D>;
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     const int row = row0 + RM * ty + r;
     if (row >= S) continue;
-    float* yr = y + (((size_t)b * S + row) * NH + h) * D;
+    float* yr = y + row * stride;
 #pragma unroll
     for (int c = 0; c < L::NV4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        yr[4 * tx + 64 * c + e] = acc[r][4 * c + e];
+      *reinterpret_cast<float4*>(yr + 4 * tx + 64 * c) =
+          make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
+                      acc[r][4 * c + 3]);
 #pragma unroll
     for (int c = 0; c < L::NS; ++c)
       yr[64 * L::NV4 + tx + 16 * c] = acc[r][4 * L::NV4 + c];
   }
 }
 
+// delta = rowsum(dout * out) in fp32 for each of the `rows` (b, q row, h)
+// rows of (B, Sq, H, D), written to delta (B, H, Sq); a warp a row.
 template <int D>
-__global__ void __launch_bounds__(THREADS, D <= 80 ? 2 : 1)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ o,
-             const float* __restrict__ lse, const float* __restrict__ dout,
-             float* __restrict__ dq, float* __restrict__ delta, int Sq, int Skv,
-             int H, int KV, float scale, int causal, int window,
-             int q_offset) {
-  using L = Layout<D>;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem + L::T0;
-  float* dos = smem + L::T1;
-  float* ks = smem + L::T2;
-  float* vs = smem + L::T3;
-  float* ps = smem + L::P;
-  float* lse_s = smem + L::R0;
-  float* del_s = smem + L::R1;
-
-  const int n_qt = (Sq + BT - 1) / BT;
-  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
-  const int h = bh % H, b = bh / H, kvh = h / (H / KV);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-  const int q0 = qt * BT;
-  load_tile<D>(qs, q, b, q0, Sq, H, h);
-  load_tile<D>(dos, dout, b, q0, Sq, H, h);
-  __syncthreads();
-  // delta = rowsum(dO * O) in fp32, a warp a row
-  for (int r = warp; r < BT; r += THREADS / 32) {
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < Sq) {
-      const float* orow = o + (((size_t)b * Sq + row) * H + h) * D;
-      for (int d = lane; d < D; d += 32) acc += dos[r * L::QS + d] * orow[d];
-    }
-#pragma unroll
-    for (int o_ = 16; o_; o_ >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o_);
-    if (lane == 0) {
-      const size_t at = ((size_t)b * H + h) * Sq + row;
-      del_s[r] = acc;
-      lse_s[r] = row < Sq ? lse[at] : 0.f;
-      if (row < Sq) delta[at] = acc;
-    }
+__global__ void bwd_delta(const float* __restrict__ o,
+                          const float* __restrict__ dout,
+                          float* __restrict__ delta, long long rows, int Sq,
+                          int H) {
+  const long long row = blockIdx.x * (long long)(blockDim.x / 32) +
+                        threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float acc = 0.f;
+  for (int d = 4 * lane; d < D; d += 128) {
+    const float4 x = load4(o + row * D + d), y = load4(dout + row * D + d);
+    acc = fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, fmaf(x.x, y.x, acc))));
   }
-  // this warp's 8 rows (ty = 2 w, 2 w + 1); rows past Sq only help
-  const bool active = q0 + 8 * warp < Sq;
-  float acc[RM][L::DT];
 #pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int i = 0; i < L::DT; ++i) acc[r][i] = 0.f;
-
-  const int n_kt = (Skv + BT - 1) / BT;
-  for (int t = 0; t < n_kt; ++t) {
-    const int k0 = t * BT;
-    if (!tiles_meet(q0, BT, k0, BT, Sq, causal, window, q_offset)) continue;
-    __syncthreads();  // the last tile's readers are done (and delta is in)
-    load_tile<D>(ks, k, b, k0, Skv, KV, kvh);
-    load_tile<D>(vs, v, b, k0, Skv, KV, kvh);
-    __syncthreads();
-    const int n_live = imin(BT, Skv - k0);
-    if (active) {
-      float s[RM][KJ], dp[RM][KJ];
-      tile_dot<D>(qs, ks, ty, tx, (n_live + 15) / 16, s);
-      tile_dot<D>(dos, vs, ty, tx, (n_live + 15) / 16, dp);
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const int rr = RM * ty + r, qi = q0 + rr;
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          const int kj = k0 + tx + 16 * j;
-          const bool seen = qi < Sq && kj < Skv &&
-                            visible(qi + q_offset, kj, causal, window);
-          const float p = seen ? expf(s[r][j] * scale - lse_s[rr]) : 0.f;
-          ps[rr * PS + tx + 16 * j] =
-              p * (dp[r][j] - del_s[rr]) * scale;
-        }
-      }
-    }
-    __syncthreads();
-    if (active) tile_acc<D>(ps, ks, ty, tx, (n_live + 3) & ~3, acc);
+  for (int o_ = 16; o_; o_ >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o_);
+  if (lane == 0) {
+    const long long bs = row / H;  // b * Sq + q row
+    delta[((bs / Sq) * H + row % H) * Sq + bs % Sq] = acc;
   }
-  if (active) store_rows<D>(dq, acc, b, q0, Sq, H, h, ty, tx);
 }
 
+// The thin tiles: a key tile or a q tile with at most 8 live rows (S = 257
+// is four 64-row tiles and one row). The 64 x 64 register tile would leave
+// one warp computing and seven waiting; a thin tile spreads its work over
+// the block instead, thread t on row t % 8 of the thin side. Each sum runs
+// in the register tile's order.
+
+// s[i] = A[a] . Bm[o + 32 i] and dp[i] = C[a] . E[o + 32 i] over D, for the
+// thin side's row a = t % 8 and the other side's rows o + 32 i, o = t / 8:
+// S and dO V^T of two pairs (K, V against Q, dO, or the reverse).
+template <int D>
+__device__ __forceinline__ void thin_dots(const float* A, const float* C,
+                                          const float* Bm, const float* E,
+                                          float (&s)[2], float (&dp)[2]) {
+  constexpr int QS = D + 4;
+  const int a = threadIdx.x % 8, o = threadIdx.x / 8;
+  s[0] = s[1] = dp[0] = dp[1] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(A + a * QS + d);
+    const float4 y = *reinterpret_cast<const float4*>(C + a * QS + d);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = (o + 32 * i) * QS + d;
+      const float4 b = *reinterpret_cast<const float4*>(Bm + row);
+      const float4 e = *reinterpret_cast<const float4*>(E + row);
+      s[i] = fmaf(x.w, b.w, fmaf(x.z, b.z,
+             fmaf(x.y, b.y, fmaf(x.x, b.x, s[i]))));
+      dp[i] = fmaf(y.w, e.w, fmaf(y.z, e.z,
+              fmaf(y.y, e.y, fmaf(y.x, e.x, dp[i]))));
+    }
+  }
+}
+
+// acc[0..3] += sum_{j < n} P[a][j] * X[j][4 g .. 4 g + 3] for P's row
+// a = t % 8 (stride sa, step sj along j) and the column group g = t / 8:
+// dV and dK of a thin key tile, and dQ of a thin q tile (through P's
+// transpose).
+template <int D>
+__device__ __forceinline__ void thin_acc(const float* P, int sa, int sj,
+                                         const float* X, int n,
+                                         float (&acc)[Layout<D>::DT]) {
+  constexpr int QS = D + 4;
+  const int g = threadIdx.x / 8;
+  if (4 * g >= D) return;
+  const float* pa = P + (threadIdx.x % 8) * sa;
+  const float* xg = X + 4 * g;
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    const float p = pa[j * sj];
+    const float4 x = *reinterpret_cast<const float4*>(xg + j * QS);
+    acc[0] = fmaf(p, x.x, acc[0]);
+    acc[1] = fmaf(p, x.y, acc[1]);
+    acc[2] = fmaf(p, x.z, acc[2]);
+    acc[3] = fmaf(p, x.w, acc[3]);
+  }
+}
+
+// Row row0 + t % 8 (below S) of a thin accumulator into y, row i at
+// y + i * stride.
+template <int D>
+__device__ __forceinline__ void thin_store(float* __restrict__ y,
+                                           size_t stride,
+                                           const float (&acc)[Layout<D>::DT],
+                                           int row0, int S) {
+  const int row = row0 + threadIdx.x % 8, g = threadIdx.x / 8;
+  if (row >= S || 4 * g >= D) return;
+  *reinterpret_cast<float4*>(y + row * stride + 4 * g) =
+      make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+
+// One block per (64-key tile, query head, sequence): K and V resident, the
+// q tiles that meet them streamed (Q, dO, lse, delta); per q tile it adds
+// P^T dO to dV and dS^T Q to dK, and writes dS K, this key tile's share of
+// those rows' dQ, to its slab of dq_part (B, n_kt, Sq, H, D).
 template <int D>
 __global__ void __launch_bounds__(THREADS, D <= 80 ? 2 : 1)
-flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ lse,
-               const float* __restrict__ delta, const float* __restrict__ dout,
-               float* __restrict__ dk, float* __restrict__ dv,
-               float* __restrict__ dk_part, float* __restrict__ dv_part,
-               int Sq, int Skv, int H, int KV, float scale, int causal,
-               int window, int q_offset) {
+flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ lse,
+              const float* __restrict__ delta, const float* __restrict__ dout,
+              float* __restrict__ dk, float* __restrict__ dv,
+              float* __restrict__ dk_part, float* __restrict__ dv_part,
+              float* __restrict__ dq_part, int Sq, int Skv, int H, int KV,
+              float scale, int causal, int window, int q_offset) {
   using L = Layout<D>;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem + L::T0;
@@ -333,38 +405,66 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   float* lse_s = smem + L::R0;
   float* del_s = smem + L::R1;
 
-  const int n_kt = (Skv + BT - 1) / BT;
+  const int n_kt = (Skv + BT - 1) / BT, n_qt = (Sq + BT - 1) / BT;
   const int kt = blockIdx.x % n_kt, bh = blockIdx.x / n_kt;
   const int h = bh % H, b = bh / H, G = H / KV, kvh = h / G;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k0 = kt * BT;
-  load_tile<D>(ks, k, b, k0, Skv, KV, kvh);
-  load_tile<D>(vs, v, b, k0, Skv, KV, kvh);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16, warp = tid / 32;
+  const int k0 = kt * BT, n_keys = imin(BT, Skv - k0);
+  const bool thin_k = n_keys <= 8;
+  const size_t at = ((size_t)b * H + h) * Sq;
+  float* dq_rows = dq_part + (((size_t)b * n_kt + kt) * Sq * H + h) * D;
+  // the q tiles that can meet this key tile, in order
+  auto next_qt = [&](int t) {
+    do ++t;
+    while (t < n_qt &&
+           !tiles_meet(t * BT, BT, k0, BT, Sq, causal, window, q_offset));
+    return t;
+  };
+  auto copy_q = [&](int t) { copy_tile<D>(qs, q, b, t * BT, Sq, H, h); };
+  auto copy_do = [&](int t) {
+    copy_tile<D>(dos, dout, b, t * BT, Sq, H, h);
+    copy_rows(lse_s, del_s, lse, delta, at, t * BT, Sq);
+  };
+  copy_tile<D>(ks, k, b, k0, Skv, KV, kvh);
+  copy_tile<D>(vs, v, b, k0, Skv, KV, kvh);
+  int qt = next_qt(-1);
+  if (qt < n_qt) {
+    copy_q(qt);
+    copy_do(qt);
+  }
+  hopper::cp_async_commit();
   // this warp's 8 keys; keys past Skv only help
-  const bool active = k0 + 8 * (tid / 32) < Skv;
+  const bool active = !thin_k && k0 + 8 * warp < Skv;
+  // a thin key tile keeps its dK, dV in row 0 (thin_acc's columns)
   float dk_acc[RM][L::DT], dv_acc[RM][L::DT];
 #pragma unroll
   for (int r = 0; r < RM; ++r)
 #pragma unroll
     for (int i = 0; i < L::DT; ++i) dk_acc[r][i] = dv_acc[r][i] = 0.f;
 
-  const int n_qt = (Sq + BT - 1) / BT;
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * BT;
-    if (!tiles_meet(q0, BT, k0, BT, Sq, causal, window, q_offset)) continue;
-    __syncthreads();  // the last q tile's readers are done
-    load_tile<D>(qs, q, b, q0, Sq, H, h);
-    load_tile<D>(dos, dout, b, q0, Sq, H, h);
-    for (int r = tid; r < BT; r += THREADS) {
-      const int row = q0 + r;
-      const size_t at = ((size_t)b * H + h) * Sq + row;
-      lse_s[r] = row < Sq ? lse[at] : 0.f;
-      del_s[r] = row < Sq ? delta[at] : 0.f;
-    }
-    __syncthreads();
+  while (qt < n_qt) {
+    const int q0 = qt * BT, nxt = next_qt(qt);
     const int n_live = imin(BT, Sq - q0);
-    float ds[RM][KJ];
-    if (active) {
+    const bool thin = thin_k || n_live <= 8;
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // this q tile landed; the last one's dQ reads are done
+    float ds[RM][KJ];  // a thin tile keeps its two dS in ds[0]
+    if (thin) {  // pairs (t % 8, t / 8 + 32 i) of (thin side, other side)
+      float ts[2], tdp[2];
+      if (thin_k) thin_dots<D>(ks, vs, qs, dos, ts, tdp);
+      else thin_dots<D>(qs, dos, ks, vs, ts, tdp);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int a = tid % 8, o = tid / 8 + 32 * i;
+        const int key = thin_k ? a : o, c = thin_k ? o : a;
+        const int kj = k0 + key, qi = q0 + c;
+        const bool seen = qi < Sq && kj < Skv &&
+                          visible(qi + q_offset, kj, causal, window);
+        const float p = seen ? expf(ts[i] * scale - lse_s[c]) : 0.f;
+        ds[0][i] = p * (tdp[i] - del_s[c]) * scale;
+        ps[key * PS + c] = p;
+      }
+    } else if (active) {
       float s[RM][KJ];
       tile_dot<D>(ks, qs, ty, tx, (n_live + 15) / 16, s);
       tile_dot<D>(vs, dos, ty, tx, (n_live + 15) / 16, ds);
@@ -383,9 +483,18 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    if (active) tile_acc<D>(ps, dos, ty, tx, (n_live + 3) & ~3, dv_acc);
-    __syncthreads();  // P is read: dS goes there
-    if (active) {
+    if (thin_k) thin_acc<D>(ps, PS, 1, dos, n_live, dv_acc[0]);
+    else if (active) tile_acc<D>(ps, dos, ty, tx, (n_live + 3) & ~3, dv_acc);
+    __syncthreads();  // P, dO, lse and delta are read: the next ones come in
+    if (nxt < n_qt) copy_do(nxt);
+    hopper::cp_async_commit();
+    if (thin) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int a = tid % 8, o = tid / 8 + 32 * i;
+        ps[(thin_k ? a : o) * PS + (thin_k ? o : a)] = ds[0][i];
+      }
+    } else if (active) {
 #pragma unroll
       for (int r = 0; r < RM; ++r)
 #pragma unroll
@@ -393,14 +502,69 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
           ps[(RM * ty + r) * PS + tx + 16 * j] = ds[r][j];
     }
     __syncthreads();
-    if (active) tile_acc<D>(ps, qs, ty, tx, (n_live + 3) & ~3, dk_acc);
+    if (thin_k) thin_acc<D>(ps, PS, 1, qs, n_live, dk_acc[0]);
+    else if (active) tile_acc<D>(ps, qs, ty, tx, (n_live + 3) & ~3, dk_acc);
+    __syncthreads();  // Q is read: the next one comes in
+    if (nxt < n_qt) copy_q(nxt);
+    hopper::cp_async_commit();
+    // dS K: this key tile's share of the q rows' dQ
+    if (n_live <= 8) {
+      float acc[L::DT] = {};
+      thin_acc<D>(ps, 1, PS, ks, n_keys, acc);
+      thin_store<D>(dq_rows, (size_t)H * D, acc, q0, Sq);
+    } else if (q0 + 8 * warp < Sq) {
+      float acc[RM][L::DT];
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int i = 0; i < L::DT; ++i) acc[r][i] = 0.f;
+      tile_acc_t<D>(ps, ks, ty, tx, (n_keys + 3) & ~3, acc);
+      store_rows<D>(dq_rows, (size_t)H * D, acc, q0, Sq, ty, tx);
+    }
+    qt = nxt;
   }
-  if (active && G == 1) {
-    store_rows<D>(dk, dk_acc, b, k0, Skv, KV, kvh, ty, tx);
-    store_rows<D>(dv, dv_acc, b, k0, Skv, KV, kvh, ty, tx);
-  } else if (active) {  // this head's fp32 share, summed by reduce_heads
-    store_rows<D>(dk_part, dk_acc, b, k0, Skv, H, h, ty, tx);
-    store_rows<D>(dv_part, dv_acc, b, k0, Skv, H, h, ty, tx);
+  hopper::cp_async_wait<0>();  // no copy outlives the block
+  const size_t off = G == 1 ? (size_t)b * Skv * KV + kvh
+                            : (size_t)b * Skv * H + h;
+  const size_t stride = (size_t)(G == 1 ? KV : H) * D;
+  // G > 1: this head's fp32 share, summed by reduce_heads
+  float* yk = (G == 1 ? dk : dk_part) + off * D;
+  float* yv = (G == 1 ? dv : dv_part) + off * D;
+  if (thin_k) {
+    thin_store<D>(yk, stride, dk_acc[0], k0, Skv);
+    thin_store<D>(yv, stride, dv_acc[0], k0, Skv);
+  } else if (active) {
+    store_rows<D>(yk, stride, dk_acc, k0, Skv, ty, tx);
+    store_rows<D>(yv, stride, dv_acc, k0, Skv, ty, tx);
+  }
+}
+
+// dq (B, Sq, H, D) from the key tiles' shares dq_part (B, n_kt, Sq, H, D):
+// for each row, the shares of the key tiles that meet its q tile (the
+// others were never written) summed in key-tile order kt = 0 .. n_kt - 1.
+// Four elements a thread.
+__global__ void sum_key_tiles(const float* __restrict__ part,
+                              float* __restrict__ dq, long long n4, int Sq,
+                              int HD, int n_kt, int causal, int window,
+                              int q_offset) {
+  const int HD4 = HD / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long bs = i / HD4;  // b * Sq + q row
+    const int row = (int)(bs % Sq), c = (int)(i % HD4) * 4;
+    const int q0 = row / BT * BT;
+    const float* p = part + ((bs / Sq) * n_kt * Sq + row) * HD + c;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = 0; t < n_kt; ++t) {
+      if (!tiles_meet(q0, BT, t * BT, BT, Sq, causal, window, q_offset))
+        continue;
+      const float4 x = load4(p + (size_t)t * Sq * HD);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    *reinterpret_cast<float4*>(dq + bs * HD + c) = acc;
   }
 }
 
@@ -870,31 +1034,33 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
                const float* lse, const void* dout, void* dq, void* dk,
                void* dv, float* delta, float* dk_part, float* dv_part, int B,
                int Sq, int Skv, int H, int KV, float scale, int causal,
-               int window, int q_offset, cudaStream_t stream) {
+               int window, int q_offset, cudaStream_t stream,
+               float* dq_part) {
   const int smem = (int)sizeof(float) * Layout<D>::FLOATS;
-  auto k_dq = flash_bwd_dq<D>;
-  auto k_kv = flash_bwd_dkdv<D>;
-  cudaError_t err = set_smem(k_dq, smem);
-  if (err == cudaSuccess) err = set_smem(k_kv, smem);
+  auto kern = flash_bwd_f32<D>;
+  cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long g_dq = (long long)B * H * ((Sq + BT - 1) / BT);
-  const long long g_kv = (long long)B * H * ((Skv + BT - 1) / BT);
-  if (g_dq > 2147483647LL || g_kv > 2147483647LL)
+  const int n_kt = (Skv + BT - 1) / BT;
+  const long long rows = (long long)B * Sq * H;
+  const long long grid = (long long)B * H * n_kt;
+  if (grid > 2147483647LL || (rows + 7) / 8 > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  const float* tq = static_cast<const float*>(q);
-  const float* tk = static_cast<const float*>(k);
-  const float* tv = static_cast<const float*>(v);
   const float* tdo = static_cast<const float*>(dout);
-  k_dq<<<(unsigned)g_dq, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<const float*>(o), lse, tdo,
-      static_cast<float*>(dq), delta, Sq, Skv, H, KV, scale, causal, window,
-      q_offset);
+  bwd_delta<D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const float*>(o), tdo, delta, rows, Sq, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  k_kv<<<(unsigned)g_kv, THREADS, smem, stream>>>(
-      tq, tk, tv, lse, delta, tdo, static_cast<float*>(dk),
-      static_cast<float*>(dv), dk_part, dv_part, Sq, Skv, H, KV, scale,
-      causal, window, q_offset);
+  kern<<<(unsigned)grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), lse, delta, tdo, static_cast<float*>(dk),
+      static_cast<float*>(dv), dk_part, dv_part, dq_part, Sq, Skv, H, KV,
+      scale, causal, window, q_offset);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long n4 = rows * D / 4, blocks = (n4 + 255) / 256;
+  sum_key_tiles<<<(unsigned)(blocks < 65535 ? blocks : 65535), 256, 0,
+                  stream>>>(dq_part, static_cast<float*>(dq), n4, Sq, H * D,
+                            n_kt, causal, window, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess || H == KV) return (int)err;
   return launch_reduce<float>(dk_part, dv_part, dk, dv, B, Skv, KV, H / KV, D,
@@ -905,21 +1071,23 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
 
 // is_bf16 picks the element type (bf16 or f32, all tensors alike but lse
 // and delta, f32); D is 64, 80 or 128. delta (B, H, Sq) f32 is scratch the
-// dQ kernel writes and the dK/dV kernel reads; dk_part and dv_part
-// (B, Skv, H, D) f32 are scratch for H > KV (null otherwise). Returns a
-// cudaError_t.
+// first kernel writes and the others read; dk_part and dv_part
+// (B, Skv, H, D) f32 are scratch for H > KV (null otherwise); dq_part
+// (B, ceil(Skv / 64), Sq, H, D) f32 is the f32 path's scratch for the key
+// tiles' shares of dQ (null for bf16). Returns a cudaError_t.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* out, const float* lse,
                                 const void* dout, void* dq, void* dk,
                                 void* dv, float* delta, float* dk_part,
-                                float* dv_part, int B, int Sq, int Skv, int H,
-                                int KV, int D, int is_bf16, float scale,
-                                int causal, int window, int q_offset,
-                                cudaStream_t stream) {
+                                float* dv_part, float* dq_part, int B, int Sq,
+                                int Skv, int H, int KV, int D, int is_bf16,
+                                float scale, int causal, int window,
+                                int q_offset, cudaStream_t stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV)
     return (int)cudaErrorInvalidValue;
   if (H > KV && (dk_part == nullptr || dv_part == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (!is_bf16 && dq_part == nullptr) return (int)cudaErrorInvalidValue;
 #define BWD_ARGS q, k, v, out, lse, dout, dq, dk, dv, delta, dk_part, \
                  dv_part, B, Sq, Skv, H, KV, scale, causal, window, q_offset, \
                  stream
@@ -931,9 +1099,9 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
     }
   } else {
     switch (D) {
-      case 64: return launch_f32<64>(BWD_ARGS);
-      case 80: return launch_f32<80>(BWD_ARGS);
-      case 128: return launch_f32<128>(BWD_ARGS);
+      case 64: return launch_f32<64>(BWD_ARGS, dq_part);
+      case 80: return launch_f32<80>(BWD_ARGS, dq_part);
+      case 128: return launch_f32<128>(BWD_ARGS, dq_part);
     }
   }
 #undef BWD_ARGS

@@ -7,10 +7,13 @@ contiguous) and returns (out (B, Sq, H, D) in the input dtype, lse
 
 ``flash_bwd_cuda`` binds the backward (``csrc/flash_bwd.cu``): the same
 layouts plus out, lse and dout, returning (dq, dk, dv) in the input dtype.
-bf16 runs the wgmma kernels, f32 the FMA kernels, both on 64 x 64 tiles.
-Under GQA its dK/dV grid has a block per query head, each writing fp32
-partials that a third kernel sums over the group in head order
-(``reduce_head_partials`` is the plain mirror of that sum).
+bf16 runs two wgmma kernels (dQ, then dK/dV), f32 one pass on the FMA
+units: a block per key tile of ``BWD_KEY_TILE`` keys accumulates its dK and
+dV and writes its fp32 share of dQ to a slab, and a last kernel sums the
+slabs in key-tile order (``sum_key_tile_partials`` is the plain mirror of
+that sum). Under GQA the dK/dV grid has a block per query head, each
+writing fp32 partials that another kernel sums over the group in head
+order (``reduce_head_partials`` is the plain mirror of that sum).
 
 ``kv_tile_range`` and ``keyless_row`` mirror the CUDA arithmetic that
 decides which key tiles a q tile visits, ``tiles_meet`` the backward's
@@ -34,6 +37,8 @@ HEAD_DIMS = (64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # (q rows, keys) of a tile, by path
 TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
+# keys of the backward's key tile (the f32 path writes one dQ share each)
+BWD_KEY_TILE = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,7 +56,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_fn():
     fn = build.load("flash_bwd").flash_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [_P] * 12 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P]
+    fn.argtypes = [_P] * 13 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P]
     return fn
 
 
@@ -115,6 +120,19 @@ def reduce_head_partials(part: torch.Tensor, KV: int,
     acc = p[:, :, :, 0]
     for g in range(1, H // KV):
         acc = acc + p[:, :, :, g]
+    return acc.to(dtype)
+
+
+def sum_key_tile_partials(part: torch.Tensor,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """dq (B, Sq, H, D) in ``dtype`` from the key tiles' fp32 shares
+    (B, n_kt, Sq, H, D) of the f32 backward: summed in key-tile order
+    kt = 0 .. n_kt - 1, then cast, as ``csrc/flash_bwd.cu::sum_key_tiles``
+    sums them (it skips the tiles ``tiles_meet`` rules out for a row's q
+    tile, whose shares are 0)."""
+    acc = part[:, 0]
+    for t in range(1, part.shape[1]):
+        acc = acc + part[:, t]
     return acc.to(dtype)
 
 
@@ -220,6 +238,10 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # kernel's last pass
     part = (torch.empty((2, B, Skv, H, D), dtype=torch.float32, device=dev)
             if H > KV else None)
+    # f32: each key tile's fp32 share of dQ, summed in key-tile order
+    dq_part = (None if q.dtype == torch.bfloat16 else torch.empty(
+        (B, -(-Skv // BWD_KEY_TILE), Sq, H, D), dtype=torch.float32,
+        device=dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _bwd_fn()(
@@ -227,8 +249,9 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(),
             None if part is None else part[0].data_ptr(),
-            None if part is None else part[1].data_ptr(), B, Sq, Skv, H, KV, D,
-            int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
-            int(window), int(q_offset), stream)
+            None if part is None else part[1].data_ptr(),
+            None if dq_part is None else dq_part.data_ptr(), B, Sq, Skv, H,
+            KV, D, int(q.dtype == torch.bfloat16), float(scale),
+            int(bool(causal)), int(window), int(q_offset), stream)
     build.check(err, "flash_bwd")
     return dq, dk, dv

@@ -8,7 +8,8 @@ saves q, k, v, out and lse, its backward runs the backward kernel on CUDA
 and ``attention_bwd_reference`` on the CPU. ``launches`` counts forward
 kernel launches, ``launches_by_head_dim`` splits that count by D (one
 shape per tower on the serving path), ``bwd_launches`` counts backward
-kernel launches (one a call: the dQ kernel and the dK/dV kernel).
+kernel launches (one a call: f32 delta, the one-pass kernel and the dQ
+sum; bf16 the dQ and dK/dV kernels).
 """
 from __future__ import annotations
 

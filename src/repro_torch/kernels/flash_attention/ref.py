@@ -113,7 +113,8 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                             causal: bool = True, window: int = 0,
                             q_offset: int = 0,
                             scale: Optional[float] = None,
-                            compute_dtype: torch.dtype = torch.float32
+                            compute_dtype: torch.dtype = torch.float32,
+                            grad_dtype: Optional[torch.dtype] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """(dq, dk, dv) in q's, k's, v's dtypes: the reference's recomputing
@@ -127,7 +128,8 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     dV, dS to k's (q's) dtype before dQ (dK), dO to v's dtype before
     dO V^T. ``compute_dtype=torch.float64`` runs the same arithmetic in
     float64 (the roundings kept): a yardstick of the fp32 versions' own
-    error."""
+    error. ``grad_dtype`` gives the gradients another dtype than the
+    inputs' (float64 keeps that yardstick unrounded)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -149,8 +151,30 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     dk = torch.einsum("bkgqj,bqkgd->bjkd", low(ds, q.dtype), qg)
     dv = torch.einsum("bkgqj,bqkgd->bjkd", low(p, do.dtype),
                       low(dog, do.dtype))
-    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    return (dq.reshape(B, Sq, H, D).to(grad_dtype or q.dtype),
+            dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype))
+
+
+# how far a backward kernel's bwd_rel_err may sit above the plain
+# version's in the same dtype
+REL_MULTIPLE = 4.0
+
+
+def bwd_rel_err(g: torch.Tensor, g64: torch.Tensor) -> float:
+    """max over the elements of |g - g64| / (|g64| + m), m the median |g64|
+    of the nonzero elements: a gradient's error relative to each element
+    of the float64 backward ``g64`` (``attention_bwd_reference`` with
+    ``compute_dtype=grad_dtype=torch.float64``), with a floor of the
+    tensor's typical element under the ones near 0. Where g64 is 0 (a row
+    that sees no key) g must be 0. A kernel is held to ``REL_MULTIPLE``
+    times the plain version's value, which ``bwd_limit`` cannot do below
+    |g| = 1."""
+    a = g64.double().abs()
+    nz = a[a > 0]
+    m = nz.median().item() if nz.numel() else 0.0
+    err = (g.double() - g64.double()).abs()
+    return torch.where(err == 0, torch.zeros_like(err),
+                       err / (a + m)).max().item()
 
 
 def bwd_limit(g_plain: torch.Tensor) -> torch.Tensor:

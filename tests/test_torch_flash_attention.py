@@ -9,6 +9,7 @@ from repro.kernels.flash_attention import ops as JO
 from repro.kernels.flash_attention.kernel import flash_fwd_pallas
 from repro_torch.kernels.flash_attention import ops as FO
 from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
+from test_torch_gpu import FLASH_BWD_CASES
 
 
 def _jax_pallas_fwd(q, k, v, *, causal, window, q_offset, block):
@@ -376,3 +377,108 @@ def test_reduce_head_partials_is_the_gqa_gradient(dtype, causal):
         assert torch.equal(got, order.to(dtype))  # heads kvh G + g, in order
         w = want.float() if dtype == torch.float32 else want
         assert ((got.float() - want.float()).abs() <= bwd_limit(w)).all()
+
+
+@pytest.mark.parametrize("causal,window,qoff", [(False, 0, 0), (True, 0, 0),
+                                                (True, 0, 40), (False, 50, 0),
+                                                (True, 30, -20)])
+def test_sum_key_tile_partials_is_the_f32_dq(causal, window, qoff):
+    """The f32 backward's one-pass dQ: each 64-key tile's fp32 share (the
+    plain backward over that tile's keys, positions shifted by q_offset)
+    summed in key-tile order by sum_key_tile_partials (the plain mirror of
+    csrc/flash_bwd.cu::sum_key_tiles) is the plain backward's dq, per
+    element within ref.bwd_limit; the shares of the (q tile, key tile)
+    pairs that tiles_meet rules out, which the kernel never writes, are 0.
+    Sq 70, Skv 130: three key tiles, the last of 2 keys."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_reference, bwd_limit)
+    B, Sq, Skv, H, KV, D, bt = 2, 70, 130, 4, 2, 64, FK.BWD_KEY_TILE
+    q, k, v = (torch.from_numpy(x) for x in _qkv(B, Sq, Skv, H, KV, D,
+                                                 seed=71))
+    do = torch.from_numpy(np.random.default_rng(72).standard_normal(
+        q.shape).astype(np.float32))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    out, lse = attention_fwd_reference(q, k, v, **kw)
+    dq = attention_bwd_reference(q, k, v, out, lse, do, **kw)[0]
+    shares = []
+    for k0 in range(0, Skv, bt):
+        share = attention_bwd_reference(
+            q, k[:, k0:k0 + bt], v[:, k0:k0 + bt], out, lse, do,
+            causal=causal, window=window, q_offset=qoff - k0)[0]
+        for q0 in range(0, Sq, bt):
+            if not FK.tiles_meet(q0, bt, k0, bt, Sq, **kw):
+                assert (share[:, q0:q0 + bt] == 0).all(), (q0, k0)
+        shares.append(share)
+    part = torch.stack(shares, 1)
+    assert part.shape == (B, -(-Skv // bt), Sq, H, D)
+    got = FK.sum_key_tile_partials(part, torch.float32)
+    order = part[:, 0]
+    for t in range(1, part.shape[1]):
+        order = order + part[:, t]
+    assert torch.equal(got, order)  # key tiles 0 .. n_kt - 1, in order
+    assert ((got - dq).abs() <= bwd_limit(dq)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,qoff",
+                         FLASH_BWD_CASES)
+def test_rel_gate_admits_another_summation_order(B, Sq, Skv, H, KV, D,
+                                                 causal, window, qoff,
+                                                 dtype):
+    """The float64-relative gate's floor (the median |g64| of the nonzero
+    elements) and multiple (REL_MULTIPLE = 4) at the card tests' cases: a
+    plain backward whose sums over D run in another order (the head dim
+    permuted) stays within the multiple of the plain version's
+    ref.bwd_rel_err (bf16: about 2^-8, the final rounding, where no
+    rounding flip of P or dS lands near 0). A smaller floor lets those
+    flips dominate the statistic."""
+    from repro_torch.kernels.flash_attention.ref import (
+        REL_MULTIPLE, attention_bwd_reference, bwd_rel_err)
+    rng = np.random.default_rng(Sq * D + Skv)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dtype)
+        for s in ((B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D),
+                  (B, Sq, H, D)))
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    out, lse = attention_fwd_reference(q, k, v, **kw)
+    plain = attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    g64 = attention_bwd_reference(q, k, v, out, lse, do,
+                                  compute_dtype=torch.float64,
+                                  grad_dtype=torch.float64, **kw)
+    perm = torch.from_numpy(rng.permutation(D))
+    other = attention_bwd_reference(*(x[..., perm] for x in (q, k, v, out)),
+                                    lse, do[..., perm], **kw)
+    inv = torch.argsort(perm)
+    for name, g, o, w in zip(("dq", "dk", "dv"), plain, other, g64):
+        assert bwd_rel_err(o[..., inv], w) <= REL_MULTIPLE * bwd_rel_err(
+            g, w), name
+
+
+def test_rel_gate_fails_a_dropped_key_tile():
+    """The float64-relative gate (ref.bwd_rel_err within REL_MULTIPLE times
+    the plain version's) against a bf16 plain backward that drops the last
+    key tile (causal, S 65: one 64-key tile and one key): it fails each of
+    dq, dk and dv, while ref.bwd_limit (one bf16 step at max(|g|, 1), an
+    absolute 2^-7 below |g| = 1) lets the faulty dq and dk through."""
+    from repro_torch.kernels.flash_attention.ref import (
+        REL_MULTIPLE, attention_bwd_reference, bwd_limit, bwd_rel_err)
+    B, S, H, D = 1, 65, 2, 64
+    rng = np.random.default_rng(2)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(torch.bfloat16) for s in [(B, S, H, D)] * 4)
+    kw = dict(causal=True, window=0, q_offset=0)
+    out, lse = attention_fwd_reference(q, k, v, **kw)
+    plain = attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    g64 = attention_bwd_reference(q, k, v, out, lse, do,
+                                  compute_dtype=torch.float64,
+                                  grad_dtype=torch.float64, **kw)
+    dq, dk, dv = attention_bwd_reference(q, k[:, :64], v[:, :64], out, lse,
+                                         do, **kw)
+    last = torch.zeros((B, 1, H, D), dtype=torch.bfloat16)
+    faulty = (dq, torch.cat([dk, last], 1), torch.cat([dv, last], 1))
+    for name, g, bad, w in zip(("dq", "dk", "dv"), plain, faulty, g64):
+        assert bwd_rel_err(bad, w) > REL_MULTIPLE * bwd_rel_err(g, w), name
+    for g, bad in zip(plain[:2], faulty[:2]):
+        assert ((bad.float() - g.float()).abs() <= bwd_limit(g)).all()

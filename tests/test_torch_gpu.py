@@ -612,6 +612,43 @@ def test_flash_bwd_kernel_matches_plain(gen, B, Sq, Skv, H, KV, D, causal,
         assert (got[0][:, keyless] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D,causal,window,q_offset",
+                         FLASH_BWD_CASES)
+def test_flash_bwd_kernel_within_float64_gate(gen, B, Sq, Skv, H, KV, D,
+                                              causal, window, q_offset,
+                                              dtype):
+    """dq, dk, dv of the CUDA backward against a float64 backward on the
+    same (q, k, v, out, lse, dout): ref.bwd_rel_err, the largest error
+    over |g64| + m (m the median |g64| of the nonzero elements), at most
+    ref.REL_MULTIPLE = 4 times the plain version's in the same dtype. On
+    the CPU over these cases the plain versions read 1e-6 to 2e-5 (f32)
+    and 2.5e-3 to 5.4e-3 (bf16, the final rounding: 2^-8 at most); a plain
+    version whose sums over D run in another order (a permuted head dim,
+    five seeds) read at most 1.6x (f32) and 3.1x (bf16) of it. A floor of
+    0.5 m let that reach 3.8x, 0.25 m 5.3x: rounding flips of P and dS in
+    elements near 0. This sees what ref.bwd_limit cannot below |g| = 1
+    (test_torch_flash_attention.py::test_rel_gate_fails_a_dropped_key_tile)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        REL_MULTIPLE, attention_bwd_reference, bwd_rel_err)
+    q = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, KV, D), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((B, Sq, H, D), generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    plain = attention_bwd_reference(q, k, v, out, lse, do, **kw)
+    g64 = attention_bwd_reference(q, k, v, out, lse, do,
+                                  compute_dtype=torch.float64,
+                                  grad_dtype=torch.float64, **kw)
+    for name, g, p, w in zip(("dq", "dk", "dv"), got, plain, g64):
+        err, err_plain = bwd_rel_err(g, w), bwd_rel_err(p, w)
+        assert err <= REL_MULTIPLE * err_plain, (name, err, err_plain)
+
+
 def test_flash_autograd_on_the_card_runs_the_backward_kernel(gen):
     """flash_attention under grad mode: torch.autograd.grad launches the
     backward kernel once and matches the plain version's gradients."""
