@@ -12,7 +12,7 @@ kernel against its plain PyTorch version at its path's shapes (the int4
 activation-cache kernels bit for bit; the grouped GEMM's side cases through
 both of its kernels, wgmma and mma.sync; the bf16 flash kernel against the
 plain variant that rounds P to bf16 per key tile, as the TPU kernel does,
-within one bf16 step of each element at max(|o|, 1)). Then it drives six
+within one bf16 step of each element at max(|o|, 1)). Then it drives seven
 paths, each with every launch counter set to 0 just before it and read
 just after:
 
@@ -30,6 +30,15 @@ just after:
     (drain, query_batch); ``heal_lm`` on qwen2-1.5b at full width and
     depth, one of its steps profiled, and on a 2-layer qwen3-moe-30b-a3b,
     where it must raise at the grouped GEMM (no backward yet);
+  * train: ``launch.train.train_loop`` on qwen2-1.5b at full width and
+    depth (3 steps of 8 x 4,096 tokens, 8 microbatches, remat; one
+    microbatch's kernel calls, forward, recompute and backward, held call
+    by call; a profiled step), a checkpoint round trip on a 2-layer qwen2
+    at full width (restored bit for bit, the restarted step's loss equal to
+    an uninterrupted run's), recall-imagebind's contrastive step over all
+    four towers at full width (batch 256, remat, 2 steps, a profiled
+    step), and a 2-layer qwen3-moe-30b-a3b train step, which must raise at
+    the grouped GEMM;
   * IVF: a 2^17-row ``clustered_sphere`` store at E = 1024 with an online
     IVF index (256 clusters, nprobe 8), queried through both pruned
     strategies and the dense fp32 path, held against the numpy oracles and
@@ -1242,16 +1251,18 @@ def _fp32_tree(tree):
 def _fan_in_d(params):
     """The same weights with the attention projections rescaled to fan-in
     d (``wq/wk/wv`` by sqrt(H/d), ``wo`` by 1/sqrt(H)): attention logits of
-    O(1) instead of the init's ~80."""
-    out = dict(params, towers=dict(params["towers"]))
-    for name, tp in params["towers"].items():
+    O(1) instead of the init's ~80 (a MEM tree of towers, or an LM's)."""
+    def rescale(tp):
         a = dict(tp["layers"]["attn"])
         _, d, H, _ = a["wq"].shape
         for w in ("wq", "wk", "wv"):
             a[w] = a[w] * (H / d) ** 0.5
         a["wo"] = a["wo"] / H ** 0.5
-        out["towers"][name] = dict(tp, layers=dict(tp["layers"], attn=a))
-    return out
+        return dict(tp, layers=dict(tp["layers"], attn=a))
+    if "towers" not in params:
+        return rescale(params)
+    return dict(params, towers={name: rescale(tp) for name, tp in
+                                params["towers"].items()})
 
 
 def check_fp32_end_to_end(params, spec, vision, text):
@@ -2407,11 +2418,12 @@ def check_flash_bwd(gen):
     key-tile sum; bf16: the dQ and dK/dV wgmma kernels) against the plain
     ``attention_bwd_reference`` at the forward kernel's out and lse: the
     heal shape (vision tower, B 32, fp32), the text tower's (B 64, bf16),
-    qwen2-1.5b's prefill (B 2, causal, GQA 6:1, bf16) and its heal_lm
-    batch (B 8, S 512), per element within ``ref.bwd_limit`` (1e-5 at
-    max(|g|, 1) fp32, one bf16 step bf16) and against a float64 backward
-    by ``ref.bwd_rel_err`` (printed at every shape; at the heal shape held
-    within ``ref.REL_MULTIPLE`` times the plain version's); timed eager
+    qwen2-1.5b's prefill (B 2, causal, GQA 6:1, bf16), its heal_lm
+    batch (B 8, S 512) and its train microbatch (B 1, S 4,096), per element
+    within ``ref.bwd_limit`` (1e-5 at max(|g|, 1) fp32, one bf16 step
+    bf16) and against a float64 backward by ``ref.bwd_rel_err`` (held at
+    every shape within ``ref.REL_MULTIPLE`` times the plain version's: below
+    |g| = 1 the bf16 ``bwd_limit`` is an absolute 2^-7); timed eager
     and by graph replay beside the plain version and SDPA's backward
     (autograd of ``F.scaled_dot_product_attention``, for comparison only),
     and profiled for the split between its kernels."""
@@ -2426,7 +2438,8 @@ def check_flash_bwd(gen):
             ("heal", 32, 257, 16, 16, 80, torch.float32, False),
             ("text", 64, 78, 16, 16, 64, torch.bfloat16, False),
             ("lm", 2, 2048, 12, 2, 128, torch.bfloat16, True),
-            ("heal_lm", 8, 512, 12, 2, 128, torch.bfloat16, True)):
+            ("heal_lm", 8, 512, 12, 2, 128, torch.bfloat16, True),
+            ("train", 1, 4096, 12, 2, 128, torch.bfloat16, True)):
         q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
         k, v = (torch.randn((B, S, KV, D), generator=gen,
                             device="cuda").to(dtype) for _ in range(2))
@@ -2455,8 +2468,7 @@ def check_flash_bwd(gen):
         del g64
         rel_txt = "/".join(f"{a:.2e} (plain {b:.2e})"
                            for a, b in zip(rel, rel_plain))
-        if what == "heal" and not all(
-                a <= REL_MULTIPLE * b for a, b in zip(rel, rel_plain)):
+        if not all(a <= REL_MULTIPLE * b for a, b in zip(rel, rel_plain)):
             _fail(f"flash backward {what}: error against float64 relative "
                   f"to each element, dq/dk/dv {rel_txt}, over "
                   f"{REL_MULTIPLE} times the plain version's")
@@ -2612,19 +2624,168 @@ def _lora_leaves(lora):
     return leaves, [leaves[t][k] for t in leaves for k in leaves[t]]
 
 
+def _flash_bwd_tc_scores(q, k, v, out, lse, do, *, causal=True, window=0,
+                         q_offset=0, scale=None):
+    """``ref.attention_bwd_reference`` (fp32) with S = Q K^T from cuBLAS's
+    bf16 tensor-core matmul (fp32 accumulate and output) in place of fp32
+    sums of the bf16 inputs: a plain version whose P falls on the side of
+    each bf16 rounding that a tensor-core sum of S sends it to."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    low = lambda x, dt: x.to(dt).float()
+    qg = q.reshape(B, Sq, KV, G, D)
+    s = torch.bmm(qg.permute(0, 2, 3, 1, 4).reshape(B * KV, G * Sq, D),
+                  k.permute(0, 2, 3, 1).reshape(B * KV, D, Skv),
+                  out_dtype=torch.float32).view(B, KV, G, Sq, Skv) * scale
+    dog = do.reshape(B, Sq, KV, G, D)
+    delta = (dog.float() * out.reshape(B, Sq, KV, G, D).float()).sum(-1)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None]),
+                    torch.zeros_like(s))
+    dp = torch.einsum("bqkgd,bjkd->bkgqj", low(dog, v.dtype), v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+    dq = torch.einsum("bkgqj,bjkd->bqkgd", low(ds, k.dtype), k.float())
+    dk = torch.einsum("bkgqj,bqkgd->bjkd", low(ds, q.dtype), qg.float())
+    dv = torch.einsum("bkgqj,bqkgd->bjkd", low(p, do.dtype),
+                      low(dog, do.dtype))
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _bwd_call_checker():
+    """(both, worst, calls, tc): ``both(name, kernel_fn, plain_fn,
+    witness_fn=None)`` wraps a backward dispatch (flash attention's or
+    RMSNorm's) so that each call also runs the plain version on the same
+    inputs, in fp32 and in float64, and fails when the kernel's gradients
+    stray; ``worst`` collects each
+    name's (largest share of its limit, largest kernel error against
+    float64 over the largest gradient), ``calls`` the call counts.
+
+    fp32 activations (a heal step): each gradient of the kernel within
+    twice the fp32 plain version's own error against the plain version run
+    in float64 (``compute_dtype``), or within 1e-5 of its largest element
+    where that is larger, plus one bf16 step of the element for a bf16
+    output (a norm's dscale in the scale's bf16, whose rounding may flip).
+    (The per-element ``bwd_limit`` holds the random-input gates; on these
+    activations the init's attention logits reach ~80, whose fp32 rounding
+    alone puts ~5e-6 of relative error into P before dS = P (dP - delta)
+    cancels, and a norm's dscale sums 8,224 rows that cancel to 1e-3 of
+    their size, so an fp32 result's error follows the terms, not the
+    result.)
+
+    bf16 activations (an LM train step): each gradient per element within
+    ``bwd_limit`` of the plain version (a dscale, a sum over rows, within
+    one bf16 step of its largest element), and each element's error
+    against the float64 gradient of the call's inputs, relative to the
+    element (``ref.bwd_rel_err``), within ``ref.REL_MULTIPLE`` times the
+    plain version's. That float64 gradient rounds nothing, unlike the
+    g64 that ``bwd_rel_err`` documents and the kernel phase uses
+    (``compute_dtype=grad_dtype=float64``, which keeps the plain
+    version's roundings of P and dS to bf16). Where ``witness_fn`` is
+    given (the flash backward), each bf16 call also reads the kernel's,
+    the plain version's and the witness's error against that rounding
+    yardstick, and fails where the kernel's passes ``REL_MULTIPLE`` times
+    the witness's; ``tc`` collects the worst ratios to the plain
+    version's. The witness is the plain version with S from a bf16
+    tensor-core matmul, as the kernel sums it: on qwen2's train
+    activations its ratio equals the kernel's (up to 5x at dV), so the
+    kernel's excess over the plain version there is where a tensor-core
+    S sends P's bf16 roundings, not a fault of the kernel."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import (REL_MULTIPLE,
+                                                         bwd_limit,
+                                                         bwd_rel_err)
+    worst, calls, tc = {}, {}, {}
+
+    def f32_gate(name, i, g, w, e):
+        e = e.double()
+        diff = (g.double() - e).abs()
+        e_k = diff.max().item()
+        e_p = (w.double() - e).abs().max().item()
+        lim = max(2 * e_p, 1e-5 * e.abs().max().item())
+        if g.dtype == torch.bfloat16:  # the output's own rounding
+            diff = diff - 2.0 ** -7 * e.abs()
+        if not diff.max().item() <= lim:
+            _fail(f"{name} call {calls[name]} output {i} "
+                  f"{tuple(g.shape)}: kernel err {e_k:.3e} "
+                  f"against float64, the fp32 plain version's "
+                  f"{e_p:.3e}, limit {lim:.3e}")
+        return diff.max().item() / lim, e_k / e.abs().max().item()
+
+    def bf16_gate(name, i, g, w, e):
+        diff = (g.float() - w.float()).abs()
+        if g.dim() == 1:  # a norm's dscale
+            over = diff.max().item() / (2.0 ** -7 * max(
+                1.0, w.float().abs().max().item()))
+        else:
+            over = (diff / bwd_limit(w)).max().item()
+        rel_k, rel_p = bwd_rel_err(g, e), bwd_rel_err(w, e)
+        if not (over <= 1.0 and rel_k <= REL_MULTIPLE * rel_p):
+            _fail(f"{name} call {calls[name]} output {i} "
+                  f"{tuple(g.shape)}: {over:.3f} of the per-element "
+                  f"limit; against float64 relative to each element "
+                  f"{rel_k:.3e}, the plain version's {rel_p:.3e} (at "
+                  f"most {REL_MULTIPLE} times)")
+        return max(over, rel_k / max(rel_p, 1e-300) / REL_MULTIPLE), \
+            (g.double() - e.double()).abs().max().item() / max(
+                e.double().abs().max().item(), 1e-300)
+
+    def witness(name, args, kw, got, want, witness_fn):
+        """Each output's kernel and witness errors against the rounding
+        yardstick, over the plain version's; the worst kept in ``tc``."""
+        rounded = plain_fn_of[name](*args, compute_dtype=torch.float64,
+                                    grad_dtype=torch.float64, **kw)
+        wit = witness_fn(*args, **kw)
+        for i, (g, w, t, e) in enumerate(zip(got, want, wit, rounded)):
+            rel_p = max(bwd_rel_err(w, e), 1e-300)
+            rel_k, rel_t = bwd_rel_err(g, e), bwd_rel_err(t, e)
+            if not rel_k <= REL_MULTIPLE * rel_t:
+                _fail(f"{name} call {calls[name]} output {i} "
+                      f"{tuple(g.shape)}: against the rounding float64 "
+                      f"yardstick {rel_k:.3e}, the tensor-core-S witness's "
+                      f"{rel_t:.3e} (at most {REL_MULTIPLE} times)")
+            k_r, t_r = rel_k / rel_p, rel_t / rel_p
+            old = tc.get((name, i), (0.0, 0.0, 0))
+            if k_r > old[0]:
+                old = (k_r, t_r, calls[name])
+            tc[(name, i)] = old
+
+    plain_fn_of = {}
+
+    def both(name, kernel_fn, plain_fn, witness_fn=None):
+        plain_fn_of[name] = plain_fn
+
+        def run(*args, **kw):
+            got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
+            calls[name] = calls.get(name, 0) + 1
+            if args[0].dtype == torch.bfloat16:
+                gate = bf16_gate
+                exact = plain_fn(*(a.double() if torch.is_tensor(a) else a
+                                   for a in args), **kw)
+                if witness_fn is not None:
+                    witness(name, args, kw, got, want, witness_fn)
+            else:
+                gate = f32_gate
+                exact = plain_fn(*args, compute_dtype=torch.float64, **kw)
+            for i, (g, w, e) in enumerate(zip(got, want, exact)):
+                share, rel = gate(name, i, g, w, e)
+                old = worst.get(name, (0.0, 0.0))
+                worst[name] = (max(old[0], share), max(old[1], rel))
+            return got
+        return run
+    return both, worst, calls, tc
+
+
 def check_heal_step_calls(params, spec, lora, x):
     """Every backward kernel call of one heal step (the loss of every exit)
     against its plain version on the same inputs, both measured against
-    the plain version run in float64 (``compute_dtype``): each gradient of
-    the kernel within twice the fp32 plain version's own error, or within
-    1e-5 of its largest element where that is larger, plus one bf16 step of
-    the element for a bf16 output (a norm's dscale in the scale's bf16,
-    whose rounding may flip). (The per-element
-    ``bwd_limit`` holds the random-input gates; on these activations the
-    init's attention logits reach ~80, whose fp32 rounding alone puts
-    ~5e-6 of relative error into P before dS = P (dP - delta) cancels, and
-    a norm's dscale sums 8,224 rows that cancel to 1e-3 of their size, so
-    an fp32 result's error follows the terms, not the result.)"""
+    the plain version run in float64 (``_bwd_call_checker``'s fp32
+    gates)."""
     import torch
     from unittest import mock
     from repro_torch.core import healing as H
@@ -2633,31 +2794,7 @@ def check_heal_step_calls(params, spec, lora, x):
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_reference
     cfg, rc = spec.model, spec.recall
-    worst, calls = {}, {}
-
-    def both(name, kernel_fn, plain_fn):
-        def run(*args, **kw):
-            got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
-            exact = plain_fn(*args, compute_dtype=torch.float64, **kw)
-            calls[name] = calls.get(name, 0) + 1
-            for i, (g, w, e) in enumerate(zip(got, want, exact)):
-                e = e.double()
-                diff = (g.double() - e).abs()
-                e_k = diff.max().item()
-                e_p = (w.double() - e).abs().max().item()
-                lim = max(2 * e_p, 1e-5 * e.abs().max().item())
-                if g.dtype == torch.bfloat16:  # the output's own rounding
-                    diff = diff - 2.0 ** -7 * e.abs()
-                old = worst.get(name, (0.0, 0.0))
-                worst[name] = (max(old[0], diff.max().item() / lim),
-                               max(old[1], e_k / e.abs().max().item()))
-                if not diff.max().item() <= lim:
-                    _fail(f"{name} call {calls[name]} output {i} "
-                          f"{tuple(g.shape)}: kernel err {e_k:.3e} "
-                          f"against float64, the fp32 plain version's "
-                          f"{e_p:.3e}, limit {lim:.3e}")
-            return got
-        return run
+    both, worst, calls, _ = _bwd_call_checker()
 
     n_exits = len(rc.exit_layers(cfg.tower("vision").n_layers))
     t = _vision_targets(params, spec, x)
@@ -3024,6 +3161,484 @@ def heal_phase():
 
 
 
+# ---------------------------------------------------------------------------
+# the training step (launch.train.train_loop) on the card
+# ---------------------------------------------------------------------------
+
+
+def _no_grad(fn):
+    import torch
+
+    def run(*args, **kw):
+        with torch.no_grad():
+            return fn(*args, **kw)
+    return run
+
+
+def _train_step_launches(L: int, microbatches: int) -> dict:
+    """The kernels' launches of one LM train step under remat: a
+    microbatch runs L layers forward, then each layer again in the
+    backward (flash one a layer, rmsnorm two), the final norm once, and
+    the backward of each (the first norm's input, the embedding rows,
+    needs its gradient too)."""
+    return {"flash_attention_fwd": microbatches * 2 * L,
+            "flash_attention_bwd": microbatches * L,
+            "rmsnorm": microbatches * (2 * 2 * L + 1),
+            "rmsnorm_bwd": microbatches * (2 * L + 1)}
+
+
+def _mem_step_launches(cfg) -> dict:
+    """The same for a contrastive MEM step over every tower (remat): each
+    tower's layers twice forward and once backward, its exit head's norm
+    once each way."""
+    L = sum(t.n_layers for t in cfg.towers)
+    n = len(cfg.towers)
+    return {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm": 4 * L + n, "rmsnorm_bwd": 2 * L + n}
+
+
+def check_train_step_calls(params, cfg, rc, mb, chunk):
+    """Every kernel call of one LM microbatch's forward and backward under
+    remat (the forward, the layers' recompute, the backward) against its
+    plain version on the same inputs: the forward calls by
+    ``_call_checker`` (one bf16 step of the output's scale), the backward
+    calls by ``_bwd_call_checker``'s bf16 gates. Run it on weights with
+    the attention at fan-in d (``_fan_in_d``): at the init's near one-hot
+    attention (logits of std ~100) the plain version's own dK lies 0.7 of
+    each element from a float64 backward with its roundings (qwen2 on the
+    H100): the gradient there is rounding noise, and no gate against
+    float64 holds a kernel to anything."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_reference
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_reference,
+                                                 rmsnorm_reference)
+    from repro_torch.models import layers, transformer as T
+    from repro_torch.optim.adamw import value_and_grad
+    rel_tol = 2.0 ** -7
+    fwd, f_worst, f_calls = _call_checker(rel_tol)
+    bwd, b_worst, b_calls, tc = _bwd_call_checker()
+    with mock.patch.object(T, "flash_attention",
+                           fwd("flash_attention_fwd",
+                               flash_ops.flash_attention,
+                               _no_grad(_flash_plain))), \
+            mock.patch.object(layers, "rmsnorm_op",
+                              fwd("rmsnorm", rms_ops.rmsnorm_op,
+                                  _no_grad(rmsnorm_reference))), \
+            mock.patch.object(flash_ops, "flash_attention_bwd",
+                              bwd("flash_attention_bwd",
+                                  flash_ops.flash_attention_bwd,
+                                  attention_bwd_reference,
+                                  _flash_bwd_tc_scores)), \
+            mock.patch.object(rms_ops, "rmsnorm_bwd",
+                              bwd("rmsnorm_bwd", rms_ops.rmsnorm_bwd,
+                                  rmsnorm_bwd_reference)):
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(
+            lambda p, b: T.lm_loss(p, cfg, rc, b["tokens"], b["labels"],
+                                   remat=True, chunk=chunk)[0], params, mb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    want = _train_step_launches(cfg.n_layers, 1)
+    got = {**f_calls, **b_calls}
+    if got != want:
+        _fail(f"one microbatch's checked calls {got}, want {want}")
+    if not torch.isfinite(loss):
+        _fail(f"checked microbatch: loss {loss}")
+    print(f"  kernel calls of one microbatch ({mb['tokens'].shape[0]} x "
+          f"{mb['tokens'].shape[1]} tokens, remat, attention at fan-in d) vs "
+          f"plain versions on the same inputs ({wall:.1f} s): {got}; forward "
+          "worst error "
+          + ", ".join(f"{k} {v:.2e}" for k, v in f_worst.items())
+          + f" of the output's scale (tol {rel_tol:.2e}); backward worst "
+          "share of its limit / kernel error against float64 over the "
+          "largest gradient: " + ", ".join(
+              f"{k} {o:.2f} / {r:.1e}" for k, (o, r) in b_worst.items()))
+    print("  flash backward calls against the float64 backward that keeps "
+          "the roundings of P and dS (bwd_rel_err's g64), over the plain "
+          "version's error, worst call of each output: " + ", ".join(
+              f"d{'qkv'[i]} kernel {k:.2f}x, tensor-core-S witness "
+              f"{t:.2f}x (call {c})" for (_, i), (k, t, c) in
+              sorted(tc.items())))
+    del grads
+
+
+def _finite_tree(tree) -> bool:
+    from repro_torch.optim.adamw import _leaves
+    import torch
+    return all(bool(torch.isfinite(x).all()) for x in _leaves(tree))
+
+
+def _report_train(what, out, tokens, flops, peak, smi, unit="tokens"):
+    """Prints seconds a step (the median of the steps after the first,
+    which pays for kernel builds and the allocator), throughput and model
+    TFLOP/s."""
+    warm = out["step_s"][1:] or out["step_s"]
+    step = statistics.median(warm)
+    print(f"  {what}: steps {', '.join(f'{t:.3f}' for t in out['step_s'])} "
+          f"s (median after the first {step:.3f} s), {tokens / step:,.0f} "
+          f"{unit}/s, model {flops / step / 1e12:.1f} TFLOP/s, losses "
+          f"{', '.join(f'{x:.4f}' for x in out['losses'])}, grad norms "
+          f"{', '.join(f'{x:.4g}' for x in out['grad_norms'])}, peak device "
+          f"memory {peak / 2**30:.2f} GiB ({smi})")
+
+
+def _grad_summary(grads) -> dict:
+    """An LM gradient tree's float64 norm over its finite elements, its
+    non-finite elements, its largest finite |element| and the float64 norm
+    of each layer's share (the stacked layer leaves)."""
+    import torch
+    from repro_torch.optim.adamw import _leaves
+    finite = lambda x: torch.nan_to_num(x.double(), nan=0.0, posinf=0.0,
+                                        neginf=0.0)
+    leaves = _leaves(grads)
+    bad = sum(int((~torch.isfinite(x)).sum()) for x in leaves)
+    sq = sum(float(finite(x).square().sum()) for x in leaves)
+    big = max(float(finite(x).abs().max()) for x in leaves)
+    layers = sum(finite(x).square().flatten(1).sum(1)
+                 for x in _leaves(grads["layers"]))
+    return {"norm64": math.sqrt(sq), "non_finite": bad, "max_abs": big,
+            "layer_norms": layers.sqrt().tolist()}
+
+
+def check_init_gradient(bundle, raw, batch):
+    """One train step from the init itself (the reference's: q/k fan-in
+    taken as H, attention logits of std ~100) three ways on the same
+    batch: through the kernels, with the flash and RMSNorm backward
+    kernels patched to their plain versions, and with every kernel
+    patched to its plain version (autograd of plain ops). Prints each
+    step's grad_norm (the optimizer's float32 sum of squares) and its
+    gradient's float64 summary (``_grad_summary``). Fails where the
+    kernels' grad_norm is finite and the plain backward's is not, or the
+    other way round, or a plain path's is finite and the kernels' is not,
+    and where the kernels' float64 norm or layer norms part from the plain
+    backward's by more than a factor of 2. Returns the kernels'
+    grad_norm."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_reference, attention_reference)
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_reference,
+                                                 rmsnorm_reference)
+    from repro_torch.models import layers, transformer as T
+    from repro_torch.optim import adamw as A
+    update = A.AdamW.update
+    seen = {}
+
+    def spy(self, grads, state, params, grad_mask=None):
+        seen["grads"] = _grad_summary(grads)
+        return update(self, grads, state, params, grad_mask)
+
+    variants = (
+        ("kernels", ()),
+        ("plain backward", ((flash_ops, "flash_attention_bwd",
+                             attention_bwd_reference),
+                            (rms_ops, "rmsnorm_bwd", rmsnorm_bwd_reference))),
+        ("plain forward and backward", ((T, "flash_attention",
+                                         attention_reference),
+                                        (layers, "rmsnorm_op",
+                                         rmsnorm_reference))))
+    res = {}
+    for name, patches in variants:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(A.AdamW, "update", spy))
+            for mod, attr, fn in patches:
+                stack.enter_context(mock.patch.object(mod, attr, fn))
+            t0 = time.perf_counter()
+            m = bundle.fn(raw, A.AdamW().init(raw), batch)[2]
+            gn, loss = float(m["grad_norm"]), float(m["loss"])
+            del m
+            wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        g = seen.pop("grads")
+        res[name] = (gn, g)
+        ln = g["layer_norms"]
+        print(f"  one step from the init itself, {name} ({wall:.1f} s): "
+              f"loss {loss:.4f}, grad_norm {gn}; gradient norm in float64 "
+              f"{g['norm64']:.4e}, {g['non_finite']} non-finite elements, "
+              f"largest |g| {g['max_abs']:.3e}; layer norms, first to "
+              f"last: " + " ".join(f"{x:.1e}" for x in ln))
+    k_gn, k = res["kernels"]
+    pb_gn, pb = res["plain backward"]
+    if math.isfinite(pb_gn) != math.isfinite(k_gn) or (
+            math.isfinite(res["plain forward and backward"][0])
+            and not math.isfinite(k_gn)):
+        _fail(f"from the init the grad_norms part: kernels {k_gn}, "
+              + ", ".join(f"{n} {res[n][0]}" for n in res if n != "kernels"))
+    ratios = [a / b for a, b in zip(k["layer_norms"] + [k["norm64"]],
+                                    pb["layer_norms"] + [pb["norm64"]])]
+    if k["non_finite"] != pb["non_finite"] or not all(
+            0.5 <= r <= 2.0 for r in ratios):
+        _fail(f"from the init the kernels' gradient parts from the plain "
+              f"backward's: non-finite {k['non_finite']} vs "
+              f"{pb['non_finite']}, norm ratios (layers, then the whole) "
+              f"{[round(r, 3) for r in ratios]}")
+    print(f"  the kernels' gradient norm over the plain backward's: layers "
+          f"{min(ratios[:-1]):.3f}-{max(ratios[:-1]):.3f}, whole "
+          f"{ratios[-1]:.3f} (limit 0.5-2)")
+    return k_gn
+
+
+def _same_float(a: float, b: float) -> bool:
+    return a == b or (math.isnan(a) and math.isnan(b))
+
+
+def train_lm(smi):
+    """(a) qwen2-1.5b at full width and depth: 3 ``train_loop`` steps of 8
+    x 4,096 tokens (the train_4k cell's batch of 256 cut to 8), 8
+    microbatches of one sequence (the reference's plan on one device),
+    remat, from its own init; exact launches; the first step's grad_norm
+    that of ``check_init_gradient``'s kernel step on the same batch;
+    finite losses, moments and params; one microbatch's calls against the
+    plain versions (on the init at fan-in d); a profiled step."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    spec = get_arch("qwen2-1.5b")
+    cfg, rc = spec.model, spec.recall
+    shape = dataclasses.replace(spec.shape("train_4k"), global_batch=8)
+    bundle = S.build_step(spec, shape, device="cuda")
+    n_mb = bundle.meta["microbatches"]
+    if (n_mb, bundle.meta["mode"], bundle.meta["chunk"]) != \
+            (8, "fsdp_seq", 4096):
+        _fail(f"qwen2 train plan {bundle.meta}")
+    n_data, steps = 24, 3
+    first = ShardedLoader(TR.make_train_data(spec, shape, n_data, 0),
+                          shape.global_batch, seed=0).take(1)[0]
+    batch = {k: torch.as_tensor(v).cuda() for k, v in first.items()}
+    raw = TR.init_params(spec, 0, bundle.meta["device"])
+    init_gn = check_init_gradient(bundle, raw, batch)
+    del raw
+    torch.cuda.empty_cache()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = TR.train_loop(spec, shape, device="cuda", steps=steps,
+                        n_data=n_data, log_every=0)
+    torch.cuda.synchronize()
+    got = _bwd_launches()
+    want = {k: steps * v for k, v in
+            _train_step_launches(cfg.n_layers, n_mb).items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train qwen2-1.5b ({cfg.n_layers} layers, d {cfg.d_model}, bf16; "
+          f"{shape.global_batch} x {shape.seq_len} tokens a step, the "
+          f"train_4k batch of 256 cut to {shape.global_batch}; {n_mb} "
+          f"microbatches, {bundle.meta['mode']}, chunk "
+          f"{bundle.meta['chunk']}, remat, from its own init): launches "
+          f"{got} ({want} wanted: per microbatch flash forward 2L with the "
+          "recompute, backward L; rmsnorm forward 4L+1, backward 2L+1)")
+    if got != want:
+        _fail(f"qwen2 train launches {got}, want {want}")
+    if not _same_float(out["grad_norms"][0], init_gn):
+        _fail(f"train_loop's first grad_norm {out['grad_norms'][0]}, the "
+              f"same step on the same batch {init_gn}")
+    opt = out["opt_state"]
+    if not (all(map(math.isfinite, out["losses"])) and opt.step == steps
+            and _finite_tree(opt.m) and _finite_tree(opt.v)
+            and _finite_tree(out["params"])):
+        _fail(f"qwen2 train: non-finite losses, moments or params "
+              f"{out['losses']}")
+    _report_train("qwen2-1.5b train_loop", out,
+                  shape.global_batch * shape.seq_len, bundle.model_flops,
+                  peak, smi)
+    params = out["params"]
+
+    def one_step():  # the update's outputs dropped: the same step each run
+        bundle.fn(params, opt, batch)
+
+    profile_windows(((f"qwen2 train step, {shape.global_batch} x "
+                      f"{shape.seq_len} tokens (forward, backward, update)",
+                      one_step, "flash_bwd"),))
+    del out, params, opt
+    torch.cuda.empty_cache()
+    data = TR.make_train_data(spec, shape, 1, seed=7)
+    mb = {k: torch.as_tensor(v).cuda() for k, v in data.items()}
+    check_train_step_calls(
+        _fan_in_d(TR.init_params(spec, 0, bundle.meta["device"])), cfg, rc,
+        mb, bundle.meta["chunk"])
+    del batch, mb
+    torch.cuda.empty_cache()
+    return got
+
+
+def train_checkpoint(smi):
+    """(b) A checkpoint round trip on the card: qwen2-1.5b at full width
+    with 2 layers, 2 ``train_loop`` steps from its own init saved at
+    the end into a temporary directory, restored bit for bit, then a
+    restart for 1 step whose loss equals the third step of an
+    uninterrupted run."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import train as TR
+    from repro_torch.optim.adamw import _leaves
+    full = get_arch("qwen2-1.5b")
+    spec = dataclasses.replace(full, model=dataclasses.replace(
+        full.model, n_layers=2))
+    shape = dataclasses.replace(full.shape("train_4k"), global_batch=8)
+    kw = dict(device="cuda", n_data=32, log_every=0, save_interval=100)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        first = TR.train_loop(spec, shape, steps=2, ckpt_dir=d, **kw)
+        t_first = time.perf_counter() - t0
+        ck = Checkpointer(d)
+        if ck.all_steps() != [2]:
+            _fail(f"checkpoint steps {ck.all_steps()}, want [2]")
+        saved = {"params": first["params"], "opt": first["opt_state"]}
+        t0 = time.perf_counter()
+        restored, man = ck.restore(saved, device="cuda")
+        t_restore = time.perf_counter() - t0
+        leaves = lambda t: (_leaves(t["params"]) + _leaves(t["opt"].m)
+                            + _leaves(t["opt"].v))
+        bits = lambda x: x.view(torch.int16) if x.dtype == \
+            torch.bfloat16 else x
+        same = all(torch.equal(bits(a), bits(b))
+                   for a, b in zip(leaves(restored), leaves(saved)))
+        n_bytes = sum(x.numel() * x.element_size() for x in leaves(saved))
+        loader = man["meta"]["loader"]
+        if not (same and restored["opt"].step == 2 == man["step"]):
+            _fail("the restored params, moments or step differ from the "
+                  "saved ones")
+        if loader != {"epoch": 0, "pos": 2 * shape.global_batch,
+                      "seed": 0}:
+            _fail(f"the saved loader state {loader}: not at the first "
+                  "unconsumed batch")
+        del first, saved, restored
+        torch.cuda.empty_cache()
+        resumed = TR.train_loop(spec, shape, steps=1, ckpt_dir=d, **kw)
+        if resumed["final_step"] != 3 or ck.latest_step() != 3:
+            _fail(f"resumed final_step {resumed['final_step']}, latest "
+                  f"checkpoint {ck.latest_step()}")
+        del resumed["params"], resumed["opt_state"]
+        torch.cuda.empty_cache()
+        whole = TR.train_loop(spec, shape, steps=3, **kw)
+        a, b = resumed["losses"][0], whole["losses"][2]
+        print(f"  checkpoint round trip (qwen2-1.5b at full width, 2 layers"
+              f", {n_bytes / 1e9:.2f} GB of params and Adam state): 2 steps "
+              f"and the save {t_first:.1f} s, restore {t_restore:.1f} s, "
+              f"params/moments/step bit-equal, loader {loader}; the resumed "
+              f"step's loss {a!r} against the uninterrupted run's third "
+              f"{b!r} ({smi})")
+        if a != b:
+            _fail(f"the resumed step's loss {a!r} differs from the "
+                  f"uninterrupted run's {b!r}")
+        del whole
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def train_mem(smi):
+    """(c) recall-imagebind's contrastive MEM step at full width (all four
+    towers; vision, audio and IMU in fp32 activations, text in bf16), the
+    heal_step cell's batch of 256, remat, from its own init: 2
+    ``train_loop`` steps, exact launches, the logit scale's first moment
+    moved; a profiled step."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    spec = get_arch("recall-imagebind")
+    shape = spec.shape("heal_step")
+    bundle = S.build_step(spec, shape, device="cuda")
+    steps = 2
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = TR.train_loop(spec, shape, device="cuda", steps=steps,
+                        n_data=shape.global_batch, log_every=0)
+    torch.cuda.synchronize()
+    got = _bwd_launches()
+    want = {k: steps * v for k, v in _mem_step_launches(spec.model).items()}
+    peak = torch.cuda.max_memory_allocated()
+    towers = ", ".join(f"{t.modality} {t.n_layers} x {t.d_model}"
+                       for t in spec.model.towers)
+    print(f"train recall-imagebind contrastive ({towers}; batch "
+          f"{shape.global_batch}, remat): launches {got} ({want} wanted)")
+    if got != want:
+        _fail(f"MEM train launches {got}, want {want}")
+    m_ls = out["opt_state"].m["logit_scale"]
+    if not (all(map(math.isfinite, out["losses"])) and
+            _finite_tree(out["opt_state"].m) and
+            _finite_tree(out["opt_state"].v) and float(m_ls) != 0.0):
+        _fail(f"MEM train: losses {out['losses']}, logit_scale moment "
+              f"{float(m_ls)}")
+    _report_train("recall-imagebind train_loop", out, shape.global_batch,
+                  bundle.model_flops, peak, smi, unit="items")
+    print(f"  logit_scale first moment {float(m_ls):.3e}")
+    params, opt = out["params"], out["opt_state"]
+    batch = {k: torch.as_tensor(v).cuda() for k, v in TR.make_train_data(
+        spec, shape, shape.global_batch, seed=9).items()}
+
+    def one_step():  # the update's outputs dropped: the same step each run
+        bundle.fn(params, opt, batch)
+
+    profile_windows(((f"recall-imagebind contrastive step, batch "
+                      f"{shape.global_batch} (forward, backward, update)",
+                      one_step, "flash_bwd"),))
+    del out, params, opt, batch
+    torch.cuda.empty_cache()
+    return got
+
+
+def train_moe_raises():
+    """(d) A 2-layer qwen3-moe-30b-a3b train step must raise at the
+    grouped GEMM, which has no backward yet (ROADMAP A.4b)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.optim.adamw import AdamW
+    moe = get_arch("qwen3-moe-30b-a3b")
+    spec = dataclasses.replace(moe, model=dataclasses.replace(
+        moe.model, n_layers=2))
+    shape = ShapeConfig("t", "train", global_batch=2, seq_len=64)
+    bundle = S.build_step(spec, shape, device="cuda")
+    params = TR.init_params(spec, 0, bundle.meta["device"])
+    batch = {k: torch.as_tensor(v).cuda() for k, v in
+             TR.make_train_data(spec, shape, 2).items()}
+    try:
+        bundle.fn(params, AdamW().init(params), batch)
+    except NotImplementedError as e:
+        if "A.4b" not in str(e):
+            _fail(f"the MoE train step raised without naming A.4b: {e}")
+        print(f"  qwen3-moe-30b-a3b train step (2 layers): raised as it "
+              f"must: {e}")
+    else:
+        _fail("a MoE train step ran through the grouped GEMM, which has no "
+              "backward")
+    del params, batch
+    torch.cuda.empty_cache()
+
+
+def train_phase():
+    """The training path on the card: (a) qwen2-1.5b's LM step at full
+    width and depth, (b) a checkpoint round trip, (c) recall-imagebind's
+    contrastive step at full width, (d) a MoE train step that must raise.
+    Returns the launch counts of (a) and (c) (printed; the kernels line
+    keeps each row's count from the path it came from before)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    lm_got = train_lm(smi)
+    train_checkpoint(smi)
+    mem_got = train_mem(smi)
+    train_moe_raises()
+    print(f"train launches: qwen2-1.5b 3 steps {lm_got}; recall-imagebind "
+          f"2 steps {mem_got}")
+    return {"lm": lm_got, "mem": mem_got}
+
+
 def build_phase():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -3051,7 +3666,7 @@ def main() -> None:
     walls = {}
     for name, phase in (("build", build_phase), ("kernels", kernel_phase),
                         ("serve", serve_phase), ("heal", heal_phase),
-                        ("ivf", ivf_phase),
+                        ("train", train_phase), ("ivf", ivf_phase),
                         ("async", async_phase), ("lm", lm_phase),
                         ("moe", moe_phase)):
         t0 = time.perf_counter()

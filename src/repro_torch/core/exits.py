@@ -40,3 +40,14 @@ def exit_histogram(labels: torch.Tensor, n_exits: int) -> torch.Tensor:
 def mean_exit_depth(labels: torch.Tensor, exits: Tuple[int, ...]) -> torch.Tensor:
     depths = torch.tensor(exits, dtype=torch.float32, device=labels.device)
     return depths[labels.long()].mean()
+
+
+def retrieval_at_k(query_embs: torch.Tensor, corpus_embs: torch.Tensor,
+                   targets: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """R@k: the fraction of queries whose target is among the top-k corpus
+    matches (ties to the lower index, as ``jax.lax.top_k``).
+    query_embs (Q, E); corpus_embs (M, E); targets (Q,) int."""
+    sims = query_embs.float() @ corpus_embs.float().T
+    idx = torch.sort(sims, dim=-1, descending=True, stable=True).indices
+    hit = (idx[:, :k] == targets.long()[:, None]).any(dim=-1)
+    return hit.float().mean()

@@ -5,6 +5,7 @@ give the same arrays.
 per item; each modality observes a fixed random projection of z plus
 modality noise, so items differ in SNR and hence in optimal exit.
 ``clustered_sphere``: the blob-mixture embedding corpus of the IVF tests.
+``lm_tokens``: order-2 Markov token streams for LM training.
 """
 from __future__ import annotations
 
@@ -76,3 +77,22 @@ def clustered_sphere(rng: np.random.Generator, n: int,
         spread * rng.standard_normal((n, dim)).astype(np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     return x.astype(np.float32), centers
+
+
+def lm_tokens(seed: int, n_seqs: int, seq_len: int, vocab: int,
+              order: int = 2) -> np.ndarray:
+    """(n_seqs, seq_len) int32 tokens: each context of the last two
+    tokens prefers ~8 next tokens, with 10 % uniform noise."""
+    rng = np.random.default_rng(seed)
+    n_ctx = min(4096, vocab * vocab)
+    pref = rng.integers(0, vocab, size=(n_ctx, 8))
+    toks = np.empty((n_seqs, seq_len), np.int32)
+    toks[:, :order] = rng.integers(0, vocab, size=(n_seqs, order))
+    for t in range(order, seq_len):
+        ctx = (toks[:, t - 1] * 31 + toks[:, t - 2] * 17) % n_ctx
+        choice = rng.integers(0, 8, size=n_seqs)
+        noise = rng.random(n_seqs) < 0.1
+        nxt = pref[ctx, choice]
+        nxt = np.where(noise, rng.integers(0, vocab, size=n_seqs), nxt)
+        toks[:, t] = nxt
+    return toks

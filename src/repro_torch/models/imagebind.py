@@ -15,7 +15,7 @@ refinement in fp32.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -69,7 +69,7 @@ def _frontend(tp: Schema, t: TowerConfig, inputs: torch.Tensor) -> torch.Tensor:
     """inputs -> (B, n_tokens+1, d_model) with CLS prepended, in the token
     table's dtype (text) or the stub features' dtype (other towers)."""
     if t.vocab:
-        x = tp["tok_emb"][inputs.long().clamp(0, t.vocab - 1)]
+        x = L.embed_lookup(tp["tok_emb"], inputs)
     else:
         x = inputs @ tp["proj_in"].to(inputs.dtype)
     B = x.shape[0]
@@ -82,26 +82,30 @@ def tower_forward(params: Schema, cfg: MEMConfig, recall: RecallConfig,
                   modality: str, inputs: Optional[torch.Tensor], *,
                   layer_start: int = 0, layer_end: Optional[int] = None,
                   h_state: Optional[torch.Tensor] = None,
-                  lora: Optional[Dict] = None, collect_pooled: bool = True):
+                  lora: Optional[Dict] = None, collect_pooled: bool = True,
+                  remat: bool = False):
     """Generic tower run over layers [start, end); ``h_state`` skips the
     frontend (cached-activation reuse, §3.4); ``lora`` is the tower's
-    stacked LoRA (P-LoRA healing)."""
+    stacked LoRA (P-LoRA healing); ``remat`` recomputes each layer in the
+    backward (``transformer.forward_hidden``)."""
     t = cfg.tower(modality)
     tcfg = tower_lm_cfg(t, cfg)
     tp = params["towers"][modality]
     x = _frontend(tp, t, inputs) if h_state is None else h_state
     return T.forward_hidden(tp, tcfg, recall, embeds=x, lora=lora,
                             layer_start=layer_start, layer_end=layer_end,
-                            collect_pooled=collect_pooled, pool="cls")
+                            collect_pooled=collect_pooled, pool="cls",
+                            remat=remat)
 
 
 def mem_embed(params: Schema, cfg: MEMConfig, recall: RecallConfig,
               modality: str, inputs: torch.Tensor, *,
               exit_layer: Optional[int] = None,
-              lora: Optional[Dict] = None) -> torch.Tensor:
+              lora: Optional[Dict] = None,
+              remat: bool = False) -> torch.Tensor:
     """Fine-grained (exit_layer=None) or coarse embedding: (B, embed_dim)."""
     out = tower_forward(params, cfg, recall, modality, inputs,
-                        layer_end=exit_layer, lora=lora)
+                        layer_end=exit_layer, lora=lora, remat=remat)
     tp = params["towers"][modality]
     return T.exit_embedding(tp, out["pooled"][-1], cfg.norm_eps)
 
@@ -137,3 +141,28 @@ def info_nce(za: torch.Tensor, zb: torch.Tensor,
     labels = torch.arange(za.shape[0], device=za.device)
     return 0.5 * (L.cross_entropy(logits, labels)
                   + L.cross_entropy(logits.T, labels))
+
+
+def mem_contrastive_loss(params: Schema, cfg: MEMConfig, recall: RecallConfig,
+                         batch: Dict[str, torch.Tensor], *,
+                         anchor: str = "vision", lora: Optional[Dict] = None,
+                         remat: bool = False
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """ImageBind objective: bind every modality in ``batch`` to the anchor;
+    the mean of the per-modality InfoNCE losses, and each one
+    (``nce_<modality>``)."""
+    za = mem_embed(params, cfg, recall, anchor, batch[anchor], lora=lora,
+                   remat=remat)
+    total = torch.zeros((), dtype=torch.float32, device=za.device)
+    metrics, n = {}, 0
+    for t in cfg.towers:
+        m = t.modality
+        if m == anchor or m not in batch:
+            continue
+        zb = mem_embed(params, cfg, recall, m, batch[m], lora=lora,
+                       remat=remat)
+        li = info_nce(za, zb, params["logit_scale"])
+        metrics[f"nce_{m}"] = li
+        total = total + li
+        n += 1
+    return total / max(n, 1), metrics

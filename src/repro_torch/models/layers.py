@@ -219,10 +219,38 @@ def embed_schema(vocab: int, d: int) -> ParamDef:
     return ParamDef((vocab, d), ("vocab", "embed"), "embed")
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``table[ids]`` whose table gradient is summed in float32 and cast to
+    the table's dtype once (the reference's custom VJP of the LM lookup),
+    in a fixed order: an accumulating ``index_put_`` sorts the ids (a
+    stable sort on CUDA) and adds each row's terms in that order, so the
+    same bits come out twice, where autograd of ``table[ids]`` would
+    scatter into the bf16 table with atomics."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        d = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                        device=g.device)
+        d.index_put_((ids.reshape(-1),), g.reshape(-1, g.shape[-1]).float(),
+                     accumulate=True)
+        return d.to(ctx.table_dtype), None
+
+
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` by id; out-of-range ids are clamped, as the
-    reference's ``jnp.take(..., mode="clip")`` does."""
-    return table[ids.long().clamp(0, table.shape[0] - 1)]
+    reference's ``jnp.take(..., mode="clip")`` does. Differentiable in
+    ``table`` through ``_EmbedLookup``."""
+    ids = ids.long().clamp(0, table.shape[0] - 1)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _EmbedLookup.apply(table, ids)
+    return table[ids]
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,14 @@ decode kernel's at decode, the norms through the rmsnorm kernel's and MoE
 layers through the grouped expert GEMM's (``models/moe.py``); the QKV, O,
 SwiGLU, router and logits projections are plain ``torch.matmul``.
 
+Training: ``lm_loss`` is the chunked cross-entropy (``chunked_xent``)
+on the final norm's output through the LM head, plus the MoE layers' aux
+loss; ``forward_hidden(remat=True)`` recomputes each layer in the
+backward (``torch.utils.checkpoint``, the reference's per-layer
+``jax.checkpoint`` that saves nothing), so a layer's flash and RMSNorm
+forward kernels launch twice a step. The embedding table's gradient is
+summed in float32 in a fixed order (``layers.embed_lookup``).
+
 LoRA deltas (paper §3.3 P-LoRA) ride along as an optional stacked tree
 (``core/plora.py``'s layout, sliced per layer like the params): on the
 targets ``wq``/``wk``/``wv``/``wo``/``w_gate``/``w_up``/``w_down`` each
@@ -28,6 +36,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import LMConfig, RecallConfig
 from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -179,6 +188,7 @@ def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
                    collect_pooled: bool = False, pool: str = "mean",
                    return_kv: bool = False,
                    kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   remat: bool = False,
                    window: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Run layers [layer_start, layer_end) on ``embeds`` (B, S, d) or on
     the embedding rows of ``tokens`` (B, S). Returns {"h": (B, S, d) final
@@ -189,7 +199,9 @@ def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
     are written into those caches at [i - layer_start, :, :S] (S' >= S; a
     prefill into a preallocated padded cache); without it caches of exactly
     S are allocated. ``lora`` (stacked over all n_layers) adds its deltas at
-    scale ``recall.lora_alpha / recall.lora_rank``."""
+    scale ``recall.lora_alpha / recall.lora_rank``. ``remat`` keeps no
+    layer's activations for the backward but its input, and runs the layer
+    again there."""
     if pool not in ("cls", "mean"):
         raise ValueError(f"pool={pool!r}")
     if embeds is None:
@@ -208,10 +220,17 @@ def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
     lora_scale = recall.lora_alpha / recall.lora_rank
     pooled, aux = [], None
     for i in range(layer_start, layer_end):
-        x, (k, v), aux_l = layer_full(
-            layer_slice(params["layers"], i), x, cfg, positions,
-            window=window, lora=layer_slice(lora, i) if lora else None,
-            lora_scale=lora_scale)
+        run = lambda x_, p_, l_: layer_full(p_, x_, cfg, positions,
+                                            window=window, lora=l_,
+                                            lora_scale=lora_scale)
+        p_i = layer_slice(params["layers"], i)
+        l_i = layer_slice(lora, i) if lora else None
+        if remat and torch.is_grad_enabled():
+            x, (k, v), aux_l = torch.utils.checkpoint.checkpoint(
+                run, x, p_i, l_i, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x, (k, v), aux_l = run(x, p_i, l_i)
         if aux_l is not None:
             aux = aux_l if aux is None else aux + aux_l
         if return_kv:
@@ -248,7 +267,7 @@ def exit_embedding(params: Schema, pooled: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# LM serving steps
+# LM loss and serving steps
 # ---------------------------------------------------------------------------
 
 
@@ -257,6 +276,50 @@ def lm_head(params: Schema, cfg: LMConfig) -> torch.Tensor:
     if cfg.tie_embeddings or "lm_head" not in params:
         return params["embed"].T
     return params["lm_head"]
+
+
+def chunked_xent(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None,
+                 chunk: int = 1024) -> torch.Tensor:
+    """Mean token cross-entropy of ``h`` (B, S, D) through ``head`` (D, V)
+    without the whole (B, S, V) logits: S in chunks of ``chunk`` (which
+    must divide it), each chunk's logits made in h's dtype, then taken to
+    float32. ``mask`` (B, S) weights the tokens (the mean is over its
+    sum)."""
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunk {chunk} does not divide S {S}")
+    head = head.to(h.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S, chunk):
+        logits = (h[:, c:c + chunk] @ head).float()        # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels[:, c:c + chunk].long()[..., None])[..., 0]
+        if mask is None:
+            tot = tot + (lse - ll).sum()
+            cnt = cnt + lse.numel()
+        else:
+            m = mask[:, c:c + chunk].float()
+            tot = tot + ((lse - ll) * m).sum()
+            cnt = cnt + m.sum()
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def lm_loss(params: Schema, cfg: LMConfig, recall: RecallConfig,
+            tokens: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None, *, chunk: int = 1024,
+            lora=None, remat: bool = False, window: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(xent + the MoE aux loss, {"xent", "aux"}) of next-token
+    ``labels`` (B, S) for ``tokens`` (B, S)."""
+    out = forward_hidden(params, cfg, recall, tokens=tokens, mask=mask,
+                         lora=lora, remat=remat, window=window)
+    h = L.rmsnorm(out["h"], params["final_norm"], cfg.norm_eps)
+    loss = chunked_xent(h, lm_head(params, cfg), labels, mask, chunk=chunk)
+    return loss + out["aux"], {"xent": loss, "aux": out["aux"]}
 
 
 def prefill(params: Schema, cfg: LMConfig, recall: RecallConfig,

@@ -96,6 +96,19 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(leaves))
 
 
+def value_and_grad(loss_fn, params, batch):
+    """(loss, grads in the params' structure and dtypes) of
+    ``loss_fn(params, batch)``, a scalar; a leaf the loss does not reach
+    gets a zero gradient, as ``jax.grad`` gives it."""
+    leaves = _map(lambda p: p.detach().requires_grad_(True), params)
+    flat = _leaves(leaves)
+    loss = loss_fn(leaves, batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    it = iter([torch.zeros_like(p) if g is None else g
+               for p, g in zip(flat, grads)])
+    return loss.detach(), _map(lambda _: next(it), params)
+
+
 def accumulate_grads(loss_fn, params, batches, *, microbatches: int):
     """Gradient accumulation over ``microbatches`` equal slices of
     ``batches`` (a tensor or a dict of tensors, sliced on the leading axis;

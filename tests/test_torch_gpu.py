@@ -575,7 +575,9 @@ FLASH_BWD_CASES = [  # B, Sq, Skv, H, KV, D, causal, window, q_offset
     (2, 150, 90, 4, 2, 80, True, 40, 70),    # both, in a mixed tile
     (1, 300, 300, 12, 2, 128, True, 0, 0),   # qwen2's ratio, ragged tiles
     (2, 257, 257, 4, 4, 80, False, 0, 0),    # the vision tower's S and D
-    (2, 33, 9, 4, 1, 64, True, 0, -3)]       # Skv < 16, G = 4, keyless rows
+    (2, 33, 9, 4, 1, 64, True, 0, -3),       # Skv < 16, G = 4, keyless rows
+    (2, 229, 229, 12, 12, 64, False, 0, 0),  # the audio tower's S and heads
+    (1, 392, 392, 8, 8, 64, False, 0, 0)]    # the IMU's: an 8-row edge tile
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -838,3 +840,129 @@ def test_kernels_without_backward_raise_under_grad_mode(gen, name):
         make(True)()
     make(False)()
     torch.cuda.synchronize()
+
+
+def test_embed_lookup_backward_is_deterministic_and_within_a_bf16_step(gen):
+    """The embedding table's gradient on the card (qwen2's table width, a
+    batch of 4,096 ids drawn from 300 rows, so rows repeat): the same bits
+    twice, and within one bf16 step of each element of a float64
+    scatter-add of the same cotangents (the float32 sum's own error is far
+    below that; the one rounding is the cast to bf16)."""
+    from repro_torch.models import layers as L
+    table = torch.randn((1000, 1536), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    ids = torch.randint(0, 300, (2, 2048), generator=gen, device="cuda")
+    g = torch.randn((2, 2048, 1536), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    out = L.embed_lookup(table, ids)
+    d1, = torch.autograd.grad(out, table, g, retain_graph=True)
+    d2, = torch.autograd.grad(out, table, g)
+    assert d1.dtype == torch.bfloat16 and torch.equal(d1, d2)
+    want = torch.zeros((1000, 1536), dtype=torch.float64, device="cuda")
+    want.index_add_(0, ids.reshape(-1), g.double().reshape(-1, 1536))
+    step = 2.0 ** -8 * want.abs()  # one bf16 step of each element
+    assert ((d1.double() - want).abs() <= step).all()
+    assert (d1[300:] == 0).all()
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(dev)
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(x, dev) for x in tree))
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(gen):
+    """Two train steps of a small fp32 dense LM (head dim 64, GQA 2:1, tied
+    head; two microbatches, remat) on the card (flash and rmsnorm forward
+    and backward kernels) against the same weights and batches on the CPU:
+    losses and grad norms within 1e-4; params within 1e-4 of each leaf's
+    scale or 10 % of the first step's lr; moments within 1e-4 of each
+    leaf's scale but for at most 5 % of its elements (each microbatch's
+    gradient is rounded to bf16, and the two paths' fp32 noise can send an
+    element at a rounding tie to either neighbour: tests/test_torch_train.py
+    measures the same against the reference); the kernels' launches a step
+    exact."""
+    from repro_torch.configs.base import (ArchSpec, LMConfig, RecallConfig,
+                                          ShapeConfig)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamW, _leaves
+    cfg = LMConfig(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                   d_head=64, d_ff=256, vocab=300, rope_theta=1e4,
+                   qkv_bias=True, tie_embeddings=True, dtype="float32")
+    spec = ArchSpec("t", "lm", cfg, (ShapeConfig("t", "train", 4, 48),),
+                    RecallConfig(exit_interval=1))
+    params = T.lm_init(gen, cfg, spec.recall, device="cuda")
+    a = params["layers"]["attn"]  # at fan-in d, as the CPU tests take it
+    for w in ("wq", "wk", "wv"):
+        a[w] = a[w] * (cfg.n_heads / cfg.d_model) ** 0.5
+    a["wo"] = a["wo"] / cfg.n_heads ** 0.5
+    toks = torch.randint(0, cfg.vocab, (2, 4, 49), generator=gen,
+                         device="cuda")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        bundle = S.build_step(spec, spec.shapes[0], device=dev,
+                              microbatches=2)
+        p, o = _to(params, dev), AdamW().init(_to(params, dev))
+        losses = []
+        for i in range(2):
+            before = (flash_ops.launches, flash_ops.bwd_launches,
+                      rms_ops.launches, rms_ops.bwd_launches)
+            p, o, m = bundle.fn(p, o, {"tokens": toks[i, :, :-1].to(dev),
+                                       "labels": toks[i, :, 1:].to(dev)})
+            losses.append((float(m["loss"]), float(m["grad_norm"])))
+            if dev == "cuda":  # a microbatch: L layers, remat, final norm
+                L = cfg.n_layers
+                assert (flash_ops.launches - before[0],
+                        flash_ops.bwd_launches - before[1],
+                        rms_ops.launches - before[2],
+                        rms_ops.bwd_launches - before[3]) == \
+                    (2 * 2 * L, 2 * L, 2 * (4 * L + 1), 2 * (2 * L + 1))
+        runs[dev] = (losses, p, o)
+    (lc, pc, oc), (lp, pp, op) = runs["cuda"], runs["cpu"]
+    for got, want in zip(lc, lp):
+        for g, w in zip(got, want):
+            assert abs(g - w) <= 1e-4 * abs(w)
+    for g, w in zip(_leaves(pc), _leaves(pp)):
+        tol = max(1e-4 * w.abs().max().item(), 0.1 * 1.5e-5)
+        assert (g.cpu() - w).abs().max().item() <= tol
+    for g, w in zip(_leaves(oc.m) + _leaves(oc.v), _leaves(op.m)
+                    + _leaves(op.v)):
+        far = (g.cpu() - w).abs() > 1e-4 * max(w.abs().max().item(), 1e-30)
+        assert far.float().mean().item() <= 0.05
+
+
+def test_bf16_checkpoint_round_trip_from_the_card(gen, tmp_path):
+    """bf16 params and fp32 Adam moments on the card through
+    ``Checkpointer``: back on the card bit for bit, the step an int."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.optim.adamw import AdamW
+    params = {"w": torch.randn((64, 48), generator=gen, device="cuda").to(
+        torch.bfloat16), "b": {"c": torch.randn(
+            7, generator=gen, device="cuda").to(torch.bfloat16)}}
+    opt = AdamW().init(params)
+    opt = opt._replace(step=3, m={"w": torch.randn((64, 48), generator=gen,
+                                                   device="cuda"),
+                                  "b": {"c": torch.randn(7, generator=gen,
+                                                         device="cuda")}})
+    ck = Checkpointer(str(tmp_path))
+    ck.save_async(3, {"params": params, "opt": opt})
+    ck.wait()
+    like = {"params": _to(params, "cpu"), "opt": _to(opt, "cpu")}
+    r, man = ck.restore(like, device="cuda")
+    assert r["opt"].step == 3 and man["leaves"]["params/w"]["dtype"] == \
+        "bfloat16"
+    for got, want in ((r["params"]["w"], params["w"]),
+                      (r["params"]["b"]["c"], params["b"]["c"]),
+                      (r["opt"].m["w"], opt.m["w"])):
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got.view(torch.int16) if got.dtype ==
+                           torch.bfloat16 else got,
+                           want.view(torch.int16) if want.dtype ==
+                           torch.bfloat16 else want)

@@ -1,5 +1,6 @@
 """The port stands alone: no file under src/repro_torch/, and not
-chip_smoke.py, imports jax or the JAX package (repro)."""
+chip_smoke.py or the port's example, imports jax or the JAX package
+(repro)."""
 import ast
 from pathlib import Path
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "train_recall_mem_torch.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 

@@ -1,0 +1,268 @@
+"""Port parity: the LM training path (``models.transformer.chunked_xent``,
+``lm_loss`` with remat, the fixed-order embedding gradient,
+``launch.steps.build_lm_train`` and its plan) against the reference on the
+smoke variants, fp32, inputs from numpy seeds, attention at fan-in d
+(``torch_train_common``'s docstring says why)."""
+import dataclasses
+import math
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as JC
+from repro.data import synthetic as JSYN
+from repro.launch import steps as JS
+from repro.models import transformer as JT
+from repro_torch.configs import base as TC
+from repro_torch.launch import steps as TS
+from repro_torch.models import layers as TL
+from repro_torch.models import transformer as TT
+from repro_torch.models.convert import params_from_jax
+from repro_torch.optim.adamw import _leaves, value_and_grad
+from torch_train_common import (torch_threads,  # noqa: F401 (autouse)
+                                assert_leaves, check_steps, fan_in_d,
+                                port_run, ref_run, to_np)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("tied", [True, False])
+def test_chunked_xent_value_and_grad_match_reference(masked, tied):
+    rng = np.random.default_rng(4)
+    h = rng.standard_normal((3, 32, 16)).astype(np.float32)
+    table = (0.3 * rng.standard_normal((40, 16))).astype(np.float32)
+    head = table.T if tied else (0.3 * rng.standard_normal(
+        (16, 40))).astype(np.float32)
+    labels = rng.integers(0, 40, (3, 32)).astype(np.int32)
+    mask = (rng.random((3, 32)) < 0.7).astype(np.float32) if masked else None
+
+    def j_fn(h, w):
+        return JT.chunked_xent(h, w.T if tied else w, jnp.asarray(labels),
+                               None if mask is None else jnp.asarray(mask),
+                               chunk=8)
+
+    jl, jg = jax.value_and_grad(j_fn, argnums=(0, 1))(
+        jnp.asarray(h), jnp.asarray(table if tied else head))
+    th = torch.tensor(h, requires_grad=True)
+    tw = torch.tensor(table if tied else head, requires_grad=True)
+    tl = TT.chunked_xent(th, tw.T if tied else tw, torch.as_tensor(labels),
+                         None if mask is None else torch.as_tensor(mask),
+                         chunk=8)
+    tg = torch.autograd.grad(tl, (th, tw))
+    assert abs(tl.item() - float(jl)) <= 1e-5 * abs(float(jl))
+    for g, w in zip(tg, jg):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+    with pytest.raises(ValueError, match="does not divide"):
+        TT.chunked_xent(th, tw, torch.as_tensor(labels), chunk=12)
+
+
+def test_embed_lookup_grad_sums_in_fp32_and_casts_once():
+    """Repeated ids: the table gradient is the float32 sum of the rows'
+    cotangents, cast once to the table's dtype (not a sum of bf16 terms);
+    the same bits twice; ids clamp as in the forward."""
+    rng = np.random.default_rng(0)
+    table = torch.tensor(rng.standard_normal((7, 5)), dtype=torch.bfloat16,
+                         requires_grad=True)
+    ids = torch.tensor([[1, 3, 1, 1], [9, 3, 1, -2]])
+    g = torch.tensor(rng.standard_normal((2, 4, 5)), dtype=torch.bfloat16)
+    out = TL.embed_lookup(table, ids)
+    assert torch.equal(out, table.detach()[ids.clamp(0, 6)])
+    d1, = torch.autograd.grad(out, table, g, retain_graph=True)
+    d2, = torch.autograd.grad(out, table, g)
+    assert torch.equal(d1, d2) and d1.dtype == torch.bfloat16
+    want = torch.zeros(7, 5, dtype=torch.float64)
+    want.index_add_(0, ids.clamp(0, 6).reshape(-1),
+                    g.double().reshape(-1, 5))
+    assert torch.equal(d1, want.float().to(torch.bfloat16))
+
+
+@pytest.fixture(scope="module")
+def lm_pair():
+    """{tied: (ref spec, port spec, ref params)} on the qwen2-1.5b smoke
+    variant (tied head) and minitron-8b's (untied), attention at fan-in d."""
+    out = {}
+    for tied, arch in ((True, "qwen2-1.5b"), (False, "minitron-8b")):
+        ref = JC.smoke_variant(JC.get_arch(arch))
+        port = TC.smoke_variant(TC.get_arch(arch))
+        assert ref.model.tie_embeddings == tied
+        init = jax.jit(partial(JT.lm_init, cfg=ref.model, recall=ref.recall))
+        out[tied] = (ref, port, fan_in_d(init(jax.random.PRNGKey(0))))
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref_lm_loss_grad(lm_pair):
+    """{tied: the reference's lm_loss value_and_grad, jitted (compiled at
+    its first call) with the mask an argument: all ones for the unmasked
+    loss, so that both cases share one compilation}."""
+    return {tied: jax.jit(jax.value_and_grad(
+        lambda q, x, y, m, ref=ref: JT.lm_loss(
+            q, ref.model, ref.recall, x, y, m, chunk=16)[0]))
+        for tied, (ref, _, _) in lm_pair.items()}
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_loss_value_and_grad_match_reference(lm_pair, ref_lm_loss_grad,
+                                                masked, tied):
+    ref, port, p = lm_pair[tied]
+    toks = JSYN.lm_tokens(5, 3, 33, ref.model.vocab)
+    x, y = toks[:, :-1], toks[:, 1:]
+    mask = ((np.random.default_rng(2).random(x.shape) < 0.8)
+            .astype(np.float32) if masked else None)
+    ones = np.ones(x.shape, np.float32)
+    jl, jg = ref_lm_loss_grad[tied](p, jnp.asarray(x), jnp.asarray(y),
+                                    jnp.asarray(ones if mask is None
+                                                else mask))
+    tl, tg = value_and_grad(lambda q, b: TT.lm_loss(
+        q, port.model, port.recall, *b, chunk=16)[0],
+        params_from_jax(to_np(p)),
+        (torch.as_tensor(x), torch.as_tensor(y),
+         None if mask is None else torch.as_tensor(mask)))
+    assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+    assert_leaves(tg, to_np(jg), 1e-5, "lm_loss gradient")
+
+
+def test_lm_loss_grad_at_the_init_itself_matches_reference(lm_pair,
+                                                          ref_lm_loss_grad):
+    """At the init itself (q/k fan-in taken as H, not ``fan_in_d``) the
+    port's loss and gradient are the reference's. The gradient there is
+    ill-conditioned: against a float64 gradient of the port's function
+    the reference's fp32 one lies 2.6e-4 of a leaf's scale off and the
+    port's 1.8e-3 (bk, whose true gradient nearly cancels); their global
+    norms part by 1.5e-4. So the leaves are held at 5e-3 of their scale
+    and the global norm at 1e-3. At qwen2-1.5b's full depth this norm
+    passes float32's range (ROADMAP C.7)."""
+    ref, port, _ = lm_pair[True]
+    p = jax.jit(partial(JT.lm_init, cfg=ref.model, recall=ref.recall))(
+        jax.random.PRNGKey(0))
+    toks = JSYN.lm_tokens(5, 3, 33, ref.model.vocab)
+    x, y = toks[:, :-1], toks[:, 1:]
+    jl, jg = ref_lm_loss_grad[True](p, jnp.asarray(x), jnp.asarray(y),
+                                    jnp.ones(x.shape, jnp.float32))
+    tl, tg = value_and_grad(lambda q, b: TT.lm_loss(
+        q, port.model, port.recall, *b, chunk=16)[0],
+        params_from_jax(to_np(p)), (torch.as_tensor(x), torch.as_tensor(y)))
+    assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+    assert_leaves(tg, to_np(jg), 5e-3, "lm_loss gradient at the init")
+    tn = math.sqrt(sum(float((g.double() ** 2).sum()) for g in _leaves(tg)))
+    jn = math.sqrt(sum(float((np.asarray(g, np.float64) ** 2).sum())
+                       for g in jax.tree.leaves(jg)))
+    assert abs(tn - jn) <= 1e-3 * jn
+
+
+def test_lm_loss_remat_gives_the_same_numbers(lm_pair):
+    ref, port, p = lm_pair[True]
+    toks = JSYN.lm_tokens(6, 2, 17, ref.model.vocab)
+    batch = (torch.as_tensor(toks[:, :-1]), torch.as_tensor(toks[:, 1:]))
+    tp = params_from_jax(to_np(p))
+    runs = [value_and_grad(lambda q, b: TT.lm_loss(
+        q, port.model, port.recall, *b, remat=remat)[0], tp, batch)
+        for remat in (False, True)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert_leaves(runs[1][1], to_np(runs[0][1]), 1e-6, "remat gradient")
+
+
+def test_moe_lm_loss_with_aux_matches_reference():
+    """Forward only: the grouped GEMM's gradient is ROADMAP A.4b-2."""
+    ref = JC.smoke_variant(JC.get_arch("qwen3-moe-30b-a3b"))
+    port = TC.smoke_variant(TC.get_arch("qwen3-moe-30b-a3b"))
+    p = fan_in_d(jax.jit(partial(JT.lm_init, cfg=ref.model,
+                                 recall=ref.recall))(jax.random.PRNGKey(1)))
+    toks = JSYN.lm_tokens(7, 2, 17, ref.model.vocab)
+    jl, jm = jax.jit(lambda q: JT.lm_loss(
+        q, ref.model, ref.recall, jnp.asarray(toks[:, :-1]),
+        jnp.asarray(toks[:, 1:])))(p)
+    with torch.no_grad():
+        tl, tm = TT.lm_loss(params_from_jax(to_np(p)), port.model,
+                            port.recall, torch.as_tensor(toks[:, :-1]),
+                            torch.as_tensor(toks[:, 1:]))
+    assert float(tm["aux"]) > 0
+    for got, want in ((tl, jl), (tm["xent"], jm["xent"]),
+                      (tm["aux"], jm["aux"])):
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+
+
+def test_auto_lm_train_plan_matches_reference():
+    for arch in ("qwen2-1.5b", "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b",
+                 "minitron-8b", "deepseek-67b"):
+        jm, tm = JC.get_arch(arch).model, TC.get_arch(arch).model
+        for B, S, dp, tp in ((256, 4096, 1, 1), (8, 4096, 1, 1),
+                             (256, 4096, 16, 16), (64, 2048, 8, 4),
+                             (32, 4096, 4, 2), (4, 32, 1, 1)):
+            n = dp * tp
+            assert TS._auto_lm_train_plan(tm, B, S, dp, tp, n) == \
+                JS._auto_lm_train_plan(jm, B, S, dp, tp, n), (arch, B, S)
+    assert TS._auto_lm_train_plan(TC.get_arch("qwen2-1.5b").model, 8, 4096,
+                                  1, 1, 1) == (8, "fsdp_seq")
+
+
+def _lm_batches(vocab, n_steps, B=4, S=32, seed=0):
+    toks = JSYN.lm_tokens(seed, n_steps * B, S + 1, vocab)
+    return [{"tokens": toks[i * B:(i + 1) * B, :-1],
+             "labels": toks[i * B:(i + 1) * B, 1:]} for i in range(n_steps)]
+
+
+@pytest.fixture(scope="module")
+def ref_lm_steps(lm_pair):
+    """{microbatches: the reference's three steps (remat, its default)}:
+    its numbers do not depend on remat, so both of the port's settings are
+    held to one compilation (``test_lm_loss_remat_gives_the_same_numbers``
+    holds the port's two settings to each other)."""
+    ref, _, p = lm_pair[True]
+    batches = _lm_batches(ref.model.vocab, 3)
+    cache = {}
+
+    def get(microbatches):
+        if microbatches not in cache:
+            cache[microbatches] = ref_run(ref, ref.shape("smoke_train"), p,
+                                          batches, microbatches=microbatches)
+        return batches, cache[microbatches]
+    return get
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_lm_train_step_matches_reference(lm_pair, ref_lm_steps,
+                                         microbatches, remat):
+    """Three steps of qwen2-1.5b's smoke variant. At ``microbatches=2``
+    each microbatch's gradient is rounded to bf16 before the float32 sum,
+    as the reference rounds it. That rounding is a step function: where an
+    fp32 gradient element sits at a bf16 rounding boundary, the packages'
+    fp32 noise sends it to neighbouring bf16 values, and the steps after
+    carry that on, so up to 5 % of a leaf's moment elements may part by
+    more than 1e-4 of its scale (at most 1.2 % measured, in the 256
+    elements of bq). A port that sums the fp32 gradients unrounded fails
+    here: 75-83 % of a leaf's moment elements then lie beyond."""
+    _, port, p = lm_pair[True]
+    batches, want = ref_lm_steps(microbatches)
+    bundle = TS.build_step(port, port.shape("smoke_train"), device="cpu",
+                           remat=remat, microbatches=microbatches)
+    assert bundle.meta["microbatches"] == microbatches
+    assert bundle.meta["remat"] == remat and bundle.meta["chunk"] == 32
+    check_steps(port_run(bundle, params_from_jax(to_np(p)), batches), want,
+                ties=0.05 if microbatches > 1 else 0.0)
+
+
+def test_lm_train_bundle_takes_the_reference_plan():
+    spec = TC.get_arch("qwen2-1.5b")
+    b = TS.build_step(spec, dataclasses.replace(spec.shape("train_4k"),
+                                                global_batch=8),
+                      device="cpu")
+    assert (b.meta["microbatches"], b.meta["mode"], b.meta["chunk"]) == \
+        (8, "fsdp_seq", 4096)
+    assert b.model_flops == 6.0 * spec.model.n_active_params * 8 * 4096
+    smoke = TC.smoke_variant(spec)
+    b = TS.build_step(smoke, smoke.shape("smoke_train"), device="cpu")
+    assert (b.meta["microbatches"], b.meta["mode"], b.meta["chunk"]) == \
+        (1, "fsdp", 32)
+
+
+def test_build_step_still_refuses_other_families():
+    spec = dataclasses.replace(TC.get_arch("qwen2-1.5b"), family="recsys")
+    with pytest.raises(NotImplementedError, match="A.6"):
+        TS.build_step(spec, spec.shape("train_4k"), device="cpu")
