@@ -28,8 +28,10 @@ just after:
     backward calls held call by call, and a step's LoRA gradient against
     autograd of plain float64 ops; RECALL served with the healed LoRA
     (drain, query_batch); ``heal_lm`` on qwen2-1.5b at full width and
-    depth, one of its steps profiled, and on a 2-layer qwen3-moe-30b-a3b,
-    where it must raise at the grouped GEMM (no backward yet);
+    depth, one of its steps profiled, and on qwen3-moe-30b-a3b at full
+    width and 16 of its 48 layers, through the grouped GEMM's dX kernel
+    (whose two backward kernels are first held against their plain
+    versions and float64 products, and timed);
   * train: ``launch.train.train_loop`` on qwen2-1.5b at full width and
     depth (3 steps of 8 x 4,096 tokens, 8 microbatches, remat; one
     microbatch's kernel calls, forward, recompute and backward, held call
@@ -37,8 +39,10 @@ just after:
     at full width (restored bit for bit, the restarted step's loss equal to
     an uninterrupted run's), recall-imagebind's contrastive step over all
     four towers at full width (batch 256, remat, 2 steps, a profiled
-    step), and a 2-layer qwen3-moe-30b-a3b train step, which must raise at
-    the grouped GEMM;
+    step), and qwen3-moe-30b-a3b at full width and 3 of its 48 layers (2
+    ``train_loop`` steps of 8 x 4,096 tokens, remat; its first step held
+    to the plain grouped-GEMM backward, one microbatch's grouped-GEMM
+    backward calls to their plain versions, a profiled step);
   * IVF: a 2^17-row ``clustered_sphere`` store at E = 1024 with an online
     IVF index (256 clusters, nprobe 8), queried through both pruned
     strategies and the dense fp32 path, held against the numpy oracles and
@@ -60,8 +64,9 @@ just after:
 One prefill and one decode step of each LM are held call by call against
 the plain versions; the MoE prefill's grouped-GEMM launches must all run
 the wgmma kernel, the decode window's all the mma.sync kernel. It ends
-with one JSON line of kernel measurements (sixteen rows: the fourteen
-forward rows and the two backward kernels) and one ``{"ok": true, ...}``
+with one JSON line of kernel measurements (eighteen rows: the fourteen
+forward rows and four backward kernels: flash attention, RMSNorm and the
+grouped GEMM's dX and dW) and one ``{"ok": true, ...}``
 line. Any failed phase or tolerance exits non-zero;
 without a CUDA device it exits non-zero at once. It never imports JAX or
 the JAX package.
@@ -1212,7 +1217,8 @@ def _counters():
             "rmsnorm": (rms_ops, "launches"),
             "rmsnorm_bwd": (rms_ops, "bwd_launches"),
             "decode_attention": (decode_ops, "launches"),
-            "moe_gemm": (moe_ops, "launches")}
+            "moe_gemm": (moe_ops, "launches"),
+            "moe_gemm_bwd": (moe_ops, "bwd_launches")}
 
 
 def _reset_launches() -> None:
@@ -1220,6 +1226,7 @@ def _reset_launches() -> None:
         setattr(mod, attr, 0)
     _counters()["flash_attention_fwd"][0].launches_by_head_dim.clear()
     _counters()["moe_gemm"][0].launches_by_kernel.clear()
+    _counters()["moe_gemm"][0].bwd_launches_by_kernel.clear()
 
 
 def _read_launches(cfg) -> dict:
@@ -1994,6 +2001,13 @@ _LAYERS = (("flash_fwd_wgmma", "attention (flash wgmma kernel, bf16)"),
 
 
 def _layer_of(kernel_name: str) -> str:
+    if "moe_gemm_dw" in kernel_name:
+        return "grouped GEMM backward dW (mma.sync kernel)"
+    if "moe_gemm" in kernel_name and ("true>" in kernel_name
+                                      or "Lb1E" in kernel_name):
+        return ("grouped GEMM backward dX ("
+                + ("wgmma" if "wgmma" in kernel_name else "mma.sync")
+                + " kernel)")
     for key, layer in _LAYERS:
         if key in kernel_name:
             return layer
@@ -2131,7 +2145,9 @@ def check_lm_calls(run, what, *, record_plan=None):
                                    rmsnorm_reference)), \
             mock.patch.object(moe_ops, "moe_gemm_sorted",
                               both("moe_gemm", moe_ops.moe_gemm_sorted,
-                                   moe_gemm_sorted_reference,
+                                   # the plan's ends: the backward's only
+                                   lambda *a: moe_gemm_sorted_reference(
+                                       *a[:5]),
                                    rows=lambda *a: int(a[4]))), \
             mock.patch.object(moe_ops, "plan", recording_plan):
         out = run()
@@ -2609,12 +2625,196 @@ def check_rmsnorm_bwd(gen):
     return row
 
 
+def _moe_dx64(dys, block_expert, w, block_t, used):
+    """The gradient of xs as a float64 product over each expert's group."""
+    import torch
+    from repro_torch.kernels.moe_gemm.ref import _groups
+    dx = torch.zeros((dys.shape[0], w.shape[1]), dtype=torch.float64,
+                     device=dys.device)
+    for e, r0, r1 in _groups(block_expert, block_t, used):
+        dx[r0:r1] = dys[r0:r1].double() @ w[e].double().T
+    return dx
+
+
+def _moe_dw64(xs, dys, block_expert, ends, block_t, used):
+    """The gradient of w as a float64 product over each expert's group."""
+    import torch
+    from repro_torch.kernels.moe_gemm.ref import _groups
+    dw = torch.zeros((ends.shape[0], xs.shape[1], dys.shape[1]),
+                     dtype=torch.float64, device=xs.device)
+    for e, r0, r1 in _groups(block_expert, block_t, used):
+        dw[e] = xs[r0:r1].double().T @ dys[r0:r1].double()
+    return dw
+
+
+def _moe_bwd_gate(what, got, plain, g64):
+    """A grouped-GEMM gradient against its plain version: finite; bf16
+    within one bf16 step of each element at max(|g|, 1) (f32 within 1e-5
+    of the tensor's largest element); against the float64 product relative
+    to each element (``ref.bwd_rel_err``) within ``REL_MULTIPLE`` times the
+    plain version's. Returns (share of the first limit, kernel / plain
+    float64-relative error, that error)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import (REL_MULTIPLE,
+                                                         bwd_limit,
+                                                         bwd_rel_err)
+    diff = (got.float() - plain.float()).abs()
+    if got.dtype == torch.bfloat16:
+        over = (diff / bwd_limit(plain)).max().item()
+    else:
+        over = diff.max().item() / (1e-5 * max(
+            plain.float().abs().max().item(), 1e-30))
+    rel, rel_p = bwd_rel_err(got, g64), bwd_rel_err(plain, g64)
+    ratio = rel / max(rel_p, 1e-300)
+    if not (bool(torch.isfinite(got).all()) and over <= 1.0
+            and rel <= REL_MULTIPLE * rel_p):
+        _fail(f"{what}: {over:.3f} of the per-element limit; against "
+              f"float64 relative to each element {rel:.3e}, the plain "
+              f"version's {rel_p:.3e} (at most {REL_MULTIPLE} times); "
+              f"finite {bool(torch.isfinite(got).all())}")
+    return over, ratio, rel
+
+
+def check_moe_gemm_bwd(gen):
+    """The grouped GEMM's backward kernels (dX on wgmma, dW on mma.sync)
+    against their plain versions and float64 products (``_moe_bwd_gate``)
+    at a qwen3-moe train microbatch's shapes, which heal_lm's batch
+    shares (1 x 4,096 or 8 x 512 tokens x top-8 = 32,768 assignments, E
+    128, d 2,048, F 768, token block 128): gate/up (w (E, 2048, 768)) and
+    down (w (E, 768, 2048)), with NaN in xs and dys from ``used`` on (dX
+    writes 0 there, dW reads nothing) and the same bits twice; timed eager
+    and by graph replay beside the plain version and ``torch._grouped_mm``
+    (timing only). Returns the two rows."""
+    import torch
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.kernel import (kernel_for,
+                                                     moe_gemm_cuda,
+                                                     moe_gemm_dw_cuda)
+    from repro_torch.kernels.moe_gemm.ref import (
+        moe_gemm_sorted_dw_reference, moe_gemm_sorted_dx_reference)
+    bf16 = torch.bfloat16
+    T, E = 32768, 128
+    rows = {}
+    for what, d, F in (("gate/up", 2048, 768), ("down", 768, 2048)):
+        bt = ops.block_t_for(T, E)
+        ids = torch.randint(0, E, (T,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        p = ops.plan(ids, E, bt)
+        n = int(p.used)
+        xs = ops.scatter_rows(torch.randn((T, d), generator=gen,
+                                          device="cuda").to(bf16), p)
+        dys = ops.scatter_rows(torch.randn((T, F), generator=gen,
+                                           device="cuda").to(bf16), p)
+        w = (torch.randn((E, d, F), generator=gen, device="cuda")
+             * d ** -0.5).to(bf16)
+        xs[n:] = float("nan")
+        dys[n:] = float("nan")
+        e_used = int((p.ends > torch.cat([p.ends.new_zeros(1),
+                                          p.ends[:-1]])).sum())
+        n_ops = 2.0 * T * d * F
+        offs = p.ends
+        cases = {
+            "dx": (lambda: moe_gemm_cuda(dys, p.block_expert, w, bt, p.used,
+                                         dx=True),
+                   lambda: moe_gemm_sorted_dx_reference(
+                       dys, p.block_expert, w, bt, p.used),
+                   lambda: _moe_dx64(dys, p.block_expert, w, bt, p.used),
+                   # dys rows read, the used experts' w, dX written
+                   (T * F + e_used * d * F + T * d) * 2,
+                   [lambda: torch._grouped_mm(dys[:n], w.transpose(1, 2),
+                                              offs=offs),
+                    lambda: torch._grouped_mm(
+                        dys[:n], w.transpose(1, 2).contiguous(), offs=offs)]),
+            "dw": (lambda: moe_gemm_dw_cuda(xs, dys, p.ends, p.used),
+                   lambda: moe_gemm_sorted_dw_reference(
+                       xs, dys, p.block_expert, E, bt, p.used),
+                   lambda: _moe_dw64(xs, dys, p.block_expert, p.ends, bt,
+                                     p.used),
+                   # xs and dys rows read, all of dW written
+                   (T * d + T * F + E * d * F) * 2,
+                   [lambda: torch._grouped_mm(xs[:n].t(), dys[:n],
+                                              offs=offs),
+                    lambda: torch._grouped_mm(xs[:n].t().contiguous(),
+                                              dys[:n], offs=offs)])}
+        for kind, (kernel, plain, exact, n_bytes, library) in cases.items():
+            got, again = kernel(), kernel()
+            want = plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                _fail(f"moe_gemm backward {kind} {what}: two runs differ")
+            if kind == "dx" and got[n:].any():
+                _fail(f"moe_gemm backward dx {what}: rows from used on "
+                      "are not 0")
+            over, ratio, rel = _moe_bwd_gate(
+                f"moe_gemm backward {kind} {what}", got, want, exact())
+            err = (got.float() - want.float()).abs().max().item()
+            del got, again, want
+            ms = time_ms(kernel, reps=5)
+            graph_ms = graph_time_ms(kernel, reps=5)
+            plain_ms = time_ms(plain, reps=1, trials=3)
+            lib_ms = None
+            if hasattr(torch, "_grouped_mm"):
+                for fn in library:
+                    try:
+                        fn()
+                    except RuntimeError as e:  # a yardstick only
+                        print(f"  torch._grouped_mm refused the {kind} "
+                              f"case: {str(e).splitlines()[0][:160]}")
+                        continue
+                    lib_ms = time_ms(fn, reps=5)
+                    break
+            b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
+            name = kernel_for(bf16, bt, d, F) if kind == "dx" else "mma_sync"
+            print(f"  moe_gemm backward {kind} {what} T={T} d={d} F={F} "
+                  f"E={E} (token block {bt}, rows {n} of {p.T_pad}, experts "
+                  f"used {e_used}) bf16, {name} kernel: max_abs_err "
+                  f"{err:.3e} ({over:.2f} of the per-element limit, "
+                  f"{ratio:.2f}x the plain version's float64-relative "
+                  f"error {rel:.2e}), the same bits twice; kernel {ms:.4f} "
+                  f"ms ({n_ops / ms / 1e9:.1f} TFLOP/s), graph replay "
+                  f"{graph_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                  f"torch._grouped_mm "
+                  + (f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a")
+                  + f", bound {b_ms:.4f} ms ({b_by}; operations alone "
+                  f"{n_ops / PEAK_OPS['bf16'] * 1e3:.4f} ms), {b_ms / ms:.1%}"
+                  " of it")
+            m = {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                 "max_abs_err": err, "rel_err": rel, "rel_vs_plain": ratio}
+            if what == "gate/up":
+                rows[kind] = {
+                    "name": f"moe_gemm_bwd_{kind}", "route": "cuda",
+                    "source": "src/repro_torch/kernels/moe_gemm/csrc/"
+                              "moe_gemm.cu",
+                    "replaces": "src/repro/models/moe.py:84 (autodiff of "
+                                "the expert einsums; no Pallas backward)",
+                    **m, "side": {}}
+            else:
+                rows[kind]["side"][what] = m
+        del xs, dys, w
+        torch.cuda.empty_cache()
+    return [rows["dx"], rows["dw"]]
+
+
 def _bwd_launches() -> dict:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     return {"flash_attention_fwd": flash_ops.launches,
             "flash_attention_bwd": flash_ops.bwd_launches,
             "rmsnorm": rms_ops.launches, "rmsnorm_bwd": rms_ops.bwd_launches}
+
+
+def _moe_launches() -> dict:
+    """The grouped GEMM's forward launches and its backward's by kernel,
+    beside ``_bwd_launches``'s (the MoE heal and train runs)."""
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    by = moe_ops.bwd_launches_by_kernel
+    if sum(by.values()) != moe_ops.bwd_launches:
+        _fail(f"moe_gemm backward launches {moe_ops.bwd_launches} != by "
+              f"kernel {by}")
+    return {**_bwd_launches(), "moe_gemm": moe_ops.launches,
+            **{f"moe_gemm_bwd/{k}": by.get(k, 0)
+               for k in ("dx_wgmma", "dx_mma_sync", "dw")}}
 
 
 def _lora_leaves(lora):
@@ -3020,9 +3220,8 @@ def serve_healed(params, spec, lora, items, texts, k=10):
 
 def heal_lm_phase():
     """heal_lm on qwen2-1.5b at full width and depth (bf16: the causal GQA
-    backward on a path), then on a 2-layer qwen3-moe-30b-a3b, which must
-    raise at the grouped GEMM (no backward yet, ROADMAP A.4b)."""
-    import dataclasses
+    backward on a path), then on qwen3-moe-30b-a3b (``heal_lm_moe``).
+    Returns the MoE run's launch counts."""
     import torch
     from repro_torch.configs.base import get_arch
     from repro_torch.core import healing as H
@@ -3060,26 +3259,65 @@ def heal_lm_phase():
     profile_heal_lm_step(params, cfg, rc, tokens)
     del params, lora, tokens
     torch.cuda.empty_cache()
+    return heal_lm_moe(gen)
+
+
+def heal_lm_moe(gen):
+    """heal_lm on qwen3-moe-30b-a3b at full width and 16 of its 48 layers
+    (the MoE phase's cut), at the qwen2 run's batch of 8 x 512 tokens, one
+    step a phase: its gradient runs the grouped GEMM's dX kernel (32,768
+    assignments: 128-row token blocks, the wgmma kernel) and no dW (the
+    expert weights are frozen). Exact launches; finite losses; a profiled
+    step. Returns the launch counts."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import healing as H
+    from repro_torch.models import transformer as T
     moe = get_arch("qwen3-moe-30b-a3b")
-    mcfg = dataclasses.replace(moe.model, n_layers=2)
+    cfg = dataclasses.replace(moe.model, n_layers=16)
+    rc = moe.recall
     with torch.no_grad():
-        mparams = T.lm_init(gen, mcfg, moe.recall, device="cuda")
-    mtok = torch.randint(0, mcfg.vocab, (2, 64), generator=gen,
-                         device="cuda", dtype=torch.int32)
-    try:
-        H.heal_lm(gen, mparams, mcfg, moe.recall, mtok,
-                  heal_cfg=H.HealConfig(batch=2, steps_per_phase=1),
-                  device="cuda")
-    except NotImplementedError as e:
-        if "A.4b" not in str(e):
-            _fail(f"heal_lm on MoE raised without naming A.4b: {e}")
-        print(f"  heal_lm qwen3-moe-30b-a3b (2 layers): raised as it must: "
-              f"{e}")
-    else:
-        _fail("heal_lm on a MoE config trained through the grouped GEMM, "
-              "which has no backward")
-    del mparams
+        params = T.lm_init(gen, cfg, rc, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (8, 512), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    hc = H.HealConfig(batch=8, steps_per_phase=1)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lora, log = H.heal_lm(gen, params, cfg, rc, tokens, heal_cfg=hc,
+                          device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = _moe_launches()
+    L, n = cfg.n_layers, len(log) * hc.steps_per_phase
+    # the targets' forward, then per step every layer forward and backward:
+    # three grouped GEMMs a layer each way, the backward's all dX
+    want = {"flash_attention_fwd": (n + 1) * L, "flash_attention_bwd": n * L,
+            "rmsnorm": (n + 1) * (2 * L + 1), "rmsnorm_bwd": n * 2 * L,
+            "moe_gemm": (n + 1) * 3 * L, "moe_gemm_bwd/dx_wgmma": n * 3 * L,
+            "moe_gemm_bwd/dx_mma_sync": 0, "moe_gemm_bwd/dw": 0}
+    print(f"  heal_lm qwen3-moe-30b-a3b (bf16, {L} of "
+          f"{moe.model.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+          f"{cfg.moe.d_ff_expert}; tokens 8 x 512, batch 8, 1 step a "
+          f"phase): {len(log)} phases in {wall:.2f} s, peak "
+          f"{peak / 2**30:.2f} GiB; "
+          + "; ".join(f"{p['window']} loss {p['loss_first']:.4f} "
+                      f"{p['step_s']:.3f} s" for p in log)
+          + f"; launches {got}")
+    if got != want:
+        _fail(f"heal_lm MoE launches {got}, want {want}")
+    if not all(math.isfinite(p["loss_first"]) for p in log):
+        _fail(f"heal_lm MoE: non-finite loss {log}")
+    leaves = [v for ab in lora.values() for v in ab.values()]
+    if not all(bool(torch.isfinite(v).all()) for v in leaves):
+        _fail("heal_lm MoE: the healed LoRA is not finite")
+    profile_heal_lm_step(params, cfg, rc, tokens)
+    del params, lora, tokens
     torch.cuda.empty_cache()
+    return got
 
 
 def heal_phase():
@@ -3100,7 +3338,8 @@ def heal_phase():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     print("heal: backward kernels vs plain versions:")
-    HEAL_ROWS[:] = [check_flash_bwd(gen), check_rmsnorm_bwd(gen)]
+    HEAL_ROWS[:] = [check_flash_bwd(gen), check_rmsnorm_bwd(gen),
+                    *check_moe_gemm_bwd(gen)]
     with torch.no_grad():
         params = IB.mem_init(gen, cfg, rc, device="cuda")
     data = SYN.multimodal_pairs(2, 64 + 128 + 16, cfg)
@@ -3155,9 +3394,10 @@ def heal_phase():
     serve_healed(params, spec, lora, vis[64:192], texts[192:208])
     del params, lora
     torch.cuda.empty_cache()
-    heal_lm_phase()
+    moe_got = heal_lm_phase()
     return {"flash_attention_bwd": got["flash_attention_bwd"],
-            "rmsnorm_bwd": got["rmsnorm_bwd"]}
+            "rmsnorm_bwd": got["rmsnorm_bwd"],
+            "heal_lm_moe": moe_got}
 
 
 
@@ -3590,53 +3830,222 @@ def train_mem(smi):
     return got
 
 
-def train_moe_raises():
-    """(d) A 2-layer qwen3-moe-30b-a3b train step must raise at the
-    grouped GEMM, which has no backward yet (ROADMAP A.4b)."""
+def _moe_train_launches(L: int, microbatches: int) -> dict:
+    """``_train_step_launches`` of a MoE LM step, and the grouped GEMM's:
+    three a layer forward, again in the recompute, and in the backward three
+    dX (the 32,768-assignment microbatch's 128-row token blocks: the wgmma
+    kernel) and three dW a layer, each a microbatch."""
+    return {**_train_step_launches(L, microbatches),
+            "moe_gemm": microbatches * 2 * 3 * L,
+            "moe_gemm_bwd/dx_wgmma": microbatches * 3 * L,
+            "moe_gemm_bwd/dx_mma_sync": 0,
+            "moe_gemm_bwd/dw": microbatches * 3 * L}
+
+
+def check_moe_train_calls(params, cfg, rc, mb, chunk):
+    """Every grouped-GEMM backward call of one MoE train microbatch (remat)
+    against its plain version and a float64 product on the same inputs
+    (``_moe_bwd_gate``): three dX and three dW a layer."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm.ref import (
+        moe_gemm_sorted_dw_reference, moe_gemm_sorted_dx_reference)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import value_and_grad
+    worst, calls = {}, {"dx": 0, "dw": 0}
+    dx_kernel, dw_kernel = moe_ops.moe_gemm_sorted_dx, moe_ops.moe_gemm_sorted_dw
+
+    def note(kind, got, plain, exact):
+        calls[kind] += 1
+        over, ratio, _ = _moe_bwd_gate(f"moe_gemm backward {kind} call "
+                                       f"{calls[kind]} {tuple(got.shape)}",
+                                       got, plain, exact)
+        old = worst.get(kind, (0.0, 0.0))
+        worst[kind] = (max(old[0], over), max(old[1], ratio))
+        return got
+
+    def dx(dys, be, w, bt, used):
+        return note("dx", dx_kernel(dys, be, w, bt, used),
+                    moe_gemm_sorted_dx_reference(dys, be, w, bt, used),
+                    _moe_dx64(dys, be, w, bt, used))
+
+    def dw(xs, dys, be, ends, bt, used, dtype):
+        return note("dw", dw_kernel(xs, dys, be, ends, bt, used, dtype),
+                    moe_gemm_sorted_dw_reference(xs, dys, be, ends.shape[0],
+                                                 bt, used, dtype),
+                    _moe_dw64(xs, dys, be, ends, bt, used))
+
+    with mock.patch.object(moe_ops, "moe_gemm_sorted_dx", dx), \
+            mock.patch.object(moe_ops, "moe_gemm_sorted_dw", dw):
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(
+            lambda p, b: T.lm_loss(p, cfg, rc, b["tokens"], b["labels"],
+                                   remat=True, chunk=chunk)[0], params, mb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    want = {"dx": 3 * cfg.n_layers, "dw": 3 * cfg.n_layers}
+    if calls != want:
+        _fail(f"one MoE microbatch's grouped-GEMM backward calls {calls}, "
+              f"want {want}")
+    if not torch.isfinite(loss):
+        _fail(f"checked MoE microbatch: loss {loss}")
+    print(f"  grouped-GEMM backward calls of one microbatch "
+          f"({mb['tokens'].shape[0]} x {mb['tokens'].shape[1]} tokens, "
+          f"remat, attention at fan-in d) vs plain versions on the same "
+          f"inputs ({wall:.1f} s): {calls}; worst share of the per-element "
+          "limit / float64-relative error over the plain version's: "
+          + ", ".join(f"{k} {o:.2f} / {r:.2f}x" for k, (o, r) in
+                      worst.items()))
+    del grads
+
+
+def check_moe_init_step(bundle, raw, batch):
+    """One qwen3-moe train step from the init through the kernels, and with
+    the grouped GEMM's backward patched to its plain versions: grad norms
+    finite alike or not finite alike (C.7), and where finite within 2x of
+    each other. Returns the kernels' grad_norm."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm.ref import (
+        moe_gemm_sorted_dw_reference, moe_gemm_sorted_dx_reference)
+    from repro_torch.optim import adamw as A
+
+    def plain_dw(xs, dys, be, ends, bt, used, dtype):
+        return moe_gemm_sorted_dw_reference(xs, dys, be, ends.shape[0], bt,
+                                            used, dtype)
+
+    res = {}
+    for name, patches in (("kernels", ()),
+                          ("plain grouped-GEMM backward",
+                           (("moe_gemm_sorted_dx",
+                             moe_gemm_sorted_dx_reference),
+                            ("moe_gemm_sorted_dw", plain_dw)))):
+        with contextlib.ExitStack() as stack:
+            for attr, fn in patches:
+                stack.enter_context(mock.patch.object(moe_ops, attr, fn))
+            t0 = time.perf_counter()
+            m = bundle.fn(raw, A.AdamW().init(raw), batch)[2]
+            gn, loss = float(m["grad_norm"]), float(m["loss"])
+            del m
+            wall = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        res[name] = gn
+        print(f"  one MoE step from the init, {name} ({wall:.1f} s): loss "
+              f"{loss:.4f}, grad_norm {gn}")
+    k, p = res["kernels"], res["plain grouped-GEMM backward"]
+    if math.isfinite(k) != math.isfinite(p) or (
+            math.isfinite(k) and not 0.5 <= k / p <= 2.0):
+        _fail(f"MoE step from the init: grad_norm {k} through the kernels, "
+              f"{p} with the plain grouped-GEMM backward")
+    return k
+
+
+def train_moe(smi):
+    """(d) qwen3-moe-30b-a3b at full width and 3 of its 48 layers (4 would
+    pass 80 GB with the optimizer state): 2 ``train_loop`` steps of 8 x
+    4,096 tokens (train_4k's S, qwen2's batch cut), the reference's plan
+    (8 microbatches of one sequence), remat, from its own init; one step
+    from the init held to the plain grouped-GEMM backward, then train_loop's
+    first grad_norm that same step's; exact launches; one microbatch's
+    grouped-GEMM backward calls held to their plain versions; a profiled
+    step. Returns the launch counts."""
     import dataclasses
     import torch
-    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import ShardedLoader
     from repro_torch.launch import steps as S
     from repro_torch.launch import train as TR
-    from repro_torch.optim.adamw import AdamW
     moe = get_arch("qwen3-moe-30b-a3b")
     spec = dataclasses.replace(moe, model=dataclasses.replace(
-        moe.model, n_layers=2))
-    shape = ShapeConfig("t", "train", global_batch=2, seq_len=64)
+        moe.model, n_layers=3))
+    cfg, rc = spec.model, spec.recall
+    shape = dataclasses.replace(spec.shape("train_4k"), global_batch=8)
     bundle = S.build_step(spec, shape, device="cuda")
-    params = TR.init_params(spec, 0, bundle.meta["device"])
-    batch = {k: torch.as_tensor(v).cuda() for k, v in
-             TR.make_train_data(spec, shape, 2).items()}
-    try:
-        bundle.fn(params, AdamW().init(params), batch)
-    except NotImplementedError as e:
-        if "A.4b" not in str(e):
-            _fail(f"the MoE train step raised without naming A.4b: {e}")
-        print(f"  qwen3-moe-30b-a3b train step (2 layers): raised as it "
-              f"must: {e}")
-    else:
-        _fail("a MoE train step ran through the grouped GEMM, which has no "
-              "backward")
-    del params, batch
+    n_mb = bundle.meta["microbatches"]
+    if (n_mb, bundle.meta["mode"]) != (8, "fsdp_seq"):
+        _fail(f"qwen3-moe train plan {bundle.meta}")
+    n_data, steps = 16, 2
+    first = ShardedLoader(TR.make_train_data(spec, shape, n_data, 0),
+                          shape.global_batch, seed=0).take(1)[0]
+    batch = {k: torch.as_tensor(v).cuda() for k, v in first.items()}
+    raw = TR.init_params(spec, 0, bundle.meta["device"])
+    init_gn = check_moe_init_step(bundle, raw, batch)
+    del raw
     torch.cuda.empty_cache()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = TR.train_loop(spec, shape, device="cuda", steps=steps,
+                        n_data=n_data, log_every=0)
+    torch.cuda.synchronize()
+    got = _moe_launches()
+    want = {k: steps * v for k, v in
+            _moe_train_launches(cfg.n_layers, n_mb).items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train qwen3-moe-30b-a3b ({cfg.n_layers} of {moe.model.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} of {cfg.moe.d_ff_expert}, bf16; "
+          f"{shape.global_batch} x {shape.seq_len} tokens a step; {n_mb} "
+          f"microbatches, {bundle.meta['mode']}, chunk "
+          f"{bundle.meta['chunk']}, remat, from its own init): launches "
+          f"{got} ({want} wanted)")
+    if got != want:
+        _fail(f"qwen3-moe train launches {got}, want {want}")
+    if not _same_float(out["grad_norms"][0], init_gn):
+        _fail(f"train_loop's first grad_norm {out['grad_norms'][0]}, the "
+              f"same step on the same batch {init_gn}")
+    opt = out["opt_state"]
+    finite = all(map(math.isfinite, out["losses"] + out["grad_norms"]))
+    if not (all(map(math.isfinite, out["losses"])) and opt.step == steps
+            and _finite_tree(opt.m) and _finite_tree(opt.v)
+            and _finite_tree(out["params"])):
+        _fail(f"qwen3-moe train: non-finite losses, moments or params "
+              f"{out['losses']}")
+    _report_train("qwen3-moe-30b-a3b train_loop", out,
+                  shape.global_batch * shape.seq_len, bundle.model_flops,
+                  peak, smi)
+    print(f"  losses and grad norms all finite: {finite}")
+    params = out["params"]
+
+    def one_step():  # the update's outputs dropped: the same step each run
+        bundle.fn(params, opt, batch)
+
+    profile_windows(((f"qwen3-moe train step, {shape.global_batch} x "
+                      f"{shape.seq_len} tokens, {cfg.n_layers} layers "
+                      "(forward, backward, update)", one_step,
+                      "moe_gemm_dw"),))
+    del out, params, opt
+    torch.cuda.empty_cache()
+    data = TR.make_train_data(spec, shape, 1, seed=7)
+    mb = {k: torch.as_tensor(v).cuda() for k, v in data.items()}
+    check_moe_train_calls(
+        _fan_in_d(TR.init_params(spec, 0, bundle.meta["device"])), cfg, rc,
+        mb, bundle.meta["chunk"])
+    del batch, mb
+    torch.cuda.empty_cache()
+    return got
 
 
 def train_phase():
     """The training path on the card: (a) qwen2-1.5b's LM step at full
     width and depth, (b) a checkpoint round trip, (c) recall-imagebind's
-    contrastive step at full width, (d) a MoE train step that must raise.
-    Returns the launch counts of (a) and (c) (printed; the kernels line
-    keeps each row's count from the path it came from before)."""
+    contrastive step at full width, (d) qwen3-moe-30b-a3b's step at full
+    width. Returns the launch counts of (a), (c) and (d) (printed), and
+    (d)'s grouped-GEMM backward counts under the kernel rows' names (the
+    one path that runs both)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     lm_got = train_lm(smi)
     train_checkpoint(smi)
     mem_got = train_mem(smi)
-    train_moe_raises()
+    moe_got = train_moe(smi)
     print(f"train launches: qwen2-1.5b 3 steps {lm_got}; recall-imagebind "
-          f"2 steps {mem_got}")
-    return {"lm": lm_got, "mem": mem_got}
+          f"2 steps {mem_got}; qwen3-moe-30b-a3b 2 steps {moe_got}")
+    return {"lm": lm_got, "mem": mem_got, "moe": moe_got,
+            "moe_gemm_bwd_dx": moe_got["moe_gemm_bwd/dx_wgmma"],
+            "moe_gemm_bwd_dw": moe_got["moe_gemm_bwd/dw"]}
 
 
 def build_phase():
@@ -3677,8 +4086,8 @@ def main() -> None:
         f"{name} {wall:.1f} s" for name, (_, wall) in walls.items()))
     rows = walls["kernels"][0] + HEAL_ROWS
     for row in rows:  # each kernel's count from the path that runs it
-        path = next((p for p in ("lm", "moe", "heal") if row["name"] in
-                     walls[p][0]),
+        path = next((p for p in ("lm", "moe", "heal", "train")
+                     if row["name"] in walls[p][0]),
                     "ivf" if row["name"] in IVF_KERNELS else "serve")
         row["launches"] = walls[path][0][row["name"]]
         if row["name"] == "retrieval_topk_int4_gathered":

@@ -160,8 +160,9 @@ def heal_lm(gen: torch.Generator, params, cfg: LMConfig,
             exit_hist: Optional[np.ndarray] = None,
             device="cuda") -> Tuple[dict, List[dict]]:
     """Heal an LM used as an embedder: distill the full-depth pooled
-    embedding into each exit. ``tokens`` (N, S). On CUDA a MoE config
-    raises at the grouped GEMM, which has no backward yet."""
+    embedding into each exit. ``tokens`` (N, S). A MoE config takes its
+    gradient through the grouped GEMM's backward (the expert weights are
+    frozen, so only the gradient of the layer's input runs)."""
     device = resolve_device(device)
     lora = plora.lora_init(gen, cfg, recall, device=device)
     tokens = torch.as_tensor(tokens).to(device)

@@ -37,9 +37,18 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
 // A bf16 tensor map of `rank` dims (dims[0] contiguous; strides in bytes of
 // dims 1.. ) whose box lands in shared memory with the 128-byte swizzle.
 // Elements outside the tensor read as zero. Returns a cudaError_t.
+//
+// cuTensorMapEncodeTiled needs a current context: a host thread whose first
+// CUDA call this is (an autograd worker, say) has none until the runtime
+// binds one lazily at its first launch, and the encode fails.
+// cudaSetDevice binds the current device's primary context first.
 inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
                            const uint64_t* dims, const uint64_t* strides,
                            const uint32_t* box) {
+  int dev = 0;
+  cudaError_t bound = cudaGetDevice(&dev);
+  if (bound == cudaSuccess) bound = cudaSetDevice(dev);
+  if (bound != cudaSuccess) return (int)bound;
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

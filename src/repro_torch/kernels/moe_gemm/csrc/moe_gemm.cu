@@ -31,6 +31,26 @@
 // releases a stage as soon as the group reading it has completed. Columns
 // past F are masked at the store.
 //
+// The backward (no Pallas site: the reference differentiates its MoE
+// layer's einsums) is the same grouped product twice more. dX (T_pad, d) =
+// dys[r] @ w[block_expert[r / bt]]^T is each forward kernel with its
+// DX template flag: reduction over F, output width d, w read K-major (its
+// rows are d, F contiguous), and blocks from used on write zeros (dys holds
+// garbage there: the forward left those rows unwritten) and read nothing.
+// dW (E, d, F) is moe_gemm_dw_kernel: one block per (expert, 128 rows of d,
+// 128 columns of F) walks its expert's rows in order, from its group's
+// start to its end (the plan's ends, never past used: blocks past the last
+// group name expert E - 1 and are never read), sums xs^T dys in fp32
+// registers and stores once; an expert with no rows stores zeros. No
+// atomics and no split-K anywhere, so the gradient has the same bits twice.
+// What bounds it at the train shape (T = 32,768 assignments, d 2,048, F
+// 768, E 128): the bytes, the E * d * F output (403 MB bf16) and both
+// inputs, 0.175 ms at 3.35 TB/s, over the 2 * T * d * F operations' 0.104
+// ms. Design: 256 threads in 4 x 2 warps of 32 x 64 outputs; 32-row slices
+// of xs and dys staged through registers into padded shared memory while
+// the previous slice runs; both operands read transposed by
+// ldmatrix.trans into mma.sync m16n8k16 (bf16) or by FMAs (f32).
+//
 // moe_gemm_kernel (the decode regime: bt 16, T = 128; also f32 and shapes
 // that break TMA's 16-byte strides). What bounds it at decode: the expert
 // weights' read, E_used * d * F * 2 bytes / 3.35e12. Design: one block per
@@ -88,7 +108,9 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
 
 // One 16-deep step of a 16x8 output fragment: C[g][2t..2t+1], C[g+8][..]
 // += A[16 rows][kk..kk+16] @ B[kk..kk+16][8 cols], in the layout of
-// mma.m16n8k16 (g = lane / 4, t = lane % 4).
+// mma.m16n8k16 (g = lane / 4, t = lane % 4). B is stored [k][n] (wb at
+// B[kk][0]), or [n][k] where BT (wb at B[0][kk]: the backward's w^T).
+template <bool BT>
 __device__ __forceinline__ void frag_step(float c[4], const __nv_bfloat16* xa,
                                           int lda, const __nv_bfloat16* wb,
                                           int ldb, int lane) {
@@ -98,18 +120,25 @@ __device__ __forceinline__ void frag_step(float c[4], const __nv_bfloat16* xa,
   a[1] = *reinterpret_cast<const uint32_t*>(xa + (g + 8) * lda + 2 * t);
   a[2] = *reinterpret_cast<const uint32_t*>(xa + g * lda + 2 * t + 8);
   a[3] = *reinterpret_cast<const uint32_t*>(xa + (g + 8) * lda + 2 * t + 8);
-  b[0] = pack2(wb[(2 * t) * ldb + g], wb[(2 * t + 1) * ldb + g]);
-  b[1] = pack2(wb[(2 * t + 8) * ldb + g], wb[(2 * t + 9) * ldb + g]);
+  if (BT) {
+    b[0] = *reinterpret_cast<const uint32_t*>(wb + g * ldb + 2 * t);
+    b[1] = *reinterpret_cast<const uint32_t*>(wb + g * ldb + 2 * t + 8);
+  } else {
+    b[0] = pack2(wb[(2 * t) * ldb + g], wb[(2 * t + 1) * ldb + g]);
+    b[1] = pack2(wb[(2 * t + 8) * ldb + g], wb[(2 * t + 9) * ldb + g]);
+  }
   mma_bf16(c, a, b);
 }
 
+template <bool BT>
 __device__ __forceinline__ void frag_step(float c[4], const float* xa, int lda,
                                           const float* wb, int ldb, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < 16; ++kk) {
     const float a0 = xa[g * lda + kk], a1 = xa[(g + 8) * lda + kk];
-    const float b0 = wb[kk * ldb + 2 * t], b1 = wb[kk * ldb + 2 * t + 1];
+    const float b0 = BT ? wb[(2 * t) * ldb + kk] : wb[kk * ldb + 2 * t];
+    const float b1 = BT ? wb[(2 * t + 1) * ldb + kk] : wb[kk * ldb + 2 * t + 1];
     c[0] = fmaf(a0, b0, c[0]);
     c[1] = fmaf(a0, b1, c[1]);
     c[2] = fmaf(a1, b0, c[2]);
@@ -117,32 +146,42 @@ __device__ __forceinline__ void frag_step(float c[4], const float* xa, int lda,
   }
 }
 
-template <typename T, int BM>
+// K is the reduction, N the output width: the forward's (d, F), DX's (F, d).
+// w (E, d, F) holds B(k, n) at w[e][k][n] in the forward, at w[e][n][k] in
+// DX; its tile lands in shared memory as [k][n] or [n][k] alike.
+template <typename T, int BM, bool DX>
 __global__ void __launch_bounds__(THREADS)
 moe_gemm_kernel(const T* __restrict__ xs, const int* __restrict__ block_expert,
                 const T* __restrict__ w, const int* __restrict__ used,
-                T* __restrict__ ys, int d, int F, int bt) {
+                T* __restrict__ ys, int K, int N, int bt) {
   constexpr int BK = Cfg<T>::BK, PAD = Cfg<T>::PAD;
   constexpr int V = 16 / sizeof(T);          // elements per 16-byte chunk
   constexpr int WM_WARPS = BM >= 64 ? 2 : 1;  // warps along rows
   constexpr int WN_WARPS = 4 / WM_WARPS;      // warps along columns
   constexpr int WM = BM / WM_WARPS, WN = BN / WN_WARPS;
   constexpr int MF = WM / 16, NF = WN / 8;    // fragments per warp
-  constexpr int LDA = BK + PAD, LDB = BN + PAD;
+  constexpr int LDA = BK + PAD;
+  constexpr int WR = DX ? BN : BK, WC = DX ? BK : BN;  // w tile rows, columns
+  constexpr int LDB = WC + PAD;
   constexpr int XCH = BM * BK / V / THREADS;  // x chunks per thread
-  constexpr int WCH = BK * BN / V / THREADS;  // w chunks per thread
+  constexpr int WCH = WR * WC / V / THREADS;  // w chunks per thread
   static_assert(XCH >= 1 && WCH >= 1, "tile too small for the block");
   __shared__ __align__(16) T xsh[BM * LDA];
-  __shared__ __align__(16) T wsh[BK * LDB];
+  __shared__ __align__(16) T wsh[WR * LDB];
 
   const int row0 = blockIdx.y * BM;
-  if (row0 >= *used) return;  // past the last real group
-  const int e = block_expert[row0 / bt];
   const int n0 = blockIdx.x * BN;
-  const T* wexp = w + (size_t)e * d * F;
-  const bool x_al = (d % V) == 0, w_al = (F % V) == 0;
-
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (row0 >= *used) {  // past the last real group
+    if (DX)  // the gradient of a row no assignment fills is 0
+      for (int i = tid; i < BM * BN; i += THREADS)
+        if (n0 + i % BN < N)
+          ys[(size_t)(row0 + i / BN) * N + n0 + i % BN] = from_f<T>(0.f);
+    return;
+  }
+  const int e = block_expert[row0 / bt];
+  const T* wexp = w + (size_t)e * K * N;
+  const bool x_al = (K % V) == 0, w_al = ((DX ? K : N) % V) == 0;
   const int wm = warp / WN_WARPS, wn = warp % WN_WARPS;
 
   uint4 xr[XCH], wr[WCH];
@@ -151,16 +190,20 @@ moe_gemm_kernel(const T* __restrict__ xs, const int* __restrict__ block_expert,
     for (int i = 0; i < XCH; ++i) {
       const int ch = tid + i * THREADS, r = ch / (BK / V),
                 c = (ch % (BK / V)) * V;
-      xr[i] = load_chunk(xs + (size_t)(row0 + r) * d, k0 + c, d, x_al);
+      xr[i] = load_chunk(xs + (size_t)(row0 + r) * K, k0 + c, K, x_al);
     }
 #pragma unroll
     for (int i = 0; i < WCH; ++i) {
-      const int ch = tid + i * THREADS, r = ch / (BN / V),
-                c = (ch % (BN / V)) * V;
-      if (k0 + r < d)
-        wr[i] = load_chunk(wexp + (size_t)(k0 + r) * F, n0 + c, F, w_al);
-      else
-        wr[i] = make_uint4(0, 0, 0, 0);
+      const int ch = tid + i * THREADS, r = ch / (WC / V),
+                c = (ch % (WC / V)) * V;
+      if (DX)  // row n0 + r of w[e], columns k0 + c
+        wr[i] = n0 + r < N ? load_chunk(wexp + (size_t)(n0 + r) * K, k0 + c,
+                                        K, w_al)
+                           : make_uint4(0, 0, 0, 0);
+      else     // row k0 + r of w[e], columns n0 + c
+        wr[i] = k0 + r < K ? load_chunk(wexp + (size_t)(k0 + r) * N, n0 + c,
+                                        N, w_al)
+                           : make_uint4(0, 0, 0, 0);
     }
   };
   auto stash = [&]() {
@@ -172,8 +215,8 @@ moe_gemm_kernel(const T* __restrict__ xs, const int* __restrict__ block_expert,
     }
 #pragma unroll
     for (int i = 0; i < WCH; ++i) {
-      const int ch = tid + i * THREADS, r = ch / (BN / V),
-                c = (ch % (BN / V)) * V;
+      const int ch = tid + i * THREADS, r = ch / (WC / V),
+                c = (ch % (WC / V)) * V;
       *reinterpret_cast<uint4*>(wsh + r * LDB + c) = wr[i];
     }
   };
@@ -187,18 +230,21 @@ moe_gemm_kernel(const T* __restrict__ xs, const int* __restrict__ block_expert,
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
   fetch(0);
-  for (int k0 = 0; k0 < d; k0 += BK) {
+  for (int k0 = 0; k0 < K; k0 += BK) {
     stash();
     __syncthreads();
-    if (k0 + BK < d) fetch(k0 + BK);  // next stage in flight during the math
+    if (k0 + BK < K) fetch(k0 + BK);  // next stage in flight during the math
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
 #pragma unroll
       for (int i = 0; i < MF; ++i)
 #pragma unroll
-        for (int j = 0; j < NF; ++j)
-          frag_step(acc[i][j], xsh + (wm * WM + i * 16) * LDA + kk, LDA,
-                    wsh + kk * LDB + wn * WN + j * 8, LDB, lane);
+        for (int j = 0; j < NF; ++j) {
+          const int n = wn * WN + j * 8;
+          frag_step<DX>(acc[i][j], xsh + (wm * WM + i * 16) * LDA + kk, LDA,
+                        DX ? wsh + n * LDB + kk : wsh + kk * LDB + n, LDB,
+                        lane);
+        }
     }
     __syncthreads();
   }
@@ -212,28 +258,41 @@ moe_gemm_kernel(const T* __restrict__ xs, const int* __restrict__ block_expert,
       for (int r = 0; r < 4; ++r) {
         const int row = row0 + wm * WM + i * 16 + g + (r >= 2 ? 8 : 0);
         const int col = n0 + wn * WN + j * 8 + 2 * t + (r & 1);
-        if (col < F) ys[(size_t)row * F + col] = from_f<T>(acc[i][j][r]);
+        if (col < N) ys[(size_t)row * N + col] = from_f<T>(acc[i][j][r]);
       }
 }
 
-template <typename T, int BM>
+// d, F: w's (E, d, F); the forward reduces over d into F columns, DX over
+// F into d columns.
+template <typename T, bool DX>
 int launch(const void* xs, const int* block_expert, const void* w,
            const int* used, void* ys, int T_pad, int d, int F, int bt,
            cudaStream_t stream) {
-  const dim3 grid((F + BN - 1) / BN, T_pad / BM);
-  moe_gemm_kernel<T, BM><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(xs), block_expert, static_cast<const T*>(w), used,
-      static_cast<T*>(ys), d, F, bt);
+  const int K = DX ? F : d, N = DX ? d : F;
+  const dim3 grid((N + BN - 1) / BN, T_pad / (bt % 64 == 0 ? 64 : 16));
+  if (bt % 64 == 0)
+    moe_gemm_kernel<T, 64, DX><<<grid, THREADS, 0, stream>>>(
+        static_cast<const T*>(xs), block_expert, static_cast<const T*>(w),
+        used, static_cast<T*>(ys), K, N, bt);
+  else
+    moe_gemm_kernel<T, 16, DX><<<grid, THREADS, 0, stream>>>(
+        static_cast<const T*>(xs), block_expert, static_cast<const T*>(w),
+        used, static_cast<T*>(ys), K, N, bt);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bm(const void* xs, const int* block_expert, const void* w,
-              const int* used, void* ys, int T_pad, int d, int F, int bt,
-              cudaStream_t stream) {
-  if (bt % 64 == 0)
-    return launch<T, 64>(xs, block_expert, w, used, ys, T_pad, d, F, bt, stream);
-  return launch<T, 16>(xs, block_expert, w, used, ys, T_pad, d, F, bt, stream);
+template <bool DX>
+int launch_dtype(const void* xs, const int* block_expert, const void* w,
+                 const int* used, void* ys, int T_pad, int d, int F, int bt,
+                 int is_bf16, cudaStream_t stream) {
+  if (T_pad < 1 || d < 1 || F < 1 || bt < 16 || bt % 16 || T_pad % bt ||
+      T_pad / 16 > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return launch<__nv_bfloat16, DX>(xs, block_expert, w, used, ys, T_pad, d,
+                                     F, bt, stream);
+  return launch<float, DX>(xs, block_expert, w, used, ys, T_pad, d, F, bt,
+                           stream);
 }
 
 
@@ -255,21 +314,37 @@ template <int BM> struct Cfg {
 };
 }  // namespace gm
 
-template <int BM>
+// K is the reduction, N the output width: the forward's (d, F), DX's (F,
+// d). The w map covers (F, d, E) in 64 x 64 boxes either way; the forward
+// stacks four boxes along N (64-column atoms, read MN-major through the
+// transpose bit), DX four along N's rows (a [256 rows of d][64 of F]
+// K-major tile, read as the A tile is).
+template <int BM, bool DX>
 __global__ void __launch_bounds__(gm::THREADS, 1)
 moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
                const __grid_constant__ CUtensorMap map_w,
                const int* __restrict__ block_expert,
                const int* __restrict__ used, __nv_bfloat16* __restrict__ ys,
-               int d, int F, int bt) {
+               int K, int N, int bt) {
   using namespace hopper;
   using C = gm::Cfg<BM>;
   constexpr int STAGES = C::STAGES, WN = C::WN;
   const int row0 = blockIdx.y * BM;
-  if (row0 >= *used) return;  // past the last real group
-  const int e = block_expert[row0 / bt];
   const int n0 = blockIdx.x * gm::BN;
-  const int nk = (d + gm::BK - 1) / gm::BK;
+  if (row0 >= *used) {  // past the last real group
+    if (DX) {  // the gradient of a row no assignment fills is 0
+      const int ncols = min(gm::BN, N - n0);  // a multiple of 8
+      for (int i = threadIdx.x; i < BM * (gm::BN / 8); i += gm::THREADS) {
+        const int r = i / (gm::BN / 8), c = (i % (gm::BN / 8)) * 8;
+        if (c < ncols)
+          *reinterpret_cast<uint4*>(ys + (size_t)(row0 + r) * N + n0 + c) =
+              make_uint4(0, 0, 0, 0);
+      }
+    }
+    return;
+  }
+  const int e = block_expert[row0 / bt];
+  const int nk = (K + gm::BK - 1) / gm::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR);
@@ -288,8 +363,8 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
   if (wg == 0) {  // producer
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      // w boxes that start inside F (a box past F would only read zeros)
-      const int n_atoms = min(gm::BN / 64, (F - n0 + 63) / 64);
+      // w boxes that start inside N (a box past N would only read zeros)
+      const int n_atoms = min(gm::BN / 64, (N - n0 + 63) / 64);
       const uint32_t bytes = C::A_BYTES + n_atoms * gm::B_ATOM;
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % STAGES;
@@ -297,9 +372,13 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
         uint8_t* st = sm + s * C::STAGE;
         mbar_expect_tx(&full[s], bytes);
         tma_load_2d(st, &map_x, &full[s], kt * gm::BK, row0);
-        for (int a = 0; a < n_atoms; ++a)
-          tma_load_3d(st + C::A_BYTES + a * gm::B_ATOM, &map_w, &full[s],
-                      n0 + 64 * a, kt * gm::BK, e);
+        for (int a = 0; a < n_atoms; ++a) {
+          uint8_t* dst = st + C::A_BYTES + a * gm::B_ATOM;
+          if (DX)
+            tma_load_3d(dst, &map_w, &full[s], kt * gm::BK, n0 + 64 * a, e);
+          else
+            tma_load_3d(dst, &map_w, &full[s], n0 + 64 * a, kt * gm::BK, e);
+        }
       }
     }
   } else {  // consumers
@@ -312,15 +391,18 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % STAGES;
       const uint8_t* st = sm + s * C::STAGE;
+      const uint8_t* bt_ = st + C::A_BYTES + (wn * WN / 64) * gm::B_ATOM;
       mbar_wait(&full[s], (kt / STAGES) & 1);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < gm::BK / 16; ++kk) {
         const uint64_t da = desc_sw128(st + wm * 64 * 128 + kk * 32, 16, 1024);
-        const uint64_t db = desc_sw128(
-            st + C::A_BYTES + (wn * WN / 64) * gm::B_ATOM + kk * 2048, gm::B_ATOM,
-            1024);
-        Wgmma<WN>::template ss<1>(acc, da, db, 1);
+        if (DX)
+          Wgmma<WN>::template ss<0>(acc, da,
+                                    desc_sw128(bt_ + kk * 32, 16, 1024), 1);
+        else
+          Wgmma<WN>::template ss<1>(
+              acc, da, desc_sw128(bt_ + kk * 2048, gm::B_ATOM, 1024), 1);
       }
       wgmma_commit();
       wgmma_wait<1>();  // the previous slice's group is done: free its stage
@@ -332,12 +414,12 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
     const int row = row0 + wm * 64 + warp * 16 + g;
-    __nv_bfloat16* y0 = ys + (size_t)row * F;
-    __nv_bfloat16* y1 = y0 + (size_t)8 * F;
+    __nv_bfloat16* y0 = ys + (size_t)row * N;
+    __nv_bfloat16* y1 = y0 + (size_t)8 * N;
 #pragma unroll
     for (int c = 0; c < WN / 8; ++c) {
       const int col = n0 + wn * WN + 8 * c + 2 * t;
-      if (col < F) {
+      if (col < N) {
         *reinterpret_cast<uint32_t*>(y0 + col) = pack_bf16(acc[4 * c], acc[4 * c + 1]);
         *reinterpret_cast<uint32_t*>(y1 + col) = pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
       }
@@ -345,62 +427,289 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-template <int BM>
+template <int BM, bool DX>
 int launch_wgmma(const void* xs, const int* block_expert, const void* w,
                  const int* used, void* ys, int T_pad, int d, int F, int E,
                  cudaStream_t stream) {
+  const int K = DX ? F : d, N = DX ? d : F;
   CUtensorMap mx, mw;
-  const uint64_t dx[2] = {(uint64_t)d, (uint64_t)T_pad};
-  const uint64_t sx[1] = {(uint64_t)d * 2};
+  const uint64_t dx[2] = {(uint64_t)K, (uint64_t)T_pad};
+  const uint64_t sx[1] = {(uint64_t)K * 2};
   const uint32_t bx[2] = {64, BM};
   const uint64_t dw[3] = {(uint64_t)F, (uint64_t)d, (uint64_t)E};
   const uint64_t sw[2] = {(uint64_t)F * 2, (uint64_t)d * F * 2};
-  const uint32_t bw[3] = {64, gm::BK, 1};
+  const uint32_t bw[3] = {64, 64, 1};
   int err = hopper::encode_bf16_map(&mx, xs, 2, dx, sx, bx);
   if (!err) err = hopper::encode_bf16_map(&mw, w, 3, dw, sw, bw);
   if (err) return err;
   const int smem = gm::Cfg<BM>::BYTES;
-  auto kern = moe_gemm_wgmma<BM>;
+  auto kern = moe_gemm_wgmma<BM, DX>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((F + gm::BN - 1) / gm::BN, T_pad / BM);
+  const dim3 grid((N + gm::BN - 1) / gm::BN, T_pad / BM);
   kern<<<grid, gm::THREADS, smem, stream>>>(
-      mx, mw, block_expert, used, static_cast<__nv_bfloat16*>(ys), d, F, BM);
+      mx, mw, block_expert, used, static_cast<__nv_bfloat16*>(ys), K, N, BM);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// bt: rows per expert block, a multiple of 16 dividing T_pad. Returns a
-// cudaError_t.
-extern "C" int moe_gemm_launch(const void* xs, const int* block_expert,
-                               const void* w, const int* used, void* ys,
-                               int T_pad, int d, int F, int bt, int is_bf16,
-                               cudaStream_t stream) {
-  if (T_pad < 1 || d < 1 || F < 1 || bt < 16 || bt % 16 || T_pad % bt ||
-      T_pad / 16 > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return launch_bm<__nv_bfloat16>(xs, block_expert, w, used, ys, T_pad, d,
-                                    F, bt, stream);
-  return launch_bm<float>(xs, block_expert, w, used, ys, T_pad, d, F, bt,
-                          stream);
-}
-
-// bf16 only; bt 64 or 128 rows per expert block dividing T_pad; d and F
-// multiples of 8 (TMA's 16-byte strides); E experts in w. Returns a
-// cudaError_t.
-extern "C" int moe_gemm_wgmma_launch(const void* xs, const int* block_expert,
-                                     const void* w, const int* used, void* ys,
-                                     int T_pad, int d, int F, int E, int bt,
-                                     cudaStream_t stream) {
+template <bool DX>
+int launch_wgmma_bt(const void* xs, const int* block_expert, const void* w,
+                    const int* used, void* ys, int T_pad, int d, int F, int E,
+                    int bt, cudaStream_t stream) {
   if (T_pad < 1 || d < 8 || F < 8 || E < 1 || d % 8 || F % 8 ||
       (bt != 64 && bt != 128) || T_pad % bt || T_pad / bt > 65535)
     return (int)cudaErrorInvalidValue;
   if (bt == 128)
-    return launch_wgmma<128>(xs, block_expert, w, used, ys, T_pad, d, F, E,
-                             stream);
-  return launch_wgmma<64>(xs, block_expert, w, used, ys, T_pad, d, F, E,
-                          stream);
+    return launch_wgmma<128, DX>(xs, block_expert, w, used, ys, T_pad, d, F,
+                                 E, stream);
+  return launch_wgmma<64, DX>(xs, block_expert, w, used, ys, T_pad, d, F, E,
+                              stream);
+}
+
+
+// ------------------------------------------------------------ dW = xs^T dys
+
+namespace dwk {
+constexpr int BM = 128, BN = 128;  // rows of d, columns of F a block owns
+constexpr int THREADS = 256;       // 8 warps, 4 along d x 2 along F
+template <typename T> struct Cfg;
+template <> struct Cfg<__nv_bfloat16> { static constexpr int BK = 32, PAD = 8; };
+template <> struct Cfg<float> { static constexpr int BK = 16, PAD = 4; };
+}  // namespace dwk
+
+// Four 8x8 bf16 matrices, each transposed on the way to registers: lane l
+// gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_u32(p)));
+}
+
+// One BK-row slice in shared memory, xs as [k][m] and dys as [k][n] (k the
+// row of the sorted layout): acc += A B with A[m][k] = xs[k][m] and
+// B[k][n] = dys[k][n]. bf16: warp (wm, wn) owns 32 x 64 outputs as 2 x 8
+// m16n8 fragments; f32: thread (ty, tx) owns rows {4ty..4ty+3, 64+4ty..}
+// x columns {4tx.., 64+4tx..}.
+template <int BK, int LDA, int LDB>
+__device__ __forceinline__ void dw_slice(float (&acc)[64],
+                                         const __nv_bfloat16* xsh,
+                                         const __nv_bfloat16* dsh) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int q = lane >> 3, rr = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    uint32_t a[2][4], b[4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)  // matrices: (k, m), (k, m+8), (k+8, m), ..
+      ldmatrix_x4_trans(a[i], xsh + (ks + rr + (q >> 1) * 8) * LDA +
+                                  wm * 32 + i * 16 + (q & 1) * 8);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)  // (k, n), (k+8, n), (k, n+8), (k+8, n+8)
+      ldmatrix_x4_trans(b[jj], dsh + (ks + rr + (q & 1) * 8) * LDB +
+                                   wn * 64 + jj * 16 + (q >> 1) * 8);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mma_bf16(&acc[(i * 8 + j) * 4], a[i], &b[j >> 1][(j & 1) * 2]);
+  }
+}
+
+template <int BK, int LDA, int LDB>
+__device__ __forceinline__ void dw_slice(float (&acc)[64], const float* xsh,
+                                         const float* dsh) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int k = 0; k < BK; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(xsh + k * LDA + 4 * ty);
+    const float4 a1 = *reinterpret_cast<const float4*>(xsh + k * LDA + 64 + 4 * ty);
+    const float4 b0 = *reinterpret_cast<const float4*>(dsh + k * LDB + 4 * tx);
+    const float4 b1 = *reinterpret_cast<const float4*>(dsh + k * LDB + 64 + 4 * tx);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(a[i], b[j], acc[i * 8 + j]);
+  }
+}
+
+__device__ __forceinline__ void dw_store(float v0, float v1,
+                                         __nv_bfloat16* row, int n, int F) {
+  if ((F & 1) == 0) {  // n even: the pair lies inside F when n does
+    if (n < F)
+      *reinterpret_cast<uint32_t*>(row + n) = hopper::pack_bf16(v0, v1);
+  } else {
+    if (n < F) row[n] = __float2bfloat16(v0);
+    if (n + 1 < F) row[n + 1] = __float2bfloat16(v1);
+  }
+}
+
+// dw (E, d, F) = per expert e, xs[rows]^T dys[rows] over the rows of its
+// group: [ends[e-1], ends[e]) (0 for e = 0), cut at used.
+template <typename T>
+__global__ void __launch_bounds__(dwk::THREADS, 2)
+moe_gemm_dw_kernel(const T* __restrict__ xs, const T* __restrict__ dys,
+                   const int* __restrict__ ends, const int* __restrict__ used,
+                   T* __restrict__ dw, int d, int F) {
+  constexpr int BK = dwk::Cfg<T>::BK, PAD = dwk::Cfg<T>::PAD;
+  constexpr int BM = dwk::BM, BN = dwk::BN, THREADS = dwk::THREADS;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int LDA = BM + PAD, LDB = BN + PAD;
+  constexpr int XCH = BK * BM / V / THREADS, DCH = BK * BN / V / THREADS;
+  static_assert(XCH >= 1 && DCH >= 1, "slice too small for the block");
+  __shared__ __align__(16) T xsh[BK * LDA];
+  __shared__ __align__(16) T dsh[BK * LDB];
+
+  const int e = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int lim = *used;
+  const int r_end = min(ends[e], lim);
+  const int r_begin = min(e > 0 ? ends[e - 1] : 0, r_end);
+  const int tid = threadIdx.x;
+  const bool x_al = (d % V) == 0, d_al = (F % V) == 0;
+
+  uint4 xr[XCH], dr[DCH];
+  auto fetch = [&](int r0) {  // rows r0.. of the group, zeros past its end
+#pragma unroll
+    for (int i = 0; i < XCH; ++i) {
+      const int ch = tid + i * THREADS, r = ch / (BM / V),
+                c = (ch % (BM / V)) * V;
+      xr[i] = r0 + r < r_end
+                  ? load_chunk(xs + (size_t)(r0 + r) * d, m0 + c, d, x_al)
+                  : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < DCH; ++i) {
+      const int ch = tid + i * THREADS, r = ch / (BN / V),
+                c = (ch % (BN / V)) * V;
+      dr[i] = r0 + r < r_end
+                  ? load_chunk(dys + (size_t)(r0 + r) * F, n0 + c, F, d_al)
+                  : make_uint4(0, 0, 0, 0);
+    }
+  };
+  auto stash = [&]() {
+#pragma unroll
+    for (int i = 0; i < XCH; ++i) {
+      const int ch = tid + i * THREADS, r = ch / (BM / V),
+                c = (ch % (BM / V)) * V;
+      *reinterpret_cast<uint4*>(xsh + r * LDA + c) = xr[i];
+    }
+#pragma unroll
+    for (int i = 0; i < DCH; ++i) {
+      const int ch = tid + i * THREADS, r = ch / (BN / V),
+                c = (ch % (BN / V)) * V;
+      *reinterpret_cast<uint4*>(dsh + r * LDB + c) = dr[i];
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  if (r_begin < r_end) fetch(r_begin);
+  for (int r0 = r_begin; r0 < r_end; r0 += BK) {
+    stash();
+    __syncthreads();
+    if (r0 + BK < r_end) fetch(r0 + BK);  // next slice in flight
+    dw_slice<BK, LDA, LDB>(acc, xsh, dsh);
+    __syncthreads();
+  }
+
+  T* out = dw + (size_t)e * d * F;
+  if constexpr (sizeof(T) == 2) {
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int wm = warp >> 1, wn = warp & 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
+          const int n = n0 + wn * 64 + j * 8 + 2 * t;
+          if (m < d)
+            dw_store(acc[(i * 8 + j) * 4 + 2 * h],
+                     acc[(i * 8 + j) * 4 + 2 * h + 1], out + (size_t)m * F,
+                     n, F);
+        }
+  } else {
+    const int ty = tid / 16, tx = tid % 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+      if (m >= d) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+        if (n < F) out[(size_t)m * F + n] = acc[i * 8 + j];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// The forward on the mma.sync kernel. bt: rows per expert block, a multiple
+// of 16 dividing T_pad. Returns a cudaError_t.
+extern "C" int moe_gemm_launch(const void* xs, const int* block_expert,
+                               const void* w, const int* used, void* ys,
+                               int T_pad, int d, int F, int bt, int is_bf16,
+                               cudaStream_t stream) {
+  return launch_dtype<false>(xs, block_expert, w, used, ys, T_pad, d, F, bt,
+                             is_bf16, stream);
+}
+
+// The forward on the wgmma kernel: bf16 only; bt 64 or 128 rows per expert
+// block dividing T_pad; d and F multiples of 8 (TMA's 16-byte strides); E
+// experts in w. Returns a cudaError_t.
+extern "C" int moe_gemm_wgmma_launch(const void* xs, const int* block_expert,
+                                     const void* w, const int* used, void* ys,
+                                     int T_pad, int d, int F, int E, int bt,
+                                     cudaStream_t stream) {
+  return launch_wgmma_bt<false>(xs, block_expert, w, used, ys, T_pad, d, F, E,
+                                bt, stream);
+}
+
+// dX (T_pad, d) from dys (T_pad, F) and w (E, d, F), on the mma.sync kernel
+// (as moe_gemm_launch) or the wgmma kernel (as moe_gemm_wgmma_launch).
+extern "C" int moe_gemm_dx_launch(const void* dys, const int* block_expert,
+                                  const void* w, const int* used, void* dxs,
+                                  int T_pad, int d, int F, int bt,
+                                  int is_bf16, cudaStream_t stream) {
+  return launch_dtype<true>(dys, block_expert, w, used, dxs, T_pad, d, F, bt,
+                            is_bf16, stream);
+}
+
+extern "C" int moe_gemm_dx_wgmma_launch(const void* dys,
+                                        const int* block_expert,
+                                        const void* w, const int* used,
+                                        void* dxs, int T_pad, int d, int F,
+                                        int E, int bt, cudaStream_t stream) {
+  return launch_wgmma_bt<true>(dys, block_expert, w, used, dxs, T_pad, d, F,
+                               E, bt, stream);
+}
+
+// dW (E, d, F) from xs (T_pad, d), dys (T_pad, F) and the plan's group ends
+// (E,) int32. Returns a cudaError_t.
+extern "C" int moe_gemm_dw_launch(const void* xs, const void* dys,
+                                  const int* ends, const int* used, void* dw,
+                                  int d, int F, int E, int is_bf16,
+                                  cudaStream_t stream) {
+  if (d < 1 || F < 1 || E < 1 || (d + dwk::BM - 1) / dwk::BM > 65535 ||
+      E > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((F + dwk::BN - 1) / dwk::BN, (d + dwk::BM - 1) / dwk::BM, E);
+  if (is_bf16)
+    moe_gemm_dw_kernel<__nv_bfloat16><<<grid, dwk::THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(xs),
+        static_cast<const __nv_bfloat16*>(dys), ends, used,
+        static_cast<__nv_bfloat16*>(dw), d, F);
+  else
+    moe_gemm_dw_kernel<float><<<grid, dwk::THREADS, 0, stream>>>(
+        static_cast<const float*>(xs), static_cast<const float*>(dys), ends,
+        used, static_cast<float*>(dw), d, F);
+  return (int)cudaGetLastError();
 }

@@ -9,7 +9,9 @@ Two kernels compute the function; ``kernel_for`` picks one from the
 dtype, the token block and the widths alone: ``"wgmma"`` (TMA ring and
 wgmma, the prefill's bf16 blocks of 64 or 128 rows; TMA needs d and F
 multiples of 8) or ``"mma_sync"`` (the decode regime's 16-row blocks, f32,
-and any other shape).
+and any other shape). The gradient of xs (``moe_gemm_cuda(..., dx=True)``)
+runs the same two kernels with w read transposed, picked by the same rule;
+the gradient of w is its own kernel (``moe_gemm_dw_cuda``).
 """
 from __future__ import annotations
 
@@ -43,38 +45,58 @@ def _lib() -> ctypes.CDLL:
     lib.moe_gemm_launch.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     lib.moe_gemm_wgmma_launch.restype = ctypes.c_int
     lib.moe_gemm_wgmma_launch.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.moe_gemm_dx_launch.restype = ctypes.c_int
+    lib.moe_gemm_dx_launch.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.moe_gemm_dx_wgmma_launch.restype = ctypes.c_int
+    lib.moe_gemm_dx_wgmma_launch.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    lib.moe_gemm_dw_launch.restype = ctypes.c_int
+    lib.moe_gemm_dw_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P]
     return lib
+
+
+def _check_device(*tensors) -> torch.device:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("moe_gemm_cuda: every tensor must be on one CUDA "
+                         "device")
+    return dev
+
+
+def _check_used(used: torch.Tensor, *index: torch.Tensor) -> None:
+    if any(t.dtype != torch.int32 for t in (used, *index)) or \
+            used.numel() != 1:
+        raise TypeError(f"the plan's index tensors and used must be int32 "
+                        f"(used one value), got "
+                        f"{[t.dtype for t in (used, *index)]}, used "
+                        f"{tuple(used.shape)}")
 
 
 def moe_gemm_cuda(xs: torch.Tensor, block_expert: torch.Tensor,
                   w: torch.Tensor, block_t: int, used: torch.Tensor, *,
-                  kernel: Optional[str] = None) -> torch.Tensor:
+                  kernel: Optional[str] = None,
+                  dx: bool = False) -> torch.Tensor:
     """(T_pad, F) in xs's dtype; rows from ``used`` on are left
     unwritten. ``kernel`` (default ``kernel_for``'s choice) names the
     kernel; ``"mma_sync"`` takes every shape, ``"wgmma"`` only those
-    ``kernel_for`` gives it."""
-    dev = xs.device
-    if dev.type != "cuda" or any(t.device != dev
-                                 for t in (block_expert, w, used)):
-        raise ValueError("moe_gemm_cuda: xs, block_expert, w, used must be "
-                         "on one CUDA device")
+    ``kernel_for`` gives it. With ``dx`` the gradient of xs instead: xs is
+    dys (T_pad, F) and the result (T_pad, d) = dys @ w[e]^T, 0 from
+    ``used`` on."""
+    dev = _check_device(xs, block_expert, w, used)
     if xs.dtype not in DTYPES or w.dtype != xs.dtype:
         raise TypeError(f"moe_gemm_cuda takes f32 or bf16 (x and w alike), "
                         f"got {xs.dtype}, {w.dtype}")
-    if xs.dim() != 2 or w.dim() != 3 or w.shape[1] != xs.shape[1]:
-        raise ValueError(f"shapes xs {tuple(xs.shape)}, w {tuple(w.shape)}")
-    T_pad, d = xs.shape
-    F = w.shape[2]
+    if xs.dim() != 2 or w.dim() != 3 or w.shape[2 if dx else 1] != \
+            xs.shape[1]:
+        raise ValueError(f"shapes xs {tuple(xs.shape)}, w {tuple(w.shape)}"
+                         + (" (dx)" if dx else ""))
+    T_pad = xs.shape[0]
+    E, d, F = w.shape
     if block_t < 16 or block_t % 16 or T_pad % block_t or \
             tuple(block_expert.shape) != (T_pad // block_t,):
         raise ValueError(f"block_t {block_t} (a multiple of 16 dividing "
                          f"T_pad {T_pad}), block_expert "
                          f"{tuple(block_expert.shape)}")
-    if block_expert.dtype != torch.int32 or used.dtype != torch.int32 or \
-            used.numel() != 1:
-        raise TypeError(f"block_expert and used must be int32 (used one "
-                        f"value), got {block_expert.dtype}, {used.dtype} "
-                        f"{tuple(used.shape)}")
+    _check_used(used, block_expert)
     if not (xs.is_contiguous() and w.is_contiguous() and
             block_expert.is_contiguous()):
         raise ValueError("moe_gemm_cuda wants contiguous inputs")
@@ -85,18 +107,47 @@ def moe_gemm_cuda(xs: torch.Tensor, block_expert: torch.Tensor,
     if kernel not in KERNELS or (kernel == "wgmma" and chosen != "wgmma"):
         raise ValueError(f"kernel {kernel!r} does not take {xs.dtype}, "
                          f"block_t {block_t}, d {d}, F {F}")
-    ys = torch.empty((T_pad, F), dtype=xs.dtype, device=dev)
+    ys = torch.empty((T_pad, d if dx else F), dtype=xs.dtype, device=dev)
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (xs.data_ptr(), block_expert.data_ptr(), w.data_ptr(),
+                used.data_ptr(), ys.data_ptr(), T_pad, d, F)
         if kernel == "wgmma":
-            err = _lib().moe_gemm_wgmma_launch(
-                xs.data_ptr(), block_expert.data_ptr(), w.data_ptr(),
-                used.data_ptr(), ys.data_ptr(), T_pad, d, F, w.shape[0],
-                int(block_t), stream)
+            fn = lib.moe_gemm_dx_wgmma_launch if dx else \
+                lib.moe_gemm_wgmma_launch
+            err = fn(*args, E, int(block_t), stream)
         else:
-            err = _lib().moe_gemm_launch(
-                xs.data_ptr(), block_expert.data_ptr(), w.data_ptr(),
-                used.data_ptr(), ys.data_ptr(), T_pad, d, F, int(block_t),
-                int(xs.dtype == torch.bfloat16), stream)
-    build.check(err, f"moe_gemm ({kernel})")
+            fn = lib.moe_gemm_dx_launch if dx else lib.moe_gemm_launch
+            err = fn(*args, int(block_t), int(xs.dtype == torch.bfloat16),
+                     stream)
+    build.check(err, f"moe_gemm{' dx' if dx else ''} ({kernel})")
     return ys
+
+
+def moe_gemm_dw_cuda(xs: torch.Tensor, dys: torch.Tensor,
+                     ends: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
+    """(E, d, F) in xs's dtype: expert e's xs^T @ dys over its group's rows
+    [ends[e - 1], ends[e]) (from 0 for e = 0), cut at ``used``; 0 for an
+    expert with no rows. No row from ``used`` on is read."""
+    dev = _check_device(xs, dys, ends, used)
+    if xs.dtype not in DTYPES or dys.dtype != xs.dtype:
+        raise TypeError(f"moe_gemm_dw_cuda takes f32 or bf16 (xs and dys "
+                        f"alike), got {xs.dtype}, {dys.dtype}")
+    if xs.dim() != 2 or dys.dim() != 2 or dys.shape[0] != xs.shape[0] or \
+            ends.dim() != 1:
+        raise ValueError(f"shapes xs {tuple(xs.shape)}, dys "
+                         f"{tuple(dys.shape)}, ends {tuple(ends.shape)}")
+    _check_used(used, ends)
+    if not (xs.is_contiguous() and dys.is_contiguous() and
+            ends.is_contiguous()):
+        raise ValueError("moe_gemm_dw_cuda wants contiguous inputs")
+    d, F, E = xs.shape[1], dys.shape[1], ends.shape[0]
+    dw = torch.empty((E, d, F), dtype=xs.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().moe_gemm_dw_launch(
+            xs.data_ptr(), dys.data_ptr(), ends.data_ptr(), used.data_ptr(),
+            dw.data_ptr(), d, F, E, int(xs.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "moe_gemm dw")
+    return dw

@@ -6,9 +6,18 @@ shapes: no host sync, no data-dependent shape. ``moe_gemm_sorted`` is the
 kernel's dispatch: a CPU tensor takes the plain version (``ref.py``), a CUDA
 tensor launches the hand-written grouped GEMM (``kernel.py``) or raises.
 ``launches`` counts kernel launches, and ``launches_by_kernel`` splits that
-count by the kernel that ran (``kernel.kernel_for``). The kernel has no
-backward yet (ROADMAP A.4b): under grad mode an input that needs a gradient
-raises (``grad_guard``).
+count by the kernel that ran (``kernel.kernel_for``).
+
+Under grad mode ``moe_gemm_sorted`` is a ``torch.autograd.Function``: its
+backward is the same grouped product again, dxs = dys @ w[e]^T block by
+block (``moe_gemm_sorted_dx``) and dw[e] = xs_e^T @ dys_e over each
+expert's rows (``moe_gemm_sorted_dw``), each launched only for an input
+that needs its gradient; on the CPU the plain versions. ``bwd_launches``
+counts backward kernel launches, ``bwd_launches_by_kernel`` splits them
+into ``dx_wgmma``, ``dx_mma_sync`` and ``dw``. ``scatter_rows`` and
+``gather_rows`` move rows by index; the backward of ``scatter_rows`` sums
+a token's ``top_k`` assignment gradients in a fixed order, so a MoE
+layer's gradient has the same bits twice.
 """
 from __future__ import annotations
 
@@ -16,11 +25,14 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels.grad_guard import refuse_grad
-from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
+from repro_torch.kernels.moe_gemm.ref import (moe_gemm_sorted_dw_reference,
+                                              moe_gemm_sorted_dx_reference,
+                                              moe_gemm_sorted_reference)
 
 launches = 0
 launches_by_kernel: Dict[str, int] = {}
+bwd_launches = 0
+bwd_launches_by_kernel: Dict[str, int] = {}
 
 
 class Plan(NamedTuple):
@@ -29,6 +41,7 @@ class Plan(NamedTuple):
     block_expert: torch.Tensor  # (T_pad // block_t,) int32
     T_pad: int                  # static bound ((T + bt - 1)//bt + E) * bt
     used: torch.Tensor          # () int32 rows in real groups, on device
+    ends: torch.Tensor          # (E,) int32 end row of each expert's group
 
 
 def block_t_for(T: int, n_experts: int) -> int:
@@ -65,7 +78,7 @@ def plan(expert_ids: torch.Tensor, n_experts: int, block_t: int) -> Plan:
         torch.searchsorted(ends, block_starts, right=True), 0,
         n_experts - 1).to(torch.int32)
     return Plan(order, slot.to(torch.int32), block_expert, T_pad,
-                ends[-1].to(torch.int32))
+                ends[-1].to(torch.int32), ends.to(torch.int32))
 
 
 def sort_by_expert(expert_ids: torch.Tensor, n_experts: int, block_t: int
@@ -74,41 +87,121 @@ def sort_by_expert(expert_ids: torch.Tensor, n_experts: int, block_t: int
     return tuple(plan(expert_ids, n_experts, block_t)[:4])
 
 
-def moe_gemm_sorted(xs: torch.Tensor, block_expert: torch.Tensor,
-                    w: torch.Tensor, block_t: int,
-                    used: torch.Tensor) -> torch.Tensor:
-    """ys (T_pad, F) = xs @ w[block_expert[row // block_t]] for rows below
-    ``used``; rows from ``used`` on are not computed (the plain version
-    leaves them 0, the kernel leaves them unwritten)."""
+def _count(counter: Dict[str, int], name: str) -> None:
+    counter[name] = counter.get(name, 0) + 1
+
+
+def moe_gemm_sorted_fwd(xs: torch.Tensor, block_expert: torch.Tensor,
+                        w: torch.Tensor, block_t: int,
+                        used: torch.Tensor) -> torch.Tensor:
+    """``moe_gemm_sorted`` without autograd."""
     global launches
     if xs.device.type == "cpu":
         return moe_gemm_sorted_reference(xs, block_expert, w, block_t, used)
     if xs.device.type != "cuda":
         raise ValueError(f"moe_gemm: no kernel for {xs.device}")
-    refuse_grad("moe_gemm", "ROADMAP A.4b: the grouped GEMM backward", xs, w)
     from repro_torch.kernels.moe_gemm.kernel import kernel_for, moe_gemm_cuda
     out = moe_gemm_cuda(xs, block_expert, w, block_t, used)
     launches += 1
-    name = kernel_for(xs.dtype, block_t, xs.shape[1], w.shape[2])
-    launches_by_kernel[name] = launches_by_kernel.get(name, 0) + 1
+    _count(launches_by_kernel,
+           kernel_for(xs.dtype, block_t, xs.shape[1], w.shape[2]))
     return out
 
 
-def scatter_rows(x: torch.Tensor, p: Plan, token_of=None) -> torch.Tensor:
-    """The (T_pad, d) sorted buffer: row ``slot[i]`` holds token
-    ``order[i]`` (``token_of`` maps an assignment to its row of ``x``);
-    padding rows are 0."""
-    src = p.order if token_of is None else token_of(p.order)
+def moe_gemm_sorted_dx(dys: torch.Tensor, block_expert: torch.Tensor,
+                       w: torch.Tensor, block_t: int,
+                       used: torch.Tensor) -> torch.Tensor:
+    """The gradient of xs, (T_pad, d): dys[r] @ w[e(r)]^T for rows below
+    ``used``, 0 from ``used`` on (dys is not read there)."""
+    global bwd_launches
+    if dys.device.type == "cpu":
+        return moe_gemm_sorted_dx_reference(dys, block_expert, w, block_t,
+                                            used)
+    if dys.device.type != "cuda":
+        raise ValueError(f"moe_gemm backward: no kernel for {dys.device}")
+    from repro_torch.kernels.moe_gemm.kernel import kernel_for, moe_gemm_cuda
+    out = moe_gemm_cuda(dys, block_expert, w, block_t, used, dx=True)
+    bwd_launches += 1
+    _count(bwd_launches_by_kernel, "dx_" + kernel_for(
+        dys.dtype, block_t, dys.shape[1], w.shape[1]))
+    return out
+
+
+def moe_gemm_sorted_dw(xs: torch.Tensor, dys: torch.Tensor,
+                       block_expert: torch.Tensor, ends: torch.Tensor,
+                       block_t: int, used: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of w, (E, d, F) in ``dtype`` (w's; on the card xs's,
+    which the forward kernel requires w's to be): each expert's xs^T @ dys
+    over the rows of its group (``ends``, the plan's), below ``used``."""
+    global bwd_launches
+    if xs.device.type == "cpu":
+        return moe_gemm_sorted_dw_reference(xs, dys, block_expert,
+                                            ends.shape[0], block_t, used,
+                                            dtype)
+    if xs.device.type != "cuda":
+        raise ValueError(f"moe_gemm backward: no kernel for {xs.device}")
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_dw_cuda
+    out = moe_gemm_dw_cuda(xs, dys, ends, used)
+    bwd_launches += 1
+    _count(bwd_launches_by_kernel, "dw")
+    return out
+
+
+class _MoEGemmSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xs, block_expert, w, block_t, used, ends):
+        ys = moe_gemm_sorted_fwd(xs, block_expert, w, block_t, used)
+        ctx.save_for_backward(xs, block_expert, w, used, ends)
+        ctx.block_t = block_t
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        xs, block_expert, w, used, ends = ctx.saved_tensors
+        bt = ctx.block_t
+        dys = dys.contiguous()
+        dxs = moe_gemm_sorted_dx(dys, block_expert, w, bt, used) \
+            if ctx.needs_input_grad[0] else None
+        dw = moe_gemm_sorted_dw(xs, dys, block_expert, ends, bt, used,
+                                w.dtype) if ctx.needs_input_grad[2] else None
+        return dxs, None, dw, None, None, None
+
+
+def moe_gemm_sorted(xs: torch.Tensor, block_expert: torch.Tensor,
+                    w: torch.Tensor, block_t: int, used: torch.Tensor,
+                    ends: torch.Tensor) -> torch.Tensor:
+    """ys (T_pad, F) = xs @ w[block_expert[row // block_t]] for rows below
+    ``used``; rows from ``used`` on are not computed (the plain version
+    leaves them 0, the kernel leaves them unwritten). Differentiable in xs
+    and w (the gradient of w walks each expert's group up to ``ends``, the
+    plan's)."""
+    if torch.is_grad_enabled() and (xs.requires_grad or w.requires_grad):
+        return _MoEGemmSorted.apply(xs, block_expert, w, block_t, used, ends)
+    return moe_gemm_sorted_fwd(xs, block_expert, w, block_t, used)
+
+
+def _slot_of(p: Plan) -> torch.Tensor:
+    """(T,) the buffer row of assignment i (the plan's inverse)."""
+    slot_of = torch.empty_like(p.slot)
+    slot_of[p.order] = p.slot
+    return slot_of.long()
+
+
+def scatter_rows(x: torch.Tensor, p: Plan, top_k: int = 1) -> torch.Tensor:
+    """The (T_pad, d) sorted buffer: assignment a (token ``a // top_k`` of
+    x) at row ``slot_of[a]``; padding rows are 0. The backward gathers each
+    assignment's row and sums a token's ``top_k`` of them in order."""
+    xa = x if top_k == 1 else x.unsqueeze(1).expand(
+        -1, top_k, -1).reshape(-1, x.shape[1])
     xs = torch.zeros((p.T_pad, x.shape[1]), dtype=x.dtype, device=x.device)
-    xs[p.slot.long()] = x[src]
+    xs[_slot_of(p)] = xa
     return xs
 
 
 def gather_rows(ys: torch.Tensor, p: Plan) -> torch.Tensor:
     """Inverse of ``scatter_rows``: (T, F) in the original token order."""
-    slot_of = torch.empty_like(p.slot)
-    slot_of[p.order] = p.slot
-    return ys[slot_of.long()]
+    return ys[_slot_of(p)]
 
 
 def moe_gemm(x: torch.Tensor, expert_ids: torch.Tensor, w: torch.Tensor, *,
@@ -118,5 +211,6 @@ def moe_gemm(x: torch.Tensor, expert_ids: torch.Tensor, w: torch.Tensor, *,
     E = w.shape[0]
     bt = block_t or block_t_for(x.shape[0], E)
     p = plan(expert_ids, E, bt)
-    ys = moe_gemm_sorted(scatter_rows(x, p), p.block_expert, w, bt, p.used)
+    ys = moe_gemm_sorted(scatter_rows(x, p), p.block_expert, w, bt, p.used,
+                         p.ends)
     return gather_rows(ys, p)

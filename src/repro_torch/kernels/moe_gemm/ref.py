@@ -5,7 +5,10 @@ fp32, cast to x's dtype (computed one expert at a time instead of gathering
 a (T, d, F) weight copy). ``moe_gemm_sorted_reference`` is the plain version
 of the kernel's own function on the expert-sorted, block-padded layout of
 ``ops.sort_by_expert``: rows below ``used`` are multiplied by their block's
-expert, rows from ``used`` on are left 0.
+expert, rows from ``used`` on are left 0. ``moe_gemm_sorted_dx_reference``
+and ``moe_gemm_sorted_dw_reference`` are the plain versions of its backward
+on the same layout (the gradients of xs and of w), which read no row from
+``used`` on.
 """
 from __future__ import annotations
 
@@ -31,13 +34,46 @@ def moe_gemm_sorted_reference(xs: torch.Tensor, block_expert: torch.Tensor,
     (T_pad, F) in xs's dtype."""
     ys = torch.zeros((xs.shape[0], w.shape[2]), dtype=xs.dtype,
                      device=xs.device)
+    for e, r0, r1 in _groups(block_expert, block_t, used):
+        ys[r0:r1] = (xs[r0:r1].float() @ w[e].float()).to(xs.dtype)
+    return ys
+
+
+def _groups(block_expert: torch.Tensor, block_t: int, used: torch.Tensor):
+    """(expert, first row, end row) of each run of equal experts among the
+    blocks below ``used``: each expert's group, in order."""
     n_used = int(used) // block_t
     experts = block_expert[:n_used].tolist()
     b0 = 0
-    for b in range(1, n_used + 1):  # one product per run of equal experts
+    for b in range(1, n_used + 1):
         if b == n_used or experts[b] != experts[b0]:
-            r0, r1 = b0 * block_t, b * block_t
-            ys[r0:r1] = (xs[r0:r1].float() @ w[experts[b0]].float()).to(
-                xs.dtype)
+            yield experts[b0], b0 * block_t, b * block_t
             b0 = b
-    return ys
+
+
+def moe_gemm_sorted_dx_reference(dys: torch.Tensor,
+                                 block_expert: torch.Tensor, w: torch.Tensor,
+                                 block_t: int,
+                                 used: torch.Tensor) -> torch.Tensor:
+    """The gradient of xs: dys (T_pad, F), w (E, d, F) -> (T_pad, d) in
+    dys's dtype, dys[r] @ w[e(r)]^T in fp32 for rows below ``used``, 0 from
+    ``used`` on (dys is not read there)."""
+    dxs = torch.zeros((dys.shape[0], w.shape[1]), dtype=dys.dtype,
+                      device=dys.device)
+    for e, r0, r1 in _groups(block_expert, block_t, used):
+        dxs[r0:r1] = (dys[r0:r1].float() @ w[e].float().T).to(dys.dtype)
+    return dxs
+
+
+def moe_gemm_sorted_dw_reference(xs: torch.Tensor, dys: torch.Tensor,
+                                 block_expert: torch.Tensor, n_experts: int,
+                                 block_t: int, used: torch.Tensor,
+                                 dtype: torch.dtype = None) -> torch.Tensor:
+    """The gradient of w: xs (T_pad, d), dys (T_pad, F) -> (E, d, F) in
+    ``dtype`` (w's; default xs's), each expert's xs^T dys summed in fp32
+    over its rows below ``used``, 0 for an expert with no rows."""
+    dw = torch.zeros((n_experts, xs.shape[1], dys.shape[1]),
+                     dtype=dtype or xs.dtype, device=xs.device)
+    for e, r0, r1 in _groups(block_expert, block_t, used):
+        dw[e] = (xs[r0:r1].float().T @ dys[r0:r1].float()).to(dw.dtype)
+    return dw

@@ -8,7 +8,8 @@ B * S * K assignments goes through ``kernels.moe_gemm`` (gate, up and down
 on one sort/pad plan), and the assignments the reference drops
 (position-in-expert >= C) are zeroed at the combine, as the reference's
 ``jnp.where(keep, y_tok, 0)`` does. No data-dependent shape reaches the
-host.
+host. The gradient runs the grouped GEMM's backward on the same plan and
+uses no atomics: the same bits twice.
 """
 from __future__ import annotations
 
@@ -63,11 +64,11 @@ def expert_ffn(p: Schema, x: torch.Tensor, expert_ids: torch.Tensor,
     E = p["w_gate"].shape[0]
     bt = gemm.block_t_for(expert_ids.shape[0], E)
     plan = gemm.plan(expert_ids, E, bt)
-    xs = gemm.scatter_rows(x, plan, token_of=lambda a: a // top_k)
+    xs = gemm.scatter_rows(x, plan, top_k)
 
     def grouped(h, w):
         return gemm.moe_gemm_sorted(h, plan.block_expert, w.to(x.dtype), bt,
-                                    plan.used)
+                                    plan.used, plan.ends)
 
     g = grouped(xs, p["w_gate"])
     u = grouped(xs, p["w_up"])

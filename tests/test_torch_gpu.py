@@ -468,7 +468,7 @@ def test_moe_gemm_kernel_matches_plain(gen, T, d, E, F, bt, dtype, kind):
     p = ops.plan(eid, E, bt)
     xs = ops.scatter_rows(x, p)
     before = ops.launches
-    ys = ops.moe_gemm_sorted(xs, p.block_expert, w, bt, p.used)
+    ys = ops.moe_gemm_sorted(xs, p.block_expert, w, bt, p.used, p.ends)
     assert ops.launches == before + 1
     ys_p = moe_gemm_sorted_reference(xs, p.block_expert, w, bt, p.used)
     n = int(p.used)
@@ -510,7 +510,7 @@ def test_moe_gemm_both_kernels_match_plain(gen, T, d, E, F, bt, kind):
         ys = moe_gemm_cuda(xs, p.block_expert, w, bt, p.used, kernel=kernel)
         assert (ys[:n].float() - ys_p[:n].float()).abs().max().item() <= lim
     before = dict(ops.launches_by_kernel)
-    ops.moe_gemm_sorted(xs, p.block_expert, w, bt, p.used)
+    ops.moe_gemm_sorted(xs, p.block_expert, w, bt, p.used, p.ends)
     assert ops.launches_by_kernel["wgmma"] == before.get("wgmma", 0) + 1
     assert ops.launches_by_kernel.get("mma_sync", 0) == \
         before.get("mma_sync", 0)
@@ -560,6 +560,265 @@ def test_lm_prefill_and_decode_on_the_card_match_the_cpu(gen):
     for got, want in zip(outs["cuda"], outs["cpu"]):
         scale = max(1.0, want.abs().max().item())
         assert (got.cpu() - want).abs().max().item() <= 1e-4 * scale
+
+
+def _moe_bwd_case(gen, T, d, E, F, bt, dtype):
+    """A plan whose experts E // 2 and E - 1 get no rows (blocks past the
+    last group name E - 1), xs and dys with NaN from ``used`` on."""
+    from repro_torch.kernels.moe_gemm import ops
+    eid = torch.randint(0, E - 1, (T,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    eid[eid == E // 2] = 0
+    p = ops.plan(eid, E, bt)
+    x = torch.randn((T, d), generator=gen, device="cuda").to(dtype)
+    xs = ops.scatter_rows(x, p)
+    dys = torch.randn((p.T_pad, F), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((E, d, F), generator=gen, device="cuda") * 0.1).to(dtype)
+    n = int(p.used)
+    assert n < p.T_pad
+    xs[n:] = float("nan")
+    dys[n:] = float("nan")
+    return p, xs, dys, w
+
+
+def _moe_bwd64(p, xs, dys, w, bt):
+    """The two gradients as float64 products over each expert's group."""
+    from repro_torch.kernels.moe_gemm.ref import _groups
+    dx = torch.zeros((xs.shape[0], w.shape[1]), dtype=torch.float64,
+                     device="cuda")
+    dw = torch.zeros(w.shape, dtype=torch.float64, device="cuda")
+    for e, r0, r1 in _groups(p.block_expert, bt, p.used):
+        dx[r0:r1] = dys[r0:r1].double() @ w[e].double().T
+        dw[e] = xs[r0:r1].double().T @ dys[r0:r1].double()
+    return dx, dw
+
+
+def _moe_bwd_gate(got, plain, g64, what):
+    """Against float64 relative to each element (``bwd_rel_err``) within
+    ``REL_MULTIPLE`` times the plain version's; beside it, bf16 within one
+    bf16 step of the plain version at max(|g|, 1), f32 within 1e-5 of the
+    tensor's largest element (the forward's gate: an fp32 sum of a few
+    hundred rows whose partial sums reach 20-40 moves a small element by
+    up to 5e-5 in either order)."""
+    from repro_torch.kernels.flash_attention.ref import (REL_MULTIPLE,
+                                                         bwd_limit,
+                                                         bwd_rel_err)
+    assert got.dtype == plain.dtype and got.shape == plain.shape, what
+    assert torch.isfinite(got).all(), what
+    err = (got.float() - plain.float()).abs()
+    if got.dtype == torch.bfloat16:
+        assert (err <= bwd_limit(plain)).all(), (what, err.max().item())
+    else:
+        assert err.max().item() <= 1e-5 * plain.abs().max().item(), what
+    rel, rel_plain = bwd_rel_err(got, g64), bwd_rel_err(plain, g64)
+    assert rel <= REL_MULTIPLE * rel_plain, (what, rel, rel_plain)
+
+
+@pytest.mark.parametrize("F", [96, 768, 1408])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bt", [16, 64, 128])
+def test_moe_gemm_bwd_kernels_match_plain(gen, bt, dtype, F):
+    """The gradients of xs (each kernel that takes the shape) and of w
+    against their plain versions and a float64 product, with two experts
+    that have no rows (one of them E - 1, which the blocks past the last
+    group name) and NaN in xs and dys from ``used`` on: dX writes 0 there
+    and reads nothing, dW reads no row there; the same bits twice."""
+    from repro_torch.kernels.moe_gemm.kernel import (kernel_for,
+                                                     moe_gemm_cuda,
+                                                     moe_gemm_dw_cuda)
+    from repro_torch.kernels.moe_gemm.ref import (
+        moe_gemm_sorted_dw_reference, moe_gemm_sorted_dx_reference)
+    T, d, E = 1000, 256, 8
+    p, xs, dys, w = _moe_bwd_case(gen, T, d, E, F, bt, dtype)
+    dx64, dw64 = _moe_bwd64(p, xs, dys, w, bt)
+    dx_p = moe_gemm_sorted_dx_reference(dys, p.block_expert, w, bt, p.used)
+    dw_p = moe_gemm_sorted_dw_reference(xs, dys, p.block_expert, E, bt,
+                                        p.used)
+    kernels = ("wgmma", "mma_sync") if kernel_for(dtype, bt, d, F) == \
+        "wgmma" else ("mma_sync",)
+    for kernel in kernels:
+        dx = moe_gemm_cuda(dys, p.block_expert, w, bt, p.used, kernel=kernel,
+                           dx=True)
+        again = moe_gemm_cuda(dys, p.block_expert, w, bt, p.used,
+                              kernel=kernel, dx=True)
+        assert torch.equal(dx, again), kernel
+        assert not dx[int(p.used):].any(), kernel
+        _moe_bwd_gate(dx, dx_p, dx64, f"dx {kernel}")
+    dw = moe_gemm_dw_cuda(xs, dys, p.ends, p.used)
+    assert torch.equal(dw, moe_gemm_dw_cuda(xs, dys, p.ends, p.used))
+    assert not dw[E // 2].any() and not dw[E - 1].any()
+    _moe_bwd_gate(dw, dw_p, dw64, "dw")
+
+
+def test_moe_gemm_autograd_launches_only_the_gradients_needed(gen):
+    """Under grad mode the grouped GEMM's backward launches dX only for an
+    xs that needs a gradient and dW only for a w that does; the gradients
+    are the plain versions' (at the wgmma kernel's bf16 blocks of 128)."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import (
+        moe_gemm_sorted_dw_reference, moe_gemm_sorted_dx_reference)
+    T, d, E, F, bt = 4096, 256, 16, 128, 128
+    p, xs, dys, w = _moe_bwd_case(gen, T, d, E, F, bt, torch.bfloat16)
+    n = int(p.used)
+    xs[n:] = 0
+    dys[n:] = 0
+    for need_x, need_w in ((True, False), (False, True), (True, True)):
+        xl, wl = (t.clone().requires_grad_(r) for t, r in
+                  ((xs, need_x), (w, need_w)))
+        before = (ops.launches, dict(ops.bwd_launches_by_kernel),
+                  ops.bwd_launches)
+        ys = ops.moe_gemm_sorted(xl, p.block_expert, wl, bt, p.used, p.ends)
+        grads = torch.autograd.grad(ys, [t for t in (xl, wl)
+                                         if t.requires_grad], dys)
+        got = {k: v - before[1].get(k, 0)
+               for k, v in ops.bwd_launches_by_kernel.items()}
+        assert ops.launches == before[0] + 1
+        assert got.get("dx_wgmma", 0) == int(need_x)
+        assert got.get("dw", 0) == int(need_w)
+        assert got.get("dx_mma_sync", 0) == 0
+        assert ops.bwd_launches == before[2] + need_x + need_w
+        want = ([moe_gemm_sorted_dx_reference(dys, p.block_expert, w, bt,
+                                              p.used)] if need_x else []) \
+            + ([moe_gemm_sorted_dw_reference(xs, dys, p.block_expert, E, bt,
+                                             p.used)] if need_w else [])
+        for g, wt in zip(grads, want):
+            assert ((g.float() - wt.float()).abs()
+                    <= 2.0 ** -7 * wt.float().abs().clamp_min(1.0)).all()
+
+
+def test_tma_kernels_launch_from_a_fresh_thread(gen):
+    """A TMA kernel (the grouped GEMM's wgmma forward and dX, the bf16 flash
+    forward) as the first CUDA call of a new host thread, as in an autograd
+    worker: the tensor-map encode needs a context bound to the thread
+    (``hopper.cuh``'s ``encode_bf16_map`` binds it)."""
+    import threading
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd_cuda
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_cuda
+    T, d, E, F, bt = 4096, 256, 16, 128, 128
+    p, xs, dys, w = _moe_bwd_case(gen, T, d, E, F, bt, torch.bfloat16)
+    q = torch.randn((2, 128, 4, 64), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    calls = (lambda: moe_gemm_cuda(xs, p.block_expert, w, bt, p.used),
+             lambda: moe_gemm_cuda(dys, p.block_expert, w, bt, p.used,
+                                   dx=True),
+             lambda: flash_fwd_cuda(q, q, q, causal=True))
+    torch.cuda.synchronize()
+    for call in calls:
+        errors = []
+
+        def body():
+            try:
+                call()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                errors.append(e)
+        t = threading.Thread(target=body)
+        t.start()
+        t.join()
+        assert not errors, errors
+
+
+def _moe_layer_grads(params, x, moe):
+    from repro_torch.models import moe as TM
+    leaves = [x] + [params[k] for k in ("router", "w_gate", "w_up",
+                                         "w_down")]
+    y, aux = TM.moe_apply(params, x, moe)
+    g = torch.randn(y.shape, generator=torch.Generator(
+        device=y.device).manual_seed(1), device=y.device).to(y.dtype)
+    return torch.autograd.grad((y.float() * g.float()).sum() + aux, leaves)
+
+
+def test_moe_layer_backward_is_deterministic(gen):
+    """A bf16 MoE layer (16 experts top-4, 2 x 256 tokens: the wgmma
+    kernel's 128-row blocks, some assignments dropped) forward and
+    backward twice: the gradients of
+    x, the router and the three expert weights have the same bits."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels.moe_gemm import ops
+    moe = MoEConfig(n_experts=16, top_k=4, d_ff_expert=96,
+                    capacity_factor=1.0)
+    d, E = 256, moe.n_experts
+    bf = torch.bfloat16
+    params = {"router": torch.randn((d, E), generator=gen, device="cuda")
+              * d ** -0.5,
+              **{k: (torch.randn(s, generator=gen, device="cuda")
+                     * s[1] ** -0.5).to(bf)
+                 for k, s in (("w_gate", (E, d, 96)), ("w_up", (E, d, 96)),
+                              ("w_down", (E, 96, d)))}}
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    x = torch.randn((2, 256, d), generator=gen, device="cuda").to(
+        bf).requires_grad_()
+    before = dict(ops.bwd_launches_by_kernel)
+    first = _moe_layer_grads(params, x, moe)
+    assert ops.bwd_launches_by_kernel["dx_wgmma"] == \
+        before.get("dx_wgmma", 0) + 3
+    assert ops.bwd_launches_by_kernel["dw"] == before.get("dw", 0) + 3
+    second = _moe_layer_grads(params, x, moe)
+    for a, b in zip(first, second):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+def test_moe_lm_lora_and_weight_grads_on_the_card_match_the_cpu(gen):
+    """A small fp32 MoE LM (8 experts top-2) with a random non-zero LoRA:
+    the exit-distillation loss's gradients of the LoRA and of the MoE
+    layers' router and expert weights through the kernels (flash, RMSNorm
+    and the grouped GEMM, forward and backward) on the card against the
+    same weights on the CPU (the plain versions), within 1e-4 of each
+    leaf's scale; three dX and three dW launches a layer."""
+    from repro_torch.configs.base import LMConfig, MoEConfig, RecallConfig
+    from repro_torch.core import healing as H
+    from repro_torch.core import plora
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.models import transformer as T
+    cfg = LMConfig(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                   d_head=64, d_ff=0, vocab=300, rope_theta=1e4,
+                   moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=96,
+                                 capacity_factor=1.0),
+                   dtype="float32")
+    rc = RecallConfig(exit_interval=1, lora_rank=4)
+    params = T.lm_init(gen, cfg, rc, device="cuda")
+    a = params["layers"]["attn"]  # at fan-in d (see the tower test above)
+    for w in ("wq", "wk", "wv"):
+        a[w] = a[w] * (cfg.n_heads / cfg.d_model) ** 0.5
+    a["wo"] = a["wo"] / cfg.n_heads ** 0.5
+    lora = plora.lora_init(gen, cfg, rc, device="cuda")
+    lora = {t: {"a": ab["a"], "b": 0.05 * torch.randn(
+        ab["b"].shape, generator=gen, device="cuda")}
+        for t, ab in lora.items()}
+    tokens = torch.randint(0, cfg.vocab, (3, 40), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    n_exits = len(rc.exit_layers(cfg.n_layers))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        p = _to(params, dev)
+        moe_p = p["layers"]["moe"]
+        for k in ("router", "w_gate", "w_up", "w_down"):
+            moe_p[k].requires_grad_()
+        lp = _to(lora, dev)
+        leaves = [lp[n][ab].requires_grad_() for n in sorted(lp)
+                  for ab in ("a", "b")] + [moe_p[k] for k in (
+                      "router", "w_gate", "w_up", "w_down")]
+        with torch.no_grad():
+            out = T.forward_hidden(p, cfg, rc, tokens=tokens.to(dev),
+                                   collect_pooled=True)
+            t = T.exit_embedding(p, out["pooled"][-1], cfg.norm_eps)
+        before = dict(moe_ops.bwd_launches_by_kernel)
+        loss = H.exit_distill_loss(
+            H.lm_exit_embs(p, cfg, rc, tokens.to(dev), lp), t,
+            torch.full((n_exits,), 1.0 / n_exits, device=dev),
+            torch.ones(n_exits, device=dev))
+        grads[dev] = torch.autograd.grad(loss, leaves)
+        if dev == "cuda":
+            got = {k: v - before.get(k, 0)
+                   for k, v in moe_ops.bwd_launches_by_kernel.items()
+                   if v != before.get(k, 0)}
+            assert got == {"dx_mma_sync": 3 * cfg.n_layers,
+                           "dw": 3 * cfg.n_layers}, got
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        scale = max(1e-6, c.abs().max().item())
+        assert (g.cpu() - c).abs().max().item() <= 1e-4 * scale
 
 
 # the backward kernels (flash dQ and dK/dV, RMSNorm dx/dscale) against
@@ -766,7 +1025,6 @@ def _guarded_calls():
     from repro_torch.core.quantize import quantize_int4
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.int4_cache import ops as int4_ops
-    from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.retrieval_topk import ops as topk_ops
     dev = "cuda"
 
@@ -797,14 +1055,6 @@ def _guarded_calls():
             torch.randn(2, 32, 2, 64, device=dev),
             torch.tensor([20, 32], dtype=torch.int32, device=dev))
 
-    def moe(rg):
-        T, d, E, F, bt = 32, 64, 4, 48, 16
-        xs = g((T, d), rg, torch.bfloat16)
-        be = torch.arange(T // bt, device=dev, dtype=torch.int32) % E
-        w = torch.randn(E, d, F, device=dev, dtype=torch.bfloat16)
-        used = torch.tensor(T, dtype=torch.int32, device=dev)
-        return lambda: moe_ops.moe_gemm_sorted(xs, be, w, bt, used)
-
     def quant(rg):
         return lambda: int4_ops.quantize(g((8, 64), rg))
 
@@ -818,7 +1068,6 @@ def _guarded_calls():
                                              "no gradient in the reference"),
             "retrieval_topk": (dense, "no gradient in the reference"),
             "decode_attention": (decode, "no gradient in the reference"),
-            "moe_gemm": (moe, "A.4b"),
             "int4_cache.quantize": (quant, "no gradient in the reference"),
             "int4_cache.dequantize": (dequant,
                                       "no gradient in the reference")}
@@ -827,7 +1076,7 @@ def _guarded_calls():
 @pytest.mark.parametrize("name", ["retrieval_topk_int4",
                                   "retrieval_topk_int4_gathered",
                                   "retrieval_topk", "decode_attention",
-                                  "moe_gemm", "int4_cache.quantize",
+                                  "int4_cache.quantize",
                                   "int4_cache.dequantize"])
 def test_kernels_without_backward_raise_under_grad_mode(gen, name):
     """A CUDA dispatch whose kernel has no backward raises, naming why,

@@ -210,8 +210,9 @@ def test_heal_tower_matches_reference(mem, monkeypatch, hist, loss_rtol):
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b"])
 def test_heal_lm_matches_reference(monkeypatch, arch):
-    """On the CPU the MoE config trains too: the grouped GEMM's plain
-    version is differentiable (on CUDA its kernel refuses grad mode)."""
+    """The MoE config heals through the grouped GEMM's autograd Function,
+    whose CPU backward is the plain dX (the expert weights are frozen: no
+    dW)."""
     ref = JC.smoke_variant(JC.get_arch(arch))
     port = TC.smoke_variant(TC.get_arch(arch))
     key = jax.random.PRNGKey(0)

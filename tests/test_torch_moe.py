@@ -1,7 +1,8 @@
 """Port parity: the MoE layer (router, capacity semantics, grouped expert
 GEMM, combine, shared expert, aux loss) against the reference's
-``moe_apply`` and its dense oracle, fp32."""
+``moe_apply`` and its dense oracle, fp32, forward and gradient."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -85,3 +86,70 @@ def test_schema_matches_reference():
                 assert ours[name][k2].shape == v2.shape
         else:
             assert ours[name].shape == leaf.shape
+
+
+def _forced(jmoe, moe, jp, tp, x):
+    """Every token routed to experts 1 and 2 (positive inputs, a router
+    that scores them highest), so each group of 16 keeps 8 of each."""
+    x = np.abs(x) + 0.1
+    tp = dict(tp, router=torch.zeros_like(tp["router"]))
+    tp["router"][:, 1] = 10.0
+    tp["router"][:, 2] = 5.0
+    return dict(jp, router=tp["router"].numpy()), tp, x
+
+
+def _drops(tp, x, moe):
+    """The assignments the capacity drops (position in expert >= C)."""
+    _, _, top_i = TM._route(tp, x, moe)
+    B, S, _ = x.shape
+    onehot = torch.nn.functional.one_hot(top_i.reshape(B, -1),
+                                         moe.n_experts)
+    pos = ((torch.cumsum(onehot, 1) - 1) * onehot).sum(-1)
+    return int((pos >= TM.capacity(S, moe)).sum())
+
+
+@pytest.mark.parametrize("case,drops", [
+    (dict(cf=16.0), False),
+    (dict(cf=0.1, B=4, S=16), True),
+    (dict(cf=16.0, shared=1), False),
+    (dict(E=8, K=3, cf=1.0, B=3, S=24, d=24, F=40), False),
+    (dict(E=4, K=2, cf=0.1, B=2, S=16, forced=True), True)])
+def test_moe_apply_grads_match_reference(case, drops):
+    """The gradients of x, the router, the three expert weights (and the
+    shared expert's) of sum(y * g) + aux through the grouped GEMM's autograd
+    Function on the CPU against jax.grad of the reference's moe_apply,
+    within 1e-5 of each leaf's scale; the dropped assignments (position in
+    expert >= C, zeroed at the combine) add nothing, as in the reference,
+    where they never enter the buffer."""
+    case = dict(case)
+    forced = case.pop("forced", False)
+    jmoe, moe, jp, tp, x = _setup(**case)
+    if forced:
+        jp, tp, x = _forced(jmoe, moe, jp, tp, x)
+    tx = torch.from_numpy(x)
+    assert (_drops(tp, tx, moe) > 0) == drops
+    g = np.random.default_rng(7).standard_normal(x.shape).astype(np.float32)
+
+    def j_loss(p, xx):
+        y, aux = JM.moe_apply(p, xx, jmoe)
+        return jnp.sum(y * g) + aux
+
+    jgp, jgx = jax.grad(j_loss, argnums=(0, 1))(jp, jnp.asarray(x))
+    leaves = {k: v.clone().requires_grad_() for k, v in tp.items()
+              if k != "shared"}
+    if "shared" in tp:
+        leaves["shared"] = {k: v.clone().requires_grad_()
+                            for k, v in tp["shared"].items()}
+    xl = tx.clone().requires_grad_()
+    y, aux = TM.moe_apply(leaves, xl, moe)
+    flat = [(k, v) for k, v in leaves.items() if k != "shared"] + \
+        [(f"shared/{k}", v) for k, v in leaves.get("shared", {}).items()]
+    before = (MO.launches, MO.bwd_launches)
+    grads = torch.autograd.grad((y * torch.from_numpy(g)).sum() + aux,
+                                [v for _, v in flat] + [xl])
+    assert (MO.launches, MO.bwd_launches) == before
+    want = [np.asarray(jgp["shared"][k.split("/")[1]] if "/" in k
+                       else jgp[k]) for k, _ in flat] + [np.asarray(jgx)]
+    for name, got, w in zip([k for k, _ in flat] + ["x"], grads, want):
+        err = np.abs(got.numpy() - w).max()
+        assert err <= TOL * np.abs(w).max(), (name, err)

@@ -1,7 +1,9 @@
 """Port parity: the grouped expert GEMM's sort/pad plan equals the
 reference's, and the port's moe_gemm (plan + the plain sorted version on
 the CPU) equals the reference's Pallas path (interpret mode) and its
-oracle."""
+oracle; its backward's plain versions equal autograd of the plain forward
+and ``jax.vjp`` of the reference's oracle."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,8 @@ from repro.kernels.moe_gemm.ref import moe_gemm_reference as jax_reference
 from repro_torch.kernels.moe_gemm import kernel as MK
 from repro_torch.kernels.moe_gemm import ops as MO
 from repro_torch.kernels.moe_gemm.ref import (moe_gemm_reference,
+                                              moe_gemm_sorted_dw_reference,
+                                              moe_gemm_sorted_dx_reference,
                                               moe_gemm_sorted_reference)
 
 
@@ -118,3 +122,82 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         MK.moe_gemm_cuda(torch.zeros((p.T_pad, 8)), p.block_expert,
                          torch.zeros((2, 8, 8)), 16, p.used)
+
+
+@pytest.mark.parametrize("T,d,E,F,bt,kind", [
+    (200, 32, 8, 48, 16, "empty_experts"),  # experts 1, 3, 5 and E - 1 empty
+    (300, 24, 4, 100, 64, "random"),        # F ragged against 8 and 64
+    (77, 40, 8, 96, 16, "one_expert"),
+    (1000, 16, 6, 20, 64, "random")])
+def test_backward_plain_versions_match_autograd_and_reference(T, d, E, F, bt,
+                                                               kind):
+    """dxs and dw of the plain backward equal autograd of the plain sorted
+    forward, and, taken back through the plan, jax.vjp of the reference's
+    oracle; NaN in xs and dys from ``used`` on changes nothing (no row
+    there is read); the autograd Function's CPU path (``moe_gemm``) gives
+    the reference's gradients and launches no kernel."""
+    rng = np.random.default_rng(T + F)
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    w = (rng.standard_normal((E, d, F)) * 0.1).astype(np.float32)
+    dy = rng.standard_normal((T, F)).astype(np.float32)
+    eid = _ids(kind, T, E, seed=T)
+    tx, te, tw, tdy = (torch.from_numpy(a) for a in (x, eid, w, dy))
+    p = MO.plan(te, E, bt)
+    xs, dys = MO.scatter_rows(tx, p), MO.scatter_rows(tdy, p)
+    dx = moe_gemm_sorted_dx_reference(dys, p.block_expert, tw, bt, p.used)
+    dw = moe_gemm_sorted_dw_reference(xs, dys, p.block_expert, E, bt, p.used)
+    assert dx.shape == (p.T_pad, d) and dw.shape == (E, d, F)
+    assert not dx[int(p.used):].any()
+    counts = np.bincount(eid, minlength=E)
+    assert not dw[torch.from_numpy(counts == 0)].any()
+
+    xl, wl = xs.clone().requires_grad_(), tw.clone().requires_grad_()
+    ys = moe_gemm_sorted_reference(xl, p.block_expert, wl, bt, p.used)
+    gx, gw = torch.autograd.grad(ys, (xl, wl), dys)
+    torch.testing.assert_close(dx, gx, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dw, gw, atol=1e-5, rtol=1e-5)
+
+    _, vjp = jax.vjp(lambda a, b: jax_reference(a, jnp.asarray(eid), b),
+                     jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    tol = lambda a: 1e-5 * np.abs(a).max()
+    assert np.abs(MO.gather_rows(dx, p).numpy() - jdx).max() <= tol(jdx)
+    assert np.abs(dw.numpy() - jdw).max() <= tol(jdw)
+
+    n = int(p.used)
+    if n < p.T_pad:
+        xn, dyn = xs.clone(), dys.clone()
+        xn[n:], dyn[n:] = float("nan"), float("nan")
+        assert torch.equal(moe_gemm_sorted_dx_reference(
+            dyn, p.block_expert, tw, bt, p.used), dx)
+        assert torch.equal(moe_gemm_sorted_dw_reference(
+            xn, dyn, p.block_expert, E, bt, p.used), dw)
+
+    before = (MO.launches, MO.bwd_launches)
+    xl, wl = tx.clone().requires_grad_(), tw.clone().requires_grad_()
+    gx, gw = torch.autograd.grad(MO.moe_gemm(xl, te, wl, block_t=bt),
+                                 (xl, wl), tdy)
+    assert (MO.launches, MO.bwd_launches) == before
+    assert np.abs(gx.numpy() - jdx).max() <= tol(jdx)
+    assert np.abs(gw.numpy() - jdw).max() <= tol(jdw)
+
+
+def test_scatter_rows_backward_sums_a_tokens_assignments():
+    """``scatter_rows(x, p, top_k)``'s gradient of x is each token's top_k
+    assignment rows summed, and its forward is the token of assignment a at
+    row slot_of[a]."""
+    rng = np.random.default_rng(5)
+    K, T, d, E = 3, 11, 4, 5
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32))
+    eid = torch.from_numpy(_ids("random", T * K, E, seed=5))
+    p = MO.plan(eid, E, 16)
+    xl = x.clone().requires_grad_()
+    xs = MO.scatter_rows(xl, p, K)
+    a = torch.arange(T * K)
+    slot_of = MO.gather_rows(torch.arange(p.T_pad)[:, None], p)[:, 0]
+    assert torch.equal(xs[slot_of], x[a // K])
+    assert not xs[torch.isin(torch.arange(p.T_pad), slot_of,
+                             invert=True)].any()
+    g = torch.from_numpy(rng.standard_normal((p.T_pad, d)).astype(np.float32))
+    gx, = torch.autograd.grad(xs, xl, g)
+    torch.testing.assert_close(gx, g[slot_of].reshape(T, K, d).sum(1))

@@ -167,24 +167,57 @@ def test_lm_loss_remat_gives_the_same_numbers(lm_pair):
     assert_leaves(runs[1][1], to_np(runs[0][1]), 1e-6, "remat gradient")
 
 
-def test_moe_lm_loss_with_aux_matches_reference():
-    """Forward only: the grouped GEMM's gradient is ROADMAP A.4b-2."""
+@pytest.fixture(scope="module")
+def moe_pair():
+    """(ref spec, port spec, ref params) of qwen3-moe-30b-a3b's smoke
+    variant (4 experts top-2 in every layer), attention at fan-in d."""
     ref = JC.smoke_variant(JC.get_arch("qwen3-moe-30b-a3b"))
     port = TC.smoke_variant(TC.get_arch("qwen3-moe-30b-a3b"))
     p = fan_in_d(jax.jit(partial(JT.lm_init, cfg=ref.model,
                                  recall=ref.recall))(jax.random.PRNGKey(1)))
+    return ref, port, p
+
+
+def test_moe_lm_loss_with_aux_matches_reference(moe_pair):
+    """The loss with the router's aux term, and its gradient through the
+    grouped GEMM's backward (the plain dX and dW on the CPU) and the
+    router, against jax.value_and_grad of the reference's lm_loss (whose
+    MoE gradient is that of its capacity-buffer einsums), within 1e-5 of
+    each leaf's scale."""
+    ref, port, p = moe_pair
     toks = JSYN.lm_tokens(7, 2, 17, ref.model.vocab)
-    jl, jm = jax.jit(lambda q: JT.lm_loss(
+    (jl, jm), jg = jax.jit(jax.value_and_grad(lambda q: JT.lm_loss(
         q, ref.model, ref.recall, jnp.asarray(toks[:, :-1]),
-        jnp.asarray(toks[:, 1:])))(p)
-    with torch.no_grad():
-        tl, tm = TT.lm_loss(params_from_jax(to_np(p)), port.model,
-                            port.recall, torch.as_tensor(toks[:, :-1]),
-                            torch.as_tensor(toks[:, 1:]))
-    assert float(tm["aux"]) > 0
-    for got, want in ((tl, jl), (tm["xent"], jm["xent"]),
-                      (tm["aux"], jm["aux"])):
+        jnp.asarray(toks[:, 1:])), has_aux=True))(p)
+    metrics = {}
+
+    def loss(q, b):
+        out, m = TT.lm_loss(q, port.model, port.recall, *b)
+        metrics.update({k: v.detach() for k, v in m.items()})
+        return out
+
+    tl, tg = value_and_grad(loss, params_from_jax(to_np(p)),
+                            (torch.as_tensor(toks[:, :-1]),
+                             torch.as_tensor(toks[:, 1:])))
+    assert float(metrics["aux"]) > 0
+    for got, want in ((tl, jl), (metrics["xent"], jm["xent"]),
+                      (metrics["aux"], jm["aux"])):
         assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    assert_leaves(tg, to_np(jg), 1e-5, "MoE lm_loss gradient")
+
+
+def test_moe_lm_train_step_matches_reference(moe_pair):
+    """Two train steps of the qwen3-moe smoke variant (one microbatch,
+    remat) against the reference's train_step on the (1, 1) mesh: losses,
+    grad norms, the Adam moments and the params (``check_steps``)."""
+    ref, port, p = moe_pair
+    batches = _lm_batches(ref.model.vocab, 2, seed=3)
+    want = ref_run(ref, ref.shape("smoke_train"), p, batches,
+                   microbatches=1)
+    bundle = TS.build_step(port, port.shape("smoke_train"), device="cpu",
+                           microbatches=1)
+    assert bundle.meta["microbatches"] == 1 and bundle.meta["remat"]
+    check_steps(port_run(bundle, params_from_jax(to_np(p)), batches), want)
 
 
 def test_auto_lm_train_plan_matches_reference():
