@@ -2001,6 +2001,8 @@ _LAYERS = (("flash_fwd_wgmma", "attention (flash wgmma kernel, bf16)"),
 
 
 def _layer_of(kernel_name: str) -> str:
+    if "moe_gemm_dw_wgmma" in kernel_name:
+        return "grouped GEMM backward dW (wgmma kernel)"
     if "moe_gemm_dw" in kernel_name:
         return "grouped GEMM backward dW (mma.sync kernel)"
     if "moe_gemm" in kernel_name and ("true>" in kernel_name
@@ -2676,8 +2678,10 @@ def _moe_bwd_gate(what, got, plain, g64):
 
 
 def check_moe_gemm_bwd(gen):
-    """The grouped GEMM's backward kernels (dX on wgmma, dW on mma.sync)
-    against their plain versions and float64 products (``_moe_bwd_gate``)
+    """The grouped GEMM's backward kernels (dX and dW on the kernels
+    ``kernel_for`` picks: both wgmma here; the old ``mma.sync`` dW kernel
+    beside its successor, gated and timed alike) against their plain
+    versions and float64 products (``_moe_bwd_gate``)
     at a qwen3-moe train microbatch's shapes, which heal_lm's batch
     shares (1 x 4,096 or 8 x 512 tokens x top-8 = 32,768 assignments, E
     128, d 2,048, F 768, token block 128): gate/up (w (E, 2048, 768)) and
@@ -2725,7 +2729,7 @@ def check_moe_gemm_bwd(gen):
                                               offs=offs),
                     lambda: torch._grouped_mm(
                         dys[:n], w.transpose(1, 2).contiguous(), offs=offs)]),
-            "dw": (lambda: moe_gemm_dw_cuda(xs, dys, p.ends, p.used),
+            "dw": (lambda: moe_gemm_dw_cuda(xs, dys, p.ends, bt, p.used),
                    lambda: moe_gemm_sorted_dw_reference(
                        xs, dys, p.block_expert, E, bt, p.used),
                    lambda: _moe_dw64(xs, dys, p.block_expert, p.ends, bt,
@@ -2764,7 +2768,23 @@ def check_moe_gemm_bwd(gen):
                     lib_ms = time_ms(fn, reps=5)
                     break
             b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
-            name = kernel_for(bf16, bt, d, F) if kind == "dx" else "mma_sync"
+            name = kernel_for(bf16, bt, d, F)
+            prior = {}
+            if kind == "dw" and name != "mma_sync":  # its predecessor
+
+                def old_kernel():
+                    return moe_gemm_dw_cuda(xs, dys, p.ends, bt, p.used,
+                                            kernel="mma_sync")
+                got, again = old_kernel(), old_kernel()
+                if not torch.equal(got, again):
+                    _fail(f"moe_gemm backward dw {what} (mma_sync): two "
+                          "runs differ")
+                _moe_bwd_gate(f"moe_gemm backward dw {what} (mma_sync)",
+                              got, plain(), exact())
+                del got, again
+                prior = {"mma_sync_ms": time_ms(old_kernel, reps=5),
+                         "mma_sync_graph_ms": graph_time_ms(old_kernel,
+                                                            reps=5)}
             print(f"  moe_gemm backward {kind} {what} T={T} d={d} F={F} "
                   f"E={E} (token block {bt}, rows {n} of {p.T_pad}, experts "
                   f"used {e_used}) bf16, {name} kernel: max_abs_err "
@@ -2774,13 +2794,18 @@ def check_moe_gemm_bwd(gen):
                   f"ms ({n_ops / ms / 1e9:.1f} TFLOP/s), graph replay "
                   f"{graph_ms:.4f} ms, plain {plain_ms:.3f} ms, "
                   f"torch._grouped_mm "
-                  + (f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a")
+                  + (f"{lib_ms:.4f} ms (kernel {ms / lib_ms:.2f}x it)"
+                     if lib_ms is not None else "n/a")
                   + f", bound {b_ms:.4f} ms ({b_by}; operations alone "
                   f"{n_ops / PEAK_OPS['bf16'] * 1e3:.4f} ms), {b_ms / ms:.1%}"
-                  " of it")
+                  f" of it ({b_ms / graph_ms:.1%} by replay)"
+                  + (f"; the mma_sync dW kernel {prior['mma_sync_ms']:.4f} "
+                     f"ms, graph replay {prior['mma_sync_graph_ms']:.4f} "
+                     "ms, within its gates" if prior else ""))
             m = {"ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                 "max_abs_err": err, "rel_err": rel, "rel_vs_plain": ratio}
+                 "max_abs_err": err, "rel_err": rel, "rel_vs_plain": ratio,
+                 "kernel": name, **prior}
             if what == "gate/up":
                 rows[kind] = {
                     "name": f"moe_gemm_bwd_{kind}", "route": "cuda",
@@ -2814,7 +2839,8 @@ def _moe_launches() -> dict:
               f"kernel {by}")
     return {**_bwd_launches(), "moe_gemm": moe_ops.launches,
             **{f"moe_gemm_bwd/{k}": by.get(k, 0)
-               for k in ("dx_wgmma", "dx_mma_sync", "dw")}}
+               for k in ("dx_wgmma", "dx_mma_sync", "dw_wgmma",
+                         "dw_mma_sync")}}
 
 
 def _lora_leaves(lora):
@@ -3297,7 +3323,8 @@ def heal_lm_moe(gen):
     want = {"flash_attention_fwd": (n + 1) * L, "flash_attention_bwd": n * L,
             "rmsnorm": (n + 1) * (2 * L + 1), "rmsnorm_bwd": n * 2 * L,
             "moe_gemm": (n + 1) * 3 * L, "moe_gemm_bwd/dx_wgmma": n * 3 * L,
-            "moe_gemm_bwd/dx_mma_sync": 0, "moe_gemm_bwd/dw": 0}
+            "moe_gemm_bwd/dx_mma_sync": 0, "moe_gemm_bwd/dw_wgmma": 0,
+            "moe_gemm_bwd/dw_mma_sync": 0}
     print(f"  heal_lm qwen3-moe-30b-a3b (bf16, {L} of "
           f"{moe.model.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
@@ -3833,13 +3860,14 @@ def train_mem(smi):
 def _moe_train_launches(L: int, microbatches: int) -> dict:
     """``_train_step_launches`` of a MoE LM step, and the grouped GEMM's:
     three a layer forward, again in the recompute, and in the backward three
-    dX (the 32,768-assignment microbatch's 128-row token blocks: the wgmma
-    kernel) and three dW a layer, each a microbatch."""
+    dX and three dW a layer (the 32,768-assignment microbatch's 128-row
+    token blocks: both on the wgmma kernels), each a microbatch."""
     return {**_train_step_launches(L, microbatches),
             "moe_gemm": microbatches * 2 * 3 * L,
             "moe_gemm_bwd/dx_wgmma": microbatches * 3 * L,
             "moe_gemm_bwd/dx_mma_sync": 0,
-            "moe_gemm_bwd/dw": microbatches * 3 * L}
+            "moe_gemm_bwd/dw_wgmma": microbatches * 3 * L,
+            "moe_gemm_bwd/dw_mma_sync": 0}
 
 
 def check_moe_train_calls(params, cfg, rc, mb, chunk):
@@ -4014,7 +4042,7 @@ def train_moe(smi):
     profile_windows(((f"qwen3-moe train step, {shape.global_batch} x "
                       f"{shape.seq_len} tokens, {cfg.n_layers} layers "
                       "(forward, backward, update)", one_step,
-                      "moe_gemm_dw"),))
+                      "moe_gemm_dw_wgmma"),))
     del out, params, opt
     torch.cuda.empty_cache()
     data = TR.make_train_data(spec, shape, 1, seed=7)
@@ -4045,7 +4073,7 @@ def train_phase():
           f"2 steps {mem_got}; qwen3-moe-30b-a3b 2 steps {moe_got}")
     return {"lm": lm_got, "mem": mem_got, "moe": moe_got,
             "moe_gemm_bwd_dx": moe_got["moe_gemm_bwd/dx_wgmma"],
-            "moe_gemm_bwd_dw": moe_got["moe_gemm_bwd/dw"]}
+            "moe_gemm_bwd_dw": moe_got["moe_gemm_bwd/dw_wgmma"]}
 
 
 def build_phase():

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the port's kernels
 // (flash_attention/csrc/flash_fwd.cu, moe_gemm/csrc/moe_gemm.cu,
 // retrieval_topk/csrc/topk_tile.cuh, decode_attention/csrc/decode_attn.cu):
-// tensor maps for TMA, mbarriers, TMA loads, wgmma shared-memory
-// descriptors and the wgmma instructions themselves, mma.sync, and the
-// cp.async copies of the FMA kernels, as inline PTX for sm_90a.
+// tensor maps for TMA, mbarriers, TMA loads and stores, named barriers,
+// wgmma shared-memory descriptors and the wgmma instructions themselves,
+// mma.sync, and the cp.async copies of the FMA kernels, as inline PTX for
+// sm_90a.
 //
 // Shared-memory layout used throughout: an operand tile is a row of
 // "atoms", each atom [rows][64] 16-bit elements with the 128-byte swizzle
@@ -157,6 +158,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
+// TMA store of a box from shared memory (the 128-byte-swizzled layout the
+// map names) into the tensor; elements outside the tensor are not
+// written. Stores issued since the last bulk_commit form one bulk group;
+// bulk_wait_read<N> returns when at most N groups are still reading shared
+// memory (the buffer may then be written again, and the block may exit).
+// Plain stores into the box need fence_proxy_async by each writing thread
+// and a barrier before the issuing thread stores it.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, whole
+// warps: one warpgroup's barrier apart from the rest of the block.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // wgmma shared-memory descriptor for a 128-byte-swizzled operand (layout
 // type 1); byte offsets are encoded in 16-byte units.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
@@ -241,16 +272,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // wgmma.mma_async m64nNk16, f32 += bf16 * bf16, on one warpgroup. d is the
 // thread's N/2 accumulators: element (row 16*(warp%4) + lane/4 + 8*h,
 // column 8*c + 2*(lane%4) + j) is d[4*c + 2*h + j]. ss: A and B from
-// shared-memory descriptors (A K-major); rs: A from registers, the 16x16
-// fragment of mma.m16n8k16 for the warp's 16 rows. TB: B is MN-major
-// (transposed). scale_d == 0 overwrites d instead of adding to it. Only
-// the shapes the kernels use are here: ss at N 64 (the flash backward's
-// S^T, dP^T), 128 and 256 (flash's S, the grouped GEMM), rs at N = D
-// (flash's P V, the backward's dV, dK).
+// shared-memory descriptors; rs: A from registers, the 16x16 fragment of
+// mma.m16n8k16 for the warp's 16 rows. TB: B is MN-major (transposed); TA
+// (ss only, default 0: K-major): A is MN-major, its 64-column atoms along
+// M (the grouped GEMM's dW reads xs^T so). scale_d == 0 overwrites d
+// instead of adding to it. Only the shapes the kernels use are here: ss at
+// N 64 (the flash backward's S^T, dP^T), 128 and 256 (flash's S, the
+// grouped GEMM), rs at N = D (flash's P V, the backward's dV, dK).
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<64> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -258,12 +290,12 @@ template <> struct Wgmma<64> {
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
@@ -303,7 +335,7 @@ template <> struct Wgmma<80> {
 };
 
 template <> struct Wgmma<128> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -313,7 +345,7 @@ template <> struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -322,7 +354,7 @@ template <> struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
@@ -348,7 +380,7 @@ template <> struct Wgmma<128> {
 };
 
 template <> struct Wgmma<256> {
-  template <int TB>
+  template <int TB, int TA = 0>
   static __device__ __forceinline__ void ss(float (&d)[128], uint64_t da, uint64_t db, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -362,7 +394,7 @@ template <> struct Wgmma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -379,7 +411,7 @@ template <> struct Wgmma<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 

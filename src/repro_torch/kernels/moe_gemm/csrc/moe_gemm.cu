@@ -37,19 +37,26 @@
 // DX template flag: reduction over F, output width d, w read K-major (its
 // rows are d, F contiguous), and blocks from used on write zeros (dys holds
 // garbage there: the forward left those rows unwritten) and read nothing.
-// dW (E, d, F) is moe_gemm_dw_kernel: one block per (expert, 128 rows of d,
-// 128 columns of F) walks its expert's rows in order, from its group's
-// start to its end (the plan's ends, never past used: blocks past the last
-// group name expert E - 1 and are never read), sums xs^T dys in fp32
-// registers and stores once; an expert with no rows stores zeros. No
-// atomics and no split-K anywhere, so the gradient has the same bits twice.
-// What bounds it at the train shape (T = 32,768 assignments, d 2,048, F
-// 768, E 128): the bytes, the E * d * F output (403 MB bf16) and both
-// inputs, 0.175 ms at 3.35 TB/s, over the 2 * T * d * F operations' 0.104
-// ms. Design: 256 threads in 4 x 2 warps of 32 x 64 outputs; 32-row slices
-// of xs and dys staged through registers into padded shared memory while
-// the previous slice runs; both operands read transposed by
-// ldmatrix.trans into mma.sync m16n8k16 (bf16) or by FMAs (f32).
+// dW (E, d, F): each output tile walks its expert's rows in order, from its
+// group's start to its end (the plan's ends, never past used: rows from
+// used on are never read), sums xs^T dys in fp32 registers and stores
+// once; an expert with no rows stores zeros. No atomics and no split-K
+// anywhere, so the gradient has the same bits twice. What bounds it at the
+// train shape (T = 32,768 assignments, d 2,048, F 768, E 128): the bytes,
+// the E * d * F output (403 MB bf16) and both inputs, 0.175 ms at 3.35
+// TB/s, over the 2 * T * d * F operations' 0.104 ms. Two kernels, picked
+// by kernel.py::kernel_for as the forward's:
+// - moe_gemm_dw_wgmma (bf16, token blocks of 64 or 128 rows, d and F
+//   multiples of 8): a persistent block an SM over 128 x 256 tiles of dw,
+//   TMA loads of both operands read MN-major by wgmma, and a TMA-store
+//   epilogue that drains under the next tile's products (design at the
+//   kernel).
+// - moe_gemm_dw_kernel (f32 and every other shape): one block per (expert,
+//   128 rows of d, 128 columns of F), 256 threads in 4 x 2 warps of 32 x
+//   64 outputs; 32-row slices of xs and dys staged through registers into
+//   padded shared memory while the previous slice runs; both operands read
+//   transposed by ldmatrix.trans into mma.sync m16n8k16 (bf16) or by FMAs
+//   (f32).
 //
 // moe_gemm_kernel (the decode regime: bt 16, T = 128; also f32 and shapes
 // that break TMA's 16-byte strides). What bounds it at decode: the expert
@@ -130,20 +137,27 @@ __device__ __forceinline__ void frag_step(float c[4], const __nv_bfloat16* xa,
   mma_bf16(c, a, b);
 }
 
+// f32: the step's 16 products are summed apart and then added to c, so a
+// reduction over K rounds about K / 16 + 16 times on an element's path, not
+// K times (one running sum over dX's F = 1,408 read 4.2x the plain
+// version's float64-relative error on an H100, over the gate's 4x).
 template <bool BT>
 __device__ __forceinline__ void frag_step(float c[4], const float* xa, int lda,
                                           const float* wb, int ldb, int lane) {
   const int g = lane >> 2, t = lane & 3;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int kk = 0; kk < 16; ++kk) {
     const float a0 = xa[g * lda + kk], a1 = xa[(g + 8) * lda + kk];
     const float b0 = BT ? wb[(2 * t) * ldb + kk] : wb[kk * ldb + 2 * t];
     const float b1 = BT ? wb[(2 * t + 1) * ldb + kk] : wb[kk * ldb + 2 * t + 1];
-    c[0] = fmaf(a0, b0, c[0]);
-    c[1] = fmaf(a0, b1, c[1]);
-    c[2] = fmaf(a1, b0, c[2]);
-    c[3] = fmaf(a1, b1, c[3]);
+    s[0] = fmaf(a0, b0, s[0]);
+    s[1] = fmaf(a0, b1, s[1]);
+    s[2] = fmaf(a1, b0, s[2]);
+    s[3] = fmaf(a1, b1, s[3]);
   }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += s[i];
 }
 
 // K is the reduction, N the output width: the forward's (d, F), DX's (F, d).
@@ -650,6 +664,169 @@ moe_gemm_dw_kernel(const T* __restrict__ xs, const T* __restrict__ dys,
   }
 }
 
+// ------------------------------------------- dW = xs^T dys, bf16, wgmma + TMA
+
+namespace dwg {
+constexpr int BM = 128, BN = 256, BK = 64;  // rows of d, columns of F, rows
+constexpr int THREADS = 384;  // producer + two consumer warpgroups
+constexpr int CONSUMERS = 256;
+constexpr int STAGES = 3;
+constexpr int ATOM = BK * 128;             // [64 group rows][64 of d or F]
+constexpr int A_BYTES = (BM / 64) * ATOM;  // xs: two atoms along d
+constexpr int STAGE = A_BYTES + (BN / 64) * ATOM;  // dys: four along F
+constexpr int OUT_ATOM = 64 * 128;         // [64 rows of d][64 of F]
+constexpr int OUT_WG = (BN / 64) * OUT_ATOM;  // a consumer's 64 x 256 of dw
+constexpr int OUT = STAGES * STAGE;        // the two consumers' store boxes
+constexpr int BAR = OUT + 2 * OUT_WG;
+constexpr int BYTES = BAR + 16 * STAGES + 1024;  // + align
+}  // namespace dwg
+
+struct DwTile {
+  int e, m0, n0;  // expert, first row of d, first column of F
+  int r0, nk;     // the group's rows [r0, r0 + 64 nk)
+};
+
+// Tile `tile` in expert-major order (within an expert, F tiles vary
+// fastest), its expert's group from the plan's ends, cut at lim.
+__device__ __forceinline__ DwTile dw_tile(int tile, int m_tiles, int n_tiles,
+                                          const int* __restrict__ ends,
+                                          int lim) {
+  DwTile t;
+  const int per = m_tiles * n_tiles, i = tile % per;
+  t.e = tile / per;
+  t.m0 = (i / n_tiles) * dwg::BM;
+  t.n0 = (i % n_tiles) * dwg::BN;
+  const int r_end = min(ends[t.e], lim);
+  t.r0 = min(t.e > 0 ? ends[t.e - 1] : 0, r_end);
+  t.nk = (r_end - t.r0) / dwg::BK;
+  return t;
+}
+
+// dw (E, d, F) as moe_gemm_dw_kernel computes it, for bf16 groups that
+// start and end on 64-row slices (token blocks of 64 or 128 rows). A
+// persistent block an SM walks the tiles blockIdx.x, + gridDim.x, ... in
+// expert-major order, so the blocks running at once share one or two
+// experts' rows in L2. The producer warp's first thread loads, by TMA, each
+// 64-row slice of the tile's rows of xs (a 2-D map over (d, T_pad), two
+// 64 x 64 boxes) and dys ((F, T_pad), four boxes) into a ring of STAGES
+// stages, running on into the next tile while the consumers store; both
+// land [row][64 columns], 128-byte swizzled, so wgmma reads A = xs^T and
+// B = dys MN-major (transpose bits set). Each consumer warpgroup sums its
+// 64 rows of d x 256 columns of F in fp32 registers (m64n256k16), then
+// rounds them to bf16 into its own four swizzled [64][64] boxes and one
+// thread stores them by TMA into a 3-D map over dw (F, d, E), which clips
+// rows past d and columns past F; that store drains while the next tile's
+// products run, and is waited on (wait_group.read) only before the boxes
+// are written again. An expert with no rows stores zeros.
+__global__ void __launch_bounds__(dwg::THREADS, 1)
+moe_gemm_dw_wgmma(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_dy,
+                  const __grid_constant__ CUtensorMap map_dw,
+                  const int* __restrict__ ends, const int* __restrict__ used,
+                  int d, int F, int E) {
+  using namespace hopper;
+  constexpr int STAGES = dwg::STAGES;
+  const int m_tiles = (d + dwg::BM - 1) / dwg::BM;
+  const int n_tiles = (F + dwg::BN - 1) / dwg::BN;
+  const int tiles = E * m_tiles * n_tiles;
+  const int lim = *used;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + dwg::BAR);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], dwg::CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // slices this block has loaded, over all its tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const DwTile t = dw_tile(tile, m_tiles, n_tiles, ends, lim);
+        // boxes that start inside d and F (the rest would read only zeros)
+        const int ma = min(dwg::BM / 64, (d - t.m0 + 63) / 64);
+        const int na = min(dwg::BN / 64, (F - t.n0 + 63) / 64);
+        const uint32_t bytes = (ma + na) * dwg::ATOM;
+        for (int kt = 0; kt < t.nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+          uint8_t* st = sm + s * dwg::STAGE;
+          const int r = t.r0 + kt * dwg::BK;
+          mbar_expect_tx(&full[s], bytes);
+          for (int a = 0; a < ma; ++a)
+            tma_load_2d(st + a * dwg::ATOM, &map_x, &full[s], t.m0 + 64 * a,
+                        r);
+          for (int a = 0; a < na; ++a)
+            tma_load_2d(st + dwg::A_BYTES + a * dwg::ATOM, &map_dy, &full[s],
+                        t.n0 + 64 * a, r);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup cw owns rows m0 + 64 cw .. + 63 of a tile
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
+    uint8_t* out = sm + dwg::OUT + cw * dwg::OUT_WG;
+    float acc[128];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const DwTile t = dw_tile(tile, m_tiles, n_tiles, ends, lim);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < t.nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        const uint8_t* st = sm + s * dwg::STAGE;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < dwg::BK / 16; ++kk)
+          Wgmma<256>::ss<1, 1>(
+              acc,
+              desc_sw128(st + cw * dwg::ATOM + kk * 2048, dwg::ATOM, 1024),
+              desc_sw128(st + dwg::A_BYTES + kk * 2048, dwg::ATOM, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous slice's group is done: free its stage
+        if (kt > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (t.nk > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      if (tid == 0) bulk_wait_read<0>();  // the last tile's store read them
+      named_bar_sync(1 + cw, 128);
+      // element (row 16 warp + g + 8 h, column 8 c + 2 t4 + j) is
+      // acc[4 c + 2 h + j]: box c / 8, 16-byte chunk c % 8, swizzled by row
+#pragma unroll
+      for (int c = 0; c < 32; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<uint32_t*>(
+              out + (c / 8) * dwg::OUT_ATOM + (warp * 16 + g + 8 * h) * 128 +
+              (((c % 8) ^ g) * 16) + 4 * t4) =
+              pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+      fence_proxy_async();
+      named_bar_sync(1 + cw, 128);
+      if (tid == 0 && t.m0 + 64 * cw < d) {
+        const int na = min(dwg::BN / 64, (F - t.n0 + 63) / 64);
+        for (int a = 0; a < na; ++a)
+          tma_store_3d(&map_dw, out + a * dwg::OUT_ATOM, t.n0 + 64 * a,
+                       t.m0 + 64 * cw, t.e);
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait_read<0>();  // before the shared memory goes
+  }
+}
+
 }  // namespace
 
 // The forward on the mma.sync kernel. bt: rows per expert block, a multiple
@@ -711,5 +888,45 @@ extern "C" int moe_gemm_dw_launch(const void* xs, const void* dys,
     moe_gemm_dw_kernel<float><<<grid, dwk::THREADS, 0, stream>>>(
         static_cast<const float*>(xs), static_cast<const float*>(dys), ends,
         used, static_cast<float*>(dw), d, F);
+  return (int)cudaGetLastError();
+}
+
+// dW on the wgmma kernel: bf16 only; T_pad a multiple of 64, and every
+// group's end (ends, used) a multiple of 64 (the plan's token blocks of 64
+// or 128 rows); d and F multiples of 8 (TMA's 16-byte strides). Returns a
+// cudaError_t.
+extern "C" int moe_gemm_dw_wgmma_launch(const void* xs, const void* dys,
+                                        const int* ends, const int* used,
+                                        void* dw, int T_pad, int d, int F,
+                                        int E, cudaStream_t stream) {
+  const long long tiles = (long long)E * ((d + dwg::BM - 1) / dwg::BM) *
+                          ((F + dwg::BN - 1) / dwg::BN);
+  if (T_pad < dwg::BK || T_pad % dwg::BK || d < 8 || F < 8 || E < 1 ||
+      d % 8 || F % 8 || tiles > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mdy, mdw;
+  const uint64_t dx[2] = {(uint64_t)d, (uint64_t)T_pad};
+  const uint64_t sx[1] = {(uint64_t)d * 2};
+  const uint64_t ddy[2] = {(uint64_t)F, (uint64_t)T_pad};
+  const uint64_t sdy[1] = {(uint64_t)F * 2};
+  const uint64_t dd[3] = {(uint64_t)F, (uint64_t)d, (uint64_t)E};
+  const uint64_t sd[2] = {(uint64_t)F * 2, (uint64_t)d * F * 2};
+  const uint32_t box2[2] = {64, 64}, box3[3] = {64, 64, 1};
+  int err = hopper::encode_bf16_map(&mx, xs, 2, dx, sx, box2);
+  if (!err) err = hopper::encode_bf16_map(&mdy, dys, 2, ddy, sdy, box2);
+  if (!err) err = hopper::encode_bf16_map(&mdw, dw, 3, dd, sd, box3);
+  if (err) return err;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(moe_gemm_dw_wgmma,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dwg::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  moe_gemm_dw_wgmma<<<grid, dwg::THREADS, dwg::BYTES, stream>>>(
+      mx, mdy, mdw, ends, used, d, F, E);
   return (int)cudaGetLastError();
 }

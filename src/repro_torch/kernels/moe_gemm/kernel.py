@@ -11,7 +11,9 @@ wgmma, the prefill's bf16 blocks of 64 or 128 rows; TMA needs d and F
 multiples of 8) or ``"mma_sync"`` (the decode regime's 16-row blocks, f32,
 and any other shape). The gradient of xs (``moe_gemm_cuda(..., dx=True)``)
 runs the same two kernels with w read transposed, picked by the same rule;
-the gradient of w is its own kernel (``moe_gemm_dw_cuda``).
+the gradient of w (``moe_gemm_dw_cuda``) has two kernels of its own, picked
+by the same rule too: ``"wgmma"`` (a persistent TMA and wgmma kernel with a
+TMA-store epilogue) or ``"mma_sync"``.
 """
 from __future__ import annotations
 
@@ -51,6 +53,8 @@ def _lib() -> ctypes.CDLL:
     lib.moe_gemm_dx_wgmma_launch.argtypes = [_P] * 5 + [_I] * 5 + [_P]
     lib.moe_gemm_dw_launch.restype = ctypes.c_int
     lib.moe_gemm_dw_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+    lib.moe_gemm_dw_wgmma_launch.restype = ctypes.c_int
+    lib.moe_gemm_dw_wgmma_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P]
     return lib
 
 
@@ -60,6 +64,19 @@ def _check_device(*tensors) -> torch.device:
         raise ValueError("moe_gemm_cuda: every tensor must be on one CUDA "
                          "device")
     return dev
+
+
+def _check_kernel(kernel: Optional[str], dtype: torch.dtype, block_t: int,
+                  d: int, F: int) -> str:
+    """``kernel``, or ``kernel_for``'s choice where it is None; raises for
+    a name not in ``KERNELS`` and for ``"wgmma"`` where ``kernel_for``
+    does not give it."""
+    chosen = kernel_for(dtype, block_t, d, F)
+    kernel = kernel or chosen
+    if kernel not in KERNELS or (kernel == "wgmma" and chosen != "wgmma"):
+        raise ValueError(f"kernel {kernel!r} does not take {dtype}, "
+                         f"block_t {block_t}, d {d}, F {F}")
+    return kernel
 
 
 def _check_used(used: torch.Tensor, *index: torch.Tensor) -> None:
@@ -102,11 +119,7 @@ def moe_gemm_cuda(xs: torch.Tensor, block_expert: torch.Tensor,
         raise ValueError("moe_gemm_cuda wants contiguous inputs")
     if xs.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("moe_gemm_cuda wants 16-byte aligned xs and w")
-    chosen = kernel_for(xs.dtype, block_t, d, F)
-    kernel = kernel or chosen
-    if kernel not in KERNELS or (kernel == "wgmma" and chosen != "wgmma"):
-        raise ValueError(f"kernel {kernel!r} does not take {xs.dtype}, "
-                         f"block_t {block_t}, d {d}, F {F}")
+    kernel = _check_kernel(kernel, xs.dtype, block_t, d, F)
     ys = torch.empty((T_pad, d if dx else F), dtype=xs.dtype, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -126,11 +139,15 @@ def moe_gemm_cuda(xs: torch.Tensor, block_expert: torch.Tensor,
 
 
 def moe_gemm_dw_cuda(xs: torch.Tensor, dys: torch.Tensor,
-                     ends: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
+                     ends: torch.Tensor, block_t: int, used: torch.Tensor, *,
+                     kernel: Optional[str] = None) -> torch.Tensor:
     """(E, d, F) in xs's dtype: expert e's xs^T @ dys over its group's rows
     [ends[e - 1], ends[e]) (from 0 for e = 0), cut at ``used``; 0 for an
-    expert with no rows. No row from ``used`` on is read."""
-    dev = _check_device(xs, dys, ends, used)
+    expert with no rows. No row from ``used`` on is read. ``ends`` and
+    ``used`` are the plan's for token blocks of ``block_t`` rows (each a
+    multiple of it). ``kernel`` (default ``kernel_for``'s choice) names the
+    kernel; ``"mma_sync"`` takes every shape, ``"wgmma"`` only those
+    ``kernel_for`` gives it."""
     if xs.dtype not in DTYPES or dys.dtype != xs.dtype:
         raise TypeError(f"moe_gemm_dw_cuda takes f32 or bf16 (xs and dys "
                         f"alike), got {xs.dtype}, {dys.dtype}")
@@ -138,16 +155,29 @@ def moe_gemm_dw_cuda(xs: torch.Tensor, dys: torch.Tensor,
             ends.dim() != 1:
         raise ValueError(f"shapes xs {tuple(xs.shape)}, dys "
                          f"{tuple(dys.shape)}, ends {tuple(ends.shape)}")
+    T_pad, d, F, E = xs.shape[0], xs.shape[1], dys.shape[1], ends.shape[0]
+    if block_t < 16 or block_t % 16 or T_pad % block_t:
+        raise ValueError(f"block_t {block_t} (a multiple of 16 dividing "
+                         f"T_pad {T_pad})")
+    kernel = _check_kernel(kernel, xs.dtype, block_t, d, F)
+    dev = _check_device(xs, dys, ends, used)
     _check_used(used, ends)
     if not (xs.is_contiguous() and dys.is_contiguous() and
             ends.is_contiguous()):
         raise ValueError("moe_gemm_dw_cuda wants contiguous inputs")
-    d, F, E = xs.shape[1], dys.shape[1], ends.shape[0]
+    if xs.data_ptr() % 16 or dys.data_ptr() % 16:
+        raise ValueError("moe_gemm_dw_cuda wants 16-byte aligned xs and dys")
     dw = torch.empty((E, d, F), dtype=xs.dtype, device=dev)
+    lib = _lib()
     with torch.cuda.device(dev):
-        err = _lib().moe_gemm_dw_launch(
-            xs.data_ptr(), dys.data_ptr(), ends.data_ptr(), used.data_ptr(),
-            dw.data_ptr(), d, F, E, int(xs.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "moe_gemm dw")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        args = (xs.data_ptr(), dys.data_ptr(), ends.data_ptr(),
+                used.data_ptr(), dw.data_ptr())
+        if kernel == "wgmma":
+            err = lib.moe_gemm_dw_wgmma_launch(*args, T_pad, d, F, E, stream)
+        else:
+            err = lib.moe_gemm_dw_launch(*args, d, F, E,
+                                         int(xs.dtype == torch.bfloat16),
+                                         stream)
+    build.check(err, f"moe_gemm dw ({kernel})")
     return dw

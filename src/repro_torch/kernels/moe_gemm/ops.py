@@ -14,7 +14,7 @@ block (``moe_gemm_sorted_dx``) and dw[e] = xs_e^T @ dys_e over each
 expert's rows (``moe_gemm_sorted_dw``), each launched only for an input
 that needs its gradient; on the CPU the plain versions. ``bwd_launches``
 counts backward kernel launches, ``bwd_launches_by_kernel`` splits them
-into ``dx_wgmma``, ``dx_mma_sync`` and ``dw``. ``scatter_rows`` and
+into ``dx_wgmma``, ``dx_mma_sync``, ``dw_wgmma`` and ``dw_mma_sync``. ``scatter_rows`` and
 ``gather_rows`` move rows by index; the backward of ``scatter_rows`` sums
 a token's ``top_k`` assignment gradients in a fixed order, so a MoE
 layer's gradient has the same bits twice.
@@ -141,10 +141,12 @@ def moe_gemm_sorted_dw(xs: torch.Tensor, dys: torch.Tensor,
                                             dtype)
     if xs.device.type != "cuda":
         raise ValueError(f"moe_gemm backward: no kernel for {xs.device}")
-    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_dw_cuda
-    out = moe_gemm_dw_cuda(xs, dys, ends, used)
+    from repro_torch.kernels.moe_gemm.kernel import (kernel_for,
+                                                     moe_gemm_dw_cuda)
+    out = moe_gemm_dw_cuda(xs, dys, ends, block_t, used)
     bwd_launches += 1
-    _count(bwd_launches_by_kernel, "dw")
+    _count(bwd_launches_by_kernel, "dw_" + kernel_for(
+        xs.dtype, block_t, xs.shape[1], dys.shape[1]))
     return out
 
 

@@ -614,22 +614,29 @@ def _moe_bwd_gate(got, plain, g64, what):
     assert rel <= REL_MULTIPLE * rel_plain, (what, rel, rel_plain)
 
 
+# E, d: the experts and widths of the case. (8, 256) is 48 to 64 dW tiles
+# of 128 x 256; (2, 256) fewer tiles than SMs and one expert with every row;
+# (64, 320) ten times more tiles than SMs, so each persistent dW block walks
+# several, and d not a multiple of the 128-row tile (the second warpgroup's
+# rows past d are clipped). F 96 and 1,408 leave a partial 256-column tile
+# that the TMA store clips.
+@pytest.mark.parametrize("E,d", [(8, 256), (2, 256), (64, 320)])
 @pytest.mark.parametrize("F", [96, 768, 1408])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("bt", [16, 64, 128])
-def test_moe_gemm_bwd_kernels_match_plain(gen, bt, dtype, F):
-    """The gradients of xs (each kernel that takes the shape) and of w
-    against their plain versions and a float64 product, with two experts
-    that have no rows (one of them E - 1, which the blocks past the last
-    group name) and NaN in xs and dys from ``used`` on: dX writes 0 there
-    and reads nothing, dW reads no row there; the same bits twice."""
+def test_moe_gemm_bwd_kernels_match_plain(gen, bt, dtype, F, E, d):
+    """The gradients of xs and of w (each kernel that takes the shape)
+    against their plain versions and a float64 product, with experts that
+    have no rows (E // 2 and E - 1, which the blocks past the last group
+    name) and NaN in xs and dys from ``used`` on: dX writes 0 there and
+    reads nothing, dW reads no row there; the same bits twice."""
     from repro_torch.kernels.moe_gemm.kernel import (kernel_for,
                                                      moe_gemm_cuda,
                                                      moe_gemm_dw_cuda)
     from repro_torch.kernels.moe_gemm.ref import (
         moe_gemm_sorted_dw_reference, moe_gemm_sorted_dx_reference)
-    T, d, E = 1000, 256, 8
+    T = 1000
     p, xs, dys, w = _moe_bwd_case(gen, T, d, E, F, bt, dtype)
     dx64, dw64 = _moe_bwd64(p, xs, dys, w, bt)
     dx_p = moe_gemm_sorted_dx_reference(dys, p.block_expert, w, bt, p.used)
@@ -645,10 +652,12 @@ def test_moe_gemm_bwd_kernels_match_plain(gen, bt, dtype, F):
         assert torch.equal(dx, again), kernel
         assert not dx[int(p.used):].any(), kernel
         _moe_bwd_gate(dx, dx_p, dx64, f"dx {kernel}")
-    dw = moe_gemm_dw_cuda(xs, dys, p.ends, p.used)
-    assert torch.equal(dw, moe_gemm_dw_cuda(xs, dys, p.ends, p.used))
-    assert not dw[E // 2].any() and not dw[E - 1].any()
-    _moe_bwd_gate(dw, dw_p, dw64, "dw")
+    for kernel in kernels:
+        dw = moe_gemm_dw_cuda(xs, dys, p.ends, bt, p.used, kernel=kernel)
+        assert torch.equal(dw, moe_gemm_dw_cuda(xs, dys, p.ends, bt, p.used,
+                                                kernel=kernel)), kernel
+        assert not dw[E // 2].any() and not dw[E - 1].any(), kernel
+        _moe_bwd_gate(dw, dw_p, dw64, f"dw {kernel}")
 
 
 def test_moe_gemm_autograd_launches_only_the_gradients_needed(gen):
@@ -675,8 +684,9 @@ def test_moe_gemm_autograd_launches_only_the_gradients_needed(gen):
                for k, v in ops.bwd_launches_by_kernel.items()}
         assert ops.launches == before[0] + 1
         assert got.get("dx_wgmma", 0) == int(need_x)
-        assert got.get("dw", 0) == int(need_w)
+        assert got.get("dw_wgmma", 0) == int(need_w)
         assert got.get("dx_mma_sync", 0) == 0
+        assert got.get("dw_mma_sync", 0) == 0
         assert ops.bwd_launches == before[2] + need_x + need_w
         want = ([moe_gemm_sorted_dx_reference(dys, p.block_expert, w, bt,
                                               p.used)] if need_x else []) \
@@ -754,7 +764,8 @@ def test_moe_layer_backward_is_deterministic(gen):
     first = _moe_layer_grads(params, x, moe)
     assert ops.bwd_launches_by_kernel["dx_wgmma"] == \
         before.get("dx_wgmma", 0) + 3
-    assert ops.bwd_launches_by_kernel["dw"] == before.get("dw", 0) + 3
+    assert ops.bwd_launches_by_kernel["dw_wgmma"] == \
+        before.get("dw_wgmma", 0) + 3
     second = _moe_layer_grads(params, x, moe)
     for a, b in zip(first, second):
         assert torch.isfinite(a).all() and torch.equal(a, b)
@@ -815,7 +826,7 @@ def test_moe_lm_lora_and_weight_grads_on_the_card_match_the_cpu(gen):
                    for k, v in moe_ops.bwd_launches_by_kernel.items()
                    if v != before.get(k, 0)}
             assert got == {"dx_mma_sync": 3 * cfg.n_layers,
-                           "dw": 3 * cfg.n_layers}, got
+                           "dw_mma_sync": 3 * cfg.n_layers}, got
     for g, c in zip(grads["cuda"], grads["cpu"]):
         scale = max(1e-6, c.abs().max().item())
         assert (g.cpu() - c).abs().max().item() <= 1e-4 * scale

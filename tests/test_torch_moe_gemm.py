@@ -111,7 +111,12 @@ def test_block_t_for():
     (torch.float32, 128, 2048, 768, "mma_sync"),  # f32
     (torch.bfloat16, 64, 200, 100, "mma_sync"),   # F % 8: no TMA stride
     (torch.bfloat16, 128, 36, 768, "mma_sync"),   # d % 8
-    (torch.bfloat16, 32, 2048, 768, "mma_sync")])
+    (torch.bfloat16, 32, 2048, 768, "mma_sync"),
+    # dW takes kernel_for(xs's dtype, bt, xs's width, dys's width) too
+    (torch.bfloat16, 128, 256, 96, "wgmma"),      # dW: a partial F tile
+    (torch.bfloat16, 64, 320, 1408, "wgmma"),     # dW: ragged d and F tiles
+    (torch.float32, 128, 768, 2048, "mma_sync"),  # f32 dW of the down
+    (torch.bfloat16, 16, 768, 2048, "mma_sync")])
 def test_kernel_for(dtype, bt, d, F, want):
     assert MK.kernel_for(dtype, bt, d, F) == want
     assert want in MK.KERNELS
@@ -122,6 +127,41 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         MK.moe_gemm_cuda(torch.zeros((p.T_pad, 8)), p.block_expert,
                          torch.zeros((2, 8, 8)), 16, p.used)
+
+
+@pytest.mark.parametrize("dtype,bt,d,F", [
+    (torch.bfloat16, 128, 2048, 768),   # a train microbatch's gate/up
+    (torch.bfloat16, 128, 768, 2048),   # its down projection
+    (torch.float32, 64, 256, 96)])
+def test_dw_wrapper_refuses_cpu_tensors(dtype, bt, d, F):
+    """``moe_gemm_dw_cuda`` launches on CUDA tensors only, whichever kernel
+    the shape takes (it never falls back to the plain version)."""
+    p = MO.plan(torch.zeros(4, dtype=torch.int32), 2, bt)
+    with pytest.raises(ValueError, match="CUDA"):
+        MK.moe_gemm_dw_cuda(torch.zeros((p.T_pad, d), dtype=dtype),
+                            torch.zeros((p.T_pad, F), dtype=dtype), p.ends,
+                            bt, p.used)
+
+
+@pytest.mark.parametrize("dtype,bt,d,F", [
+    (torch.bfloat16, 16, 2048, 768),    # a decode step's 16-row blocks
+    (torch.float32, 128, 2048, 768),    # f32
+    (torch.bfloat16, 128, 36, 768),     # d % 8: no TMA stride
+    (torch.bfloat16, 64, 256, 100)])    # F % 8
+def test_dw_wrapper_refuses_wgmma_where_kernel_for_does_not_give_it(
+        dtype, bt, d, F):
+    """``kernel="wgmma"`` is refused for a shape ``kernel_for`` sends to
+    ``mma_sync`` (and so is an unknown name), before any device is
+    touched; ``mma_sync`` takes the shape."""
+    assert MK.kernel_for(dtype, bt, d, F) == "mma_sync"
+    p = MO.plan(torch.zeros(4, dtype=torch.int32), 2, bt)
+    xs = torch.zeros((p.T_pad, d), dtype=dtype)
+    dys = torch.zeros((p.T_pad, F), dtype=dtype)
+    for bad in ("wgmma", "cublas"):
+        with pytest.raises(ValueError, match="does not take"):
+            MK.moe_gemm_dw_cuda(xs, dys, p.ends, bt, p.used, kernel=bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        MK.moe_gemm_dw_cuda(xs, dys, p.ends, bt, p.used, kernel="mma_sync")
 
 
 @pytest.mark.parametrize("T,d,E,F,bt,kind", [
