@@ -12,7 +12,7 @@ kernel against its plain PyTorch version at its path's shapes (the int4
 activation-cache kernels bit for bit; the grouped GEMM's side cases through
 both of its kernels, wgmma and mma.sync; the bf16 flash kernel against the
 plain variant that rounds P to bf16 per key tile, as the TPU kernel does,
-within one bf16 step of each element at max(|o|, 1)). Then it drives seven
+within one bf16 step of each element at max(|o|, 1)). Then it drives eight
 paths, each with every launch counter set to 0 just before it and read
 just after:
 
@@ -20,7 +20,9 @@ just after:
     (random weights from a seed): drain (the activation cache quantized on
     the card), then query_batch (exhaustive int4 scan, refinement
     dequantized on the card); afterwards one more query_batch through an
-    IVF-indexed engine (the pruned union scan);
+    IVF-indexed engine (the pruned union scan), and one of 16 queries
+    through ``QueryEngine(search_devices=["cuda:0"] * 4)`` against the
+    one-shard engine over two stores drained alike (equal bit for bit);
   * heal: P-LoRA healing of the vision tower at full width and depth
     (``core.healing.heal_tower``, batch 32, 2 steps in each of its six
     phases) through the flash-attention and RMSNorm backward kernels, which
@@ -52,11 +54,20 @@ just after:
     items while a query thread scans and runs a query_batch; every policy
     read stays within the row bound, and after the refresher stops a fresh
     scan equals a sync store's scan of the same mutations, bit for bit;
+  * shard: the device bank row-sharded four ways on the one card, against
+    a one-shard bank, bit for bit, each scan launching once a shard: the
+    exhaustive int4 scan over 2^20 rows (both timed), the union and
+    gathered pruned scans on the IVF phase's configuration, the dense scan
+    of a 2^18-row fp32 store, and an async refresh whose writer crosses a
+    capacity doubling (rows move between shards);
   * LM: qwen2-1.5b at full width and depth (random weights from a seed)
     through ``launch.steps.build_step``: a prefill of 32 prompts of 2,048
     into a 32,768-token cache, then 32 greedy decode steps (read apart:
     the prefill's counters and the decode window's), then 8 steps over
-    caches of seeded K/V filled to lengths of 16,384-32,768;
+    caches of seeded K/V filled to lengths of 16,384-32,768; then the exit
+    API over 8 x 2,048 tokens (``encode_exits``; ``encode_at`` at every
+    exit; ``refine_from`` two exits' cached activations, equal bit for bit
+    to the full pass; exact launches; each held call by call);
   * MoE: qwen3-moe-30b-a3b at full width and 16 of its 48 layers, 16
     prompts of 1,024 into a 4,096-token cache, then 16 decode steps, with
     the expert loads and the assignments the capacity drops.
@@ -1559,6 +1570,8 @@ def serve_phase():
     profile_phase(engine, query, data.items["vision"][:64],
                   data.items["text"][n_queries:n_queries + 16])
     serve_ivf(engine, spec, data.items["text"][:n_queries], k)
+    serve_sharded(engine, spec, data.items["vision"][:128],
+                  data.items["text"][n_queries:n_queries + 16], k)
     return launches
 
 
@@ -1612,6 +1625,65 @@ def serve_ivf(engine, spec, texts, k):
     if launches["retrieval_topk_int4"] == 0 or store.ivf_fallbacks:
         _fail("the IVF query_batch did not run the pruned union scan")
     _check_results(results, store, k)
+
+
+def serve_sharded(engine, spec, items, texts, k):
+    """One query_batch of 16 through ``QueryEngine(search_devices=
+    ["cuda:0"] * 4)`` (the bank row-sharded four ways on the one card)
+    against the one-shard engine: two stores drained alike from the serve
+    phase's engine (its params and predictor), each queried once. The
+    drained stores, the results (uids, scores, refinements) and the
+    refined rows the query_batch wrote back must be equal, bit for bit,
+    and each store scan must launch the int4 scan once a shard."""
+    import numpy as np
+    import torch
+    from repro_torch.core.store import EmbeddingStore
+    from repro_torch.kernels.retrieval_topk import ops as topk_ops
+    from repro_torch.serving.engine import EmbeddingEngine
+    from repro_torch.serving.query import QueryEngine
+    cfg, rc = spec.model, spec.recall
+    stores = [EmbeddingStore(cfg.embed_dim, device="cuda") for _ in range(2)]
+    engines = [EmbeddingEngine(engine.params, cfg, rc, modality="vision",
+                               predictor_params=engine.predictor, store=st,
+                               device="cuda") for st in stores]
+    for eng in engines:
+        eng.submit_batch(np.arange(len(items)), items)
+        eng.drain()
+    if not np.array_equal(stores[0].dense_matrix(), stores[1].dense_matrix()):
+        _fail("two drains of the same items differ")
+    results, launches = [], []
+    for st, eng, devices in zip(stores, engines,
+                                (["cuda:0"], ["cuda:0"] * 4)):
+        query = QueryEngine(engine.params, cfg, rc, store=st,
+                            refine_fn=eng.refine_fn(), query_modality="text",
+                            search_impl="device", search_devices=devices,
+                            device="cuda")
+        before = topk_ops.launches
+        results.append(query.query_batch(texts, k=k))
+        torch.cuda.synchronize()
+        launches.append(topk_ops.launches - before)
+    banks = [st.device_bank for st in stores]
+    if [b.n_shards for b in banks] != [1, 4] or launches != [1, 4]:
+        _fail(f"shards {[b.n_shards for b in banks]}, int4 scan launches "
+              f"{launches} (want [1, 4]: one fused scan a query_batch)")
+    for a, b in zip(*results):
+        if not (np.array_equal(a.uids, b.uids)
+                and np.array_equal(a.scores, b.scores)
+                and np.array_equal(a.filtered_uids, b.filtered_uids)
+                and a.n_refined == b.n_refined):
+            _fail("the 4-shard engine's query_batch differs from the "
+                  "one-shard engine's")
+    if not (np.array_equal(stores[0].dense_matrix(),
+                           stores[1].dense_matrix())
+            and np.array_equal(stores[0].is_fine(stores[0].uids()),
+                               stores[1].is_fine(stores[1].uids()))):
+        _fail("the refined rows written back differ")
+    _check_results(results[1], stores[1], k)
+    print(f"  query_batch of {len(texts)} through QueryEngine(search_devices="
+          f"['cuda:0'] * 4) over {len(items)} drained items: uids, scores "
+          f"and {sum(r.n_refined for r in results[1])} refinements (the "
+          f"refined rows written back) equal the one-shard engine's, bit "
+          f"for bit; int4 scan launches {launches[0]} vs {launches[1]}")
 
 
 def _same_topk(got, want, tol, what):
@@ -1785,13 +1857,16 @@ def time_gathered_at_ivf(store, queries, cand, k):
     from repro_torch.kernels.retrieval_topk.kernel import (
         retrieval_topk_int4_gathered_cuda)
     snap = store.device_bank._state(None)
+    if len(snap.packed) != 1:
+        _fail(f"the IVF store's bank has {len(snap.packed)} shards, not 1")
+    packed, scales = snap.packed[0], snap.scales[0]
     ids = torch.from_numpy(np.ascontiguousarray(cand, np.int32)).cuda()
     q = torch.from_numpy(np.asarray(queries, np.float32)).cuda()
     E = q.shape[1]
     for reps in (1, 3):
         ids_r, q_r = ids.repeat(reps, 1), q.repeat(reps, 1)
         ms = time_ms(lambda: retrieval_topk_int4_gathered_cuda(
-            q_r, snap.packed, snap.scales, ids_r, k, n_valid=snap.n),
+            q_r, packed, scales, ids_r, k, n_valid=snap.n),
             reps=10)
         b_ms, b_by = gathered_bound(ids_r, snap.n, E, k)
         Q, L = ids_r.shape
@@ -1972,6 +2047,233 @@ def async_phase():
           "bit-equal")
     store.set_bank_refresh("sync")
     return launches
+
+
+SHARDS = ["cuda:0"] * 4  # four bank shards on the one card
+
+
+def _bit_equal(got, want, what):
+    import numpy as np
+    if not (got[0].shape == want[0].shape and np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])):
+        diff = (float(np.abs(got[1] - want[1]).max())
+                if got[1].shape == want[1].shape else "shapes differ")
+        _fail(f"{what}: not bit-equal to the one-shard bank (max score "
+              f"difference {diff})")
+
+
+def _sharded_scan(store, queries, k, attr, **kw):
+    """Attach a 4-shard bank to ``store`` and scan once to upload it; then
+    the gated scan, which must move the ``attr`` counter by exactly 4."""
+    from repro_torch.kernels.retrieval_topk import ops as topk_ops
+    store.attach_device_bank(SHARDS)
+    store.search_batch(queries, k, impl="device")
+    before = getattr(topk_ops, attr)
+    out = store.search_batch(queries, k, **kw)
+    if getattr(topk_ops, attr) - before != len(SHARDS):
+        _fail(f"{attr} moved by {getattr(topk_ops, attr) - before} in a "
+              f"{len(SHARDS)}-shard scan ({kw})")
+    return out
+
+
+def _mixture(gen, centers, n):
+    """n rows of ``clustered_sphere``'s mixture around ``centers`` (a
+    center + 0.03 x a normal draw, unit-normed), drawn on the card from
+    ``gen`` (the host's draw of 2^20 rows took 40 s), as host fp32."""
+    import torch
+    c = torch.from_numpy(centers).cuda()
+    x = c[torch.randint(0, len(c), (n,), generator=gen, device="cuda")]
+    x += 0.03 * torch.randn(x.shape, generator=gen, device="cuda")
+    return (x / x.norm(dim=1, keepdim=True)).cpu().numpy()
+
+
+def _fill(store, gen, centers, n, chunk):
+    """Add n rows of the mixture to ``store`` in chunks."""
+    import numpy as np
+    for lo in range(0, n, chunk):
+        store.add_batch(np.arange(lo, lo + chunk),
+                        _mixture(gen, centers, chunk), np.zeros(chunk),
+                        np.ones(chunk))
+
+
+def shard_phase():
+    """The device bank row-sharded four ways on the one card (``SHARDS``),
+    held against a one-shard bank over the same rows, at recall-imagebind's
+    embed width E = 1,024, the rows drawn from a 128-blob
+    ``clustered_sphere`` mixture (``_mixture``): the exhaustive int4 scan
+    over 2^20 rows (the kernel phase's N), both pruned strategies on
+    the IVF phase's configuration (2^17 rows, C = 256, nprobe 8), the dense
+    scan of an fp32 store of 2^18 rows, and an async refresh whose writer
+    crosses a capacity doubling (rows move between shards)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.store import EmbeddingStore
+    from repro_torch.data.synthetic import clustered_sphere
+    from repro_torch.index.pruned_scan import recall_at_k
+    E = get_arch("recall-imagebind").model.embed_dim
+    Q, k = 64, 10
+    rng = np.random.default_rng(4)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    _, centers = clustered_sphere(rng, 1, 128, E, spread=0.03)
+    queries, _ = clustered_sphere(rng, Q, spread=0.03, centers=centers)
+    print(f"shard: the device bank over {len(SHARDS)} shards on cuda:0 vs "
+          f"one shard, E={E}, {Q} queries, k={k}")
+    _reset_launches()
+
+    # the exhaustive scan at the kernel phase's N
+    n = 1 << 20
+    t0 = time.perf_counter()
+    store = EmbeddingStore(E, device="cuda")
+    _fill(store, gen, centers, n, 1 << 16)
+    t_fill = time.perf_counter() - t0
+    store.attach_device_bank(["cuda:0"])
+    one = store.search_batch(queries, k, impl="device")
+    bank = store.device_bank
+    one_ms = time_ms(lambda: bank.search(queries, k), reps=1, trials=5)
+    four = _sharded_scan(store, queries, k, "launches", impl="device")
+    bank = store.device_bank
+    four_ms = time_ms(lambda: bank.search(queries, k), reps=1, trials=5)
+    _bit_equal(four, one, f"exhaustive scan over {n} rows")
+    st = bank.stats()
+    print(f"  exhaustive int4 scan, {n} rows ({t_fill:.1f} s to add): 4 "
+          f"shards == 1 shard, ids and scores bit-equal; retrieval_topk_int4 "
+          f"launches 4 a scan; {Q}-query scan {one_ms:.4f} ms (1 shard) vs "
+          f"{four_ms:.4f} ms (4 shards) by CUDA events, median of 5; bank "
+          f"{st['device_bytes'] / 1e9:.3f} GB over {st['n_shards']} shards")
+    del store, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the pruned strategies on the IVF phase's configuration
+    n, C, nprobe = 1 << 17, 256, 8
+    store = EmbeddingStore(E, device="cuda")
+    store.attach_ivf(n_clusters=C, nprobe=nprobe, min_rows=32768)
+    _fill(store, gen, centers, n, 8192)
+    store.attach_device_bank(["cuda:0"])
+    store.search_batch(queries, k, impl="ivf")  # inline re-cluster, upload
+    exact = store.search_batch(queries, k, impl="device")
+    want = {s: store.search_batch(queries, k, impl="ivf", strategy=s)
+            for s in ("union", "gathered")}
+    got = {"union": _sharded_scan(store, queries, k, "launches", impl="ivf",
+                                  strategy="union"),
+           "gathered": _sharded_scan(store, queries, k, "launches_gathered",
+                                     impl="ivf", strategy="gathered")}
+    for strategy in want:
+        _bit_equal(got[strategy], want[strategy],
+                   f"IVF {strategy} scan over {n} rows")
+    if store.ivf_fallbacks:
+        _fail(f"{store.ivf_fallbacks} IVF fallbacks")
+    print(f"  IVF {n} rows, C={C}, nprobe={nprobe}: union and gathered over "
+          f"4 shards == 1 shard, uids and scores bit-equal; launches 4 a "
+          f"scan (retrieval_topk_int4, retrieval_topk_int4_gathered); "
+          f"recall@{k} vs the exhaustive scan: union "
+          f"{recall_at_k(got['union'][0], exact[0]):.4f}, gathered "
+          f"{recall_at_k(got['gathered'][0], exact[0]):.4f}")
+    del store
+    gc.collect()
+
+    # an fp32 store: the dense scan
+    n = 1 << 18
+    store = EmbeddingStore(E, store_int4=False, device="cuda")
+    _fill(store, gen, centers, n, 1 << 15)
+    store.attach_device_bank(["cuda:0"])
+    one = store.search_batch(queries, k, impl="device")
+    four = _sharded_scan(store, queries, k, "launches_dense", impl="device")
+    _bit_equal(four, one, f"fp32 dense scan over {n} rows")
+    err = _same_topk(four, store.search_batch(queries, k, impl="numpy"),
+                     1e-5, "4-shard fp32 scan vs numpy")
+    print(f"  fp32 store, {n} rows ({n * E * 4 / 2**30:.1f} GiB): dense scan "
+          f"over 4 shards == 1 shard bit for bit, launches_dense 4 a scan; "
+          f"vs the numpy scan max err {err:.2e} (tol 1e-5)")
+    del store
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_async(gen, centers, queries, k)
+    torch.cuda.synchronize()
+    return _read_launches(get_arch("recall-imagebind").model)
+
+
+def shard_async(gen, centers, queries, k):
+    """Async refresh over the 4-shard bank: 61,440 preloaded rows, then a
+    writer thread adds 8 x 1,024 rows, crossing the 65,536-row capacity
+    (the bank grows, rows per shard double and rows move between shards),
+    while a reader scans under ``max_lag_rows`` = 4,096. Every policy read
+    stays within the bound, ``h2d_rows`` equals the rows written, and after
+    the refresher stops a fresh scan equals, bit for bit, a sync one-shard
+    store's scan of the same mutations."""
+    import threading
+    import numpy as np
+    from repro_torch.core.store import EmbeddingStore
+    E = centers.shape[1]
+    n_pre, batch, rounds, bound = 61440, 1024, 8, 4096
+    data = _mixture(gen, centers, n_pre + rounds * batch)
+    store = EmbeddingStore(E, device="cuda")
+    store.attach_device_bank(SHARDS)
+    store.add_batch(np.arange(n_pre), data[:n_pre], np.zeros(n_pre),
+                    np.ones(n_pre))
+    store.search_batch(queries, k, impl="device")
+    ref = store.set_bank_refresh("async", max_lag_rows=bound)
+    log = _record_mutations(store)
+    errors, scans = [], []
+    done = threading.Event()
+
+    def writer():
+        try:
+            for r in range(rounds):
+                lo = n_pre + r * batch
+                store.add_batch(np.arange(lo, lo + batch),
+                                data[lo:lo + batch], np.zeros(batch),
+                                np.ones(batch))
+        except Exception as e:  # reported below
+            errors.append(("writer", repr(e)))
+        finally:
+            done.set()
+
+    def reader():
+        try:
+            while not done.is_set() or len(scans) < 4:
+                u, sc = store.search_batch(queries, k, impl="device")
+                scans.append(u.shape)
+                if u.shape != (len(queries), k) or not np.isfinite(sc).all():
+                    errors.append(("reader", f"scan {len(scans)}"))
+        except Exception as e:  # reported below
+            errors.append(("reader", repr(e)))
+
+    threads = [threading.Thread(target=writer), threading.Thread(target=reader)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads) or errors:
+        _fail(f"shard async threads: alive {[t.is_alive() for t in threads]}"
+              f", errors {errors}")
+    ref.stop(drain=True)
+    bank = store.device_bank
+    got = store.search_batch(queries, k, impl="device", freshness="fresh")
+    written = n_pre + rounds * batch
+    if ref.max_served_lag_rows > bound or bank.n_grows < 1 or \
+            bank.h2d_rows != written:
+        _fail(f"shard async: served lag {ref.max_served_lag_rows} (bound "
+              f"{bound}), grows {bank.n_grows}, h2d_rows {bank.h2d_rows} "
+              f"(rows written {written})")
+    sync = EmbeddingStore(E, device="cuda")
+    sync.attach_device_bank(["cuda:0"])
+    sync.add_batch(np.arange(n_pre), data[:n_pre], np.zeros(n_pre),
+                   np.ones(n_pre))
+    for m in log:
+        sync.add_batch(*m[1:])
+    _bit_equal(got, sync.search_batch(queries, k, impl="device"),
+               "async 4-shard fresh scan vs a sync one-shard store")
+    print(f"  async refresh over 4 shards: {len(scans)} scans beside a writer "
+          f"of {rounds} x {batch} rows over {n_pre} preloaded; epochs "
+          f"{ref.n_epochs}, largest served lag {ref.max_served_lag_rows} "
+          f"rows (bound {bound}), grows {bank.n_grows} (capacity "
+          f"{bank.capacity}, {bank.published.rows_per_shard} rows a shard), "
+          f"h2d_rows {bank.h2d_rows} == rows written; after stop(drain=True) "
+          "the fresh scan == the sync one-shard store's, bit for bit")
+    store.set_bank_refresh("sync")
 
 
 _LAYERS = (("flash_fwd_wgmma", "attention (flash wgmma kernel, bf16)"),
@@ -2201,8 +2503,91 @@ def _report_decode(arch, what, cfg, B, wall, n_steps, sum_len, sync):
           f"waited {sync * 1e3:.1f} ms")
 
 
+def check_exit_api(params, cfg, rc, tokens):
+    """The LM exit API (``encode_exits``, ``encode_at``, ``refine_from``)
+    over ``tokens`` at full width and depth: exact flash / RMSNorm launch
+    counts for each call; ``encode_at`` at every exit, its pooled state bit
+    for bit the full pass's at that layer and its embedding within 1e-6 of
+    the stacked exit head's (which runs over n_exits * B rows, another
+    matmul shape: the difference is printed); ``refine_from`` the first
+    and a middle exit's cached activations, its hidden state, last pooled
+    state and embedding bit for bit those of ``encode_at(L)``; one call of
+    each held call by call against the plain versions; tokens/s of
+    ``encode_exits``."""
+    import torch
+    from repro_torch.models import transformer as T
+    L = cfg.n_layers
+    exits = rc.exit_layers(L)
+    B, S = tokens.shape
+
+    def counted(fn, n_layers, what):
+        _reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        c = _lm_launches()
+        want = (n_layers, 2 * n_layers + 1)
+        if (c["flash_attention_fwd"], c["rmsnorm"]) != want:
+            _fail(f"{what}: flash / rmsnorm launches "
+                  f"{c['flash_attention_fwd']} / {c['rmsnorm']}, not {want}")
+        return out
+
+    with torch.no_grad():
+        full = counted(lambda: T.encode_exits(params, cfg, rc, tokens), L,
+                       "encode_exits")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            T.encode_exits(params, cfg, rc, tokens)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        diffs, cached = [], {}
+        for i, e in enumerate(exits):
+            at = counted(lambda: T.encode_at(params, cfg, rc, e, tokens), e,
+                         f"encode_at({e})")
+            if not torch.equal(at["pooled_last"], full["pooled"][e - 1]):
+                _fail(f"encode_at({e}): pooled state differs from the full "
+                      "pass's")
+            diffs.append(float((at["emb"] - full["exit_embs"][i]).abs().max()))
+            if diffs[-1] > 1e-6:
+                _fail(f"encode_at({e}): embedding {diffs[-1]:.2e} from the "
+                      "stacked exit head's (tol 1e-6)")
+            cached[e] = at
+        last = cached[L]
+        if not torch.equal(last["h"], full["h"]):
+            _fail(f"encode_at({L}): h differs from encode_exits'")
+        for e in (exits[0], exits[len(exits) // 2]):
+            res = counted(lambda: T.refine_from(params, cfg, rc,
+                                                cached[e]["h"], start=e),
+                          L - e, f"refine_from({e})")
+            pooled = T.forward_hidden(params, cfg, rc, embeds=cached[e]["h"],
+                                      layer_start=e,
+                                      collect_pooled=True)["pooled"][-1]
+            if not (torch.equal(res["h"], last["h"])
+                    and torch.equal(res["emb"], last["emb"])
+                    and torch.equal(pooled, last["pooled_last"])):
+                _fail(f"refine_from({e}): h, pooled state or embedding "
+                      f"differs from encode_at({L})'s")
+        mid = exits[len(exits) // 2]
+        check_lm_calls(lambda: T.encode_exits(params, cfg, rc, tokens),
+                       f"encode_exits of {B} x {S}")
+        check_lm_calls(lambda: T.encode_at(params, cfg, rc, mid, tokens),
+                       f"encode_at({mid})")
+        check_lm_calls(lambda: T.refine_from(params, cfg, rc,
+                                             cached[mid]["h"], start=mid),
+                       f"refine_from({mid})")
+    print(f"  exit API over {B} x {S}: encode_exits {wall:.3f} s (median of "
+          f"3) = {B * S / wall:.0f} tokens/s; encode_at at exits {exits}: "
+          f"pooled states bit-equal to the full pass's, embeddings vs the "
+          f"stacked exit head max |diff| "
+          + ", ".join(f"{d:.1e}" for d in diffs)
+          + f" (tol 1e-6); refine_from({exits[0]}) and refine_from({mid}): "
+          f"h, pooled state and embedding bit-equal to encode_at({L})'s; "
+          f"flash / rmsnorm launches e / 2e+1 a call over e layers")
+
+
 def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
-              long_lo=0, n_long=0, record_plan=None):
+              long_lo=0, n_long=0, record_plan=None, exit_api=False):
     """One LM through ``build_step`` with random weights from a CUDA
     generator: a call-by-call check of a prefill of ``check_batch``
     prompts; three timed prefills of B prompts of S seeded tokens into
@@ -2327,6 +2712,10 @@ def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
                               f"[{long_lo}, {pad_to})",
                               lambda: dec.fn(params, token, k, v, lengths),
                               "decode_split"),))
+        del k, v
+        torch.cuda.empty_cache()
+        if exit_api:
+            check_exit_api(params, cfg, spec.recall, tokens[:check_batch])
     # rmsnorm: two a layer, then the exit head's (prefill) or the final
     # norm (decode); the grouped GEMM's prefill launches all on the wgmma
     # kernel, its decode launches all on the mma.sync kernel
@@ -2350,9 +2739,11 @@ def lm_phase():
     """qwen2-1.5b at full width and depth: 32 prompts of 2,048 into a
     32,768-token cache, 32 decode steps, then 8 steps at lengths in
     [16,384, 32,768) (the reference's decode_32k cut from B = 128 to 32:
-    128 x 32,768 tokens of cache is 117 GB)."""
+    128 x 32,768 tokens of cache is 117 GB); then the exit API over 8 x
+    2,048 of the prompts (``check_exit_api``)."""
     c = _serve_lm("qwen2-1.5b", n_layers=None, B=32, S=2048, pad_to=32768,
-                  n_steps=32, check_batch=8, long_lo=16384, n_long=8)
+                  n_steps=32, check_batch=8, long_lo=16384, n_long=8,
+                  exit_api=True)
     return {"decode_attention[qwen2-1.5b]": c["decode"]["decode_attention"],
             "flash_attention_fwd[lm_prefill]":
                 c["prefill"]["flash_attention_fwd"]}
@@ -4104,7 +4495,8 @@ def main() -> None:
     for name, phase in (("build", build_phase), ("kernels", kernel_phase),
                         ("serve", serve_phase), ("heal", heal_phase),
                         ("train", train_phase), ("ivf", ivf_phase),
-                        ("async", async_phase), ("lm", lm_phase),
+                        ("async", async_phase), ("shard", shard_phase),
+                        ("lm", lm_phase),
                         ("moe", moe_phase)):
         t0 = time.perf_counter()
         walls[name] = (phase(), time.perf_counter() - t0)

@@ -117,7 +117,7 @@ class RefreshScheduler:
         epoch.snapshot = bank.apply_rows(
             epoch.host_cap, epoch.rows, epoch.vals, epoch.scs, epoch.n,
             epoch.uids)
-        if epoch.snapshot.packed.shape[0] != old_cap:
+        if epoch.snapshot.capacity != old_cap:
             bank.warm(epoch.snapshot)
         return epoch.snapshot
 

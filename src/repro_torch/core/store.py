@@ -4,7 +4,8 @@ activation cache.
 Host-side component of the serving runtime — the analogue of the paper's
 on-flash store (§5.4). Embeddings live in contiguous growable slabs:
 
-  * ``_packed``  (cap, E//2) int8  — two INT4 nibbles per byte,
+  * ``_packed``  (cap, E//2) int8  — two INT4 nibbles per byte (or (cap, E)
+    fp32 rows with scales of 1 when ``store_int4=False``),
   * ``_scales``  (cap, 1)   fp32   — per-row absmax scales,
   * ``_meta``    (cap,) structured — uid / exit_idx / exit_layer / modality /
     fine,
@@ -19,9 +20,10 @@ CUDA device by the int4_cache kernel; only the packed bytes and scales come
 to the host); numpy activations take ``quantize_int4_np`` as in the
 reference. The activation cache itself stays host-resident. ``search_batch`` is
 the serving hot path: on a store that lives on a CUDA device,
-``impl='auto'`` resolves to the device-resident int4 bank
-(``core.device_bank``), refreshed from a dirty-row bitmap and scanned by
-the fused dequant-top-k kernel, and to the IVF pruned scan once an
+``impl='auto'`` resolves to the device-resident bank (``core.device_bank``,
+row-sharded over every visible card by default), refreshed from a
+dirty-row bitmap and scanned by the fused dequant-top-k kernel (the dense
+kernel in fp32 mode), and to the IVF pruned scan once an
 attached index (``attach_ivf``) is trained and the store holds its
 ``min_rows``; a store the caller put on the CPU resolves to the numpy
 matmul path. Queried items are permanently upgraded to their fine-grained
@@ -40,6 +42,7 @@ inline on the sync query path, on the refresh thread in async mode).
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -57,14 +60,15 @@ _META_DTYPE = np.dtype([("uid", np.int64), ("exit_idx", np.int32),
                         ("exit_layer", np.int32), ("fine", np.bool_),
                         ("modality_id", np.int32)])  # index into _modalities
 
-_NOT_PORTED = {
-    "shard": "sharded device banks are not ported yet (ROADMAP queue A, "
-             "multi-GPU slice)",
-}
 
-
-def not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(_NOT_PORTED[feature])
+@dataclasses.dataclass
+class StoreEntry:
+    """A row's metadata, materialized on demand from the meta slab."""
+    uid: int
+    exit_idx: int          # index into the exit list (not the layer number)
+    exit_layer: int        # layer depth of the coarse embedding
+    modality: str
+    fine: bool             # already refined to full depth?
 
 
 def _empty(nq: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -72,16 +76,19 @@ def _empty(nq: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class EmbeddingStore:
-    def __init__(self, embed_dim: int, capacity: int = 64, *, device="cuda"):
-        if embed_dim % 2:
+    def __init__(self, embed_dim: int, store_int4: bool = True,
+                 capacity: int = 64, *, device="cuda"):
+        if store_int4 and embed_dim % 2:  # fp32 rows need no even width
             raise ValueError(f"int4 packing needs an even embed_dim, got "
                              f"{embed_dim}")
         self.embed_dim = embed_dim
+        self.store_int4 = store_int4
         self.device = resolve_device(device)
-        self._row_width = embed_dim // 2
+        self._row_width = embed_dim // 2 if store_int4 else embed_dim
+        self._row_dtype = np.int8 if store_int4 else np.float32
         self._cap = max(int(capacity), 1)
         self._n = 0
-        self._packed = np.zeros((self._cap, self._row_width), np.int8)
+        self._packed = np.zeros((self._cap, self._row_width), self._row_dtype)
         self._scales = np.ones((self._cap, 1), np.float32)
         self._meta = np.zeros(self._cap, _META_DTYPE)
         self._dense = np.zeros((self._cap, embed_dim), np.float32)
@@ -141,6 +148,15 @@ class EmbeddingStore:
         if self._ivf is not None:
             self._ivf.ensure_capacity(cap)
 
+    def _quantize_rows(self, embs: np.ndarray) -> Tuple[np.ndarray,
+                                                        np.ndarray]:
+        """(B, E) fp32 -> (slab rows, scales) on the host:
+        ``quantize_int4_np`` in int4 mode, the rows and scales of 1 in fp32
+        mode."""
+        if self.store_int4:
+            return quantize_int4_np(embs)
+        return embs, np.ones((len(embs), 1), np.float32)
+
     # -- mutation ------------------------------------------------------------
 
     def add(self, uid: int, emb: np.ndarray, *, exit_idx: int, exit_layer: int,
@@ -176,7 +192,7 @@ class EmbeddingStore:
         row in place (last write wins)."""
         uids = np.asarray(uids, np.int64).ravel()
         embs = np.asarray(embs, np.float32).reshape(len(uids), self.embed_dim)
-        packed, scales = quantize_int4_np(embs)
+        packed, scales = self._quantize_rows(embs)
         act = (None if cached_hs is None
                else self._quantize_activations(cached_hs))
         exit_idxs = np.asarray(exit_idxs, np.int32).ravel()
@@ -217,6 +233,10 @@ class EmbeddingStore:
                 self._ivf.observe(embs)
                 self._ivf.assign_rows(rows, embs, nxt)
 
+    def upgrade(self, uid: int, fine_emb: np.ndarray) -> None:
+        """Permanently replace a coarse embedding with its refined one."""
+        self.upgrade_batch([uid], np.asarray(fine_emb, np.float32)[None])
+
     def upgrade_batch(self, uids: Sequence[int], fine_embs: np.ndarray) -> None:
         """Vectorized §5.3 upgrade: requantize the batch in one call, mark
         only the touched rows dirty, free their activation cache."""
@@ -225,7 +245,7 @@ class EmbeddingStore:
             return
         embs = np.asarray(fine_embs, np.float32).reshape(len(uids),
                                                          self.embed_dim)
-        packed, scales = quantize_int4_np(embs)
+        packed, scales = self._quantize_rows(embs)
         with self._lock:
             rows = self._rows_of_locked(uids)
             self._packed[rows] = packed
@@ -238,6 +258,9 @@ class EmbeddingStore:
                 self._ivf.assign_rows(rows, embs, self._n)
             for u in uids.tolist():
                 self._act_cache.pop(u, None)  # §3.4: storage freed once refined
+
+    def delete(self, uid: int) -> None:
+        self.delete_batch([uid])
 
     def delete_batch(self, uids: Sequence[int]) -> None:
         """Remove uids, keeping the slab dense: each deleted row is filled by
@@ -292,6 +315,10 @@ class EmbeddingStore:
             return np.fromiter((int(u) in idx for u in uids), np.bool_,
                                len(uids))
 
+    def row_of(self, uid: int) -> int:
+        with self._lock:
+            return self._uid_to_row[int(uid)]
+
     def __len__(self) -> int:
         return self._n
 
@@ -303,6 +330,22 @@ class EmbeddingStore:
         with self._lock:
             return self._meta["fine"][self._rows_of_locked(
                 np.asarray(uids, np.int64).ravel())].copy()
+
+    @property
+    def n_fine(self) -> int:
+        with self._lock:
+            return int(self._meta["fine"][:self._n].sum())
+
+    @property
+    def entries(self) -> List[StoreEntry]:
+        """Every row's metadata as ``StoreEntry`` objects (O(N); changing
+        them does not write back)."""
+        with self._lock:
+            m = self._meta[:self._n]
+            return [StoreEntry(int(r["uid"]), int(r["exit_idx"]),
+                               int(r["exit_layer"]),
+                               self._modalities[int(r["modality_id"])],
+                               bool(r["fine"])) for r in m]
 
     # -- access --------------------------------------------------------------
 
@@ -316,8 +359,9 @@ class EmbeddingStore:
             if self._escaped_n and (rows < self._escaped_n).any():
                 self._dense = self._dense.copy()
                 self._escaped_n = 0
-            self._dense[rows] = dequantize_int4_np(self._packed[rows],
-                                                   self._scales[rows])
+            self._dense[rows] = (
+                dequantize_int4_np(self._packed[rows], self._scales[rows])
+                if self.store_int4 else self._packed[rows])
         self._dirty[:self._n] = False
         self._any_dirty = False
 
@@ -347,6 +391,14 @@ class EmbeddingStore:
         with self._lock:
             return {int(u): self._act_cache[int(u)] for u in uids
                     if int(u) in self._act_cache}
+
+    def cached_activation(self, uid: int) -> Optional[Tuple[np.ndarray, int]]:
+        """The dequantized cached hidden state (h, exit_layer), or None."""
+        return self.cached_activations([uid]).get(int(uid))
+
+    def has_cached(self, uid: int) -> bool:
+        with self._lock:
+            return int(uid) in self._act_cache
 
     def cached_activations(self, uids) -> Dict[int, Tuple[np.ndarray, int]]:
         """Batched host dequant of cached activations, one call per distinct
@@ -410,18 +462,22 @@ class EmbeddingStore:
             if live.size:
                 self._mark_bank_dirty_locked(live)
 
-    def attach_device_bank(self, devices=None, *, device=None):
-        """Create (or replace) the device-resident searchable bank on
-        ``device`` (default: the store's device). Existing rows are marked
-        for upload on the next sync; after that only dirty rows travel.
-        ``devices`` (a list, for a sharded bank) is not ported yet."""
+    def attach_device_bank(self, devices=None):
+        """Create (or replace) the device-resident searchable bank, its
+        rows sharded across ``devices`` (a list; one shard an entry, and an
+        entry may repeat). The default is every visible card for a CUDA
+        store, one shard on the CPU for a CPU store. Existing rows are
+        marked for upload on the next sync; after that only dirty rows
+        travel. Returns the bank (``core.device_bank``)."""
         from repro_torch.core.device_bank import DeviceBank
-        if devices is not None:
-            raise not_ported("shard")
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
         with self._lock:
             self._bank = DeviceBank(self.embed_dim,
-                                    device=self.device if device is None
-                                    else device)
+                                    store_int4=self.store_int4,
+                                    devices=devices)
             if self._n:
                 self._mark_bank_dirty_locked(np.arange(self._n))
             return self._bank
@@ -502,8 +558,10 @@ class EmbeddingStore:
         from the insert stream. ``search_batch`` gains ``impl='ivf'`` (the
         pruned scan over the device bank), and ``'auto'`` on a CUDA store
         cuts over to it once the store holds ``min_rows`` rows. Returns
-        the index."""
+        the index. Needs the int4 slab (the pruned scans are int4 kernels)."""
         from repro_torch.index.ivf import IVFIndex
+        if not self.store_int4:
+            raise ValueError("IVF pruned search needs store_int4=True")
         with self._lock:
             idx = IVFIndex(self.embed_dim, n_clusters=n_clusters,
                            nprobe=nprobe, min_rows=min_rows, seed=seed, **kw)
@@ -783,7 +841,11 @@ class EmbeddingStore:
         if strategy == "union":
             k2 = min(k, int(cand.size))
             rows, top_s = bank.search_rows(queries, cand, k2, state=snap)
-            uids = snap.uids[rows]
+            # a sharded merge can surface sentinel slots (a shard short of
+            # candidates); they map to uid -1, as on the gathered path
+            live = top_s > -5e29
+            uids = np.where(live, snap.uids[np.clip(rows, 0, snap.n - 1)],
+                            -1)
             if k2 < k:  # union smaller than k: pad with the sentinel
                 uids = np.pad(uids, ((0, 0), (0, k - k2)),
                               constant_values=-1)

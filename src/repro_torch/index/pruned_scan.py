@@ -12,13 +12,17 @@ them).
 Pure numpy, no store state: the store glues it to the device bank
 (``EmbeddingStore.search_batch(impl='ivf')``); ``pruned_search_numpy`` is
 the whole pipeline on the host, the oracle the parity tests and
-``chip_smoke.py`` compare against.
+``chip_smoke.py`` compare against. On a row-sharded bank
+``partition_rows_by_shard`` routes the candidate set by shard ownership,
+so each shard scans only its own candidates (``DeviceBank.search_rows``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+
+from repro_torch.kernels.retrieval_topk.ops import pow2_bucket
 
 INVALID_UID = -1          # uid padding for queries with < k live candidates
 NEG_INF = -1e30
@@ -62,6 +66,33 @@ def build_candidate_rows(csr_rows: np.ndarray, csr_offsets: np.ndarray,
             ids[qi, off:off + len(span)] = span
             off += len(span)
     return ids
+
+
+def partition_rows_by_shard(rows: np.ndarray, rows_per_shard: int,
+                            n_shards: int, *, min_width: int = 1
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """Route a global candidate-row set to the bank's row shards (shard
+    ``s`` owns global rows ``[s * rows_per_shard, (s + 1) *
+    rows_per_shard)``). Returns ``(local (S, M) int32, counts (S,)
+    int32)``: row s of ``local`` holds shard s's candidates as shard-local
+    row indices, in their order in ``rows``, padded with 0 (the scan masks
+    them with ``n_valid = counts[s]``). M is the largest per-shard count,
+    floored at ``min_width`` and bucketed by ``pow2_bucket``."""
+    rows = np.asarray(rows, np.int64).ravel()
+    sid = rows // rows_per_shard
+    if rows.size and not (0 <= sid.min() and sid.max() < n_shards):
+        raise ValueError(f"candidate row outside the sharded slab "
+                         f"({n_shards} shards of {rows_per_shard} rows)")
+    counts = np.bincount(sid, minlength=n_shards).astype(np.int32)
+    M = pow2_bucket(int(counts.max()) if rows.size else 0, floor=min_width)
+    local = np.zeros((n_shards, M), np.int32)
+    order = np.argsort(sid, kind="stable")
+    sorted_local = (rows - sid * rows_per_shard)[order].astype(np.int32)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    for s in range(n_shards):
+        span = sorted_local[offs[s]:offs[s + 1]]
+        local[s, :len(span)] = span
+    return local, counts
 
 
 def pruned_search_numpy(dense: np.ndarray, n: int, uids: np.ndarray,

@@ -14,8 +14,10 @@ raises (``grad_guard``).
   * ``retrieval_topk_int4_gathered``: per-query candidate rows of a packed
     int4 bank (IVF pruned scan, ``strategy="gathered"``).
   * ``retrieval_topk_int4_rows``: one candidate-row set shared by the whole
-    batch (IVF pruned scan, ``strategy="union"``): the rows are gathered
-    with ``index_select`` and scanned by the exhaustive int4 kernel.
+    batch (IVF pruned scan, ``strategy="union"``, over one unsharded bank;
+    ``DeviceBank.search_rows`` makes the same gather a shard): the rows are
+    gathered with ``index_select`` and scanned by the exhaustive int4
+    kernel.
 """
 from __future__ import annotations
 

@@ -15,6 +15,10 @@ With the online IVF coarse filter and its pruned scan:
 With the async device-bank refresh (bounded staleness):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --search-impl device --bank-refresh async --bank-max-lag-rows 64
+With the device bank row-sharded (two shards on the CPU here; on CUDA one
+shard a card, the first N):
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --search-impl device --search-shards 2
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ def build_service(spec, *, n_train: int = 256, seed: int = 0,
     calibration set, then stand up the embedding + query engines on
     ``device``. ``query_kw`` goes to ``QueryEngine`` (``bank_refresh``,
     ``bank_max_lag_rows``, ``bank_max_lag_ms``, ``freshness``, ``index``,
-    ...). ``lora`` (a healed vision-tower LoRA) goes to the calibration and
+    ``search_devices``, ...). ``lora`` (a healed vision-tower LoRA) goes to the calibration and
     to both engines, as the reference passes it: the text tower of the
     query engine gets the vision tower's suite too, which fits only when
     the two towers share their widths (ROADMAP C.4)."""
@@ -84,6 +88,21 @@ def build_service(spec, *, n_train: int = 256, seed: int = 0,
                            "labels": labels.cpu().numpy()}
 
 
+def search_devices(device: str, search_impl: str, n_shards: int):
+    """The device list of ``--search-shards``: None (the store's default)
+    unless ``n_shards`` > 0 with the device scan; then N CPU shards, or the
+    first N cards, raising when fewer are visible."""
+    if n_shards <= 0 or search_impl != "device":
+        return None
+    if resolve_device(device).type == "cpu":
+        return ["cpu"] * n_shards
+    have = torch.cuda.device_count()
+    if have < n_shards:
+        raise ValueError(f"--search-shards {n_shards} needs {n_shards} "
+                         f"cards, {have} visible")
+    return [f"cuda:{i}" for i in range(n_shards)]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="recall-imagebind")
@@ -105,6 +124,12 @@ def main(argv=None):
                          "on the CPU, and on CUDA 'ivf' once the index is "
                          "trained and holds --index-min-rows rows, else "
                          "'device'")
+    ap.add_argument("--search-shards", type=int, default=0,
+                    help="with --search-impl device: shard the device bank "
+                         "N ways, on the first N cards with --device cuda "
+                         "(fewer cards raise), N shards on the CPU with "
+                         "--device cpu (0 = every visible card, or one CPU "
+                         "shard)")
     ap.add_argument("--bank-refresh", default="sync",
                     choices=["sync", "async"],
                     help="device-bank refresh policy: 'sync' refreshes "
@@ -139,6 +164,9 @@ def main(argv=None):
         spec = smoke_variant(spec)
     engine, query, info = build_service(spec, policy=args.policy,
                                         search_impl=args.search_impl,
+                                        search_devices=search_devices(
+                                            args.device, args.search_impl,
+                                            args.search_shards),
                                         device=args.device,
                                         bank_refresh=args.bank_refresh,
                                         bank_max_lag_rows=args.bank_max_lag_rows,

@@ -267,6 +267,54 @@ def exit_embedding(params: Schema, pooled: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# LM exit API (paper §3.4): every exit at once, one exit, resume from a cache
+# ---------------------------------------------------------------------------
+
+
+def encode_exits(params: Schema, cfg: LMConfig, recall: RecallConfig,
+                 tokens=None, embeds=None, mask=None, lora=None,
+                 **fw_kw) -> Dict:
+    """Embed at every exit granularity in one full-depth pass: {"exit_embs":
+    (n_exits, B, E), "exits": the exit layers, "pooled": (L, B, d) every
+    layer's pooled state, "h": (B, S, d), "aux"}. The exit head runs once
+    over the stacked (n_exits * B, d) pooled rows."""
+    out = forward_hidden(params, cfg, recall, tokens=tokens, embeds=embeds,
+                         mask=mask, lora=lora, collect_pooled=True, **fw_kw)
+    exits = recall.exit_layers(cfg.n_layers)
+    idx = torch.tensor([e - 1 for e in exits], device=out["h"].device)
+    embs = exit_embedding(params, out["pooled"][idx], cfg.norm_eps)
+    return {"exit_embs": embs, "exits": exits, "pooled": out["pooled"],
+            "h": out["h"], "aux": out["aux"]}
+
+
+def encode_at(params: Schema, cfg: LMConfig, recall: RecallConfig, e: int,
+              tokens=None, embeds=None, mask=None, lora=None,
+              **fw_kw) -> Dict:
+    """The coarse embedding at exit depth ``e``, running only layers
+    [0, e): {"emb": (B, E), "h": (B, S, d) the layer-e activations a store
+    caches, "pooled_last": (B, d)}."""
+    out = forward_hidden(params, cfg, recall, tokens=tokens, embeds=embeds,
+                         mask=mask, lora=lora, layer_end=e,
+                         collect_pooled=True, **fw_kw)
+    emb = exit_embedding(params, out["pooled"][-1], cfg.norm_eps)
+    return {"emb": emb, "h": out["h"], "pooled_last": out["pooled"][-1]}
+
+
+def refine_from(params: Schema, cfg: LMConfig, recall: RecallConfig,
+                h_cached: torch.Tensor, start: int, mask=None, lora=None,
+                **fw_kw) -> Dict:
+    """Live-encoder refinement (§3.4): continue from cached layer-``start``
+    activations to the full-depth embedding: {"emb": (B, E), "h"}. The
+    layers run on the same inputs as a full pass, so ``h`` and the last
+    pooled state equal ``encode_exits``' bit for bit."""
+    out = forward_hidden(params, cfg, recall, embeds=h_cached, mask=mask,
+                         lora=lora, layer_start=start, collect_pooled=True,
+                         **fw_kw)
+    emb = exit_embedding(params, out["pooled"][-1], cfg.norm_eps)
+    return {"emb": emb, "h": out["h"]}
+
+
+# ---------------------------------------------------------------------------
 # LM loss and serving steps
 # ---------------------------------------------------------------------------
 

@@ -101,6 +101,9 @@ class EmbeddingEngine:
 
     # -- queue -------------------------------------------------------------------
 
+    def submit(self, uid: int, item: np.ndarray) -> None:
+        self._queue.append((uid, item))
+
     def submit_batch(self, uids: Sequence[int], items: np.ndarray) -> None:
         for u, it in zip(uids, items):
             self._queue.append((int(u), it))

@@ -29,7 +29,7 @@ from repro_torch.core.retrieval import (RetrievalResult, global_verify,
                                         refine_round,
                                         single_granularity_retrieve,
                                         speculative_retrieve)
-from repro_torch.core.store import EmbeddingStore, not_ported
+from repro_torch.core.store import EmbeddingStore
 from repro_torch.models import imagebind as IB
 
 
@@ -47,8 +47,6 @@ class QueryEngine:
                  nprobe: Optional[int] = None,
                  index_auto_grow: bool = False, device="cuda"):
         self.device = resolve_device(device)
-        if search_devices is not None:
-            raise not_ported("shard")
         if bank_refresh not in ("sync", "async"):
             raise ValueError(f"bank_refresh={bank_refresh!r}")
         self.params, self.cfg, self.recall = params, cfg, recall
@@ -81,8 +79,14 @@ class QueryEngine:
                              "(pass index='ivf' or attach_ivf beforehand)")
         self._search_impl = search_impl
         # device-resident bank: attach eagerly so the warm-up upload happens
-        # at engine construction, not on the first query
-        if store.resolve_impl(search_impl) in ("device", "ivf") \
+        # at engine construction, not on the first query. An explicit device
+        # list (one shard an entry) always attaches anew and serves the
+        # exhaustive device scan: a bank attached earlier over other
+        # devices must not win over the caller's request
+        if search_devices is not None:
+            store.attach_device_bank(search_devices)
+            self._search_impl = "device"
+        elif store.resolve_impl(search_impl) in ("device", "ivf") \
                 and store.device_bank is None:
             store.attach_device_bank()
         # "async" moves the dirty-row refresh off the query path onto a

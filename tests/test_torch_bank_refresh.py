@@ -50,6 +50,13 @@ def _np(a):
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+def _rows(a):
+    """A snapshot's global rows: the port's shards (a tuple of tensors)
+    concatenated in order, or the reference's one array."""
+    return (torch.cat([t.cpu() for t in a]).numpy() if isinstance(a, tuple)
+            else _np(a))
+
+
 def _interleavings(counts, stride=1):
     """Every distinct ordering of ``counts[actor]`` tokens per actor, in
     lexicographic order, every ``stride``-th kept."""
@@ -80,7 +87,8 @@ class Scenario:
     schedules on either package."""
 
     def __init__(self, *, freshness="stale", max_lag_rows=None, ivf=False,
-                 clusters=4, n_initial=40, n_queries=3, k=5, seed=0):
+                 clusters=4, n_initial=40, n_queries=3, k=5, seed=0,
+                 shards=1):
         rng = np.random.default_rng(seed)
         self.init = rng.standard_normal((n_initial, E)).astype(np.float32)
         self.queries = rng.standard_normal((n_queries, E)).astype(np.float32)
@@ -93,11 +101,22 @@ class Scenario:
         self.freshness, self.max_lag_rows = freshness, max_lag_rows
         self.ivf, self.clusters, self.k = ivf, clusters, k
         self.impl = "ivf" if ivf else "device"
+        self.shards = shards  # the port's bank; the reference's has one
         self._oracle = {}
+
+    def attach(self, st):
+        """(Re-)attach the device bank: the port's over ``shards`` CPU
+        shards."""
+        if isinstance(st, TStore):
+            st.attach_device_bank(["cpu"] * self.shards)
+        else:
+            st.attach_device_bank()
 
     def build(self, pkg, prefix):
         st = (JStore(E, capacity=8) if pkg == "ref" else
               TStore(E, capacity=8, device="cpu"))
+        if pkg == "port" and self.shards > 1:
+            self.attach(st)
         n = len(self.init)
         st.add_batch(np.arange(n), self.init, np.zeros(n), np.ones(n))
         if self.ivf:  # nprobe = C: a fresh pruned scan covers every row
@@ -128,8 +147,8 @@ class Scenario:
         packed, scales, uids = begin
         n = snap.n
         assert n == len(uids) and np.array_equal(snap.uids, uids)
-        assert np.array_equal(_np(snap.packed)[:n], packed[:n])
-        assert np.array_equal(_np(snap.scales)[:n], scales[:n])
+        assert np.array_equal(_rows(snap.packed)[:n], packed[:n])
+        assert np.array_equal(_rows(snap.scales)[:n], scales[:n])
 
     def run(self, pkg, tokens):
         """Execute one schedule on ``pkg``; returns one record per ``S``
@@ -163,7 +182,7 @@ class Scenario:
                 _apply(st, self.script[writes])
                 writes += 1
             elif t == "A":
-                st.attach_device_bank()
+                self.attach(st)
                 banks.append(st.device_bank)
             elif t == "C":
                 if c_phase == 0:
@@ -258,8 +277,23 @@ SCENARIOS = {
 
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_enumerated_schedules_match_reference(name):
+    _run_scenario(name)
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_enumerated_schedules_over_two_shards_match_reference(name):
+    """The same schedules with the port's bank over two CPU shards, 60
+    initial rows: the writer's 6 adds cross the 64-row capacity, so the
+    refresh that takes them grows the bank and moves rows 32-59 from shard
+    1 to shard 0 (and a re-attach re-uploads over two shards). The
+    reference's bank has one device; the sync oracle is the port's own
+    two-shard store."""
+    _run_scenario(name, shards=2, n_initial=60)
+
+
+def _run_scenario(name, **scenario_kw):
     kw, counts, stride, n_sched = SCENARIOS[name]
-    scen = Scenario(**kw)
+    scen = Scenario(**kw, **scenario_kw)
     schedules = _interleavings(counts, stride)
     assert len(schedules) == n_sched
     stale = 0

@@ -371,8 +371,8 @@ def test_async_refresh_epoch_on_the_card_with_a_racing_scan(gen):
     ref.apply(epoch)                  # queued on the bank's side stream
     racing = st.device_bank.search(q, 10, state=snap0)
     ref.flip(epoch)
-    assert snap0.ready is not None and st.device_bank.published.ready \
-        is not None
+    assert all(ev is not None for ev in snap0.ready)
+    assert all(ev is not None for ev in st.device_bank.published.ready)
     assert np.array_equal(racing[1], old[1])
     assert np.array_equal(snap0.uids[racing[0]], old[0])
     got = st.search_batch(q, 10, impl="device", freshness="stale")
@@ -385,6 +385,82 @@ def test_async_refresh_epoch_on_the_card_with_a_racing_scan(gen):
     torch.cuda.synchronize()
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
     st.set_bank_refresh("sync")
+
+
+@pytest.mark.parametrize("kind", ["int4", "gathered", "dense"])
+def test_topk_kernels_with_no_valid_row(gen, kind):
+    """``n_valid = 0`` (a bank shard with no fill) still launches, and
+    every slot is dead: score -1e30."""
+    from repro_torch.core.quantize import quantize_int4
+    from repro_torch.kernels.retrieval_topk import ops
+    bank = torch.randn((300, 64), generator=gen, device="cuda")
+    q = torch.randn((5, 64), generator=gen, device="cuda")
+    packed, scales = quantize_int4(bank)
+    attr = {"int4": "launches", "gathered": "launches_gathered",
+            "dense": "launches_dense"}[kind]
+    before = getattr(ops, attr)
+    if kind == "int4":
+        s, i = ops.retrieval_topk_int4(q, packed, scales, 10, n_valid=0)
+    elif kind == "gathered":
+        ids = torch.randint(0, 300, (5, 40), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        s, i = ops.retrieval_topk_int4_gathered(q, packed, scales, ids, 10,
+                                                n_valid=0)
+        assert (i == -1).all()
+    else:
+        s, i = ops.retrieval_topk(q, bank, 10, normalize=False, n_valid=0)
+    torch.cuda.synchronize()
+    assert getattr(ops, attr) == before + 1
+    assert s.shape == (5, 10) and (s <= -1e29).all()
+
+
+@pytest.mark.parametrize("store_int4", [True, False], ids=["int4", "fp32"])
+def test_sharded_bank_on_the_card_equals_one_shard(gen, store_int4):
+    """Four shards on one card against the one-shard bank over the same
+    rows and mutations (a grow across shards included): the exhaustive scan
+    (the dense one for fp32), and for int4 the union and gathered pruned
+    scans, bit for bit, each launching once a shard."""
+    import numpy as np
+    from repro_torch.core.store import EmbeddingStore
+    from repro_torch.kernels.retrieval_topk import ops
+    rng = np.random.default_rng(0)
+    E, n = 256, 3000
+    embs = rng.standard_normal((n + 2000, E)).astype(np.float32)
+    q = rng.standard_normal((8, E)).astype(np.float32)
+    one = EmbeddingStore(E, store_int4=store_int4, device="cuda")
+    many = EmbeddingStore(E, store_int4=store_int4, device="cuda")
+    one.attach_device_bank(["cuda"])
+    many.attach_device_bank(["cuda:0"] * 4)
+    for st in (one, many):
+        st.add_batch(np.arange(n), embs[:n], np.zeros(n), np.ones(n))
+    attr = "launches" if store_int4 else "launches_dense"
+    for step in range(2):
+        want = one.search_batch(q, 10, impl="device")
+        before = getattr(ops, attr)
+        got = many.search_batch(q, 10, impl="device")
+        assert getattr(ops, attr) == before + 4
+        assert np.array_equal(got[0], want[0]) and \
+            np.array_equal(got[1], want[1])
+        for st in (one, many):  # grows 4096 -> 8192: rows change shards
+            st.add_batch(np.arange(n, n + 2000), embs[n:], np.zeros(2000),
+                         np.ones(2000))
+            st.delete_batch([5 + step, 77 + step])
+    assert many.device_bank.n_grows == 1
+    assert many.device_bank.h2d_rows == one.device_bank.h2d_rows
+    if not store_int4:
+        return
+    rows = np.unique(rng.integers(0, len(one), 700))
+    ids = rng.integers(-1, len(one) + 50, (8, 300)).astype(np.int32)
+    banks = [(st.device_bank, st.device_bank.published) for st in (one, many)]
+    for k in (10, 64):
+        (w_u, w_s), (g_u, g_s) = [b.search_rows(q, rows, k, state=s)
+                                  for b, s in banks]
+        assert np.array_equal(g_u, w_u) and np.array_equal(g_s, w_s)
+        before = ops.launches_gathered
+        (w_u, w_s), (g_u, g_s) = [b.search_gathered(q, ids, k, state=s)
+                                  for b, s in banks]
+        assert ops.launches_gathered == before + 5
+        assert np.array_equal(g_u, w_u) and np.array_equal(g_s, w_s)
 
 
 # the streamed kernel's edges: lengths off the 32-key tile, a length of 1,

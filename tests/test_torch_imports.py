@@ -1,5 +1,5 @@
 """The port stands alone: no file under src/repro_torch/, and not
-chip_smoke.py or the port's example, imports jax or the JAX package
+chip_smoke.py or the port's examples, imports jax or the JAX package
 (repro)."""
 import ast
 from pathlib import Path
@@ -8,7 +8,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "train_recall_mem_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "train_recall_mem_torch.py",
+    ROOT / "examples" / "edge_simulation_torch.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 

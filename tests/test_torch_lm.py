@@ -374,3 +374,86 @@ def test_forward_hidden_with_lora_over_a_layer_range(models, arch):
                           lora=params_from_jax(lora), **kw)
     for key in ("h", "pooled"):
         _close(t[key], j[key], key)
+
+
+@pytest.mark.parametrize("with_lora", [False, True], ids=["base", "lora"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b"])
+def test_exit_api_matches_reference(models, arch, with_lora):
+    """``encode_exits``, ``encode_at`` at the first and the last exit and
+    ``refine_from`` the first exit's cached activations, against the
+    reference: embeddings at 1e-5 of their scale, hidden and pooled states
+    at 1e-4 (``_close``). (Each call of the reference's compiles anew;
+    every exit is held to the full pass below, on the port.)"""
+    ref, port, jp, tp = models[arch]
+    lora = _lora(ref, seed=11) if with_lora else None
+    jl = None if lora is None else jax.tree.map(jnp.asarray, lora)
+    tl = None if lora is None else params_from_jax(lora)
+    rng = np.random.default_rng(12)
+    tokens = rng.integers(0, ref.model.vocab, (3, 9)).astype(np.int32)
+    mask = (rng.random((3, 9)) < 0.8).astype(np.float32)
+    jt, tt = jnp.asarray(tokens), torch.from_numpy(tokens)
+    jm, tm = jnp.asarray(mask), torch.from_numpy(mask)
+    j = JT.encode_exits(jp, ref.model, ref.recall, tokens=jt, mask=jm,
+                        lora=jl)
+    t = TT.encode_exits(tp, port.model, port.recall, tokens=tt, mask=tm,
+                        lora=tl)
+    assert tuple(t["exits"]) == tuple(j["exits"])
+    _close_rel(t["exit_embs"], j["exit_embs"], "exit_embs")
+    for key in ("pooled", "h", "aux"):
+        _close(t[key], j[key], key)
+    L = port.model.n_layers
+    for e in (t["exits"][0], t["exits"][-1]):
+        ja = JT.encode_at(jp, ref.model, ref.recall, e, tokens=jt, mask=jm,
+                          lora=jl)
+        ta = TT.encode_at(tp, port.model, port.recall, e, tokens=tt, mask=tm,
+                          lora=tl)
+        _close_rel(ta["emb"], ja["emb"], f"encode_at({e}) emb")
+        _close(ta["h"], ja["h"], f"encode_at({e}) h")
+        _close(ta["pooled_last"], ja["pooled_last"], f"encode_at({e}) pooled")
+        if e == L:
+            continue
+        jr = JT.refine_from(jp, ref.model, ref.recall, ja["h"], start=e,
+                            mask=jm, lora=jl)
+        tr = TT.refine_from(tp, port.model, port.recall, ta["h"], start=e,
+                            mask=tm, lora=tl)
+        assert sorted(tr) == sorted(jr) == ["emb", "h"]
+        _close_rel(tr["emb"], jr["emb"], f"refine_from({e}) emb")
+        _close(tr["h"], jr["h"], f"refine_from({e}) h")
+
+
+@pytest.mark.parametrize("with_lora", [False, True], ids=["base", "lora"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b"])
+def test_exit_api_resumes_the_full_pass_bit_for_bit(models, arch,
+                                                    with_lora):
+    """Paper §3.4: stopping early at exit e (``encode_at``) gives the full
+    pass's layer-e pooled state, and resuming from its cached layer-e
+    activations (``refine_from``) the full pass's hidden state, last pooled
+    state and full-depth embedding, all bit for bit. The embedding of
+    ``encode_at`` runs the exit head over B rows, ``encode_exits``' over
+    the stacked n_exits * B rows: held within 1e-6, as the reference's
+    test holds it, and the difference measured on this CPU is 0."""
+    ref, port, _, tp = models[arch]
+    tl = params_from_jax(_lora(ref, seed=13)) if with_lora else None
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, ref.model.vocab, (2, 11)).astype(np.int32))
+    cfg, rc = port.model, port.recall
+    with torch.no_grad():
+        full = TT.encode_exits(tp, cfg, rc, tokens=tokens, lora=tl)
+        last = TT.encode_at(tp, cfg, rc, cfg.n_layers, tokens=tokens,
+                            lora=tl)
+        assert torch.equal(last["h"], full["h"])
+        assert torch.equal(last["pooled_last"], full["pooled"][-1])
+        for i, e in enumerate(full["exits"]):
+            at = TT.encode_at(tp, cfg, rc, e, tokens=tokens, lora=tl)
+            assert torch.equal(at["pooled_last"], full["pooled"][e - 1])
+            assert (at["emb"] - full["exit_embs"][i]).abs().max() <= 1e-6
+            if e == cfg.n_layers:
+                continue
+            res = TT.refine_from(tp, cfg, rc, at["h"], start=e, lora=tl)
+            assert torch.equal(res["h"], full["h"])
+            assert torch.equal(res["emb"], last["emb"])
+            assert torch.equal(res["emb"], full["exit_embs"][-1])
+            pooled = TT.forward_hidden(tp, cfg, rc, embeds=at["h"],
+                                       layer_start=e, collect_pooled=True,
+                                       lora=tl)["pooled"]
+            assert torch.equal(pooled, full["pooled"][e:])

@@ -254,13 +254,93 @@ def test_serve_cli_smoke_on_cpu(capsys):
     assert "embedded 24 items" in out and "device bank:" in out
 
 
-@pytest.mark.parametrize("kw", [dict(search_devices=["cuda:0", "cuda:1"])],
-                         ids=lambda kw: next(iter(kw)))
-def test_query_engine_refuses_unported_features(service, kw):
-    _, _, t_params, _ = service
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TQuery(t_params, TCFG, TRC, store=TStore(TCFG.embed_dim, device="cpu"),
-               device="cpu", **kw)
+def test_serve_cli_sharded_bank_on_cpu(capsys):
+    from repro_torch.launch import serve
+    results = serve.main(["--smoke", "--device", "cpu", "--n-items", "24",
+                          "--n-queries", "4", "--search-impl", "device",
+                          "--search-shards", "2"])
+    assert len(results) == 4
+    out = capsys.readouterr().out
+    assert "'n_shards': 2" in out and "'n': 24" in out
+
+
+def test_search_shards_take_the_first_cards_or_raise(monkeypatch):
+    from repro_torch.launch import serve
+    assert serve.search_devices("cpu", "device", 3) == ["cpu"] * 3
+    assert serve.search_devices("cpu", "device", 0) is None
+    assert serve.search_devices("cpu", "numpy", 2) is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert serve.search_devices("cuda", "device", 2) == ["cuda:0",
+                                                         "cuda:1"]
+    with pytest.raises(ValueError, match="needs 3 cards, 2 visible"):
+        serve.search_devices("cuda", "device", 3)
+
+
+def test_query_engine_with_search_devices_matches_reference(service):
+    """``QueryEngine(search_devices=...)`` shards the bank (three CPU
+    shards here; the reference's over its one device) and serves the
+    device scan: query_batch as the reference's and as the port's
+    one-shard engine."""
+    params, predictor, t_params, t_predictor = service
+    items = multimodal_pairs(6, 40, CFG).items
+    js = JStore(CFG.embed_dim)
+    stores = [TStore(TCFG.embed_dim, device="cpu") for _ in range(2)]
+    je = JEngine(params, CFG, RC, predictor_params=predictor, max_batch=16,
+                 store=js, fw_kw=FW)
+    tes = [TEngine(t_params, TCFG, TRC, predictor_params=t_predictor,
+                   max_batch=16, store=st, device="cpu") for st in stores]
+    for eng in (je, *tes):
+        eng.submit_batch(np.arange(40), items["vision"])
+        eng.drain()
+    jq = JQuery(params, CFG, RC, store=js, refine_fn=je.refine_fn(),
+                fw_kw=FW, search_devices=jax.devices())
+    sharded = TQuery(t_params, TCFG, TRC, store=stores[0],
+                     refine_fn=tes[0].refine_fn(), search_impl="auto",
+                     search_devices=["cpu"] * 3, device="cpu")
+    one = TQuery(t_params, TCFG, TRC, store=stores[1],
+                 refine_fn=tes[1].refine_fn(), search_impl="device",
+                 device="cpu")
+    assert sharded.search_impl == jq.search_impl == "device"
+    assert stores[0].device_bank.n_shards == 3
+    assert stores[1].device_bank.n_shards == 1
+    queries = items["text"][:8]
+    j_res = jq.query_batch(queries, k=10)
+    for t_res in (sharded.query_batch(queries, k=10),
+                  one.query_batch(queries, k=10)):
+        for jr, tr in zip(j_res, t_res):
+            assert tr.n_refined == jr.n_refined
+            assert sorted(tr.filtered_uids.tolist()) == \
+                sorted(jr.filtered_uids.tolist())
+            np.testing.assert_allclose(tr.scores, jr.scores, atol=TOL)
+    assert len(stores[0].device_bank) == 40
+
+
+def test_engine_submit_matches_reference(service):
+    """Items queued one at a time with ``submit`` drain as the reference's
+    do, and as the same items queued with ``submit_batch``."""
+    params, predictor, t_params, t_predictor = service
+    items = multimodal_pairs(7, 12, CFG).items["vision"]
+    js = JStore(CFG.embed_dim)
+    ts, tb = (TStore(TCFG.embed_dim, device="cpu") for _ in range(2))
+    je = JEngine(params, CFG, RC, predictor_params=predictor, store=js,
+                 fw_kw=FW)
+    te, tbe = (TEngine(t_params, TCFG, TRC, predictor_params=t_predictor,
+                       store=st, device="cpu") for st in (ts, tb))
+    for u in range(12):
+        je.submit(u, items[u])
+        te.submit(u, items[u])
+    tbe.submit_batch(np.arange(12), items)
+    for eng in (je, te, tbe):
+        eng.drain()
+    assert te.stats.n_embedded == je.stats.n_embedded == 12
+    np.testing.assert_array_equal(ts.uids(), js.uids())
+    np.testing.assert_array_equal(ts.uids(), tb.uids())
+    np.testing.assert_array_equal(ts.dense_matrix(), tb.dense_matrix())
+    np.testing.assert_allclose(ts.dense_matrix(), js.dense_matrix(),
+                               atol=TOL)
+    assert [e.exit_layer for e in ts.entries] == \
+        [e.exit_layer for e in js.entries]
 
 
 def _drained_pair(service, n_items, seed, **query_kw):

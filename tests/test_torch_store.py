@@ -115,8 +115,9 @@ def test_bank_mirrors_host_slab_bit_exactly():
     ts.search_batch(_unit(rng, 1), 3, impl="device")
     snap = ts.device_bank.published
     assert snap.n == 7
-    np.testing.assert_array_equal(snap.packed[:7].numpy(), ts._packed[:7])
-    np.testing.assert_array_equal(snap.scales[:7].numpy(), ts._scales[:7])
+    assert len(snap.packed) == len(snap.scales) == 1  # one shard on the CPU
+    np.testing.assert_array_equal(snap.packed[0][:7].numpy(), ts._packed[:7])
+    np.testing.assert_array_equal(snap.scales[0][:7].numpy(), ts._scales[:7])
     np.testing.assert_array_equal(snap.uids, ts.uids())
 
 
@@ -130,11 +131,17 @@ def test_auto_follows_the_requested_device():
             TStore(E)  # default device is CUDA: no silent CPU fallback
 
 
-@pytest.mark.parametrize("call", [
-    lambda s: s.attach_device_bank(["cuda:0", "cuda:1"]),
-], ids=["sharded"])
-def test_unported_features_raise(call):
+def test_attach_device_bank_defaults_to_the_stores_devices():
+    """A CPU store's bank is one CPU shard; a list makes one shard an
+    entry, and a re-attach re-uploads every row over the new layout."""
     ts = TStore(E, device="cpu")
-    ts.add(0, np.ones(E, np.float32), exit_idx=0, exit_layer=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(ts)
+    ts.add_batch(np.arange(5), _unit(np.random.default_rng(3), 5),
+                 [0] * 5, [1] * 5)
+    bank = ts.attach_device_bank()
+    assert bank.n_shards == 1 and bank.devices == [torch.device("cpu")]
+    ts.search_batch(_unit(np.random.default_rng(4), 1), 2, impl="device")
+    sharded = ts.attach_device_bank(["cpu", "cpu", "cpu"])
+    assert sharded is ts.device_bank and sharded.n_shards == 3
+    ts.search_batch(_unit(np.random.default_rng(4), 1), 2, impl="device")
+    assert sharded.stats()["h2d_rows"] == 5
+    assert [sharded.published.n_local(s) for s in range(3)] == [5, 0, 0]
