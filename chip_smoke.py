@@ -12,7 +12,7 @@ kernel against its plain PyTorch version at its path's shapes (the int4
 activation-cache kernels bit for bit; the grouped GEMM's side cases through
 both of its kernels, wgmma and mma.sync; the bf16 flash kernel against the
 plain variant that rounds P to bf16 per key tile, as the TPU kernel does,
-within one bf16 step of each element at max(|o|, 1)). Then it drives eight
+within one bf16 step of each element at max(|o|, 1)). Then it drives nine
 paths, each with every launch counter set to 0 just before it and read
 just after:
 
@@ -70,7 +70,18 @@ just after:
     to the full pass; exact launches; each held call by call);
   * MoE: qwen3-moe-30b-a3b at full width and 16 of its 48 layers, 16
     prompts of 1,024 into a 4,096-token cache, then 16 decode steps, with
-    the expert loads and the assignments the capacity drops.
+    the expert loads and the assignments the capacity drops;
+  * families: the recsys and GNN families through ``build_step`` and
+    ``train_loop``. Every step kind of the five archs' smoke variants on
+    the card against the CPU (1e-5 of scale); dlrm-mlperf (its five big
+    tables capped at 4M rows to train, 16M to serve), bst, sasrec and
+    dien at full width: a train step twice from the init (the same
+    bits), 3 ``train_loop`` steps at batch 65,536, ``serve_p99``,
+    ``serve_bulk`` and a 1M-candidate retrieval; gatedgcn's
+    ``full_graph_sm``, ``minibatch_lg`` (sampled from a Reddit-sized SBM
+    graph) and ``molecule`` steps, twice each (the same bits), and its
+    exit embeddings through the RMSNorm kernel (one launch a call, held
+    to the plain version).
 
 One prefill and one decode step of each LM are held call by call against
 the plain versions; the MoE prefill's grouped-GEMM launches must all run
@@ -4467,6 +4478,522 @@ def train_phase():
             "moe_gemm_bwd_dw": moe_got["moe_gemm_bwd/dw_wgmma"]}
 
 
+# ---------------------------------------------------------------------------
+# the recsys and GNN families through build_step and train_loop
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("dlrm-mlperf", "bst", "sasrec", "dien")
+# Cuts (PERF.md section 4). DLRM-MLPerf's 26 Criteo-1TB tables hold
+# 187,767,399 rows, 89.5 GiB at 128 fp32, and training holds four times
+# that (params, gradient, two moments): its five tables of 25.6M-40M rows
+# are capped, every other table whole.
+DLRM_TRAIN_ROWS = 4_000_000    # 24,063,992 rows, 11.47 GiB
+DLRM_SERVE_ROWS = 16_000_000   # 84,063,992 rows, 40.08 GiB
+REDDIT_NODES = 232_965  # minibatch_lg samples an sbm_graph of this many
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _capped(spec, rows: int):
+    """``spec`` with each of its tables cut to at most ``rows`` rows."""
+    import dataclasses
+    m = spec.model
+    return dataclasses.replace(spec, model=dataclasses.replace(
+        m, table_vocabs=tuple(min(v, rows) for v in m.table_vocabs)))
+
+
+def _digest(tree) -> list:
+    """Per fp32 leaf, two wrapping int64 sums of its 32-bit words, plain
+    and weighted by position, taken on the card in slices of 2^26: equal
+    bits give equal digests, and one changed word changes both."""
+    import torch
+    from repro_torch.optim.adamw import _leaves
+    out = []
+    for x in _leaves(tree):
+        if x.dtype != torch.float32:
+            _fail(f"digest of a {x.dtype} leaf")
+        w = x.detach().reshape(-1).view(torch.int32)
+        s1 = s2 = None
+        for i in range(0, w.numel(), 1 << 26):
+            c = w[i:i + (1 << 26)].to(torch.int64)
+            pos = torch.arange(i + 1, i + 1 + c.numel(), device=c.device)
+            a, b = c.sum(), (c * pos).sum()
+            s1, s2 = (a, b) if s1 is None else (s1 + a, s2 + b)
+        out.append((int(s1), int(s2)) if s1 is not None else (0, 0))
+    return out
+
+
+def _draw_inputs(cfg, inputs, gen):
+    """A recsys batch of ``inputs`` ({name: (shape, dtype)}) drawn on the
+    card: ids uniform over their table, dense features and the candidate
+    bank normal, labels Bernoulli(1/2)."""
+    import torch
+    vocab = {"hist": cfg.item_vocab, "target": cfg.item_vocab,
+             "pos": cfg.item_vocab, "neg": cfg.item_vocab,
+             "hist_cate": max(cfg.item_vocab // 100, 16),
+             "target_cate": max(cfg.item_vocab // 100, 16)}
+    out = {}
+    for name, (shape, dtype) in inputs.items():
+        if name == "sparse":
+            out[name] = torch.stack([torch.randint(
+                0, v, shape[:1], generator=gen, device="cuda",
+                dtype=torch.int32) for v in cfg.table_vocabs], dim=1)
+        elif name == "label":
+            out[name] = (torch.rand(shape, generator=gen, device="cuda")
+                         < 0.5).float()
+        elif dtype == torch.int32:
+            out[name] = torch.randint(0, vocab[name], shape, generator=gen,
+                                      device="cuda", dtype=torch.int32)
+        else:
+            out[name] = torch.randn(shape, generator=gen, device="cuda")
+    return out
+
+
+def _gnn_arrays(shape, cfg, seed: int, big=None) -> dict:
+    """numpy arrays of a ``gnn.Graph`` for ``shape``: an ``sbm_graph`` of
+    its nodes at the degree its edge count gives, padded to its edges with
+    masked ones (``graph_full``); ``global_batch`` of those stacked
+    (``graph_batched``); or a subgraph sampled from ``big`` (an sbm_graph
+    and its CSR) at the shape's seeds and fanout, padded to ``max_sizes``,
+    the seeds' labels only (``graph_mini``)."""
+    import numpy as np
+    from repro_torch.data import sampler as SA
+    from repro_torch.data import synthetic as SYN
+
+    def full(s, N, E):
+        g = SYN.sbm_graph(s, N, cfg.n_classes, cfg.d_feat,
+                          avg_degree=E / (2 * N))
+        e = len(g["src"])
+        pad = lambda a: np.concatenate([a, np.zeros(E - e, a.dtype)])
+        return {"node_feat": g["node_feat"], "src": pad(g["src"]),
+                "dst": pad(g["dst"]), "node_mask": np.ones(N, np.float32),
+                "edge_mask": pad(np.ones(e, np.float32)),
+                "labels": g["labels"]}
+
+    if shape.kind == "graph_full":
+        return full(seed, shape.n_nodes, shape.n_edges)
+    if shape.kind == "graph_batched":
+        gs = [full(seed + i, shape.n_nodes, shape.n_edges)
+              for i in range(shape.global_batch)]
+        return {k: np.stack([g[k] for g in gs]) for k in gs[0]}
+    g, csr = big
+    rng = np.random.default_rng(seed)
+    sub = SA.sample_subgraph(csr, rng.choice(csr.n_nodes, shape.batch_nodes,
+                                             replace=False), shape.fanout,
+                             rng)
+    labels = np.full(len(sub.node_ids), -1, np.int32)
+    labels[sub.seed_local] = g["labels"][sub.node_ids[sub.seed_local]]
+    return {"node_feat": g["node_feat"][sub.node_ids], "src": sub.src,
+            "dst": sub.dst, "node_mask": sub.node_mask,
+            "edge_mask": sub.edge_mask, "labels": labels}
+
+
+def _graph(arrays, device):
+    import torch
+    from repro_torch.models.gnn import Graph
+    return Graph(*[torch.as_tensor(arrays[f]).to(device)
+                   for f in Graph._fields])
+
+
+def _family_inputs(spec, shape, bundle, seed):
+    """``shape``'s step inputs at smoke size as numpy: the training data's
+    first rows (recsys; a retrieval step also takes a normal candidate
+    bank) or a graph (gnn)."""
+    import numpy as np
+    from repro_torch.data import sampler as SA
+    from repro_torch.data import synthetic as SYN
+    from repro_torch.launch import train as TR
+    if spec.family == "gnn":
+        cfg, big = bundle.meta["cfg"], None
+        if shape.kind == "graph_mini":  # a 200-node graph to sample from
+            g = SYN.sbm_graph(seed, 200, cfg.n_classes, cfg.d_feat)
+            big = (g, SA.CSRGraph.from_edges(g["src"], g["dst"], 200))
+        return _gnn_arrays(shape, cfg, seed, big)
+    n = max(shape.global_batch, 1)
+    data = TR.make_train_data(spec, shape, n, seed)
+    out = {k: v for k, v in data.items() if k in bundle.meta["inputs"]}
+    if shape.kind == "retrieval":
+        C, D = bundle.meta["inputs"]["cand_bank"][0]
+        out["cand_bank"] = np.random.default_rng(seed).standard_normal(
+            (C, D)).astype(np.float32)
+    return out
+
+
+def _to(tree, device):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device).clone()
+    return {k: _to(v, device) for k, v in tree.items()}
+
+
+def _hold_leaves(what, got, want, tol, lr=None):
+    """Each leaf of ``got`` (on the card) within ``tol`` of the largest
+    |element| of ``want``'s (on the CPU). An attention's key bias ``bk``
+    has a zero gradient in exact arithmetic (q·bk shifts a softmax row by
+    a constant), so its fp32 gradient is rounding noise whose sign Adam
+    turns into a step of lr either way: after an update (``lr`` given) it
+    is held within 2 lr."""
+    from repro_torch.optim.adamw import _leaves
+    import torch
+    names = _leaf_names(want)
+    worst = (0.0, "")
+    for name, g, w in zip(names, _leaves(got), _leaves(want)):
+        d = (g.detach().cpu().double() - w.double()).abs().max().item()
+        if lr is not None and name.endswith("/bk"):
+            if d > 2 * lr:
+                _fail(f"{what}: {name} off by {d:.3e} > 2 lr")
+            continue
+        err = d / max(w.abs().max().item(), 1e-30)
+        worst = max(worst, (err, name))
+    if worst[0] > tol:
+        _fail(f"{what}: {worst[1]} off by {worst[0]:.3e} of its scale "
+              f"(limit {tol})")
+    return worst
+
+
+def _leaf_names(tree, prefix=""):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [prefix]
+    return [n for k in tree for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+
+
+def families_parity() -> None:
+    """Every kind of the five archs' smoke variants on the card and on the
+    CPU from the same params and inputs, TF32 off: a train step's loss and
+    grad norm within 1e-5 relative and its updated params within 1e-5 of
+    each leaf's scale (``_hold_leaves``); serve outputs and retrieval
+    scores within 1e-5 of their scale, the retrieval ids where the scores
+    are apart."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_variant
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.optim.adamw import AdamW
+    worst = []
+    for arch in RECSYS_ARCHS + ("gatedgcn",):
+        spec = smoke_variant(get_arch(arch))
+        shapes = list(spec.shapes) + (
+            [ShapeConfig("smoke_retrieval", "retrieval", global_batch=2,
+                         n_candidates=300)] if spec.family == "recsys" else
+            [ShapeConfig("smoke_mini", "graph_mini", batch_nodes=6,
+                         fanout=(3, 2), d_feat=8),
+             ShapeConfig("smoke_batched", "graph_batched", n_nodes=12,
+                         n_edges=40, global_batch=3, d_feat=8)])
+        for shape in shapes:
+            what = f"{arch} {shape.name} card vs cpu"
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                bundle = S.build_step(spec, shape, device=dev)
+                train = bundle.meta.get("train", False)
+                arrays = _family_inputs(spec, shape, bundle, 1)
+                params = _to(TR.init_params(spec, 0, "cpu", shape), dev)
+                if spec.family == "gnn":
+                    inputs = _graph(arrays, dev)
+                else:
+                    inputs = {k: torch.as_tensor(v).to(dev)
+                              for k, v in arrays.items()}
+                if train:
+                    p, o, m = bundle.fn(params, AdamW().init(params), inputs)
+                    runs[dev] = (p, {k: float(v) for k, v in m.items()})
+                else:
+                    runs[dev] = bundle.fn(params, inputs)
+            if train:
+                (pg, mg), (pc, mc) = runs["cuda"], runs["cpu"]
+                for key in ("loss", "grad_norm"):
+                    if abs(mg[key] - mc[key]) > 1e-5 * abs(mc[key]):
+                        _fail(f"{what}: {key} {mg[key]!r} vs {mc[key]!r}")
+                worst.append(_hold_leaves(what + " params", pg, pc, 1e-5,
+                                          lr=mc["lr"])[0])
+            elif shape.kind == "retrieval":
+                (sg, ig), (sc, ic) = runs["cuda"], runs["cpu"]
+                err = (sg.cpu() - sc).abs().max().item() / sc.abs().max()
+                if err > 1e-5:
+                    _fail(f"{what}: scores off by {err:.3e} of their scale")
+                gap = (sc[:, 1:] - sc[:, :-1]).abs() > 1e-5 * sc.abs().max()
+                sep = torch.ones_like(sc, dtype=torch.bool)
+                sep[:, 1:] &= gap
+                sep[:, :-1] &= gap
+                if not torch.equal(ig.cpu()[sep], ic[sep]):
+                    _fail(f"{what}: ids differ where scores are apart")
+                worst.append(float(err))
+            else:
+                og, oc = runs["cuda"].cpu(), runs["cpu"]
+                if not bool(((og > 0) & (og < 1)).all()):
+                    _fail(f"{what}: serve outputs outside (0, 1)")
+                err = (og - oc).abs().max().item()
+                if err > 1e-5:
+                    _fail(f"{what}: serve outputs off by {err:.3e}")
+                worst.append(err)
+    print(f"  families parity, card vs cpu at smoke size: "
+          f"{len(worst)} cells, worst {max(worst):.3e} of scale "
+          f"(limit 1e-5)")
+
+
+def _timed_steps(bundle, make_state, inputs, n: int):
+    """``n`` runs of one train step from ``make_state()`` (a fresh init
+    and zero moments each time) on ``inputs``: each run's host seconds
+    (call to loss read back), loss, grad norm and the digests of the
+    params and moments it leaves; the init's params digest."""
+    import torch
+    out, init_dig = [], None
+    for _ in range(n):
+        params, opt = make_state()
+        if init_dig is None:
+            init_dig = _digest(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = bundle.fn(params, opt, inputs)
+        loss = float(m["loss"])
+        dt = time.perf_counter() - t0
+        out.append((dt, loss, float(m["grad_norm"]), _digest(params),
+                    _digest(opt.m), _digest(opt.v)))
+        del params, opt, m
+    return out, init_dig
+
+
+def _same_bits_twice(what, runs) -> None:
+    a, b = runs[0][1:], runs[1][1:]
+    if a != b:
+        _fail(f"{what}: a step run twice from the same state and batch "
+              f"gave other bits (losses {a[0]!r} / {b[0]!r}, grad norms "
+              f"{a[1]!r} / {b[1]!r})")
+    if not all(math.isfinite(x) for x in a[:2]):
+        _fail(f"{what}: loss or grad norm not finite {a[:2]}")
+
+
+def _profile_step(what, bundle, params, opt_state, inputs) -> None:
+    """One train step of ``bundle`` from this state under the profiler
+    (``profile_windows``; any kernel counts as seen)."""
+    profile_windows(((what, lambda: bundle.fn(params, opt_state, inputs),
+                      ""),))
+
+
+def families_recsys(smi) -> None:
+    """Each recsys arch at full width: the train step twice from the init
+    on one ``train_batch`` (65,536) batch, the same bits; 3 ``train_loop``
+    steps; ``serve_p99`` (512) and ``serve_bulk`` (262,144); one
+    ``retrieval_cand`` query over 1,000,000 candidates. DLRM-MLPerf runs
+    with its big tables capped (``DLRM_TRAIN_ROWS``, ``DLRM_SERVE_ROWS``).
+    DLRM's and DIEN's train steps are profiled."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.optim.adamw import AdamW
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for arch in RECSYS_ARCHS:
+        full = get_arch(arch)
+        spec = _capped(full, DLRM_TRAIN_ROWS) if arch == "dlrm-mlperf" \
+            else full
+        shape = spec.shape("train_batch")
+        B = shape.global_batch
+        bundle = S.build_step(spec, shape, device=dev)
+        data = TR.make_train_data(spec, shape, B, 0)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in data.items()
+                 if k in bundle.meta["inputs"]}
+
+        def fresh():
+            p = TR.init_params(spec, 0, dev)
+            return p, AdamW().init(p)
+
+        torch.cuda.reset_peak_memory_stats()
+        runs, init_dig = _timed_steps(bundle, fresh, batch, 2)
+        _same_bits_twice(f"{arch} train step", runs)
+        out = TR.train_loop(spec, shape, device=dev, steps=3, n_data=B,
+                            log_every=0)
+        peak = torch.cuda.max_memory_allocated()
+        st = out["opt_state"]
+        if not (all(map(math.isfinite, out["losses"] + out["grad_norms"]))
+                and _finite_tree(out["params"]) and _finite_tree(st.m)
+                and _finite_tree(st.v)):
+            _fail(f"{arch}: train_loop left non-finite values")
+        moved = [a != b for a, b in zip(_digest(out["params"]), init_dig)]
+        if not all(moved):
+            _fail(f"{arch}: {moved.count(False)} param leaves did not move")
+        cut = (f"tables capped at {DLRM_TRAIN_ROWS:,} rows, "
+               if arch == "dlrm-mlperf" else "")
+        _report_train(f"{arch} train ({cut}batch {B:,}, 3 train_loop "
+                      f"steps; a step from the init twice, the same bits, "
+                      f"{runs[0][0]:.3f} / {runs[1][0]:.3f} s)", out, B,
+                      bundle.model_flops, peak, smi, unit="examples")
+        if arch in ("dlrm-mlperf", "dien"):
+            _profile_step(f"{arch} train step, batch {B:,}", bundle,
+                          out["params"], st, batch)
+        del out, st, batch, data
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        sspec = _capped(full, DLRM_SERVE_ROWS) if arch == "dlrm-mlperf" \
+            else full
+        torch.cuda.reset_peak_memory_stats()
+        params = TR.init_params(sspec, 0, dev)
+        with torch.no_grad():
+            line = []
+            for name in ("serve_p99", "serve_bulk", "retrieval_cand"):
+                sh = sspec.shape(name)
+                b = S.build_step(sspec, sh, device=dev)
+                inputs = _draw_inputs(sspec.model, b.meta["inputs"], gen)
+                res = b.fn(params, inputs)
+                if sh.kind == "serve":
+                    if not bool(((res > 0) & (res < 1)).all()):
+                        _fail(f"{arch} {name}: outputs outside (0, 1)")
+                    reps = 1 if name == "serve_bulk" else 3
+                    ms = time_ms(lambda: b.fn(params, inputs), reps=reps,
+                                 trials=3)
+                    line.append(f"{name} (batch {sh.global_batch:,}) "
+                                f"{ms:.3f} ms a call, "
+                                f"{sh.global_batch / ms * 1e3:,.0f} items/s")
+                else:
+                    s, i = res
+                    if not (bool(torch.isfinite(s).all()) and s.shape ==
+                            (1, 100) and bool((s[:, 1:] <= s[:, :-1]).all())):
+                        _fail(f"{arch} retrieval: scores {s.shape} not "
+                              "finite and sorted")
+                    ms = time_ms(lambda: b.fn(params, inputs), reps=3,
+                                 trials=3)
+                    line.append(f"retrieval_cand (1 query, "
+                                f"{sh.n_candidates:,} candidates, top 100) "
+                                f"{ms:.3f} ms a query")
+                del inputs, res
+        cut = (f", tables capped at {DLRM_SERVE_ROWS:,} rows"
+               if arch == "dlrm-mlperf" else "")
+        print(f"  {arch} serve{cut}: " + "; ".join(line)
+              + f"; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def families_gnn(smi) -> None:
+    """GatedGCN at full width (16 rounds, d 70): one train step twice from
+    the init at ``full_graph_sm``, ``minibatch_lg`` (a subgraph of 1,024
+    seeds at fanout (15, 10), sampled from an sbm_graph of Reddit's
+    232,965 nodes) and ``molecule`` (128 graphs), the same bits; s a step
+    and edges/s; the minibatch step profiled; then ``gnn_exit_embeddings``
+    on ``full_graph_sm`` through the RMSNorm kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data import sampler as SA
+    from repro_torch.data import synthetic as SYN
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.models import gnn as G
+    from repro_torch.models import layers as L
+    from repro_torch.optim.adamw import AdamW
+    dev = torch.device("cuda")
+    spec = get_arch("gatedgcn")
+    for name in ("full_graph_sm", "minibatch_lg", "molecule"):
+        shape = spec.shape(name)
+        bundle = S.build_step(spec, shape, device=dev)
+        cfg = bundle.meta["cfg"]
+        t0 = time.perf_counter()
+        big = None
+        if shape.kind == "graph_mini":
+            g = SYN.sbm_graph(0, REDDIT_NODES, cfg.n_classes, cfg.d_feat)
+            big = (g, SA.CSRGraph.from_edges(g["src"], g["dst"],
+                                             REDDIT_NODES))
+        arrays = _gnn_arrays(shape, cfg, 0, big)
+        host_s = time.perf_counter() - t0
+        del big
+        graph = _graph(arrays, dev)
+        E = int(np.prod(arrays["src"].shape))
+
+        def fresh():
+            p = TR.init_params(spec, 0, dev, shape)
+            return p, AdamW().init(p)
+
+        torch.cuda.reset_peak_memory_stats()
+        runs, _ = _timed_steps(bundle, fresh, graph, 2)
+        _same_bits_twice(f"gatedgcn {name} train step", runs)
+        step = runs[1][0]
+        real = int(arrays["edge_mask"].sum())
+        nodes = int(np.prod(arrays["node_mask"].shape))
+        print(f"  gatedgcn {name} train step ({nodes:,} nodes, {E:,} edges "
+              f"({real:,} real), d_feat {cfg.d_feat}; "
+              f"data {host_s:.1f} s on the host): {runs[0][0]:.3f} / "
+              f"{step:.3f} s a step (the same bits twice), "
+              f"{E / step:,.0f} edges/s, model "
+              f"{bundle.model_flops / step / 1e12:.3f} TFLOP/s, loss "
+              f"{runs[1][1]:.4f}, grad norm {runs[1][2]:.4g}, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({smi})")
+        if shape.kind == "graph_mini":
+            _profile_step(f"gatedgcn {name} train step", bundle, *fresh(),
+                          graph)
+        if name == "full_graph_sm":
+            params = TR.init_params(spec, 0, dev, shape)
+            with torch.no_grad():
+                before = rms_ops.launches
+                emb = G.gnn_exit_embeddings(params, cfg, spec.recall, graph)
+                one = rms_ops.launches - before
+                emb2 = G.gnn_exit_embeddings(params, cfg, spec.recall, graph)
+                if (one, rms_ops.launches - before) != (1, 2):
+                    _fail(f"gnn_exit_embeddings: {one} then "
+                          f"{rms_ops.launches - before} rmsnorm launches "
+                          "over 2 calls (want one a call)")
+                pooled = G.gnn_forward(params, cfg, spec.recall, graph,
+                                       collect_pooled=True)["pooled"]
+                idx = torch.tensor([e - 1 for e in spec.recall.exit_layers(
+                    cfg.n_layers)], device=dev)
+                x = pooled[idx]
+                norm = params["exit_head"]["norm"]
+                plain = L.l2_normalize(rmsnorm_reference(
+                    x, norm, cfg.norm_eps).float()
+                    @ params["exit_head"]["proj"].float())
+            counted = rms_ops.launches  # the comparison's launch: uncounted
+            err_norm = (rms_ops.rmsnorm_fwd(x, norm, cfg.norm_eps)
+                        - rmsnorm_reference(x, norm, cfg.norm_eps)).abs(
+                            ).max().item()
+            rms_ops.launches = counted
+            err = (emb - plain).abs().max().item()
+            unit = (torch.linalg.norm(emb, dim=-1) - 1).abs().max().item()
+            if not (torch.equal(emb, emb2) and err <= 1e-5
+                    and err_norm <= 1e-5 and unit <= 1e-5
+                    and tuple(x.shape) == (8, 70)):
+                _fail(f"gnn_exit_embeddings: rmsnorm at {tuple(x.shape)} "
+                      f"off by {err_norm:.3e}, embedding off the plain "
+                      f"version by {err:.3e}, norms off 1 by {unit:.3e}")
+            print(f"  gatedgcn exit embeddings ({tuple(emb.shape)}; the "
+                  f"RMSNorm kernel at {tuple(x.shape)} fp32, one launch a "
+                  f"call): rmsnorm {err_norm:.3e} and embedding "
+                  f"{err:.3e} off the plain version, norms within "
+                  f"{unit:.3e} of 1")
+            del params
+        del graph, arrays
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def families_phase():
+    """The recsys and GNN families on the card (``families_parity``,
+    ``families_recsys``, ``families_gnn``), every launch counter set to 0
+    before and read after: no ported kernel runs on these paths but the
+    RMSNorm of the GNN's exit head, two launches (two calls). Returns the
+    counts, which no kernel row reads (each row's count comes from the
+    path it was measured on)."""
+    smi = _smi()
+    _reset_launches()
+    families_parity()
+    families_recsys(smi)
+    families_gnn(smi)
+    got = {name: getattr(mod, attr) for name, (mod, attr)
+           in _counters().items()}
+    if got != {**{name: 0 for name in got}, "rmsnorm": 2}:
+        _fail(f"families launches {got}: want rmsnorm 2, every other 0")
+    print(f"families launches: {got}")
+    return got
+
+
 def build_phase():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -4497,7 +5024,7 @@ def main() -> None:
                         ("train", train_phase), ("ivf", ivf_phase),
                         ("async", async_phase), ("shard", shard_phase),
                         ("lm", lm_phase),
-                        ("moe", moe_phase)):
+                        ("moe", moe_phase), ("families", families_phase)):
         t0 = time.perf_counter()
         walls[name] = (phase(), time.perf_counter() - t0)
         gc.collect()  # a phase's engines hold cycles (refine_fn closures)

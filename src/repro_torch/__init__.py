@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of RECALL (embed -> int4 bank -> speculative query,
-the IVF coarse filter, the write side) and of the reference's LM serving
-path (prefill -> decode, dense and MoE), beside the JAX reference package
+the IVF coarse filter, the write side, healing, training) and of the
+reference's model zoo (the LM serving and training paths, dense and MoE;
+the recsys and GNN families' steps), beside the JAX reference package
 ``repro``.
 
 Subpackages mirror ``repro``'s names so each module's counterpart is easy to

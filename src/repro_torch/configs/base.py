@@ -1,9 +1,8 @@
-"""Config dataclasses and registry for the port (the ``mem`` and ``lm``
-families).
+"""Config dataclasses and registry for the port (every family of the
+reference: ``mem``, ``lm``, ``gnn`` and ``recsys``).
 
-A copy of the parts of ``repro.configs.base`` that the ported paths read
-(RECALL's serving path, the LM serving path), so the port imports nothing
-of the JAX package. Field names and defaults are the reference's;
+A copy of ``repro.configs.base``, so the port imports nothing of the JAX
+package. Field names and defaults are the reference's;
 ``tests/test_torch_imports.py`` keeps the port free of ``repro`` imports and
 the parity tests keep the values equal.
 """
@@ -11,7 +10,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -84,6 +83,37 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class GNNConfig:
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "gated"  # gatedgcn
+    d_feat: int = 128
+    d_edge_feat: int = 0
+    n_classes: int = 40
+    norm_eps: float = 1e-5
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    kind: str  # "bst" | "dlrm" | "sasrec" | "dien"
+    embed_dim: int
+    # Sparse feature tables: list of vocab sizes (one per field).
+    table_vocabs: Tuple[int, ...] = ()
+    n_dense: int = 0
+    seq_len: int = 0
+    item_vocab: int = 0
+    n_heads: int = 1
+    n_blocks: int = 0
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    mlp: Tuple[int, ...] = ()
+    gru_dim: int = 0
+    interaction: str = "dot"
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class TowerConfig:
     """One MEM modality tower (transformer encoder on stub frontend tokens)."""
 
@@ -147,9 +177,17 @@ class ShapeConfig:
     """One benchmark cell: names the step and its global dims."""
 
     name: str
-    kind: str  # serve | retrieval | train | prefill | decode
+    kind: str  # train | prefill | decode | serve | retrieval | graph_full |
+    #            graph_mini | graph_batched
     global_batch: int = 0
     seq_len: int = 0
+    # GNN
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    # recsys
     n_candidates: int = 0
     skip_reason: str = ""
 
@@ -157,8 +195,8 @@ class ShapeConfig:
 @dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str  # "mem" | "lm" (the families the port carries)
-    model: Any  # MEMConfig | LMConfig
+    family: str  # "lm" | "gnn" | "recsys" | "mem"
+    model: Any  # LMConfig | GNNConfig | RecsysConfig | MEMConfig
     shapes: Tuple[ShapeConfig, ...]
     recall: RecallConfig = RecallConfig()
     source: str = ""
@@ -174,7 +212,8 @@ class ArchSpec:
 _REGISTRY: Dict[str, ArchSpec] = {}
 
 _ARCH_MODULES = ["qwen3_moe_30b_a3b", "moonshot_v1_16b_a3b", "minitron_8b",
-                 "deepseek_67b", "qwen2_1_5b", "recall_imagebind"]
+                 "deepseek_67b", "qwen2_1_5b", "gatedgcn", "bst",
+                 "dlrm_mlperf", "sasrec", "dien", "recall_imagebind"]
 
 
 def register(spec: ArchSpec) -> ArchSpec:
@@ -197,10 +236,22 @@ def get_arch(arch_id: str) -> ArchSpec:
     raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
 
 
+def list_archs() -> List[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def all_cells() -> List[Tuple[str, str]]:
+    """All (arch_id, shape_name) cells, including documented skips."""
+    _ensure_loaded()
+    return [(a, s.name) for a in list_archs() for s in _REGISTRY[a].shapes]
+
+
 def smoke_variant(spec: ArchSpec) -> ArchSpec:
     """Shrink a full config to a CPU-runnable one of the same family (the
-    reference's ``lm`` and ``mem`` branches, value for value)."""
+    reference's branches, value for value)."""
     m = spec.model
+    rc = replace(spec.recall, exit_interval=1, superficial_layers=1)
     if spec.family == "lm":
         moe = None
         if m.moe is not None:
@@ -213,6 +264,26 @@ def smoke_variant(spec: ArchSpec) -> ArchSpec:
                               seq_len=32),
                   ShapeConfig("smoke_decode", "decode", global_batch=4,
                               seq_len=64))
+    elif spec.family == "gnn":
+        sm = replace(m, n_layers=3, d_hidden=16, d_feat=8, n_classes=5)
+        shapes = (ShapeConfig("smoke_graph", "graph_full", n_nodes=64,
+                              n_edges=256, d_feat=8),)
+    elif spec.family == "recsys":
+        embed_dim = min(m.embed_dim, 16)
+        bot = tuple(min(x, 32) for x in m.bot_mlp)
+        if m.kind == "dlrm" and bot:
+            bot = bot[:-1] + (embed_dim,)  # DLRM invariant: bot out == embed
+        sm = replace(
+            m, embed_dim=embed_dim,
+            table_vocabs=tuple(min(v, 128) for v in m.table_vocabs),
+            seq_len=min(m.seq_len, 8) if m.seq_len else 0,
+            item_vocab=min(m.item_vocab, 128) if m.item_vocab else 0,
+            bot_mlp=bot, top_mlp=tuple(min(x, 32) for x in m.top_mlp),
+            mlp=tuple(min(x, 32) for x in m.mlp),
+            gru_dim=min(m.gru_dim, 16) if m.gru_dim else 0)
+        shapes = (ShapeConfig("smoke_train", "train", global_batch=16),
+                  ShapeConfig("smoke_serve", "serve", global_batch=8))
+        rc = spec.recall
     elif spec.family == "mem":
         towers = tuple(
             replace(t, n_layers=3, d_model=32, n_heads=2, d_ff=64,
@@ -223,9 +294,7 @@ def smoke_variant(spec: ArchSpec) -> ArchSpec:
         sm = replace(m, towers=towers, embed_dim=32)
         shapes = (ShapeConfig("smoke_embed", "serve", global_batch=8),)
     else:
-        raise ValueError(f"the port carries the mem and lm families, not "
-                         f"{spec.family!r}")
-    rc = replace(spec.recall, exit_interval=1, superficial_layers=1)
+        raise ValueError(spec.family)
     return replace(spec, arch_id=spec.arch_id + "-smoke", model=sm,
                    shapes=shapes, recall=rc)
 
@@ -241,4 +310,16 @@ def lm_shapes(full_attention: bool) -> Tuple[ShapeConfig, ...]:
         ShapeConfig("decode_32k", "decode", global_batch=128, seq_len=32768),
         ShapeConfig("long_500k", "decode", global_batch=1, seq_len=524288,
                     skip_reason=skip),
+    )
+
+
+def recsys_shapes() -> Tuple[ShapeConfig, ...]:
+    """The standard recsys shape set of every recsys arch (the
+    reference's)."""
+    return (
+        ShapeConfig("train_batch", "train", global_batch=65536),
+        ShapeConfig("serve_p99", "serve", global_batch=512),
+        ShapeConfig("serve_bulk", "serve", global_batch=262144),
+        ShapeConfig("retrieval_cand", "retrieval", global_batch=1,
+                    n_candidates=1_000_000),
     )

@@ -6,6 +6,10 @@ per item; each modality observes a fixed random projection of z plus
 modality noise, so items differ in SNR and hence in optimal exit.
 ``clustered_sphere``: the blob-mixture embedding corpus of the IVF tests.
 ``lm_tokens``: order-2 Markov token streams for LM training.
+``criteo_like``: DLRM's dense and zipf-sparse features with a learnable
+label. ``sbm_graph``: a homophilous stochastic-block-model graph (GNN).
+``seq_recsys``: behaviour sequences from latent user/item factors (BST,
+SASRec, DIEN).
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.configs.base import MEMConfig
+from repro_torch.configs.base import MEMConfig, RecsysConfig
 
 _ARGMAX_ROWS = 16  # items per chunk of the (n, T, vocab) text projection
 
@@ -96,3 +100,92 @@ def lm_tokens(seed: int, n_seqs: int, seq_len: int, vocab: int,
         nxt = np.where(noise, rng.integers(0, vocab, size=n_seqs), nxt)
         toks[:, t] = nxt
     return toks
+
+
+# ---------------------------------------------------------------------------
+# Criteo-like (DLRM)
+# ---------------------------------------------------------------------------
+
+
+def criteo_like(seed: int, n: int, cfg: RecsysConfig) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    dense = rng.standard_normal((n, cfg.n_dense)).astype(np.float32)
+    sparse = np.stack(
+        [np.minimum(rng.zipf(1.3, size=n) - 1, v - 1)
+         for v in cfg.table_vocabs], axis=1).astype(np.int32)
+    w_d = rng.standard_normal(cfg.n_dense).astype(np.float32)
+    field_w = rng.standard_normal((len(cfg.table_vocabs), 64)).astype(np.float32)
+    id_hash = ((sparse.astype(np.int64) * 2654435761) % 97) / 97.0 - 0.5
+    score = dense @ w_d + (id_hash * field_w[:, 0][None, :]).sum(-1)
+    label = (score + 0.5 * rng.standard_normal(n) > 0).astype(np.float32)
+    return {"dense": dense, "sparse": sparse, "label": label}
+
+
+# ---------------------------------------------------------------------------
+# SBM graphs (GNN)
+# ---------------------------------------------------------------------------
+
+
+def sbm_graph(seed: int, n_nodes: int, n_classes: int, d_feat: int,
+              avg_degree: float = 8.0, homophily: float = 0.85
+              ) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_classes, n_nodes).astype(np.int32)
+    n_edges = int(n_nodes * avg_degree)
+    src = rng.integers(0, n_nodes, n_edges * 2)
+    dst = np.empty_like(src)
+    same = rng.random(len(src)) < homophily
+    # same-class partner: pick random node of same class via sorted buckets
+    order = np.argsort(labels, kind="stable")
+    class_start = np.searchsorted(labels[order], np.arange(n_classes))
+    class_end = np.append(class_start[1:], n_nodes)
+    cls = labels[src]
+    lo, hi = class_start[cls], class_end[cls]
+    same_pick = order[(lo + rng.integers(0, np.maximum(hi - lo, 1)))
+                      % np.maximum(hi, 1)]
+    rand_pick = rng.integers(0, n_nodes, len(src))
+    dst = np.where(same, same_pick, rand_pick).astype(np.int64)
+    keep = src != dst
+    src, dst = src[keep][:n_edges], dst[keep][:n_edges]
+    # symmetric
+    src2 = np.concatenate([src, dst])
+    dst2 = np.concatenate([dst, src])
+    centers = rng.standard_normal((n_classes, d_feat)).astype(np.float32)
+    feat = centers[labels] + 1.5 * rng.standard_normal((n_nodes, d_feat)).astype(np.float32)
+    return {"node_feat": feat, "src": src2.astype(np.int32),
+            "dst": dst2.astype(np.int32), "labels": labels}
+
+
+# ---------------------------------------------------------------------------
+# RecSys sequences (BST / SASRec / DIEN)
+# ---------------------------------------------------------------------------
+
+
+def seq_recsys(seed: int, n: int, cfg: RecsysConfig,
+               n_factors: int = 8) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    V, S = cfg.item_vocab, cfg.seq_len
+    item_f = rng.standard_normal((V, n_factors)).astype(np.float32)
+    user_f = rng.standard_normal((n, n_factors)).astype(np.float32)
+    # history: items with high user affinity (sampled via gumbel top-S trick
+    # over a candidate pool to stay O(n * pool))
+    pool = rng.integers(0, V, size=(n, 4 * S))
+    aff = np.einsum("nf,npf->np", user_f, item_f[pool])
+    g = rng.gumbel(size=aff.shape)
+    idx = np.argsort(-(aff + g), axis=1)[:, :S]
+    hist = np.take_along_axis(pool, idx, axis=1).astype(np.int32)
+    target = rng.integers(0, V, size=n).astype(np.int32)
+    t_aff = np.einsum("nf,nf->n", user_f, item_f[target])
+    label = (t_aff + 0.5 * rng.standard_normal(n) > 0).astype(np.float32)
+    out = {"hist": hist, "target": target, "label": label}
+    if cfg.kind == "bst":
+        from repro_torch.models.recsys import BST_OTHER_DIM
+        out["other"] = rng.standard_normal((n, BST_OTHER_DIM)).astype(np.float32)
+    if cfg.kind == "sasrec":
+        out["pos"] = np.roll(hist, -1, axis=1).astype(np.int32)
+        out["neg"] = rng.integers(0, V, size=(n, S)).astype(np.int32)
+    if cfg.kind == "dien":
+        n_cate = max(cfg.item_vocab // 100, 16)
+        out["hist_cate"] = (hist % n_cate).astype(np.int32)
+        out["target_cate"] = (target % n_cate).astype(np.int32)
+    return out

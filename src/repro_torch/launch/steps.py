@@ -4,14 +4,20 @@ device).
 
 ``build_step(spec, shape)`` returns a :class:`StepBundle` with the step
 function, the analytic model FLOPs (the reference's convention) and meta
-(the config the step runs, its device and token count). The caller makes
-the parameters (``transformer.lm_init`` / ``imagebind.mem_init`` on
+(the config the step runs, its device and token count; for the train
+kinds and the gnn and recsys families ``inputs``, the name, shape and
+dtype of each input the step takes, in place of the reference's abstract
+arguments). The caller makes the parameters (``transformer.lm_init``,
+``imagebind.mem_init``, ``recsys.recsys_init``, ``gnn.gnn_init`` on
 ``meta["device"]``), the optimizer state (``AdamW.init``) and inputs.
-Ported: the ``lm`` family's ``train``, ``prefill`` and ``decode`` kinds
-and every kind of the ``mem`` family (``serve``, ``train``,
-``retrieval``). A train step is ``fn(params, opt_state, batch) ->
-(params, opt_state, {"loss", "grad_norm", "lr"})`` with the reference's
-optimizer (``_opt``).
+Every kind of every family is ported: ``lm`` (``train``, ``prefill``,
+``decode``), ``mem`` (``serve``, ``train``, ``retrieval``), ``gnn``
+(``graph_full``, ``graph_mini``, ``graph_batched``: train steps) and
+``recsys`` (``train``, ``serve``, ``retrieval``). A train step is
+``fn(params, opt_state, batch) -> (params, opt_state, {"loss",
+"grad_norm", "lr"})`` with the reference's optimizer (``_opt``); the gnn
+and recsys train steps update ``params`` and the moments in place, as the
+reference donates them (``donate_argnums=(0, 1)``).
 """
 from __future__ import annotations
 
@@ -22,9 +28,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchSpec, LMConfig, MEMConfig, ShapeConfig
+from repro_torch.configs.base import (ArchSpec, GNNConfig, LMConfig,
+                                      MEMConfig, RecsysConfig, ShapeConfig)
+from repro_torch.data.sampler import max_sizes
+from repro_torch.models import gnn as G
 from repro_torch.models import imagebind as IB
+from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
+from repro_torch.models.layers import torch_dtype
 from repro_torch.optim.adamw import AdamW, _map, value_and_grad
 from repro_torch.optim.schedule import warmup_cosine
 
@@ -139,7 +150,8 @@ def build_lm_train(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
         model_flops=6.0 * cfg.n_active_params * tokens,
         meta={"tokens": tokens, "cfg": cfg, "train": True, "remat": remat,
               "microbatches": microbatches, "mode": mode, "chunk": chunk,
-              "device": dev})
+              "device": dev, "inputs": {k: ((B, S), torch.int32)
+                                        for k in ("tokens", "labels")}})
 
 
 def build_lm_prefill(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
@@ -239,9 +251,14 @@ def build_mem_step(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
 
         flops = 3.0 * sum(2 * 12 * t.d_model ** 2 * t.n_layers
                           * (t.n_tokens + 1) for t in cfg.towers) * B
+        inputs = {t.modality: (((B, t.n_tokens), torch.int32)
+                               if t.modality == "text" else
+                               ((B, t.n_tokens, t.d_input),
+                                torch_dtype(cfg.dtype)))
+                  for t in cfg.towers}
         return StepBundle("train_step", train_step, flops,
                           {**meta, "train": True, "remat": remat,
-                           "items": B})
+                           "items": B, "inputs": inputs})
 
     if shape.kind == "retrieval":
         t = cfg.tower("text")
@@ -257,18 +274,199 @@ def build_mem_step(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
     raise ValueError(shape.kind)
 
 
+# ---------------------------------------------------------------------------
+# GNN steps
+# ---------------------------------------------------------------------------
+
+
+def build_gnn_step(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
+                   n_layers: Optional[int] = None) -> StepBundle:
+    """The gnn family's train step, fn(params, opt_state, g: ``gnn.Graph``)
+    -> (params, opt_state, {"loss", "grad_norm", "lr"}), params from
+    ``gnn.gnn_init(..., cfg=meta["cfg"], embed_out=meta["embed_out"])``:
+      * ``graph_full``: one graph of the shape's nodes and edges, each
+        round under remat;
+      * ``graph_mini``: a sampled subgraph padded to ``max_sizes`` of the
+        shape's seeds and fanout (``data.sampler.sample_subgraph``), remat;
+      * ``graph_batched``: ``global_batch`` graphs, each field with a
+        leading graph axis (``gnn_loss_batched``, no remat)."""
+    cfg: GNNConfig = replace(spec.model,
+                             d_feat=shape.d_feat or spec.model.d_feat)
+    if n_layers is not None:
+        cfg = replace(cfg, n_layers=n_layers)
+    recall = spec.recall
+    dev = resolve_device(device)
+    opt = _opt()
+    if shape.kind == "graph_batched":  # molecule: batched small graphs
+        Bg, N, E = shape.global_batch, shape.n_nodes, shape.n_edges
+        lead, loss_fn = (Bg,), lambda p, g: G.gnn_loss_batched(
+            p, cfg, recall, g)[0]
+        n_edges_total, n_nodes_total = Bg * E, Bg * N
+    elif shape.kind in ("graph_full", "graph_mini"):
+        if shape.kind == "graph_mini":
+            N, E = max_sizes(shape.batch_nodes, shape.fanout)
+        else:
+            N, E = shape.n_nodes, shape.n_edges
+        lead, loss_fn = (), lambda p, g: G.gnn_loss(p, cfg, recall, g,
+                                                    remat=True)[0]
+        n_edges_total, n_nodes_total = E, N
+    else:
+        raise ValueError(shape.kind)
+    inputs = {"node_feat": (lead + (N, cfg.d_feat), torch.float32),
+              "src": (lead + (E,), torch.int32),
+              "dst": (lead + (E,), torch.int32),
+              "node_mask": (lead + (N,), torch.float32),
+              "edge_mask": (lead + (E,), torch.float32),
+              "labels": (lead + (N,), torch.int32)}
+
+    def train_step(params, opt_state, g):
+        loss, grads = value_and_grad(loss_fn, params, G.Graph(*g))
+        params, opt_state, m = opt.update(grads, opt_state, params,
+                                          donate=True)
+        return params, opt_state, {"loss": loss, **m}
+
+    # message passing "useful" FLOPs: 5 dense matmuls per node + gather/
+    # scatter per edge, x2 (MAC) x3 (fwd+bwd)
+    d = cfg.d_hidden
+    node_flops = 5 * 2 * d * d * n_nodes_total
+    edge_flops = 2 * 6 * d * n_edges_total
+    return StepBundle(
+        name="train_step", fn=train_step,
+        model_flops=3.0 * cfg.n_layers * (node_flops + edge_flops),
+        meta={"cfg": cfg, "device": dev, "train": True,
+              "embed_out": min(1024, cfg.d_hidden * 8), "n_nodes": N,
+              "n_edges": n_edges_total, "inputs": inputs})
+
+
+# ---------------------------------------------------------------------------
+# RecSys steps
+# ---------------------------------------------------------------------------
+
+
+def _recsys_inputs(cfg: RecsysConfig, B: int) -> Dict[str, Tuple]:
+    """Each input's (shape, dtype): the reference's
+    ``_recsys_abstract_inputs``."""
+    i32, f32 = torch.int32, torch.float32
+    if cfg.kind == "dlrm":
+        return {"dense": ((B, cfg.n_dense), f32),
+                "sparse": ((B, len(cfg.table_vocabs)), i32),
+                "label": ((B,), f32)}
+    if cfg.kind == "bst":
+        return {"hist": ((B, cfg.seq_len), i32), "target": ((B,), i32),
+                "other": ((B, R.BST_OTHER_DIM), f32), "label": ((B,), f32)}
+    if cfg.kind == "sasrec":
+        return {"hist": ((B, cfg.seq_len), i32),
+                "pos": ((B, cfg.seq_len), i32),
+                "neg": ((B, cfg.seq_len), i32), "target": ((B,), i32)}
+    if cfg.kind == "dien":
+        return {"hist": ((B, cfg.seq_len), i32),
+                "hist_cate": ((B, cfg.seq_len), i32),
+                "target": ((B,), i32), "target_cate": ((B,), i32),
+                "label": ((B,), f32)}
+    raise ValueError(cfg.kind)
+
+
+def _recsys_flops(cfg: RecsysConfig, B: int) -> float:
+    D = cfg.embed_dim
+    if cfg.kind == "dlrm":
+        dims = (cfg.n_dense,) + cfg.bot_mlp
+        f = sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+        n_f = len(cfg.table_vocabs) + 1
+        f += 2 * n_f * n_f * D
+        tdims = (cfg.bot_mlp[-1] + n_f * (n_f - 1) // 2,) + cfg.top_mlp
+        f += sum(2 * a * b for a, b in zip(tdims[:-1], tdims[1:]))
+        return float(f * B)
+    if cfg.kind in ("bst", "sasrec"):
+        S = cfg.seq_len + (1 if cfg.kind == "bst" else 0)
+        per_block = 2 * S * 4 * D * D + 4 * S * S * D + 2 * S * 2 * D * (4 * D)
+        f = cfg.n_blocks * per_block
+        if cfg.kind == "bst":
+            dims = (S * D + R.BST_OTHER_DIM,) + cfg.mlp + (1,)
+            f += sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+        return float(f * B)
+    if cfg.kind == "dien":
+        H, S = cfg.gru_dim, cfg.seq_len
+        gru = 2 * S * 3 * (2 * D * H + H * H) * 2  # two GRU passes
+        dims = (H + 2 * D,) + cfg.mlp + (1,)
+        mlp = sum(2 * a * b for a, b in zip(dims[:-1], dims[1:]))
+        return float((gru + mlp) * B)
+    raise ValueError(cfg.kind)
+
+
+def build_recsys_step(spec: ArchSpec, shape: ShapeConfig, *,
+                      device="cuda") -> StepBundle:
+    """The recsys family's steps by ``shape.kind``, params from
+    ``recsys.recsys_init``, ``batch`` a dict of the tensors named in
+    ``meta["inputs"]``:
+      * ``train``: fn(params, opt_state, batch) -> (params, opt_state,
+        {"loss", "grad_norm", "lr"});
+      * ``serve``: fn(params, batch) -> (B,) sigmoid of the logit;
+      * ``retrieval``: fn(params, batch with ``cand_bank`` (C, D)) -> (top
+        100 scores, their candidate ids) of each query, ties to the lower
+        id (``lax.top_k``'s order)."""
+    cfg: RecsysConfig = spec.model
+    dev = resolve_device(device)
+    B = shape.global_batch
+    inputs = _recsys_inputs(cfg, max(B, 1))
+    meta = {"cfg": cfg, "device": dev, "items": B, "inputs": inputs}
+
+    if shape.kind == "train":
+        opt = _opt()
+
+        def loss_fn(p, batch):
+            return R.recsys_loss(p, cfg, batch)[0]
+
+        def train_step(params, opt_state, batch):
+            loss, grads = value_and_grad(loss_fn, params, batch)
+            params, opt_state, m = opt.update(grads, opt_state, params,
+                                              donate=True)
+            return params, opt_state, {"loss": loss, **m}
+
+        return StepBundle("train_step", train_step,
+                          3.0 * _recsys_flops(cfg, B),
+                          {**meta, "train": True})
+
+    if shape.kind == "serve":
+        def serve_step(params, batch):
+            return torch.sigmoid(R.recsys_forward(params, cfg, batch))
+
+        return StepBundle("serve_step", serve_step, _recsys_flops(cfg, B),
+                          meta)
+
+    if shape.kind == "retrieval":
+        C = shape.n_candidates
+        D = cfg.bot_mlp[-1] if cfg.kind == "dlrm" else cfg.embed_dim
+        inputs["cand_bank"] = ((C, D), torch.float32)
+
+        def retrieval_step(params, batch):
+            return _top_k(R.retrieval_scores(params, cfg, batch, C), 100)
+
+        return StepBundle(
+            "serve_step", retrieval_step,
+            _recsys_flops(cfg, B) + 2.0 * B * C * cfg.embed_dim, meta)
+    raise ValueError(shape.kind)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
 def build_step(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
                window: int = 0, n_layers: Optional[int] = None,
                pad_to: Optional[int] = None, **train_kw) -> StepBundle:
     """The bundle of ``spec``'s ``shape`` cell; ``train_kw`` (``remat``,
-    and for the LM ``microbatches``) goes to the train builders."""
+    and for the LM ``microbatches``) goes to the LM and MEM train
+    builders."""
     if spec.family == "mem":
         return build_mem_step(spec, shape, device=device, n_layers=n_layers,
                               **train_kw)
+    if spec.family == "gnn":
+        return build_gnn_step(spec, shape, device=device, n_layers=n_layers)
+    if spec.family == "recsys":
+        return build_recsys_step(spec, shape, device=device)
     if spec.family != "lm":
-        raise NotImplementedError(
-            f"steps for the {spec.family!r} family are not ported yet: "
-            "ROADMAP queue A.6")
+        raise ValueError(spec.family)
     if shape.kind == "train":
         return build_lm_train(spec, shape, device=device, window=window,
                               n_layers=n_layers, **train_kw)

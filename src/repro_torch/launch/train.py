@@ -6,11 +6,14 @@ them. Runs at smoke scale on the CPU and at full width on the card.
 Usage (smoke, CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
       --smoke --steps 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \
+      --smoke --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import replace
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -23,35 +26,49 @@ from repro_torch.data import synthetic as SYN
 from repro_torch.data.pipeline import ShardedLoader
 from repro_torch.distributed.straggler import Action, StragglerMonitor
 from repro_torch.launch.steps import build_step
+from repro_torch.models import gnn as G
 from repro_torch.models import imagebind as IB
+from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW
 
 
-def _not_ported(family: str):
-    return NotImplementedError(f"training the {family!r} family is not "
-                               "ported yet: ROADMAP queue A.6")
-
-
 def make_train_data(spec, shape, n: int, seed: int = 0
                     ) -> Dict[str, np.ndarray]:
+    """``n`` training examples of ``spec``'s family. The gnn family has
+    none: it raises ``ValueError("gnn")``, as the reference does (its
+    graphs come from ``data.synthetic.sbm_graph`` and
+    ``data.sampler.sample_subgraph``)."""
     if spec.family == "lm":
         toks = SYN.lm_tokens(seed, n, shape.seq_len + 1, spec.model.vocab)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if spec.family == "recsys":
+        if spec.model.kind == "dlrm":
+            return SYN.criteo_like(seed, n, spec.model)
+        return SYN.seq_recsys(seed, n, spec.model)
     if spec.family == "mem":
         return dict(SYN.multimodal_pairs(seed, n, spec.model).items)
-    raise _not_ported(spec.family)
+    raise ValueError(spec.family)
 
 
-def init_params(spec, seed: int, device):
+def init_params(spec, seed: int, device, shape=None):
     """The family's random init from a generator on ``device`` seeded by
-    ``seed``."""
+    ``seed`` (a gnn's input width is ``shape``'s ``d_feat``, as its step
+    takes it)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     if spec.family == "lm":
         return T.lm_init(gen, spec.model, spec.recall, device=device)
     if spec.family == "mem":
         return IB.mem_init(gen, spec.model, spec.recall, device=device)
-    raise _not_ported(spec.family)
+    if spec.family == "recsys":
+        return R.recsys_init(gen, spec.model, device=device)
+    if spec.family == "gnn":
+        cfg = replace(spec.model, d_feat=(shape.d_feat if shape else 0)
+                      or spec.model.d_feat)
+        return G.gnn_init(gen, cfg, spec.recall,
+                          embed_out=min(1024, cfg.d_hidden * 8),
+                          device=device)
+    raise ValueError(spec.family)
 
 
 def train_loop(spec, shape, *, device="cuda", steps: int = 50,
@@ -63,13 +80,12 @@ def train_loop(spec, shape, *, device="cuda", steps: int = 50,
     ``steps`` steps. ``train_kw`` goes to ``build_step``. Returns the
     params, the optimizer state, the step losses and grad norms (floats),
     each step's host seconds (from the step's call to its loss read back)
-    and the final step."""
+    and the final step. Each batch keeps only the arrays the step takes
+    (``meta["inputs"]``), as the reference's loop does."""
     dev = resolve_device(device)
-    if spec.family not in ("lm", "mem"):
-        raise _not_ported(spec.family)
     shape_cfg = spec.shape(shape) if isinstance(shape, str) else shape
     bundle = build_step(spec, shape_cfg, device=dev, **train_kw)
-    params = init_params(spec, seed, dev)
+    params = init_params(spec, seed, dev, shape_cfg)
     opt_state = AdamW().init(params)  # zero moments, step 0
 
     mgr = None
@@ -98,7 +114,8 @@ def train_loop(spec, shape, *, device="cuda", steps: int = 50,
     try:
         for step in range(start_step, start_step + steps):
             batch = {k: torch.as_tensor(v).to(dev)
-                     for k, v in next(it).items()}
+                     for k, v in next(it).items()
+                     if k in bundle.meta["inputs"]}
             t0 = time.perf_counter()
             params, opt_state, metrics = bundle.fn(params, opt_state, batch)
             loss = float(metrics["loss"])

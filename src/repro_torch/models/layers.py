@@ -5,7 +5,12 @@ of ``ParamDef``), the same structure as the reference's pytrees, so
 ``models/convert.py`` can carry JAX parameters across leaf by leaf.
 RMSNorm goes through the kernel dispatch (Triton on CUDA, the plain version
 on the CPU); every other op here is plain PyTorch, the P-LoRA delta
-(``lora_delta``) included.
+(``lora_delta``) and the recsys blocks' attention (``multihead_attention``,
+whose head dims of 4 and 50 the flash kernel does not take) included.
+Gathers clamp their ids and scatters (``segment_sum``) drop out-of-range
+ids, as the reference's ``mode="clip"`` takes and ``segment_sum`` do; both
+sum their gradients in a fixed order (``index_put_(accumulate=True)``
+sorts the ids), so a step gives the same bits twice on the card.
 """
 from __future__ import annotations
 
@@ -96,6 +101,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return rmsnorm_op(x, scale, eps)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 (the population variance, as ``jnp.var``), cast
+    back to x's dtype."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embedding
 # ---------------------------------------------------------------------------
@@ -142,6 +159,80 @@ def attn_schema(d_model: int, n_heads: int, n_kv: int, head_dim: int,
         s["bk"] = ParamDef(L + (n_kv, head_dim), la + ("kv_heads", "head_dim"), "zeros")
         s["bv"] = ParamDef(L + (n_kv, head_dim), la + ("kv_heads", "head_dim"), "zeros")
     return s
+
+
+NEG_INF = -1e30
+
+
+def attention_scores_mask(q_len: int, kv_len: int, *, causal: bool,
+                          window: int = 0, q_offset: int = 0,
+                          device=None) -> torch.Tensor:
+    """(q_len, kv_len) bool mask; True = attend."""
+    qi = torch.arange(q_len, device=device)[:, None] + q_offset
+    kj = torch.arange(kv_len, device=device)[None, :]
+    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window and window > 0:
+        mask &= kj > (qi - window)
+    return mask
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, mask: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention, plain: fp32 scores, the masked ones set to
+    -1e30, softmax, fp32 P·V, cast back to q's dtype (the reference's
+    ``layers.multihead_attention``). q (B, Sq, H, D); k, v (B, Skv, KV, D)
+    with H % KV == 0; ``mask`` (Sq, Skv), (B, Sq, Skv) or (B, H, Sq, Skv),
+    True = attend."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Sq, KV, G, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if mask is not None:
+        if mask.ndim == 2:
+            m = mask[None, None, None]
+        elif mask.ndim == 3:  # (B, Sq, Skv)
+            m = mask[:, None, None]
+        else:  # (B, H, Sq, Skv)
+            m = mask.reshape(B, KV, G, Sq, -1)
+        scores = torch.where(m, scores, torch.full((), NEG_INF,
+                                                   device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attn_project_qkv(p: Schema, x: torch.Tensor, *, rope_theta: float,
+                     positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, d_model) -> q (B,S,H,D), k/v (B,S,KV,D), biases added and
+    RoPE applied when ``rope_theta`` > 0."""
+    B, S, d = x.shape
+    out = []
+    for name in ("wq", "wk", "wv"):
+        w = p[name].to(x.dtype)                          # (d, H, D)
+        out.append((x.reshape(B * S, d) @ w.reshape(d, -1))
+                   .view(B, S, *w.shape[1:]))
+    q, k, v = out
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    if rope_theta > 0:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def attn_output(p: Schema, o: torch.Tensor) -> torch.Tensor:
+    """o (B, S, H, D) -> (B, S, d_model) through ``wo`` (H, D, d_model)."""
+    B, S, H, D = o.shape
+    wo = p["wo"].to(o.dtype)
+    return (o.reshape(B * S, H * D) @ wo.reshape(H * D, -1)).view(B, S, -1)
 
 
 def swiglu_schema(d_model: int, d_ff: int,
@@ -251,6 +342,21 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and table.requires_grad:
         return _EmbedLookup.apply(table, ids)
     return table[ids]
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """(num_segments, ...) sums of ``data``'s rows by ``segment_ids``; a row
+    whose id lies outside [0, num_segments) is dropped, as
+    ``jax.ops.segment_sum`` drops it. The rows are added by an
+    accumulating ``index_put_``, which sorts the ids and adds each
+    segment's rows in that fixed order (no atomics on the card); its
+    gradient is a gather."""
+    ids = segment_ids.long()
+    ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+    out = data.new_zeros((num_segments + 1,) + data.shape[1:])
+    out = out.index_put((ids,), data, accumulate=True)
+    return out[:num_segments]
 
 
 # ---------------------------------------------------------------------------

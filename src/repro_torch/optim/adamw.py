@@ -47,12 +47,16 @@ class AdamW:
         return AdamWState(step=0, m=_map(zeros, params), v=_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params, grad_mask=None
-               ) -> Tuple[Any, AdamWState, dict]:
+    def update(self, grads, state: AdamWState, params, grad_mask=None, *,
+               donate: bool = False) -> Tuple[Any, AdamWState, dict]:
         """Returns (new_params, new_state, metrics). ``grad_mask`` (the
         grads' structure, 0/1 leaves that broadcast against them) multiplies
         the grads before the global norm: P-LoRA healing freezes the masked
-        layers' grads this way (their moments still decay and move them)."""
+        layers' grads this way (their moments still decay and move them).
+        ``donate`` writes the new values into ``params`` and the state's
+        moments, leaf by leaf (the reference's ``donate_argnums``), so the
+        update holds one leaf's temporaries rather than a second copy of
+        params and moments; the values are the same bits."""
         if grad_mask is not None:
             grads = _map(lambda g, k: g * k, grads, grad_mask)
         gnorm = global_norm(grads)
@@ -76,7 +80,13 @@ class AdamW:
             delta = mh / (torch.sqrt(vh) + self.eps) + self.weight_decay * p.float()
             return (p.float() - lr * delta).to(p.dtype), m, v
 
-        out = _map(upd, params, grads, state.m, state.v)
+        def upd_(p, g, m, v):
+            new = upd(p, g, m, v)
+            for old, x in zip((p, m, v), new):
+                old.copy_(x)
+            return p, m, v
+
+        out = _map(upd_ if donate else upd, params, grads, state.m, state.v)
         new_params = _pick(out, 0)
         new_m, new_v = _pick(out, 1), _pick(out, 2)
         return new_params, AdamWState(step, new_m, new_v), {

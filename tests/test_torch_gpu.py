@@ -1302,3 +1302,66 @@ def test_bf16_checkpoint_round_trip_from_the_card(gen, tmp_path):
                            torch.bfloat16 else got,
                            want.view(torch.int16) if want.dtype ==
                            torch.bfloat16 else want)
+
+
+def test_rmsnorm_kernel_at_the_gnn_exit_width_matches_plain(gen):
+    """The Triton RMSNorm at GatedGCN's exit head: 8 exits of width 70,
+    fp32 (a width that is no power of two), one launch, within 1e-5 of
+    the plain version."""
+    from repro_torch.kernels.rmsnorm import ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+    x = torch.randn((8, 70), generator=gen, device="cuda") * 3
+    scale = 1 + 0.1 * torch.randn((70,), generator=gen, device="cuda")
+    before = ops.launches
+    out = ops.rmsnorm_fwd(x, scale, 1e-5)
+    assert ops.launches == before + 1
+    want = rmsnorm_reference(x, scale, 1e-5)
+    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("arch", ["dien", "gatedgcn"])
+def test_family_train_step_gives_the_same_bits_twice(gen, arch):
+    """A recsys (DIEN's smoke variant at batch 2,048) and a GNN (the
+    GatedGCN smoke graph) train step on the card, run twice from copies of
+    one state on one batch: the same loss, grad norm, params and moments,
+    bit for bit (the gathers' gradients and the segment sums add in a
+    fixed order)."""
+    import numpy as np
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_variant
+    from repro_torch.data import synthetic as SYN
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.models.gnn import Graph
+    from repro_torch.optim.adamw import AdamW, _leaves
+    spec = smoke_variant(get_arch(arch))
+    if arch == "dien":
+        shape = ShapeConfig("t", "train", global_batch=2048)
+        b = S.build_step(spec, shape, device="cuda")
+        data = TR.make_train_data(spec, shape, 2048, 0)
+        inputs = {k: torch.as_tensor(v).cuda() for k, v in data.items()
+                  if k in b.meta["inputs"]}
+    else:
+        shape = spec.shape("smoke_graph")
+        b = S.build_step(spec, shape, device="cuda")
+        g = SYN.sbm_graph(0, 64, 5, 8, avg_degree=2.0)
+        E, e = 256, len(g["src"])
+        pad = lambda a: np.concatenate([a, np.zeros(E - e, a.dtype)])
+        inputs = Graph(*[torch.as_tensor(a).cuda() for a in (
+            g["node_feat"], pad(g["src"]), pad(g["dst"]),
+            np.ones(64, np.float32), pad(np.ones(e, np.float32)),
+            g["labels"])])
+    params = TR.init_params(spec, 0, "cuda", shape)
+    runs = []
+    for _ in range(2):
+        p = _copy(params)
+        p, o, m = b.fn(p, AdamW().init(p), inputs)
+        runs.append((m["loss"].item(), m["grad_norm"].item(),
+                     _leaves(p) + _leaves(o.m) + _leaves(o.v)))
+    assert runs[0][:2] == runs[1][:2]
+    assert all(torch.equal(x, y) for x, y in zip(runs[0][2], runs[1][2]))
+
+
+def _copy(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return {k: _copy(v) for k, v in tree.items()}

@@ -9,7 +9,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "train_recall_mem_torch.py",
-    ROOT / "examples" / "edge_simulation_torch.py"]
+    ROOT / "examples" / "edge_simulation_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "serve_retrieval_torch.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 

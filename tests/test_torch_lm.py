@@ -220,15 +220,16 @@ def test_build_step_on_cpu(models, arch):
     want = TT.decode_step(tp2, cfg, port.recall, token, kc.clone(),
                           vc.clone(), lengths)[0]
     torch.testing.assert_close(got, want)
-    # the train kind and the mem family are ported (tests/test_torch_train*);
-    # the recsys and gnn families still refuse, naming their queue item
+    # the train kind, the mem family and the recsys and gnn families are
+    # ported (tests/test_torch_train*, tests/test_torch_families_steps.py);
+    # a family the reference does not have raises ValueError, as there
     train = TS.build_step(port, port.shape("smoke_train"), device="cpu")
     assert train.name == "train_step" and train.meta["train"]
     serve = TS.build_step(TC.get_arch("recall-imagebind"),
                           TC.ShapeConfig("e", "serve", 8), device="cpu")
     assert serve.name == "serve_step"
-    with pytest.raises(NotImplementedError, match="A.6"):
-        TS.build_step(dataclasses.replace(port, family="recsys"),
+    with pytest.raises(ValueError, match="other"):
+        TS.build_step(dataclasses.replace(port, family="other"),
                       port.shape("smoke_train"), device="cpu")
 
 

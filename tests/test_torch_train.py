@@ -136,7 +136,8 @@ def test_lm_loss_grad_at_the_init_itself_matches_reference(lm_pair,
     port's 1.8e-3 (bk, whose true gradient nearly cancels); their global
     norms part by 1.5e-4. So the leaves are held at 5e-3 of their scale
     and the global norm at 1e-3. At qwen2-1.5b's full depth this norm
-    passes float32's range (ROADMAP C.7)."""
+    passes float32's range (ROADMAP C.7). Where the 7x comes from is the
+    next test's (ROADMAP C.9)."""
     ref, port, _ = lm_pair[True]
     p = jax.jit(partial(JT.lm_init, cfg=ref.model, recall=ref.recall))(
         jax.random.PRNGKey(0))
@@ -153,6 +154,169 @@ def test_lm_loss_grad_at_the_init_itself_matches_reference(lm_pair,
     jn = math.sqrt(sum(float((np.asarray(g, np.float64) ** 2).sum())
                        for g in jax.tree.leaves(jg)))
     assert abs(tn - jn) <= 1e-3 * jn
+
+
+def _lm_loss64(P, cfg, x, y):
+    """The qwen2 smoke LM's loss written out in float64 with plain ops: a
+    yardstick for the fp32 gradients. RoPE's angles are rounded to fp32
+    as the port's ``apply_rope`` rounds them."""
+    d64 = torch.float64
+    h = P["embed"][x]
+    B, S, _ = h.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    freqs = 1.0 / (cfg.rope_theta ** (torch.arange(0, hd, 2) / hd))
+    ang = (torch.arange(S, dtype=torch.float32)[:, None] * freqs).to(d64)
+    sin, cos = torch.sin(ang)[:, None], torch.cos(ang)[:, None]
+
+    def rope(t):
+        a, b = t.chunk(2, -1)
+        return torch.cat([a * cos - b * sin, b * cos + a * sin], -1)
+
+    def rms(t, s):
+        return t * torch.rsqrt((t * t).mean(-1, keepdim=True)
+                               + cfg.norm_eps) * s
+
+    lp = P["layers"]
+    causal = torch.tril(torch.ones(S, S, dtype=torch.bool))
+    for i in range(cfg.n_layers):
+        a = {k: v[i] for k, v in lp["attn"].items()}
+        u = rms(h, lp["norm1"][i])
+        q, k, v = (torch.einsum("bsd,dhk->bshk", u, a[w]) + a[b]
+                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+        q, k = rope(q), rope(k)
+        s = torch.einsum("bqkgd,bjkd->bkgqj",
+                         q.reshape(B, S, KV, H // KV, hd), k) / hd ** 0.5
+        pr = torch.softmax(torch.where(causal, s, -1e30), -1)
+        o = torch.einsum("bkgqj,bjkd->bqkgd", pr, v).reshape(B, S, H, hd)
+        h = h + torch.einsum("bshk,hkd->bsd", o, a["wo"])
+        u = rms(h, lp["norm2"][i])
+        m = {k: w[i] for k, w in lp["mlp"].items()}
+        h = h + (torch.nn.functional.silu(u @ m["w_gate"])
+                 * (u @ m["w_up"])) @ m["w_down"]
+    logits = rms(h, P["final_norm"]) @ P["embed"].T
+    return (torch.logsumexp(logits, -1)
+            - torch.gather(logits, -1, y[..., None])[..., 0]).mean()
+
+
+def _proj_qkv_with(matmul):
+    """``transformer._proj_qkv`` (no LoRA) with its three products taken
+    by ``matmul(x2, w2)``."""
+    def proj(p, x, positions=None, rope_theta=0.0, lora=None,
+             lora_scale=0.0):
+        B, S, d = x.shape
+        q, k, v = (matmul(x.reshape(B * S, d), p[w].reshape(d, -1))
+                   .view(B, S, *p[w].shape[1:]) + p[b]
+                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+        return (TL.apply_rope(q, positions, rope_theta),
+                TL.apply_rope(k, positions, rope_theta), v)
+    return proj
+
+
+def test_lm_init_gradient_gap_is_the_qkv_products_rounding(
+        lm_pair, ref_lm_loss_grad, monkeypatch):
+    """ROADMAP C.9, where the port's fp32 gradient at the smoke init (the
+    previous test's) lies 5-7x further from float64 than the reference's.
+    Against a float64 gradient of the same function, the worst leaf (bk)
+    of the port lies 1.6e-3 of its scale off, the reference's 3.2e-4.
+    The same arithmetic: the init's attention is near one-hot, so the
+    gradient carries each rounding of the q/k/v products (the 64-term
+    fp32 sums of ``_proj_qkv``) amplified about 10^4-fold. Those products
+    rounded once from float64 bring the port to 2.0e-4 (within 2x the
+    reference's); the same fp32 products summed in 8 other orders of
+    their 64 terms (the rows of x and w permuted alike) put the worst leaf
+    anywhere from 2.8e-4 to 2.6e-3, the reference's order near the low
+    end and the port's (MKL's) inside. Putting chunked_xent, the
+    embedding gradient, the attention (forward and softmax backward) and
+    RMSNorm in float64 instead, together, leaves 1.2e-3."""
+    ref, port, _ = lm_pair[True]
+    p = to_np(jax.jit(partial(JT.lm_init, cfg=ref.model, recall=ref.recall))(
+        jax.random.PRNGKey(0)))
+    toks = JSYN.lm_tokens(5, 3, 33, ref.model.vocab)
+    x, y = toks[:, :-1], toks[:, 1:]
+    _, jg = ref_lm_loss_grad[True](p, jnp.asarray(x), jnp.asarray(y),
+                                   jnp.ones(x.shape, jnp.float32))
+    batch = (torch.as_tensor(x), torch.as_tensor(y))
+    l64, g64 = value_and_grad(lambda q, b: _lm_loss64(q, port.model, *b),
+                              params_from_jax(p, dtype=torch.float64),
+                              (batch[0].long(), batch[1].long()))
+
+    def worst(g):
+        return max(_errs64(g, g64).values())
+
+    def port_grad():
+        return value_and_grad(lambda q, b: TT.lm_loss(
+            q, port.model, port.recall, *b, chunk=16)[0],
+            params_from_jax(p), batch)
+
+    tl, tg = port_grad()
+    assert abs(float(tl) - float(l64)) <= 1e-6 * float(l64)
+    err_port, err_ref = worst(tg), worst(to_np(jg))
+    assert err_port > 2 * err_ref, (err_port, err_ref)  # the gap explained
+    with monkeypatch.context() as m:  # the other suspects, in float64
+        for mod, name, fn in _suspects64():
+            m.setattr(mod, name, fn)
+        suspects = worst(port_grad()[1])
+    assert suspects > 2 * err_ref, (suspects, err_ref)
+    monkeypatch.setattr(TT, "_proj_qkv", _proj_qkv_with(
+        lambda a, w: (a.double() @ w.double()).float()))
+    rounded = worst(port_grad()[1])
+    assert rounded <= 2 * err_ref, (rounded, err_ref)
+    orders = []
+    for seed in range(8):
+        perm = torch.randperm(64, generator=torch.Generator().manual_seed(
+            seed))
+        monkeypatch.setattr(TT, "_proj_qkv", _proj_qkv_with(
+            lambda a, w, perm=perm: a[:, perm] @ w[perm]))
+        orders.append(worst(port_grad()[1]))
+    assert min(orders) <= 2 * err_ref and max(orders) >= err_port, orders
+
+
+def _suspects64():
+    """(module, name, float64 stand-in) for ``chunked_xent``, the
+    embedding lookup, the attention (forward and softmax backward by
+    autograd) and RMSNorm: each computes in float64 and rounds its result
+    to float32 once."""
+    xent = TT.chunked_xent
+
+    def xent64(h, head, labels, mask=None, chunk=1024):
+        return xent(h.double(), head.double(), labels, mask,
+                    chunk=chunk).float()
+
+    def embed64(table, ids):
+        return table.double()[ids.long().clamp(0, table.shape[0] - 1)].float()
+
+    def attn64(q, k, v, causal=True, window=0):
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        s = torch.einsum("bqkgd,bjkd->bkgqj",
+                         q.double().reshape(B, S, KV, H // KV, hd),
+                         k.double()) / hd ** 0.5
+        causal_mask = torch.tril(torch.ones(S, S, dtype=torch.bool))
+        pr = torch.softmax(torch.where(causal_mask, s, -1e30), -1)
+        return torch.einsum("bkgqj,bjkd->bqkgd", pr, v.double()).reshape(
+            B, S, H, hd).float()
+
+    def rms64(x, scale, eps=1e-6):
+        xd = x.double()
+        return (xd * torch.rsqrt((xd * xd).mean(-1, keepdim=True) + eps)
+                * scale.double()).float()
+
+    return [(TT, "chunked_xent", xent64), (TT.L, "embed_lookup", embed64),
+            (TT, "flash_attention", attn64), (TT.L, "rmsnorm", rms64)]
+
+
+def _errs64(g, g64):
+    """{path: max |g - g64| / max |g64|}, g a tree of tensors or arrays."""
+    if isinstance(g64, dict):
+        out = {}
+        for k in g64:
+            out.update({f"/{k}{q}": v for q, v in
+                        _errs64(g[k], g64[k]).items()})
+        return out
+    g = g.detach().double().numpy() if isinstance(g, torch.Tensor) \
+        else np.asarray(g, np.float64)
+    w = g64.double().numpy()
+    return {"": np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)}
 
 
 def test_lm_loss_remat_gives_the_same_numbers(lm_pair):
@@ -296,6 +460,9 @@ def test_lm_train_bundle_takes_the_reference_plan():
 
 
 def test_build_step_still_refuses_other_families():
-    spec = dataclasses.replace(TC.get_arch("qwen2-1.5b"), family="recsys")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    """Every family of the reference builds (the recsys and gnn ones in
+    tests/test_torch_families_steps.py); one it does not know raises
+    ValueError, as the reference's dispatch does."""
+    spec = dataclasses.replace(TC.get_arch("qwen2-1.5b"), family="other")
+    with pytest.raises(ValueError, match="other"):
         TS.build_step(spec, spec.shape("train_4k"), device="cpu")

@@ -226,8 +226,13 @@ def test_train_entry_points_refuse_what_is_not_there():
     if not torch.cuda.is_available():  # the card is the default device
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TTR.train_loop(spec, "smoke_train", steps=1)
-    other = TC.ArchSpec("x", "recsys", spec.model, spec.shapes)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    # every family of the reference trains but gnn, whose data the
+    # reference's make_train_data refuses too (test_torch_families_steps);
+    # a family it does not know raises ValueError
+    other = TC.ArchSpec("x", "other", spec.model, spec.shapes)
+    with pytest.raises(ValueError, match="other"):
         TTR.train_loop(other, "smoke_train", device="cpu", steps=1)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(ValueError, match="other"):
         TTR.make_train_data(other, spec.shape("smoke_train"), 4)
+    with pytest.raises(ValueError, match="other"):
+        TTR.init_params(other, 0, "cpu")
