@@ -12,7 +12,7 @@ kernel against its plain PyTorch version at its path's shapes (the int4
 activation-cache kernels bit for bit; the grouped GEMM's side cases through
 both of its kernels, wgmma and mma.sync; the bf16 flash kernel against the
 plain variant that rounds P to bf16 per key tile, as the TPU kernel does,
-within one bf16 step of each element at max(|o|, 1)). Then it drives nine
+within one bf16 step of each element at max(|o|, 1)). Then it drives ten
 paths, each with every launch counter set to 0 just before it and read
 just after:
 
@@ -81,7 +81,17 @@ just after:
     ``full_graph_sm``, ``minibatch_lg`` (sampled from a Reddit-sized SBM
     graph) and ``molecule`` steps, twice each (the same bits), and its
     exit embeddings through the RMSNorm kernel (one launch a call, held
-    to the plain version).
+    to the plain version);
+  * mesh: the mesh and sharding layer on meshes of cuda:0 entries.
+    qwen2-1.5b's bf16 params placed on (data 2, model 2) by
+    ``make_shardings``, each piece its slice bit for bit, saved and
+    restored by ``elastic_restore`` onto the survivors' (1, 2) mesh,
+    equal bit for bit; the sequence-parallel decode at B 32 over a
+    32,768-token cache split four ways, held to the decode attention
+    kernel (its one launch) and the plain version; ``compressed_psum``
+    and ``psum_scatter_tree`` over the full fp32 gradient tree, within
+    the reference's bounds and the same bits twice; the H100 roofline of
+    the qwen2 shapes the LM and train phases run.
 
 One prefill and one decode step of each LM are held call by call against
 the plain versions; the MoE prefill's grouped-GEMM launches must all run
@@ -108,9 +118,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}
+
+def _peaks():
+    """(HBM bytes/s, {op type: peak ops/s}): the H100 SXM's published
+    rates (dense, at 700 W) from ``repro_torch.launch.mesh``, the numbers
+    the roofline uses too."""
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         PEAK_FLOPS_FP32)
+    return HBM_BW, {"fp32": PEAK_FLOPS_FP32, "bf16": PEAK_FLOPS_BF16}
 
 
 def _fail(msg: str) -> None:
@@ -118,8 +133,9 @@ def _fail(msg: str) -> None:
 
 
 def bound_ms(n_bytes: float, n_ops: float, op_type: str):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS[op_type] * 1e3
+    hbm, peak = _peaks()
+    t_bytes = n_bytes / hbm * 1e3
+    t_ops = n_ops / peak[op_type] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2510,7 +2526,7 @@ def _report_decode(arch, what, cfg, B, wall, n_steps, sum_len, sync):
           f"= {ms:.2f} ms/step, {B / ms * 1e3:.1f} tokens/s; bytes/step "
           f"{n_bytes / 1e9:.3f} GB (weights + sum(lengths) {sum_len:.0f} of "
           f"K/V + logits) = {n_bytes / ms / 1e6:.1f} GB/s, byte bound "
-          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms/step; the closing sync "
+          f"{n_bytes / _peaks()[0] * 1e3:.3f} ms/step; the closing sync "
           f"waited {sync * 1e3:.1f} ms")
 
 
@@ -3199,7 +3215,7 @@ def check_moe_gemm_bwd(gen):
                   + (f"{lib_ms:.4f} ms (kernel {ms / lib_ms:.2f}x it)"
                      if lib_ms is not None else "n/a")
                   + f", bound {b_ms:.4f} ms ({b_by}; operations alone "
-                  f"{n_ops / PEAK_OPS['bf16'] * 1e3:.4f} ms), {b_ms / ms:.1%}"
+                  f"{n_ops / _peaks()[1]['bf16'] * 1e3:.4f} ms), {b_ms / ms:.1%}"
                   f" of it ({b_ms / graph_ms:.1%} by replay)"
                   + (f"; the mma_sync dW kernel {prior['mma_sync_ms']:.4f} "
                      f"ms, graph replay {prior['mma_sync_graph_ms']:.4f} "
@@ -4994,6 +5010,326 @@ def families_phase():
     return got
 
 
+# ---------------------------------------------------------------------------
+# the mesh and sharding layer on one card: a mesh's entries all cuda:0
+# ---------------------------------------------------------------------------
+
+
+def _bits(x):
+    """x's bits as integers of its width (bit-for-bit compares: -0.0 and
+    NaN payloads count)."""
+    import torch
+    return x.view({2: torch.int16, 4: torch.int32, 8: torch.int64,
+                   1: torch.int8}[x.element_size()])
+
+
+def _tree_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_items(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def mesh_placement(smi):
+    """(a) qwen2-1.5b's bf16 params at full width and depth placed on a
+    (data 2, model 2) mesh of four cuda:0 entries by ``make_shardings``
+    (each piece its slice, bit for bit), saved, and restored by
+    ``elastic_restore`` onto ``survivors_mesh(..., failed=2)``, (1, 2):
+    the gathered tree equal to the original, bit for bit."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed import mesh_utils as M
+    from repro_torch.distributed.elastic import (elastic_restore,
+                                                 survivors_mesh,
+                                                 validate_divisibility)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    spec = get_arch("qwen2-1.5b")
+    cfg, rc = spec.model, spec.recall
+    gen = torch.Generator(device="cuda").manual_seed(2210)
+    params = T.lm_init(gen, cfg, rc, device="cuda")
+    n_bytes = sum(x.numel() * x.element_size()
+                  for _, x in _tree_items(params))
+    devices = ["cuda:0"] * 4
+    rules = M.lm_rules(False)
+    specs, ab = T.lm_specs(cfg, rc), T.lm_abstract(cfg, rc)
+    mesh = make_mesh((2, 2), ("data", "model"), devices)
+    shs = M.make_shardings(specs, mesh, rules, ab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = M.place_tree(params, shs)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    n_pieces = 0
+    for (name, x), (_, st) in zip(_tree_items(params), _tree_items(placed)):
+        for piece, sl in zip(st.pieces, st.sharding.slices(x.shape)):
+            if not torch.equal(_bits(piece), _bits(x[sl])):
+                _fail(f"mesh: piece of {name} {sl} differs from its slice")
+            n_pieces += 1
+        if len({p.data_ptr() for p in st.pieces}) != 4:
+            _fail(f"mesh: {name}'s four entries share storage")
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        ck = Checkpointer(d)
+        t0 = time.perf_counter()
+        ck.save(1, placed)
+        save_s = time.perf_counter() - t0
+        del placed
+        surv = survivors_mesh(devices, (2, 2), ("data", "model"), failed=2)
+        if surv.shape != {"data": 1, "model": 2}:
+            _fail(f"mesh: survivors_mesh gave {surv.shape}, want (1, 2)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, man = elastic_restore(ck, ab, surv, rules, specs)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    back = M.gather_tree(restored, "cuda:0")
+    for (name, x), (_, y) in zip(_tree_items(params), _tree_items(back)):
+        if y.dtype != x.dtype or not torch.equal(_bits(y), _bits(x)):
+            _fail(f"mesh: elastic restore changed {name}")
+    problems = validate_divisibility(ab, M.make_shardings(
+        specs, make_mesh((1, 16), ("data", "model"), ["cuda:0"] * 16),
+        rules))
+    print(f"  mesh placement: qwen2-1.5b bf16 {n_bytes / 1e9:.3f} GB, "
+          f"{n_pieces} pieces on (data 2, model 2) of cuda:0 bit-equal to "
+          f"their slices, placed in {place_s:.3f} s; save {save_s:.2f} s, "
+          f"elastic_restore onto {surv.shape} {restore_s:.2f} s (step "
+          f"{man['step']}), gathered tree bit-equal [{smi}]")
+    print(f"  validate_divisibility on (data 1, model 16): "
+          f"{len(problems)} problems: {problems}")
+    return {"save_s": save_s, "restore_s": restore_s, "place_s": place_s}
+
+
+def mesh_seqparallel_decode(smi):
+    """(b) ``flash_decode_seqparallel`` at the LM phase's decode_32k layer
+    shape (B 32, S 32,768, H 12, KV 2, D 128, bf16; lengths 16,384-32,768,
+    four rows at 6,000, whose shards 1-3 hold no valid key), the cache
+    split over a ``seq`` axis of four cuda:0 entries, held to the decode
+    attention kernel on the whole cache (the one counted launch) and to
+    the plain version, within ``bf16_rounding_limit``; both timed."""
+    import torch
+    from repro_torch.distributed import mesh_utils as M
+    from repro_torch.distributed.collectives import flash_decode_seqparallel
+    from repro_torch.kernels.decode_attention.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        bf16_rounding_limit, decode_attention_reference)
+    from repro_torch.launch.mesh import make_mesh
+    B, S, H, KV, D, n = 32, 32768, 12, 2, 128, 4
+    gen = torch.Generator(device="cuda").manual_seed(2211)
+    q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, S, KV, D), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, S, KV, D), generator=gen, device="cuda").bfloat16()
+    lens = torch.randint(16384, S + 1, (B,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lens[:4] = 6000
+    mesh = make_mesh((n,), ("seq",), ["cuda:0"] * n)
+    cut = M.NamedSharding(mesh, (None, "seq"))
+    kp, vp = cut.shard(k), cut.shard(v)
+    fn = flash_decode_seqparallel(mesh, "seq")
+    outs = fn(q, kp, vp, lens)
+    yard = decode_attention(q, k, v, lens)          # the counted launch
+    plain = decode_attention_reference(q, k, v, lens)
+    torch.cuda.synchronize()
+    got = outs[0].float()
+    if any(not torch.equal(_bits(o), _bits(outs[0])) for o in outs[1:]):
+        _fail("mesh: the seq-parallel entries' outputs differ")
+    errs, used = {}, {}
+    for what, want in (("kernel", yard), ("plain", plain)):
+        w = want.float()
+        err = (got - w).abs()
+        errs[what] = err.max().item()
+        used[what] = (err / bf16_rounding_limit(w)).max().item()
+        if not used[what] <= 1.0:
+            _fail(f"mesh: seq-parallel decode vs {what}: max err "
+                  f"{errs[what]}, {used[what]:.3f} of its limit (one bf16 "
+                  f"step at |o| plus 2^-12 of the row's max |o|)")
+    seq_ms = time_ms(lambda: fn(q, kp, vp, lens), reps=3, trials=5)
+    ker_ms = time_ms(lambda: decode_attn_cuda(q, k, v, lens), reps=10,
+                     trials=5)
+    print(f"  seq-parallel decode B={B} S={S} H={H} KV={KV} D={D} bf16 over "
+          f"{n} seq entries (rows 0-3 at 6,000: shards 1-3 empty): max err "
+          f"vs the kernel {errs['kernel']:.3e} ({used['kernel']:.3f} of "
+          f"its limit), vs plain {errs['plain']:.3e} ({used['plain']:.3f}) "
+          f"(limit one bf16 step at |o| plus 2^-12 of the row's max |o|); "
+          f"seq-parallel "
+          f"{seq_ms:.3f} ms, decode_attention kernel {ker_ms:.4f} ms "
+          f"(CUDA events, median of 5) [{smi}]")
+    return {"seq_ms": seq_ms, "kernel_ms": ker_ms}
+
+
+def mesh_collectives(smi):
+    """(c) The gradient collectives over qwen2-1.5b's full fp32 tree shape
+    (1,545,288,704 params, 6.18 GB a tree), seeded: ``compressed_psum``
+    over 2 entries for two steps with the error carried (sums and errors
+    bit-equal to the step recomputed leaf by leaf from the quantize
+    functions, relative error against the exact sum under 0.05, |err|
+    under max|g| / 64), then
+    ``psum_scatter_tree`` over 4 entries (each slice equal to the exact
+    sum's, in entry order); each run twice, the same bits."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.quantize import dequantize_int8, quantize_int8
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     psum_scatter_tree)
+    from repro_torch.models import transformer as T
+    spec = get_arch("qwen2-1.5b")
+    ab = T.lm_abstract(spec.model, spec.recall)
+    gen = torch.Generator(device="cuda").manual_seed(2212)
+
+    def draw():
+        return {k: torch.randn(x.shape, generator=gen, device="cuda") * 1e-3
+                for k, x in _tree_items(ab)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def digests(trees):
+        return [d for t in trees for d in _digest(t)]
+
+    gs = [draw(), draw()]
+    errs, c_ms = None, []
+    for step in (1, 2):
+        if step == 2:
+            del gs
+            gs = [draw(), draw()]
+        (summed, step_errs), ms = timed(lambda: compressed_psum(gs, errs))
+        digest = digests(summed) + digests(step_errs)
+        del summed, step_errs
+        (again, new_errs), ms2 = timed(lambda: compressed_psum(gs, errs))
+        c_ms += [ms, ms2]
+        if digests(again) + digests(new_errs) != digest:
+            _fail(f"mesh: compressed_psum step {step} gave other bits twice")
+        worst, worst_err = 0.0, 0.0
+        for name in again[0]:
+            inp = [g[name] + (0.0 if errs is None else errs[s][name])
+                   for s, g in enumerate(gs)]
+            # bit for bit against the step recomputed leaf by leaf: each
+            # entry's g + e quantized per row of flat, the error flat minus
+            # its dequantized local, the locals summed in entry order
+            locs = []
+            for s, x in enumerate(inp):
+                flat = x.reshape(1, -1) if x.ndim <= 1 else \
+                    x.reshape(x.shape[0], -1)
+                local = dequantize_int8(*quantize_int8(flat))
+                if not torch.equal(_bits(new_errs[s][name]),
+                                   _bits((flat - local).reshape(x.shape))):
+                    _fail(f"mesh: compressed_psum step {step} {name}: "
+                          f"entry {s}'s error is not flat - local")
+                locs.append(local)
+            total = (locs[0] + locs[1]).reshape(inp[0].shape)
+            del locs
+            for s in range(2):
+                if not torch.equal(_bits(again[s][name]), _bits(total)):
+                    _fail(f"mesh: compressed_psum step {step} {name}: "
+                          f"entry {s}'s sum is not the sum of the locals")
+            del total
+            exact = inp[0] + inp[1]
+            rel = ((exact - again[0][name]).abs().max()
+                   / exact.abs().max()).item()
+            gmax = max(x.abs().max().item() for x in inp)
+            emax = max(e[name].abs().max().item() for e in new_errs)
+            worst, worst_err = max(worst, rel), max(worst_err, emax / gmax)
+            if not rel < 0.05 or not emax <= gmax / 64:
+                _fail(f"mesh: compressed_psum step {step} {name}: rel err "
+                      f"{rel}, |err| {emax} vs max|g| {gmax}")
+            del inp, exact
+        print(f"  compressed_psum step {step} over 2 entries"
+              + (" (error carried)" if errs is not None else "")
+              + f": sums and errors bit-equal to the step recomputed leaf "
+              f"by leaf, worst rel err {worst:.4e} (< 0.05), worst |err| / "
+              f"max|g + e| {worst_err:.4e} (< 1/64), the same bits twice; "
+              f"{ms:.1f} ms, {ms2:.1f} ms")
+        del again
+        errs = new_errs
+    del gs, errs
+    torch.cuda.empty_cache()
+    gs = [draw() for _ in range(4)]
+    outs, s_ms = [], []
+    for _ in range(2):
+        out, ms = timed(lambda: psum_scatter_tree(gs))
+        outs.append(out)
+        s_ms.append(ms)
+    for name in gs[0]:
+        exact = ((gs[0][name] + gs[1][name]) + gs[2][name]) + gs[3][name]
+        rows = exact.shape[0] // 4 if exact.shape[0] % 4 == 0 else None
+        for s in range(4):
+            want = exact if rows is None else exact[s * rows:(s + 1) * rows]
+            for out in outs:
+                if not torch.equal(_bits(out[s][name]), _bits(want)):
+                    _fail(f"mesh: psum_scatter_tree entry {s} {name} is not "
+                          "the exact sum's slice")
+        del exact
+    print(f"  psum_scatter_tree over 4 entries: every slice bit-equal to the "
+          f"exact sum's, the same bits twice; {s_ms[0]:.1f} ms, "
+          f"{s_ms[1]:.1f} ms [{smi}]")
+    del gs, outs
+    torch.cuda.empty_cache()
+    return {"compressed_ms": c_ms, "scatter_ms": s_ms}
+
+
+def mesh_rooflines(smi):
+    """(d) The H100 roofline (``launch.hlo_analysis.Roofline`` on a (1, 1)
+    mesh) of each qwen2-1.5b shape the LM and train phases run on one
+    card: train 8 x 4,096, prefill 32 x 2,048, decode B 32 over a
+    32,768-token cache."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch.hlo_analysis import Roofline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import analytic_hbm_bytes_for, build_step
+    spec = get_arch("qwen2-1.5b")
+    mesh = make_mesh((1, 1), ("data", "model"), ["cuda:0"])
+    out = {}
+    for shape in (ShapeConfig("train", "train", 8, 4096),
+                  ShapeConfig("prefill", "prefill", 32, 2048),
+                  ShapeConfig("decode", "decode", 32, 32768)):
+        b = build_step(spec, shape, device="cuda", mesh=mesh)
+        r = Roofline(flops_per_device=b.model_flops,
+                     hbm_bytes_per_device=analytic_hbm_bytes_for(
+                         spec, shape, b, mesh, 1),
+                     wire_bytes_per_device=0.0, n_devices=1,
+                     model_flops_total=b.model_flops)
+        out[shape.kind] = r.as_dict()
+        print(f"  roofline qwen2-1.5b {shape.kind} B={shape.global_batch} "
+              f"S={shape.seq_len} on one H100: compute "
+              f"{r.compute_s * 1e3:.3f} ms, memory {r.memory_s * 1e3:.3f} ms, "
+              f"step {r.step_s * 1e3:.3f} ms, {r.bottleneck}-bound, "
+              f"mfu_at_roofline {r.mfu:.3f}"
+              + (f", {b.meta['mesh_plan']['microbatches']} microbatches"
+                 if shape.kind == "train" else "") + f" [{smi}]")
+    return out
+
+
+def mesh_phase():
+    """The mesh and sharding layer on the card (``mesh_placement``,
+    ``mesh_seqparallel_decode``, ``mesh_collectives``,
+    ``mesh_rooflines``), every launch counter set to 0 before and read
+    after: the one launch is the decode attention kernel's, the
+    yardstick of the sequence-parallel decode."""
+    smi = _smi()
+    _reset_launches()
+    mesh_placement(smi)
+    mesh_seqparallel_decode(smi)
+    mesh_collectives(smi)
+    mesh_rooflines(smi)
+    got = {name: getattr(mod, attr) for name, (mod, attr)
+           in _counters().items()}
+    if got != {**{name: 0 for name in got}, "decode_attention": 1}:
+        _fail(f"mesh launches {got}: want decode_attention 1, every other 0")
+    print(f"mesh launches: {got}")
+    return got
+
+
 def build_phase():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -5024,7 +5360,8 @@ def main() -> None:
                         ("train", train_phase), ("ivf", ivf_phase),
                         ("async", async_phase), ("shard", shard_phase),
                         ("lm", lm_phase),
-                        ("moe", moe_phase), ("families", families_phase)):
+                        ("moe", moe_phase), ("families", families_phase),
+                        ("mesh", mesh_phase)):
         t0 = time.perf_counter()
         walls[name] = (phase(), time.perf_counter() - t0)
         gc.collect()  # a phase's engines hold cycles (refine_fn closures)

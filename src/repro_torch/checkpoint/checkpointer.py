@@ -17,6 +17,12 @@ numpy has no bfloat16, so a bf16 leaf is stored as its bits (int16) with
 ``"dtype": "bfloat16"`` in the manifest and restored bit for bit; a
 Python int (``AdamWState.step``) is stored as an int32 leaf, as the
 reference stores its step, and restored as an int.
+
+A ``ShardedTensor`` leaf (``distributed.mesh_utils``) is saved as its
+logical tensor, gathered from one replica of each piece, so the files are
+those of the unsharded tree; ``restore(shardings=...)`` reads each leaf
+once and cuts it into its sharding's pieces, whatever mesh the checkpoint
+was taken on (``distributed.elastic``).
 """
 from __future__ import annotations
 
@@ -32,16 +38,15 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
+from repro_torch.distributed.mesh_utils import (NamedSharding, ShardedTensor,
+                                                is_namedtuple)
 
 
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     join = (lambda k: f"{prefix}/{k}") if prefix else (lambda k: str(k))
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _flatten(tree[k], join(k))]
-    if _is_namedtuple(tree):
+    if is_namedtuple(tree):
         return [x for f in tree._fields
                 for x in _flatten(getattr(tree, f), join(f".{f}"))]
     return [(prefix, tree)]
@@ -52,7 +57,7 @@ def _unflatten_like(tree, values: Dict[str, Any], prefix: str = ""):
     if isinstance(tree, dict):
         return {k: _unflatten_like(v, values, join(k))
                 for k, v in tree.items()}
-    if _is_namedtuple(tree):
+    if is_namedtuple(tree):
         return type(tree)(*(_unflatten_like(getattr(tree, f), values,
                                             join(f".{f}"))
                             for f in tree._fields))
@@ -61,6 +66,8 @@ def _unflatten_like(tree, values: Dict[str, Any], prefix: str = ""):
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """(array to store, manifest dtype)."""
+    if isinstance(leaf, ShardedTensor):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)  # later steps cannot touch it
         if t.dtype == torch.bfloat16:
@@ -72,14 +79,19 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _from_host(arr: np.ndarray, dtype: str, like, device):
-    if not isinstance(like, torch.Tensor):
+def _from_host(arr: np.ndarray, dtype: str, like, device, sharding=None):
+    if not isinstance(like, (torch.Tensor, ShardedTensor)):
         return int(arr) if isinstance(like, int) else arr
-    dev = like.device if device is None else torch.device(device)
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    t = torch.from_numpy(np.require(arr, requirements="C"))  # keeps 0-d
     if dtype == "bfloat16":
         t = t.view(torch.bfloat16)
-    return t.to(dev)
+    if isinstance(sharding, NamedSharding):
+        return ShardedTensor.place(t, sharding)
+    if device is not None:
+        return t.to(torch.device(device))
+    if isinstance(like, ShardedTensor):
+        return t.to(like.pieces[0].device)
+    return t.to(like.device)
 
 
 @dataclasses.dataclass
@@ -170,11 +182,13 @@ class Checkpointer:
 
     # -- restore ------------------------------------------------------------------
 
-    def restore(self, like_tree, step: Optional[int] = None,
-                device=None) -> Tuple[Any, Dict[str, Any]]:
+    def restore(self, like_tree, step: Optional[int] = None, device=None,
+                shardings=None) -> Tuple[Any, Dict[str, Any]]:
         """Restore into the structure of ``like_tree``: each tensor leaf on
         ``device`` (None: the device of ``like_tree``'s leaf), each int
-        leaf as an int. Returns (tree, manifest)."""
+        leaf as an int. ``shardings`` (a tree of the same structure, or
+        None) places each tensor leaf as a ``ShardedTensor`` of its
+        ``NamedSharding``. Returns (tree, manifest)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -182,12 +196,14 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         likes = dict(_flatten(like_tree))
+        placed = None if shardings is None else dict(_flatten(shardings))
         values = {}
         for name, info in manifest["leaves"].items():
             if name in likes:
                 values[name] = _from_host(
                     np.load(os.path.join(d, info["file"])), info["dtype"],
-                    likes[name], device)
+                    likes[name], device,
+                    None if placed is None else placed[name])
         return _unflatten_like(like_tree, values), manifest
 
 
@@ -215,7 +231,8 @@ class CheckpointManager:
         else:
             self.ckpt.save_async(step, tree, meta)
 
-    def restore_or_none(self, like_tree, device=None):
+    def restore_or_none(self, like_tree, device=None, shardings=None):
         if self.ckpt.latest_step() is None:
             return None, None
-        return self.ckpt.restore(like_tree, device=device)
+        return self.ckpt.restore(like_tree, device=device,
+                                 shardings=shardings)

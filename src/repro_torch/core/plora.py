@@ -63,6 +63,10 @@ def lora_init(gen: torch.Generator, cfg: LMConfig, recall: RecallConfig,
                          device=device)
 
 
+def lora_specs(cfg: LMConfig, recall: RecallConfig):
+    return L.param_specs(lora_schema(cfg, recall))
+
+
 def lora_n_params(cfg: LMConfig, recall: RecallConfig) -> int:
     return sum(int(np.prod(d.shape)) for pair in lora_schema(cfg, recall).values()
                for d in pair.values())

@@ -42,6 +42,22 @@ def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor,
     return (out.float() * scale.float()).to(dtype)
 
 
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 (gradient compression): x (..., D) -> (q (..., D) int8,
+    scale (..., 1) f32), the scale the row's absmax / 127 floored at 1e-12,
+    the quotient rounded half to even and clipped to [-128, 127]."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(absmax / absmax.new_full((), 127.0), 1e-12)
+    q = torch.clamp(torch.round(xf / scale), -128, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
 def quantize_int4_np(x: "np.ndarray") -> Tuple["np.ndarray", "np.ndarray"]:
     """Pure-numpy quantize (host-side inserts, no device dispatch)."""
     xf = np.asarray(x, np.float32)

@@ -36,3 +36,14 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgj,bjkd->bkgd", p, v.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def bf16_rounding_limit(o_ref: torch.Tensor) -> torch.Tensor:
+    """Per-element limit of a bf16 output against another whose arithmetic
+    is f32 throughout with one final rounding (another split of the keys,
+    another summation order): one bf16 step at |o| (2^-7 |o|: the two
+    roundings may land a step apart) plus 2^-12 of the row's largest |o|
+    (the f32 difference before rounding, which shows where |o| is a
+    cancelled sum far below its row's scale)."""
+    r = o_ref.float().abs()
+    return 2.0 ** -7 * r + 2.0 ** -12 * r.amax(dim=-1, keepdim=True)

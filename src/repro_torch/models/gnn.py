@@ -86,6 +86,10 @@ def gnn_init(gen: torch.Generator, cfg: GNNConfig, recall: RecallConfig,
                          dtype=L.torch_dtype(cfg.dtype), device=device)
 
 
+def gnn_specs(cfg: GNNConfig, recall: RecallConfig, embed_out: int = 1024):
+    return L.param_specs(gnn_schema(cfg, recall, embed_out))
+
+
 def _layer(pl_: Schema, h: torch.Tensor, e: torch.Tensor, g: Graph,
            eps: float, n_nodes: int, seg_dst: torch.Tensor):
     """One GatedGCN round. h (N,d), e (E,d); ``seg_dst`` (E,) the ids the

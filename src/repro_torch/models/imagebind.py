@@ -65,6 +65,10 @@ def mem_init(gen: torch.Generator, cfg: MEMConfig, recall: RecallConfig,
     return p
 
 
+def mem_specs(cfg: MEMConfig, recall: RecallConfig):
+    return L.param_specs(mem_schema(cfg, recall))
+
+
 def _frontend(tp: Schema, t: TowerConfig, inputs: torch.Tensor) -> torch.Tensor:
     """inputs -> (B, n_tokens+1, d_model) with CLS prepended, in the token
     table's dtype (text) or the stub features' dtype (other towers)."""

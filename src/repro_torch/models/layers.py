@@ -72,12 +72,27 @@ def init_params(gen: torch.Generator, schema: Schema, dtype=torch.float32,
     from repro_torch import resolve_device
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
+    return _schema_map(lambda d: _init_leaf(gen, d, dtype, device), schema)
 
-    def walk(s):
-        if isinstance(s, ParamDef):
-            return _init_leaf(gen, s, dtype, device)
-        return {k: walk(s[k]) for k in sorted(s)}
-    return walk(schema)
+
+def _schema_map(fn, schema: Schema):
+    """``fn`` over a schema's ParamDefs, keys in sorted order."""
+    if isinstance(schema, ParamDef):
+        return fn(schema)
+    return {k: _schema_map(fn, schema[k]) for k in sorted(schema)}
+
+
+def param_specs(schema: Schema):
+    """Logical-axes tree matching :func:`init_params` output structure."""
+    return _schema_map(lambda d: d.axes, schema)
+
+
+def abstract_params(schema: Schema, dtype=torch.float32):
+    """The params' tree on the ``meta`` device: shapes and dtypes with no
+    storage (the dry run's abstract arguments)."""
+    dtype = torch_dtype(dtype)
+    return _schema_map(lambda d: torch.empty(d.shape, dtype=dtype,
+                                             device="meta"), schema)
 
 
 def count_params(params) -> int:

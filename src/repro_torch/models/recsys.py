@@ -311,6 +311,10 @@ def recsys_init(gen: torch.Generator, cfg: RecsysConfig, *, device="cuda"):
                          dtype=L.torch_dtype(cfg.dtype), device=device)
 
 
+def recsys_specs(cfg: RecsysConfig):
+    return L.param_specs(recsys_schema(cfg))
+
+
 def recsys_forward(params, cfg: RecsysConfig, inputs: Dict) -> torch.Tensor:
     """(B,) logits (SASRec: the target's score)."""
     return {"dlrm": dlrm_forward, "bst": bst_forward, "sasrec": sasrec_forward,

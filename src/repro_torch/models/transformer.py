@@ -84,6 +84,14 @@ def lm_init(gen: torch.Generator, cfg: LMConfig, recall: RecallConfig, *,
                          dtype=L.torch_dtype(cfg.dtype), device=device)
 
 
+def lm_specs(cfg: LMConfig, recall: RecallConfig, **kw):
+    return L.param_specs(lm_schema(cfg, recall, **kw))
+
+
+def lm_abstract(cfg: LMConfig, recall: RecallConfig, **kw):
+    return L.abstract_params(lm_schema(cfg, recall, **kw), dtype=cfg.dtype)
+
+
 def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked-layer param dict."""
     if isinstance(tree, torch.Tensor):

@@ -1365,3 +1365,113 @@ def _copy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.clone()
     return {k: _copy(v) for k, v in tree.items()}
+
+
+# the mesh and sharding layer: a mesh's entries all cuda:0, held to the
+# same calls on CPU entries
+
+
+def _bits(x):
+    return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+def _items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _items(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def test_mesh_placement_and_elastic_restore_on_the_card(gen, tmp_path):
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import get_arch, smoke_variant
+    from repro_torch.distributed import mesh_utils as M
+    from repro_torch.distributed.elastic import (elastic_restore,
+                                                 survivors_mesh)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    spec = smoke_variant(get_arch("qwen2-1.5b"))
+    cfg, rc = spec.model, spec.recall
+    params = T.lm_init(gen, cfg, rc, device="cuda")
+    rules, specs = M.lm_rules(False), T.lm_specs(cfg, rc)
+    ab = T.lm_abstract(cfg, rc)
+    placed, on_cpu = (M.place_tree(tree, M.make_shardings(
+        specs, make_mesh((2, 2), ("data", "model"), [dev] * 4), rules, ab))
+        for tree, dev in ((params, "cuda:0"),
+                          (M.tree_map(lambda x: x.cpu(), params), "cpu")))
+    for (name, st), (_, ct) in zip(_items(placed), _items(on_cpu)):
+        assert all(p.is_cuda for p in st.pieces)
+        assert len({p.data_ptr() for p in st.pieces}) == 4
+        for p, c in zip(st.pieces, ct.pieces):
+            assert torch.equal(_bits(p.cpu()), _bits(c)), name
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, placed)
+    surv = survivors_mesh(["cuda:0"] * 4, (2, 2), ("data", "model"),
+                          failed=2)
+    assert surv.shape == {"data": 1, "model": 2}
+    back, _ = elastic_restore(ck, ab, surv, rules, specs)
+    for (name, x), (_, st) in zip(_items(params), _items(back)):
+        assert all(p.is_cuda for p in st.pieces)
+        assert torch.equal(_bits(st.gather()), _bits(x)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_seqparallel_on_the_card(gen, dtype):
+    from repro_torch.distributed import mesh_utils as M
+    from repro_torch.distributed.collectives import flash_decode_seqparallel
+    from repro_torch.kernels.decode_attention.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attention.ref import bf16_rounding_limit
+    from repro_torch.launch.mesh import make_mesh
+    B, S, H, KV, D, n = 4, 1024, 8, 2, 128, 4
+    q = torch.randn((B, H, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, D), generator=gen, device="cuda").to(dtype)
+    lens = torch.tensor([100, 1024, 0, 700], dtype=torch.int32,
+                        device="cuda")
+    outs = {}
+    for dev in ("cuda:0", "cpu"):
+        mesh = make_mesh((n,), ("seq",), [dev] * n)
+        cut = M.NamedSharding(mesh, (None, "seq"))
+        o = flash_decode_seqparallel(mesh, "seq")(
+            q.to(dev), cut.shard(k), cut.shard(v), lens.to(dev))
+        assert all(x.device.type == dev[:4] for x in o)
+        outs[dev] = o[0].cpu().float()
+    ker = decode_attn_cuda(q, k, v, lens).cpu().float()
+    if dtype == torch.float32:
+        assert (outs["cuda:0"] - outs["cpu"]).abs().max().item() <= 1e-5
+        lim = 1e-5 * torch.clamp_min(ker.abs(), 1.0)
+    else:
+        assert bool(((outs["cuda:0"] - outs["cpu"]).abs()
+                     <= bf16_rounding_limit(outs["cpu"])).all())
+        lim = bf16_rounding_limit(ker)
+    live = lens.cpu() > 0
+    assert bool(((outs["cuda:0"] - ker).abs() <= lim)[live].all())
+
+
+def test_gradient_collectives_on_the_card_equal_the_cpu(gen):
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     psum_scatter_tree)
+    shapes = {"a": (64, 48), "b": (7, 3), "c": (), "d": (256,),
+              "e": (8, 4, 6)}
+
+    def draw():
+        return {k: torch.randn(s, generator=gen, device="cuda") * 1e-2
+                for k, s in shapes.items()}
+    cpu = lambda tree: {k: v.cpu() for k, v in tree.items()}
+    g1, g2 = [draw(), draw()], [draw(), draw()]
+    s1, e1 = compressed_psum(g1)
+    s2, e2 = compressed_psum(g2, e1)
+    c1, ce1 = compressed_psum([cpu(t) for t in g1])
+    c2, ce2 = compressed_psum([cpu(t) for t in g2], ce1)
+    for got, want in ((s1, c1), (e1, ce1), (s2, c2), (e2, ce2)):
+        for gt, wt in zip(got, want):
+            for k in shapes:
+                assert gt[k].is_cuda
+                assert torch.equal(_bits(gt[k].cpu()), _bits(wt[k])), k
+    gs = [draw() for _ in range(4)]
+    got = psum_scatter_tree(gs)
+    want = psum_scatter_tree([cpu(t) for t in gs])
+    for gt, wt in zip(got, want):
+        for k in shapes:
+            assert torch.equal(_bits(gt[k].cpu()), _bits(wt[k])), k
