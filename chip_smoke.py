@@ -2334,11 +2334,11 @@ def _layer_of(kernel_name: str) -> str:
         return "grouped GEMM backward dW (wgmma kernel)"
     if "moe_gemm_dw" in kernel_name:
         return "grouped GEMM backward dW (mma.sync kernel)"
-    if "moe_gemm" in kernel_name and ("true>" in kernel_name
-                                      or "Lb1E" in kernel_name):
-        return ("grouped GEMM backward dX ("
-                + ("wgmma" if "wgmma" in kernel_name else "mma.sync")
-                + " kernel)")
+    if "moe_gemm_dx_wgmma" in kernel_name:
+        return "grouped GEMM backward dX (persistent wgmma kernel)"
+    if "moe_gemm_kernel" in kernel_name and ("true>" in kernel_name
+                                             or "Lb1E" in kernel_name):
+        return "grouped GEMM backward dX (mma.sync kernel)"
     for key, layer in _LAYERS:
         if key in kernel_name:
             return layer
@@ -3097,8 +3097,9 @@ def _moe_bwd_gate(what, got, plain, g64):
 
 def check_moe_gemm_bwd(gen):
     """The grouped GEMM's backward kernels (dX and dW on the kernels
-    ``kernel_for`` picks: both wgmma here; the old ``mma.sync`` dW kernel
-    beside its successor, gated and timed alike) against their plain
+    ``kernel_for`` picks: the persistent ``moe_gemm_dx_wgmma`` and
+    ``moe_gemm_dw_wgmma`` here; the old ``mma.sync`` dW kernel beside its
+    successor, gated and timed alike) against their plain
     versions and float64 products (``_moe_bwd_gate``)
     at a qwen3-moe train microbatch's shapes, which heal_lm's batch
     shares (1 x 4,096 or 8 x 512 tokens x top-8 = 32,768 assignments, E
@@ -3187,6 +3188,7 @@ def check_moe_gemm_bwd(gen):
                     break
             b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
             name = kernel_for(bf16, bt, d, F)
+            fn_name = f"moe_gemm_{kind}_{name}"  # the C kernel if wgmma
             prior = {}
             if kind == "dw" and name != "mma_sync":  # its predecessor
 
@@ -3205,7 +3207,8 @@ def check_moe_gemm_bwd(gen):
                                                             reps=5)}
             print(f"  moe_gemm backward {kind} {what} T={T} d={d} F={F} "
                   f"E={E} (token block {bt}, rows {n} of {p.T_pad}, experts "
-                  f"used {e_used}) bf16, {name} kernel: max_abs_err "
+                  f"used {e_used}) bf16, {name} kernel ({fn_name}): "
+                  f"max_abs_err "
                   f"{err:.3e} ({over:.2f} of the per-element limit, "
                   f"{ratio:.2f}x the plain version's float64-relative "
                   f"error {rel:.2e}), the same bits twice; kernel {ms:.4f} "
@@ -3567,10 +3570,10 @@ def profile_heal_step(params, spec, lora, x):
                       "backward)", step, "flash_bwd"),))
 
 
-def profile_heal_lm_step(params, cfg, rc, tokens):
+def profile_heal_lm_step(params, cfg, rc, tokens, must_see="flash_bwd"):
     """One heal_lm step's forward and backward (a fresh LoRA, every exit
     weighted) under torch.profiler: the flash backward's share of a bf16
-    heal step."""
+    heal step (and the grouped GEMM's dX, ``must_see``, in a MoE one)."""
     import torch
     from repro_torch.core import healing as H
     from repro_torch.core import plora
@@ -3595,7 +3598,7 @@ def profile_heal_lm_step(params, cfg, rc, tokens):
 
     profile_windows(((f"heal_lm step of {tokens.shape[0]} x "
                       f"{tokens.shape[1]} tokens (forward and backward)",
-                      step, "flash_bwd"),))
+                      step, must_see),))
 
 
 def serve_healed(params, spec, lora, items, texts, k=10):
@@ -3759,7 +3762,7 @@ def heal_lm_moe(gen):
     leaves = [v for ab in lora.values() for v in ab.values()]
     if not all(bool(torch.isfinite(v).all()) for v in leaves):
         _fail("heal_lm MoE: the healed LoRA is not finite")
-    profile_heal_lm_step(params, cfg, rc, tokens)
+    profile_heal_lm_step(params, cfg, rc, tokens, "moe_gemm_dx_wgmma")
     del params, lora, tokens
     torch.cuda.empty_cache()
     return got

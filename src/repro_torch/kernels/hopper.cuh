@@ -165,6 +165,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // memory (the buffer may then be written again, and the block may exit).
 // Plain stores into the box need fence_proxy_async by each writing thread
 // and a barrier before the issuing thread stores it.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1) : "memory");
+}
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2) {

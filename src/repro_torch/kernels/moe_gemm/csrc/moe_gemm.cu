@@ -32,26 +32,32 @@
 // past F are masked at the store.
 //
 // The backward (no Pallas site: the reference differentiates its MoE
-// layer's einsums) is the same grouped product twice more. dX (T_pad, d) =
-// dys[r] @ w[block_expert[r / bt]]^T is each forward kernel with its
-// DX template flag: reduction over F, output width d, w read K-major (its
-// rows are d, F contiguous), and blocks from used on write zeros (dys holds
-// garbage there: the forward left those rows unwritten) and read nothing.
-// dW (E, d, F): each output tile walks its expert's rows in order, from its
-// group's start to its end (the plan's ends, never past used: rows from
-// used on are never read), sums xs^T dys in fp32 registers and stores
-// once; an expert with no rows stores zeros. No atomics and no split-K
-// anywhere, so the gradient has the same bits twice. What bounds it at the
-// train shape (T = 32,768 assignments, d 2,048, F 768, E 128): the bytes,
-// the E * d * F output (403 MB bf16) and both inputs, 0.175 ms at 3.35
-// TB/s, over the 2 * T * d * F operations' 0.104 ms. Two kernels, picked
-// by kernel.py::kernel_for as the forward's:
-// - moe_gemm_dw_wgmma (bf16, token blocks of 64 or 128 rows, d and F
+// layer's einsums) is the same grouped product twice more, each with
+// kernels of its own, picked by kernel.py::kernel_for as the forward's. No
+// atomics and no split-K anywhere, so a gradient has the same bits twice.
+// At the train shape (T = 32,768 assignments, d 2,048, F 768, E 128) each
+// is bound by its bytes, 0.175 ms at 3.35 TB/s, over the 2 * T * d * F
+// operations' 0.104 ms.
+// - dX (T_pad, d) = dys[r] @ w[block_expert[r / bt]]^T: a reduction over F
+//   into d columns, w read K-major (its rows are d, F contiguous); rows
+//   from used on are written as 0 (dys holds garbage there: the forward
+//   left those rows unwritten) and nothing is read for them.
+//   moe_gemm_dx_wgmma (the forward's wgmma shapes): a persistent block an
+//   SM over (bt rows, 256 columns of d) tiles, TMA loads into a 3- or
+//   4-stage ring that runs on across tiles, and a TMA-store epilogue that
+//   drains under the next tile's products (design at the kernel).
+//   moe_gemm_kernel with its DX flag (f32, bt 16 and the rest): w's tile
+//   staged as [n][k].
+// - dW (E, d, F): each output tile walks its expert's rows in order, from
+//   its group's start to its end (the plan's ends, never past used: rows
+//   from used on are never read), sums xs^T dys in fp32 registers and
+//   stores once; an expert with no rows stores zeros. The bytes are the
+//   E * d * F output (403 MB bf16) and both inputs.
+//   moe_gemm_dw_wgmma (bf16, token blocks of 64 or 128 rows, d and F
 //   multiples of 8): a persistent block an SM over 128 x 256 tiles of dw,
 //   TMA loads of both operands read MN-major by wgmma, and a TMA-store
-//   epilogue that drains under the next tile's products (design at the
-//   kernel).
-// - moe_gemm_dw_kernel (f32 and every other shape): one block per (expert,
+//   epilogue as dX's (design at the kernel).
+//   moe_gemm_dw_kernel (f32 and every other shape): one block per (expert,
 //   128 rows of d, 128 columns of F), 256 threads in 4 x 2 warps of 32 x
 //   64 outputs; 32-row slices of xs and dys staged through registers into
 //   padded shared memory while the previous slice runs; both operands read
@@ -328,37 +334,23 @@ template <int BM> struct Cfg {
 };
 }  // namespace gm
 
-// K is the reduction, N the output width: the forward's (d, F), DX's (F,
-// d). The w map covers (F, d, E) in 64 x 64 boxes either way; the forward
-// stacks four boxes along N (64-column atoms, read MN-major through the
-// transpose bit), DX four along N's rows (a [256 rows of d][64 of F]
-// K-major tile, read as the A tile is).
-template <int BM, bool DX>
+// The forward: the w map covers (F, d, E) in 64 x 64 boxes, four stacked
+// along F (64-column atoms, read MN-major through the transpose bit).
+template <int BM>
 __global__ void __launch_bounds__(gm::THREADS, 1)
 moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
                const __grid_constant__ CUtensorMap map_w,
                const int* __restrict__ block_expert,
                const int* __restrict__ used, __nv_bfloat16* __restrict__ ys,
-               int K, int N, int bt) {
+               int d, int F, int bt) {
   using namespace hopper;
   using C = gm::Cfg<BM>;
   constexpr int STAGES = C::STAGES, WN = C::WN;
   const int row0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * gm::BN;
-  if (row0 >= *used) {  // past the last real group
-    if (DX) {  // the gradient of a row no assignment fills is 0
-      const int ncols = min(gm::BN, N - n0);  // a multiple of 8
-      for (int i = threadIdx.x; i < BM * (gm::BN / 8); i += gm::THREADS) {
-        const int r = i / (gm::BN / 8), c = (i % (gm::BN / 8)) * 8;
-        if (c < ncols)
-          *reinterpret_cast<uint4*>(ys + (size_t)(row0 + r) * N + n0 + c) =
-              make_uint4(0, 0, 0, 0);
-      }
-    }
-    return;
-  }
+  if (row0 >= *used) return;  // past the last real group
   const int e = block_expert[row0 / bt];
-  const int nk = (K + gm::BK - 1) / gm::BK;
+  const int nk = (d + gm::BK - 1) / gm::BK;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR);
@@ -377,8 +369,8 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
   if (wg == 0) {  // producer
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      // w boxes that start inside N (a box past N would only read zeros)
-      const int n_atoms = min(gm::BN / 64, (N - n0 + 63) / 64);
+      // w boxes that start inside F (a box past F would only read zeros)
+      const int n_atoms = min(gm::BN / 64, (F - n0 + 63) / 64);
       const uint32_t bytes = C::A_BYTES + n_atoms * gm::B_ATOM;
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % STAGES;
@@ -386,13 +378,9 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
         uint8_t* st = sm + s * C::STAGE;
         mbar_expect_tx(&full[s], bytes);
         tma_load_2d(st, &map_x, &full[s], kt * gm::BK, row0);
-        for (int a = 0; a < n_atoms; ++a) {
-          uint8_t* dst = st + C::A_BYTES + a * gm::B_ATOM;
-          if (DX)
-            tma_load_3d(dst, &map_w, &full[s], kt * gm::BK, n0 + 64 * a, e);
-          else
-            tma_load_3d(dst, &map_w, &full[s], n0 + 64 * a, kt * gm::BK, e);
-        }
+        for (int a = 0; a < n_atoms; ++a)
+          tma_load_3d(st + C::A_BYTES + a * gm::B_ATOM, &map_w, &full[s],
+                      n0 + 64 * a, kt * gm::BK, e);
       }
     }
   } else {  // consumers
@@ -409,15 +397,10 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
       mbar_wait(&full[s], (kt / STAGES) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < gm::BK / 16; ++kk) {
-        const uint64_t da = desc_sw128(st + wm * 64 * 128 + kk * 32, 16, 1024);
-        if (DX)
-          Wgmma<WN>::template ss<0>(acc, da,
-                                    desc_sw128(bt_ + kk * 32, 16, 1024), 1);
-        else
-          Wgmma<WN>::template ss<1>(
-              acc, da, desc_sw128(bt_ + kk * 2048, gm::B_ATOM, 1024), 1);
-      }
+      for (int kk = 0; kk < gm::BK / 16; ++kk)
+        Wgmma<WN>::template ss<1>(
+            acc, desc_sw128(st + wm * 64 * 128 + kk * 32, 16, 1024),
+            desc_sw128(bt_ + kk * 2048, gm::B_ATOM, 1024), 1);
       wgmma_commit();
       wgmma_wait<1>();  // the previous slice's group is done: free its stage
       if (kt > 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
@@ -428,12 +411,12 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
     const int row = row0 + wm * 64 + warp * 16 + g;
-    __nv_bfloat16* y0 = ys + (size_t)row * N;
-    __nv_bfloat16* y1 = y0 + (size_t)8 * N;
+    __nv_bfloat16* y0 = ys + (size_t)row * F;
+    __nv_bfloat16* y1 = y0 + (size_t)8 * F;
 #pragma unroll
     for (int c = 0; c < WN / 8; ++c) {
       const int col = n0 + wn * WN + 8 * c + 2 * t;
-      if (col < N) {
+      if (col < F) {
         *reinterpret_cast<uint32_t*>(y0 + col) = pack_bf16(acc[4 * c], acc[4 * c + 1]);
         *reinterpret_cast<uint32_t*>(y1 + col) = pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
       }
@@ -441,14 +424,13 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-template <int BM, bool DX>
+template <int BM>
 int launch_wgmma(const void* xs, const int* block_expert, const void* w,
                  const int* used, void* ys, int T_pad, int d, int F, int E,
                  cudaStream_t stream) {
-  const int K = DX ? F : d, N = DX ? d : F;
   CUtensorMap mx, mw;
-  const uint64_t dx[2] = {(uint64_t)K, (uint64_t)T_pad};
-  const uint64_t sx[1] = {(uint64_t)K * 2};
+  const uint64_t dx[2] = {(uint64_t)d, (uint64_t)T_pad};
+  const uint64_t sx[1] = {(uint64_t)d * 2};
   const uint32_t bx[2] = {64, BM};
   const uint64_t dw[3] = {(uint64_t)F, (uint64_t)d, (uint64_t)E};
   const uint64_t sw[2] = {(uint64_t)F * 2, (uint64_t)d * F * 2};
@@ -457,28 +439,238 @@ int launch_wgmma(const void* xs, const int* block_expert, const void* w,
   if (!err) err = hopper::encode_bf16_map(&mw, w, 3, dw, sw, bw);
   if (err) return err;
   const int smem = gm::Cfg<BM>::BYTES;
-  auto kern = moe_gemm_wgmma<BM, DX>;
+  auto kern = moe_gemm_wgmma<BM>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((N + gm::BN - 1) / gm::BN, T_pad / BM);
+  const dim3 grid((F + gm::BN - 1) / gm::BN, T_pad / BM);
   kern<<<grid, gm::THREADS, smem, stream>>>(
-      mx, mw, block_expert, used, static_cast<__nv_bfloat16*>(ys), K, N, BM);
+      mx, mw, block_expert, used, static_cast<__nv_bfloat16*>(ys), d, F, BM);
   return (int)cudaGetLastError();
 }
 
-template <bool DX>
-int launch_wgmma_bt(const void* xs, const int* block_expert, const void* w,
-                    const int* used, void* ys, int T_pad, int d, int F, int E,
-                    int bt, cudaStream_t stream) {
-  if (T_pad < 1 || d < 8 || F < 8 || E < 1 || d % 8 || F % 8 ||
-      (bt != 64 && bt != 128) || T_pad % bt || T_pad / bt > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (bt == 128)
-    return launch_wgmma<128, DX>(xs, block_expert, w, used, ys, T_pad, d, F,
-                                 E, stream);
-  return launch_wgmma<64, DX>(xs, block_expert, w, used, ys, T_pad, d, F, E,
-                              stream);
+
+// ------------------------------------------- dX = dys w^T, bf16, wgmma + TMA
+
+namespace dxg {
+constexpr int BN = 256, BK = 64;  // columns of d a tile owns, a slice of F
+constexpr int THREADS = 384;      // producer + two consumer warpgroups
+constexpr int CONSUMERS = 256;
+constexpr int ATOM = 64 * 128;    // [64 rows][64 columns], 128-byte swizzled
+constexpr int B_BYTES = (BN / 64) * ATOM;  // w[e]: four atoms along d
+template <int BM> struct Cfg {
+  static constexpr int STAGES = BM == 128 ? 3 : 4;
+  static constexpr int A_BYTES = BM * 128;  // dys: [BM rows][64 of F]
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int WN = BM == 128 ? 256 : 128;  // columns a consumer owns
+  static constexpr int OUT_WG = (WN / 64) * ATOM;   // its 64 x WN of dX
+  static constexpr int OUT = STAGES * STAGE;        // the consumers' boxes
+  static constexpr int BAR = OUT + 2 * OUT_WG;
+  static constexpr int BYTES = BAR + 16 * STAGES + 1024;  // + align
+};
+}  // namespace dxg
+
+// A consumer warpgroup's fp32 sums of wgmma m64nWNk16, rounded to bf16
+// into WN / 64 128-byte-swizzled [64][64] boxes at `out`, the layout a TMA
+// store of the map's 64 x 64 box reads (dX's and dW's epilogues). Element
+// (row 16 warp + g + 8 h, column 8 c + 2 t4 + j) is acc[4 c + 2 h + j]: box
+// c / 8, 16-byte chunk c % 8, swizzled by row.
+template <int WN>
+__device__ __forceinline__ void acc_to_boxes(uint8_t* out,
+                                             const float (&acc)[WN / 2],
+                                             int tid) {
+  const int warp = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
+#pragma unroll
+  for (int c = 0; c < WN / 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(out + (c / 8) * 64 * 128 +
+                                   (warp * 16 + g + 8 * h) * 128 +
+                                   (((c % 8) ^ g) * 16) + 4 * t4) =
+          hopper::pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+}
+
+struct DxTile {
+  int row0, n0, e;  // first row, first column of d, expert
+  bool real;        // row0 < used: rows from used on are written as 0
+};
+
+// Tile `tile` in row-major order (within a row tile, 256-column tiles of d
+// vary fastest); its expert is read only for a real tile.
+template <int BM>
+__device__ __forceinline__ DxTile dx_tile(int tile, int n_tiles,
+                                          const int* __restrict__ block_expert,
+                                          int lim) {
+  DxTile t;
+  t.row0 = (tile / n_tiles) * BM;
+  t.n0 = (tile % n_tiles) * dxg::BN;
+  t.real = t.row0 < lim;
+  t.e = t.real ? block_expert[t.row0 / BM] : 0;
+  return t;
+}
+
+// dX (T_pad, d) = dys[r] @ w[block_expert[r / BM]]^T for r < used, 0 from
+// used on, for bf16 token blocks of BM = 64 or 128 rows (a tile never
+// straddles two experts). A persistent block an SM walks the tiles
+// blockIdx.x, + gridDim.x, ... of (BM rows, 256 columns of d) in row-major
+// order, so the blocks running at once share one or two experts' w[e] and
+// the same dys rows in L2. The producer warp's first thread loads, by TMA,
+// each 64-deep slice of F of the dys tile (a 2-D map over (F, T_pad)) and
+// of w[e]'s [256 rows of d][64 of F] (four 64 x 64 boxes of a 3-D map over
+// (F, d, E)), both K-major, into a ring of STAGES stages, running on into
+// the next tile while the consumers store; TMA zero-fills past F, and boxes
+// that start past d are not loaded (their columns are never stored). At BM
+// 128 each consumer warpgroup owns 64 rows x 256 columns (m64n256k16), at
+// BM 64 each 128 columns of the one 64-row tile (m64n128k16); a consumer
+// keeps one wgmma group in flight and frees a stage when the group reading
+// it completes. It rounds its fp32 sums to bf16 into its own swizzled
+// [64][64] boxes and one thread stores them by TMA into a 2-D map over dX
+// (d, T_pad), which clips columns past d; that store drains while the next
+// tile's products run and is waited on (wait_group.read) only before the
+// boxes are written again. A tile from used on loads nothing and stores
+// boxes of zeros by the same path, so dys is never read there.
+template <int BM>
+__global__ void __launch_bounds__(dxg::THREADS, 1)
+moe_gemm_dx_wgmma(const __grid_constant__ CUtensorMap map_dy,
+                  const __grid_constant__ CUtensorMap map_w,
+                  const __grid_constant__ CUtensorMap map_dx,
+                  const int* __restrict__ block_expert,
+                  const int* __restrict__ used, int T_pad, int d, int F) {
+  using namespace hopper;
+  using C = dxg::Cfg<BM>;
+  constexpr int STAGES = C::STAGES, WN = C::WN;
+  const int n_tiles = (d + dxg::BN - 1) / dxg::BN;
+  const int tiles = (T_pad / BM) * n_tiles;
+  const int nk = (F + dxg::BK - 1) / dxg::BK;
+  const int lim = *used;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR);
+  uint64_t* empty = full + STAGES;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], dxg::CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // slices this block has loaded, over all its tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const DxTile t = dx_tile<BM>(tile, n_tiles, block_expert, lim);
+        if (!t.real) continue;
+        // w boxes that start inside d (the rest are never stored)
+        const int na = min(dxg::BN / 64, (d - t.n0 + 63) / 64);
+        const uint32_t bytes = C::A_BYTES + na * dxg::ATOM;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+          uint8_t* st = sm + s * C::STAGE;
+          mbar_expect_tx(&full[s], bytes);
+          tma_load_2d(st, &map_dy, &full[s], kt * dxg::BK, t.row0);
+          for (int a = 0; a < na; ++a)
+            tma_load_3d(st + C::A_BYTES + a * dxg::ATOM, &map_w, &full[s],
+                        kt * dxg::BK, t.n0 + 64 * a, t.e);
+        }
+      }
+    }
+  } else {  // consumers
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int wm = BM == 128 ? cw : 0, wn = BM == 128 ? 0 : cw;
+    const int tid = threadIdx.x - 128 * wg;
+    uint8_t* out = sm + C::OUT + cw * C::OUT_WG;
+    float acc[WN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const DxTile t = dx_tile<BM>(tile, n_tiles, block_expert, lim);
+#pragma unroll
+      for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; t.real && kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        const uint8_t* st = sm + s * C::STAGE;
+        const uint8_t* b = st + C::A_BYTES + (wn * WN / 64) * dxg::ATOM;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < dxg::BK / 16; ++kk)
+          Wgmma<WN>::template ss<0>(
+              acc, desc_sw128(st + wm * 64 * 128 + kk * 32, 16, 1024),
+              desc_sw128(b + kk * 32, 16, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous slice's group is done: free its stage
+        if (kt > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (t.real) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      if (tid == 0) bulk_wait_read<0>();  // the last tile's store read them
+      named_bar_sync(1 + cw, 128);
+      acc_to_boxes<WN>(out, acc, tid);
+      fence_proxy_async();
+      named_bar_sync(1 + cw, 128);
+      if (tid == 0) {
+        const int c0 = t.n0 + wn * WN;  // boxes that start inside d
+        for (int a = 0; a < WN / 64 && c0 + 64 * a < d; ++a)
+          tma_store_2d(&map_dx, out + a * dxg::ATOM, c0 + 64 * a,
+                       t.row0 + 64 * wm);
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait_read<0>();  // before the shared memory goes
+  }
+}
+
+template <int BM>
+int launch_dx_wgmma(const void* dys, const int* block_expert, const void* w,
+                    const int* used, void* dxs, int T_pad, int d, int F,
+                    int E, cudaStream_t stream) {
+  CUtensorMap mdy, mw, mdx;
+  const uint64_t ddy[2] = {(uint64_t)F, (uint64_t)T_pad};
+  const uint64_t sdy[1] = {(uint64_t)F * 2};
+  const uint32_t bdy[2] = {64, BM};
+  const uint64_t dw[3] = {(uint64_t)F, (uint64_t)d, (uint64_t)E};
+  const uint64_t sw[2] = {(uint64_t)F * 2, (uint64_t)d * F * 2};
+  const uint32_t bw[3] = {64, 64, 1};
+  const uint64_t ddx[2] = {(uint64_t)d, (uint64_t)T_pad};
+  const uint64_t sdx[1] = {(uint64_t)d * 2};
+  const uint32_t bdx[2] = {64, 64};
+  int err = hopper::encode_bf16_map(&mdy, dys, 2, ddy, sdy, bdy);
+  if (!err) err = hopper::encode_bf16_map(&mw, w, 3, dw, sw, bw);
+  if (!err) err = hopper::encode_bf16_map(&mdx, dxs, 2, ddx, sdx, bdx);
+  if (err) return err;
+  const long long tiles =
+      (long long)(T_pad / BM) * ((d + dxg::BN - 1) / dxg::BN);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int smem = dxg::Cfg<BM>::BYTES;
+  auto kern = moe_gemm_dx_wgmma<BM>;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kern<<<grid, dxg::THREADS, smem, stream>>>(mdy, mw, mdx, block_expert, used,
+                                             T_pad, d, F);
+  return (int)cudaGetLastError();
+}
+
+// The shapes both wgmma kernels take: bt 64 or 128 dividing T_pad, d and F
+// multiples of 8 (TMA's 16-byte strides).
+bool wgmma_shape(int T_pad, int d, int F, int E, int bt) {
+  return T_pad >= 1 && d >= 8 && F >= 8 && E >= 1 && d % 8 == 0 &&
+         F % 8 == 0 && (bt == 64 || bt == 128) && T_pad % bt == 0 &&
+         T_pad / bt <= 65535;
 }
 
 
@@ -774,7 +966,6 @@ moe_gemm_dw_wgmma(const __grid_constant__ CUtensorMap map_x,
     setmaxnreg_inc<232>();
     const int cw = wg - 1;
     const int tid = threadIdx.x - 128 * wg;
-    const int warp = tid / 32, g = (tid % 32) / 4, t4 = tid % 4;
     uint8_t* out = sm + dwg::OUT + cw * dwg::OUT_WG;
     float acc[128];
     int it = 0;
@@ -803,16 +994,7 @@ moe_gemm_dw_wgmma(const __grid_constant__ CUtensorMap map_x,
 
       if (tid == 0) bulk_wait_read<0>();  // the last tile's store read them
       named_bar_sync(1 + cw, 128);
-      // element (row 16 warp + g + 8 h, column 8 c + 2 t4 + j) is
-      // acc[4 c + 2 h + j]: box c / 8, 16-byte chunk c % 8, swizzled by row
-#pragma unroll
-      for (int c = 0; c < 32; ++c)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<uint32_t*>(
-              out + (c / 8) * dwg::OUT_ATOM + (warp * 16 + g + 8 * h) * 128 +
-              (((c % 8) ^ g) * 16) + 4 * t4) =
-              pack_bf16(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+      acc_to_boxes<dwg::BN>(out, acc, tid);
       fence_proxy_async();
       named_bar_sync(1 + cw, 128);
       if (tid == 0 && t.m0 + 64 * cw < d) {
@@ -846,12 +1028,16 @@ extern "C" int moe_gemm_wgmma_launch(const void* xs, const int* block_expert,
                                      const void* w, const int* used, void* ys,
                                      int T_pad, int d, int F, int E, int bt,
                                      cudaStream_t stream) {
-  return launch_wgmma_bt<false>(xs, block_expert, w, used, ys, T_pad, d, F, E,
-                                bt, stream);
+  if (!wgmma_shape(T_pad, d, F, E, bt)) return (int)cudaErrorInvalidValue;
+  if (bt == 128)
+    return launch_wgmma<128>(xs, block_expert, w, used, ys, T_pad, d, F, E,
+                             stream);
+  return launch_wgmma<64>(xs, block_expert, w, used, ys, T_pad, d, F, E,
+                          stream);
 }
 
 // dX (T_pad, d) from dys (T_pad, F) and w (E, d, F), on the mma.sync kernel
-// (as moe_gemm_launch) or the wgmma kernel (as moe_gemm_wgmma_launch).
+// (the shapes moe_gemm_launch takes).
 extern "C" int moe_gemm_dx_launch(const void* dys, const int* block_expert,
                                   const void* w, const int* used, void* dxs,
                                   int T_pad, int d, int F, int bt,
@@ -860,13 +1046,19 @@ extern "C" int moe_gemm_dx_launch(const void* dys, const int* block_expert,
                             is_bf16, stream);
 }
 
+// dX on the persistent wgmma kernel (the shapes moe_gemm_wgmma_launch
+// takes). Returns a cudaError_t.
 extern "C" int moe_gemm_dx_wgmma_launch(const void* dys,
                                         const int* block_expert,
                                         const void* w, const int* used,
                                         void* dxs, int T_pad, int d, int F,
                                         int E, int bt, cudaStream_t stream) {
-  return launch_wgmma_bt<true>(dys, block_expert, w, used, dxs, T_pad, d, F,
-                               E, bt, stream);
+  if (!wgmma_shape(T_pad, d, F, E, bt)) return (int)cudaErrorInvalidValue;
+  if (bt == 128)
+    return launch_dx_wgmma<128>(dys, block_expert, w, used, dxs, T_pad, d, F,
+                                E, stream);
+  return launch_dx_wgmma<64>(dys, block_expert, w, used, dxs, T_pad, d, F, E,
+                             stream);
 }
 
 // dW (E, d, F) from xs (T_pad, d), dys (T_pad, F) and the plan's group ends

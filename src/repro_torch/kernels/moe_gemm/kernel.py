@@ -9,11 +9,11 @@ Two kernels compute the function; ``kernel_for`` picks one from the
 dtype, the token block and the widths alone: ``"wgmma"`` (TMA ring and
 wgmma, the prefill's bf16 blocks of 64 or 128 rows; TMA needs d and F
 multiples of 8) or ``"mma_sync"`` (the decode regime's 16-row blocks, f32,
-and any other shape). The gradient of xs (``moe_gemm_cuda(..., dx=True)``)
-runs the same two kernels with w read transposed, picked by the same rule;
-the gradient of w (``moe_gemm_dw_cuda``) has two kernels of its own, picked
-by the same rule too: ``"wgmma"`` (a persistent TMA and wgmma kernel with a
-TMA-store epilogue) or ``"mma_sync"``.
+and any other shape). The gradients of xs (``moe_gemm_cuda(..., dx=True)``)
+and of w (``moe_gemm_dw_cuda``) have two kernels each, picked by the same
+rule: ``"wgmma"`` (a persistent TMA and wgmma kernel with a TMA-store
+epilogue, one for dX and one for dW) or ``"mma_sync"`` (dX on the forward's
+``mma.sync`` kernel with w read transposed, dW on a kernel of its own).
 """
 from __future__ import annotations
 
@@ -97,7 +97,9 @@ def moe_gemm_cuda(xs: torch.Tensor, block_expert: torch.Tensor,
     kernel; ``"mma_sync"`` takes every shape, ``"wgmma"`` only those
     ``kernel_for`` gives it. With ``dx`` the gradient of xs instead: xs is
     dys (T_pad, F) and the result (T_pad, d) = dys @ w[e]^T, 0 from
-    ``used`` on."""
+    ``used`` on, where dys is not read; ``"wgmma"`` then names the
+    persistent dX kernel (``moe_gemm_dx_wgmma``), ``"mma_sync"`` the
+    forward's ``mma.sync`` kernel with w read transposed."""
     dev = _check_device(xs, block_expert, w, used)
     if xs.dtype not in DTYPES or w.dtype != xs.dtype:
         raise TypeError(f"moe_gemm_cuda takes f32 or bf16 (x and w alike), "

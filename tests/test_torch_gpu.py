@@ -736,6 +736,74 @@ def test_moe_gemm_bwd_kernels_match_plain(gen, bt, dtype, F, E, d):
         _moe_bwd_gate(dw, dw_p, dw64, f"dw {kernel}")
 
 
+# T, E, d, F, bt, plan for the persistent dX kernel (128 or 64 rows x 256
+# columns of d a tile, 132 blocks on an H100). "random": _moe_bwd_case's
+# plan (experts E // 2 and E - 1 empty, NaN in dys from used on); "one":
+# every row on expert 3, NaN from used on; "full": block experts drawn and
+# sorted by hand so the groups fill T_pad (used == T_pad: no zero tile).
+# 40,000 rows give 2,632 tiles, about 20 a block, so each block crosses
+# experts mid-loop; d 320 and 1,408 leave a partial 256-column tile that the
+# TMA store clips (at bt 64 and d 320 the second warpgroup's 128 columns lie
+# past d); F 96 is half a 64-deep slice.
+DX_WGMMA_CASES = [
+    (40000, 16, 2048, 768, 128, "random"),
+    (4000, 8, 320, 768, 128, "random"),
+    (6000, 8, 1408, 96, 128, "random"),
+    (20000, 16, 2048, 768, 64, "random"),
+    (4000, 8, 320, 1408, 64, "random"),
+    (5000, 8, 2048, 768, 128, "one"),
+    (5000, 8, 768, 2048, 64, "one"),
+    (51200, 8, 768, 2048, 128, "full"),
+    (12800, 8, 320, 768, 64, "full"),
+]
+
+
+@pytest.mark.parametrize("T,E,d,F,bt,kind", DX_WGMMA_CASES)
+def test_moe_gemm_dx_wgmma_walks_many_tiles(gen, T, E, d, F, bt, kind):
+    """The persistent wgmma dX kernel (``moe_gemm_dx_wgmma``) with the
+    gates of ``test_moe_gemm_bwd_kernels_match_plain``: 0 from ``used`` on
+    (where dys holds NaN and is not read), the same bits twice, within
+    ``bwd_limit`` of the plain version and within ``REL_MULTIPLE`` times
+    its float64-relative error."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.kernel import kernel_for, moe_gemm_cuda
+    from repro_torch.kernels.moe_gemm.ref import (
+        _groups, moe_gemm_sorted_dx_reference)
+    bf16 = torch.bfloat16
+    assert kernel_for(bf16, bt, d, F) == "wgmma"
+    if kind == "random":
+        p, _, dys, w = _moe_bwd_case(gen, T, d, E, F, bt, bf16)
+        block_expert, used, T_pad = p.block_expert, p.used, p.T_pad
+    elif kind == "one":
+        p = ops.plan(torch.full((T,), 3, dtype=torch.int32, device="cuda"),
+                     E, bt)
+        block_expert, used, T_pad = p.block_expert, p.used, p.T_pad
+        dys = torch.randn((T_pad, F), generator=gen, device="cuda").to(bf16)
+        assert int(used) < T_pad
+        dys[int(used):] = float("nan")
+    else:
+        T_pad = T
+        block_expert = torch.randint(0, E, (T_pad // bt,), generator=gen,
+                                     device="cuda", dtype=torch.int32)
+        block_expert = block_expert.sort().values
+        used = torch.tensor(T_pad, dtype=torch.int32, device="cuda")
+        dys = torch.randn((T_pad, F), generator=gen, device="cuda").to(bf16)
+    if kind != "random":
+        w = (torch.randn((E, d, F), generator=gen, device="cuda")
+             * 0.1).to(bf16)
+    n = int(used)
+    dx = moe_gemm_cuda(dys, block_expert, w, bt, used, kernel="wgmma",
+                       dx=True)
+    assert torch.equal(dx, moe_gemm_cuda(dys, block_expert, w, bt, used,
+                                         kernel="wgmma", dx=True))
+    assert not dx[n:].any()
+    dx64 = torch.zeros((T_pad, d), dtype=torch.float64, device="cuda")
+    for e, r0, r1 in _groups(block_expert, bt, used):
+        dx64[r0:r1] = dys[r0:r1].double() @ w[e].double().T
+    dx_p = moe_gemm_sorted_dx_reference(dys, block_expert, w, bt, used)
+    _moe_bwd_gate(dx, dx_p, dx64, f"dx wgmma {kind}")
+
+
 def test_moe_gemm_autograd_launches_only_the_gradients_needed(gen):
     """Under grad mode the grouped GEMM's backward launches dX only for an
     xs that needs a gradient and dW only for a w that does; the gradients
