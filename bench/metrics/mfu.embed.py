@@ -1,0 +1,2 @@
+"""The drain's share of the card's peak (``readers.read_mfu``)."""
+from bench.metrics.readers import read_mfu as read  # noqa: F401
