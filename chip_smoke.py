@@ -1545,8 +1545,7 @@ def serve_phase():
           f"{stats.avg_layers:.2f}/{cfg.tower('vision').n_layers}")
     n_ref = sum(r.n_refined for r in results)
     print(f"  query_batch: {n_queries} queries in {t_query:.3f} s = "
-          f"{t_query / n_queries * 1e3:.2f} ms/query, {n_ref} refinements, "
-          f"rounds/query {results[0].per_round_s}")
+          f"{t_query / n_queries * 1e3:.2f} ms/query, {n_ref} refinements")
     bank = engine.store.device_bank
     print(f"  device bank: {bank.stats()}")
     print(f"  kernel launches on the serving path: {launches}")

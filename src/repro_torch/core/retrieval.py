@@ -31,6 +31,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.store import EmbeddingStore
+from repro_torch.tracing import span
 
 
 @dataclasses.dataclass
@@ -40,7 +41,6 @@ class RetrievalResult:
     filtered_uids: np.ndarray   # after round 2 (pre-refinement)
     n_refined: int
     latency_s: float
-    per_round_s: Dict[str, float]
 
 
 def speculative_filter(store: EmbeddingStore,
@@ -196,33 +196,32 @@ def speculative_retrieve(
     ``freshness`` and ``nprobe`` are forwarded to the round-1 store scan
     (async device-bank staleness policy / IVF probe fan-out)."""
     t0 = time.perf_counter()
-    rounds = speculative_filter(store, query_embs, k, impl=impl,
-                                freshness=freshness, nprobe=nprobe)
-    t1 = time.perf_counter()
-    uids, _ = global_verify(rounds, k)
-    if uids.size:
-        # a stale bank snapshot (async refresh) can surface uids deleted
-        # since its generation; round 3 reads live store rows, so drop the
-        # dead ones here — "no longer exists" is the correct stale answer
-        uids = uids[store.contains(uids)]
-    t2 = time.perf_counter()
-    fine_embs, n_ref = _refine_round(store, uids, refine_fn, refine_budget,
-                                     upgrade)
-    t3 = time.perf_counter()
+    with span("query.filter"):
+        rounds = speculative_filter(store, query_embs, k, impl=impl,
+                                    freshness=freshness, nprobe=nprobe)
+    with span("query.verify"):
+        uids, _ = global_verify(rounds, k)
+        if uids.size:
+            # a stale bank snapshot (async refresh) can surface uids deleted
+            # since its generation; round 3 reads live store rows, so drop
+            # the dead ones here — "no longer exists" is the correct stale
+            # answer
+            uids = uids[store.contains(uids)]
+    with span("query.refine"):
+        fine_embs, n_ref = _refine_round(store, uids, refine_fn,
+                                         refine_budget, upgrade)
 
-    if len(fine_embs):
-        scores = fine_embs @ np.asarray(fine_query, np.float32)
-        order = np.argsort(-scores)[:final_k]
-        uids_f, scores_f = uids[order], scores[order]
-    else:
-        uids_f = np.zeros((0,), np.int64)
-        scores_f = np.zeros((0,), np.float32)
-    t4 = time.perf_counter()
+    with span("query.match"):
+        if len(fine_embs):
+            scores = fine_embs @ np.asarray(fine_query, np.float32)
+            order = np.argsort(-scores)[:final_k]
+            uids_f, scores_f = uids[order], scores[order]
+        else:
+            uids_f = np.zeros((0,), np.int64)
+            scores_f = np.zeros((0,), np.float32)
     return RetrievalResult(
         uids=uids_f, scores=scores_f, filtered_uids=uids, n_refined=n_ref,
-        latency_s=t4 - t0,
-        per_round_s={"filter": t1 - t0, "verify": t2 - t1,
-                     "refine": t3 - t2, "match": t4 - t3})
+        latency_s=time.perf_counter() - t0)
 
 
 def single_granularity_retrieve(store: EmbeddingStore, query_emb: np.ndarray,

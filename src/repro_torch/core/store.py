@@ -55,6 +55,7 @@ from repro_torch import resolve_device
 from repro_torch.core.quantize import dequantize_int4_np, quantize_int4_np
 from repro_torch.kernels.int4_cache import ops as int4_ops
 from repro_torch.kernels.retrieval_topk.ops import retrieval_topk
+from repro_torch.tracing import span
 
 _META_DTYPE = np.dtype([("uid", np.int64), ("exit_idx", np.int32),
                         ("exit_layer", np.int32), ("fine", np.bool_),
@@ -176,10 +177,13 @@ class EmbeddingStore:
         bytes and scales leave the device; numpy takes
         ``quantize_int4_np``. Both give the same bits."""
         if not isinstance(hs, torch.Tensor):
-            ch = np.asarray(hs, np.float32)
-            return (*quantize_int4_np(ch), tuple(ch.shape[1:]))
-        p, s = int4_ops.quantize(hs)
-        p, s = p.cpu().numpy(), s.cpu().numpy()
+            with span("store.quantize_acts"):
+                ch = np.asarray(hs, np.float32)
+                return (*quantize_int4_np(ch), tuple(ch.shape[1:]))
+        with span("store.quantize_acts"):
+            p, s = int4_ops.quantize(hs)
+        with span("store.acts_to_host"):
+            p, s = p.cpu().numpy(), s.cpu().numpy()
         if hs.device.type != "cpu":
             self.act_d2h_bytes += int(p.nbytes + s.nbytes)
         return p, s, tuple(hs.shape[1:])
@@ -190,48 +194,51 @@ class EmbeddingStore:
         (optionally) one for the activation batch (numpy or a tensor, see
         ``_quantize_activations``). Re-adding an existing uid overwrites its
         row in place (last write wins)."""
-        uids = np.asarray(uids, np.int64).ravel()
-        embs = np.asarray(embs, np.float32).reshape(len(uids), self.embed_dim)
-        packed, scales = self._quantize_rows(embs)
-        act = (None if cached_hs is None
-               else self._quantize_activations(cached_hs))
-        exit_idxs = np.asarray(exit_idxs, np.int32).ravel()
-        exit_layers = np.asarray(exit_layers, np.int32).ravel()
-        with self._lock:
-            mod_id = self._modality_id_locked(modality)
-            rows = np.empty(len(uids), np.int64)
-            nxt = self._n
-            for j, u in enumerate(uids.tolist()):
-                row = self._uid_to_row.get(u)
-                if row is None:
-                    row = nxt
-                    nxt += 1
-                    self._uid_to_row[u] = row
-                elif act is None:
-                    # re-add without fresh activations: evict the previous
-                    # content's cache so refinement can't resume from it
-                    self._act_cache.pop(u, None)
-                rows[j] = row
-            self._ensure_capacity(nxt)
-            self._packed[rows] = packed
-            self._scales[rows] = scales
-            self._meta["uid"][rows] = uids
-            self._meta["exit_idx"][rows] = exit_idxs
-            self._meta["exit_layer"][rows] = exit_layers
-            self._meta["modality_id"][rows] = mod_id
-            self._meta["fine"][rows] = fine
-            self._dirty[rows] = True
-            self._any_dirty = True
-            self._mark_bank_dirty_locked(rows)
-            if act is not None:
-                ap, ascale, shape = act
+        with span("store.add_batch"):
+            uids = np.asarray(uids, np.int64).ravel()
+            embs = np.asarray(embs, np.float32).reshape(len(uids),
+                                                        self.embed_dim)
+            with span("store.quantize_rows"):
+                packed, scales = self._quantize_rows(embs)
+            act = (None if cached_hs is None
+                   else self._quantize_activations(cached_hs))
+            exit_idxs = np.asarray(exit_idxs, np.int32).ravel()
+            exit_layers = np.asarray(exit_layers, np.int32).ravel()
+            with span("store.insert"), self._lock:
+                mod_id = self._modality_id_locked(modality)
+                rows = np.empty(len(uids), np.int64)
+                nxt = self._n
                 for j, u in enumerate(uids.tolist()):
-                    self._act_cache[u] = (ap[j], ascale[j], shape,
-                                          int(exit_layers[j]))
-            self._n = nxt
-            if self._ivf is not None:  # train then assign, one argmin each
-                self._ivf.observe(embs)
-                self._ivf.assign_rows(rows, embs, nxt)
+                    row = self._uid_to_row.get(u)
+                    if row is None:
+                        row = nxt
+                        nxt += 1
+                        self._uid_to_row[u] = row
+                    elif act is None:
+                        # re-add without fresh activations: evict the previous
+                        # content's cache so refinement can't resume from it
+                        self._act_cache.pop(u, None)
+                    rows[j] = row
+                self._ensure_capacity(nxt)
+                self._packed[rows] = packed
+                self._scales[rows] = scales
+                self._meta["uid"][rows] = uids
+                self._meta["exit_idx"][rows] = exit_idxs
+                self._meta["exit_layer"][rows] = exit_layers
+                self._meta["modality_id"][rows] = mod_id
+                self._meta["fine"][rows] = fine
+                self._dirty[rows] = True
+                self._any_dirty = True
+                self._mark_bank_dirty_locked(rows)
+                if act is not None:
+                    ap, ascale, shape = act
+                    for j, u in enumerate(uids.tolist()):
+                        self._act_cache[u] = (ap[j], ascale[j], shape,
+                                              int(exit_layers[j]))
+                self._n = nxt
+                if self._ivf is not None:  # train then assign, one argmin each
+                    self._ivf.observe(embs)
+                    self._ivf.assign_rows(rows, embs, nxt)
 
     def upgrade(self, uid: int, fine_emb: np.ndarray) -> None:
         """Permanently replace a coarse embedding with its refined one."""

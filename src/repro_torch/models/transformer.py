@@ -44,6 +44,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.layers import ParamDef, Schema
+from repro_torch.tracing import span
 
 
 def lm_schema(cfg: LMConfig, recall: RecallConfig, *, embed_out: int = 1024,
@@ -148,14 +149,17 @@ def layer_full(pl_: Schema, x: torch.Tensor, cfg: LMConfig,
                lora: Optional[Dict] = None, lora_scale: float = 0.0):
     """Self-attention layer over the full (own) sequence -> (x, (k, v),
     aux or None). ``lora`` is this layer's slice."""
-    h = L.rmsnorm(x, pl_["norm1"], cfg.norm_eps)
-    q, k, v = _proj_qkv(pl_["attn"], h, positions, cfg.rope_theta, lora,
-                        lora_scale)
-    o = flash_attention(q, k, v, causal=cfg.causal, window=window)
-    x = x + _attn_out(pl_["attn"], o, lora, lora_scale)
-    h2 = L.rmsnorm(x, pl_["norm2"], cfg.norm_eps)
-    y, aux = _ffn(pl_, h2, cfg, lora, lora_scale)
-    return x + y, (k, v), aux
+    with span("layer.attn"):
+        h = L.rmsnorm(x, pl_["norm1"], cfg.norm_eps)
+        q, k, v = _proj_qkv(pl_["attn"], h, positions, cfg.rope_theta, lora,
+                            lora_scale)
+        o = flash_attention(q, k, v, causal=cfg.causal, window=window)
+        x = x + _attn_out(pl_["attn"], o, lora, lora_scale)
+    with span("layer.mlp"):
+        h2 = L.rmsnorm(x, pl_["norm2"], cfg.norm_eps)
+        y, aux = _ffn(pl_, h2, cfg, lora, lora_scale)
+        x = x + y
+    return x, (k, v), aux
 
 
 def layer_decode(pl_: Schema, x: torch.Tensor, k_cache: torch.Tensor,
@@ -213,8 +217,9 @@ def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
     if pool not in ("cls", "mean"):
         raise ValueError(f"pool={pool!r}")
     if embeds is None:
-        embeds = L.embed_lookup(params["embed"], tokens).to(
-            L.torch_dtype(cfg.dtype))
+        with span("lm.embed"):
+            embeds = L.embed_lookup(params["embed"], tokens).to(
+                L.torch_dtype(cfg.dtype))
     x = embeds
     B, S, _ = x.shape
     positions = None
@@ -242,17 +247,19 @@ def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
         if aux_l is not None:
             aux = aux_l if aux is None else aux + aux_l
         if return_kv:
-            kv_cache[0][i - layer_start, :, :S] = k
-            kv_cache[1][i - layer_start, :, :S] = v
+            with span("layer.kv_write"):
+                kv_cache[0][i - layer_start, :, :S] = k
+                kv_cache[1][i - layer_start, :, :S] = v
         if collect_pooled:
-            if pool == "cls":
-                p = x[:, 0]
-            elif mask is not None:
-                m = mask[..., None].float()
-                p = ((x.float() * m).sum(1)
-                     / torch.clamp_min(m.sum(1), 1.0)).to(x.dtype)
-            else:
-                p = x.float().mean(1).to(x.dtype)
+            with span("layer.pool"):
+                if pool == "cls":
+                    p = x[:, 0]
+                elif mask is not None:
+                    m = mask[..., None].float()
+                    p = ((x.float() * m).sum(1)
+                         / torch.clamp_min(m.sum(1), 1.0)).to(x.dtype)
+                else:
+                    p = x.float().mean(1).to(x.dtype)
             pooled.append(p)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -269,9 +276,10 @@ def exit_embedding(params: Schema, pooled: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """pooled (..., d) -> L2-normalized embedding (..., E) via the shared
     exit head, in fp32."""
-    h = L.rmsnorm(pooled, params["exit_head"]["norm"], eps)
-    e = h.float() @ params["exit_head"]["proj"].float()
-    return L.l2_normalize(e)
+    with span("layer.exit_head"):
+        h = L.rmsnorm(pooled, params["exit_head"]["norm"], eps)
+        e = h.float() @ params["exit_head"]["proj"].float()
+        return L.l2_normalize(e)
 
 
 # ---------------------------------------------------------------------------
@@ -388,8 +396,9 @@ def prefill(params: Schema, cfg: LMConfig, recall: RecallConfig,
     S_cache = max(S, pad_to or 0)
     shape = (cfg.n_layers, B, S_cache, cfg.n_kv_heads, cfg.head_dim)
     dt = L.torch_dtype(cfg.dtype)
-    caches = (torch.zeros(shape, dtype=dt, device=tokens.device),
-              torch.zeros(shape, dtype=dt, device=tokens.device))
+    with span("lm.caches"):
+        caches = (torch.zeros(shape, dtype=dt, device=tokens.device),
+                  torch.zeros(shape, dtype=dt, device=tokens.device))
     out = forward_hidden(params, cfg, recall, tokens=tokens, return_kv=True,
                          kv_cache=caches, collect_pooled=True, **fw_kw)
     exits = recall.exit_layers(cfg.n_layers)
@@ -409,8 +418,9 @@ def decode_step(params: Schema, cfg: LMConfig, recall: RecallConfig,
     at the scale of the default ``RecallConfig()``, not ``recall``'s, as the
     reference's ``decode_step`` does."""
     lora_scale = RecallConfig().lora_alpha / RecallConfig().lora_rank
-    x = L.embed_lookup(params["embed"], token[:, None]).to(
-        L.torch_dtype(cfg.dtype))
+    with span("lm.embed"):
+        x = L.embed_lookup(params["embed"], token[:, None]).to(
+            L.torch_dtype(cfg.dtype))
     window = cfg.window if window is None else window
     lengths = lengths.to(torch.int32)
     for i in range(cfg.n_layers):

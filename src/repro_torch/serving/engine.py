@@ -35,13 +35,13 @@ from repro_torch.core.store import EmbeddingStore
 from repro_torch.kernels.int4_cache import ops as int4_ops
 from repro_torch.models import imagebind as IB
 from repro_torch.models import transformer as T
+from repro_torch.tracing import span
 
 
 @dataclasses.dataclass
 class EngineStats:
     n_embedded: int = 0
     layers_executed: float = 0.0
-    superficial_batches: int = 0
     group_batches: int = 0
     wall_s: float = 0.0
     # cached activations (packed bytes + scales) uploaded to a device for
@@ -116,9 +116,16 @@ class EmbeddingEngine:
         if not self._queue:
             return self.stats
         t0 = time.perf_counter()
-        uids = np.array([u for u, _ in self._queue])
-        items = np.stack([x for _, x in self._queue])
-        self._queue.clear()
+        with span("engine.drain"):
+            self._drain()
+        self.stats.wall_s += time.perf_counter() - t0
+        return self.stats
+
+    def _drain(self) -> None:
+        with span("engine.collect"):
+            uids = np.array([u for u, _ in self._queue])
+            items = np.stack([x for _, x in self._queue])
+            self._queue.clear()
         N = self.recall.superficial_layers
 
         if self.policy == "full":
@@ -134,48 +141,58 @@ class EmbeddingEngine:
         # 1) superficial pass (batched)
         h_parts, pooled_parts = [], []
         for i in range(0, len(items), self.max_batch):
-            x = torch.as_tensor(items[i:i + self.max_batch]).to(self.device)
-            h, pooled = self._superficial(x)
+            with span("engine.upload"):
+                x = torch.as_tensor(items[i:i + self.max_batch]).to(
+                    self.device)
+            with span("engine.superficial"):
+                h, pooled = self._superficial(x)
             h_parts.append(h)
             pooled_parts.append(pooled)
-            self.stats.superficial_batches += 1
         h_sup = torch.cat(h_parts)                      # on device
         pooled_all = torch.cat(pooled_parts, dim=1)     # (N, B, d)
 
         if self.policy == "recall":
             if self.predictor is None:
                 raise ValueError("recall policy needs a predictor")
-            pred_idx = PE.predict_exit(self.predictor, pooled_all[-1],
-                                       n_exits=len(self.exits)).cpu().numpy()
+            with span("engine.predict"):
+                pred_idx = PE.predict_exit(self.predictor, pooled_all[-1],
+                                           n_exits=len(self.exits)
+                                           ).cpu().numpy()
         elif self.policy == "branchynet":
-            pred_idx = self._branchynet_exits(items)
+            with span("engine.predict"):
+                pred_idx = self._branchynet_exits(items)
 
         # 2+3) exit groups -> dense batched continuation from layer N
         tp = self.params["towers"][self.modality]
-        plan = plan_exit_groups(pred_idx, self.exits, N)
+        with span("engine.plan"):
+            plan = plan_exit_groups(pred_idx, self.exits, N)
         for exit_idx, exit_layer, ids in plan.batches(self.max_batch):
-            ids_d = torch.as_tensor(ids, device=self.device)
-            if exit_layer <= N:
-                # exit depth within the superficial prefix: the embedding
-                # comes straight from the already-computed pooled state
-                embs = T.exit_embedding(tp, pooled_all[exit_layer - 1][ids_d],
-                                        self.cfg.norm_eps)
-                layers_run = N  # superficial pass was still paid
-            else:
-                embs = self._continue(h_sup[ids_d], N, exit_layer)
-                layers_run = exit_layer
+            with span("engine.continue"):
+                ids_d = torch.as_tensor(ids, device=self.device)
+                if exit_layer <= N:
+                    # exit depth within the superficial prefix: the
+                    # embedding comes straight from the already-computed
+                    # pooled state
+                    embs = T.exit_embedding(
+                        tp, pooled_all[exit_layer - 1][ids_d],
+                        self.cfg.norm_eps)
+                    layers_run = N  # superficial pass was still paid
+                else:
+                    embs = self._continue(h_sup[ids_d], N, exit_layer)
+                    layers_run = exit_layer
+            with span("engine.to_host"):
+                embs = _host(embs)
             self.stats.group_batches += 1
             self.stats.layers_executed += float(len(ids) * layers_run)
             self.store.add_batch(
-                uids[ids], _host(embs), [exit_idx] * len(ids),
+                uids[ids], embs, [exit_idx] * len(ids),
                 [exit_layer] * len(ids), modality=self.modality,
                 cached_hs=h_sup[ids_d] if self.cache_activations else None)
         # async bank refresh: scatter the new rows now, behind host work,
         # not on the first query's path
-        self.store.kick_bank_refresh()
+        with span("engine.kick_refresh"):
+            self.store.kick_bank_refresh()
         self.stats.n_embedded += len(uids)
-        self.stats.wall_s += time.perf_counter() - t0
-        return self.stats
 
     def _branchynet_exits(self, items: np.ndarray, tau: float = 0.95) -> np.ndarray:
         """Per-sample confidence exits (baseline; no batching by design)."""

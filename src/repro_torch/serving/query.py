@@ -31,6 +31,7 @@ from repro_torch.core.retrieval import (RetrievalResult, global_verify,
                                         speculative_retrieve)
 from repro_torch.core.store import EmbeddingStore
 from repro_torch.models import imagebind as IB
+from repro_torch.tracing import span
 
 
 class QueryEngine:
@@ -137,14 +138,17 @@ class QueryEngine:
     def query(self, query: np.ndarray, *, k: int = 10, final_k: int = 10,
               refine_budget: Optional[int] = None,
               speculative: bool = True) -> RetrievalResult:
-        by_g = self.embed_query(query)
+        with span("query.embed"):
+            by_g = self.embed_query(query)
         fine = by_g[self.granularities[-1]]
         if not speculative:
             t0 = time.perf_counter()
-            uids, scores = single_granularity_retrieve(self.store, fine, k)
-            return RetrievalResult(uids=uids, scores=scores, filtered_uids=uids,
-                                   n_refined=0, latency_s=time.perf_counter() - t0,
-                                   per_round_s={})
+            with span("query.filter"):
+                uids, scores = single_granularity_retrieve(self.store, fine,
+                                                           k)
+            return RetrievalResult(uids=uids, scores=scores,
+                                   filtered_uids=uids, n_refined=0,
+                                   latency_s=time.perf_counter() - t0)
         return speculative_retrieve(
             self.store, [by_g[g] for g in self.granularities], fine,
             k=k, final_k=final_k, refine_fn=self.refine_fn,
@@ -157,71 +161,71 @@ class QueryEngine:
                     refine_budget: Optional[int] = None,
                     speculative: bool = True) -> List[RetrievalResult]:
         """Serve a whole drain of queries at once (see module docstring).
-        Per-result ``latency_s``/``per_round_s`` are the batch wall time
-        amortized over the batch."""
+        Per-result ``latency_s`` is the batch wall time amortized over the
+        batch; the ``query.*`` spans time the rounds under a profiler."""
         queries = np.stack([np.asarray(q) for q in queries])
         B = len(queries)
         if B == 0:
             return []
         t0 = time.perf_counter()
-        QG = self.embed_query_batch(queries)            # (B, G, E)
+        with span("query.embed"):
+            QG = self.embed_query_batch(queries)        # (B, G, E)
         fine_q = QG[:, -1]                              # (B, E)
         G = QG.shape[1]
         if not speculative:
-            uids, scores = self.store.search_batch(fine_q, k,
-                                                   impl=self.search_impl,
-                                                   freshness=self.freshness,
-                                                   nprobe=self.nprobe)
+            with span("query.filter"):
+                uids, scores = self.store.search_batch(
+                    fine_q, k, impl=self.search_impl,
+                    freshness=self.freshness, nprobe=self.nprobe)
             dt = (time.perf_counter() - t0) / B
             return [RetrievalResult(uids=uids[b], scores=scores[b],
                                     filtered_uids=uids[b], n_refined=0,
-                                    latency_s=dt, per_round_s={})
+                                    latency_s=dt)
                     for b in range(B)]
 
         # round 1: every (query, granularity) pair in ONE fused store scan
-        flat_u, flat_s = self.store.search_batch(QG.reshape(B * G, -1), k,
-                                                 impl=self.search_impl,
-                                                 freshness=self.freshness,
-                                                 nprobe=self.nprobe)
+        with span("query.filter"):
+            flat_u, flat_s = self.store.search_batch(
+                QG.reshape(B * G, -1), k, impl=self.search_impl,
+                freshness=self.freshness, nprobe=self.nprobe)
         kk = flat_u.shape[1]
         u3 = flat_u.reshape(B, G, kk)
         s3 = flat_s.reshape(B, G, kk)
-        t1 = time.perf_counter()
 
         # round 2: vectorized dedup per query; one contains() call for the
         # whole batch drops uids deleted since the scan
-        cands = [global_verify(list(zip(u3[b], s3[b])), k) for b in range(B)]
-        lens = [u.size for u, _ in cands]
-        if sum(lens):
-            live_all = self.store.contains(
-                np.concatenate([u for u, _ in cands]))
-            offs = np.cumsum([0] + lens)
-            cands = [(u[live_all[o:o + n]], s[live_all[o:o + n]])
-                     for (u, s), o, n in zip(cands, offs, lens)]
-        t2 = time.perf_counter()
+        with span("query.verify"):
+            cands = [global_verify(list(zip(u3[b], s3[b])), k)
+                     for b in range(B)]
+            lens = [u.size for u, _ in cands]
+            if sum(lens):
+                live_all = self.store.contains(
+                    np.concatenate([u for u, _ in cands]))
+                offs = np.cumsum([0] + lens)
+                cands = [(u[live_all[o:o + n]], s[live_all[o:o + n]])
+                         for (u, s), o, n in zip(cands, offs, lens)]
 
         # round 3: one deduplicated refinement batch across all queries
-        fine_per_q, n_ref_per_q = refine_round(
-            self.store, [u for u, _ in cands], self.refine_fn, refine_budget,
-            upgrade=True, budget_mode="attempts")
-        t3 = time.perf_counter()
+        with span("query.refine"):
+            fine_per_q, n_ref_per_q = refine_round(
+                self.store, [u for u, _ in cands], self.refine_fn,
+                refine_budget, upgrade=True, budget_mode="attempts")
 
         ranked = []
-        for b in range(B):
-            uids_b, _ = cands[b]
-            fine_embs = fine_per_q[b]
-            n_ref = n_ref_per_q[b]
-            if len(fine_embs):
-                scores = fine_embs @ fine_q[b]
-                order = np.argsort(-scores)[:final_k]
-                ranked.append((uids_b[order], scores[order], uids_b, n_ref))
-            else:
-                ranked.append((np.zeros((0,), np.int64),
-                               np.zeros((0,), np.float32), uids_b, n_ref))
-        t4 = time.perf_counter()
-        per_round = {"filter": (t1 - t0) / B, "verify": (t2 - t1) / B,
-                     "refine": (t3 - t2) / B, "match": (t4 - t3) / B}
+        with span("query.match"):
+            for b in range(B):
+                uids_b, _ = cands[b]
+                fine_embs = fine_per_q[b]
+                n_ref = n_ref_per_q[b]
+                if len(fine_embs):
+                    scores = fine_embs @ fine_q[b]
+                    order = np.argsort(-scores)[:final_k]
+                    ranked.append((uids_b[order], scores[order], uids_b,
+                                   n_ref))
+                else:
+                    ranked.append((np.zeros((0,), np.int64),
+                                   np.zeros((0,), np.float32), uids_b, n_ref))
+        dt = (time.perf_counter() - t0) / B
         return [RetrievalResult(uids=u, scores=s, filtered_uids=fu,
-                                n_refined=n, latency_s=(t4 - t0) / B,
-                                per_round_s=dict(per_round))
+                                n_refined=n, latency_s=dt)
                 for u, s, fu, n in ranked]
