@@ -1159,6 +1159,113 @@ def check_moe_gemm(gen):
     return rows
 
 
+def check_split_gemm(gen):
+    """The split GEMMs at the vision tower's shapes (d 1,280, d_ff 5,120;
+    an exit group of 64 x 257 rows and a ragged one of 37 x 257): against
+    the plain version, a float64 product and fp32 cuBLAS (TF32 off), whose
+    worst error against float64 the kernel's may pass by at most 2x; the
+    same bits twice; inf and NaN where cuBLAS puts them. Timed at 64 x 257
+    beside the bound (three bf16 products at 989e12; the CUDA-core bound,
+    one fp32 product at 67e12, printed beside), the plain version, fp32
+    ``torch.matmul`` on weights cast once (``library_ms``) and the port's
+    previous path, which casts the weights at every call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.split_gemm import ref
+    from repro_torch.kernels.split_gemm.kernel import (matmul_cuda,
+                                                       swiglu_gate_up_cuda)
+    if torch.backends.cuda.matmul.allow_tf32:
+        _fail("split_gemm is held to fp32 cuBLAS: TF32 must be off")
+    _, peak = _peaks()
+    d, d_ff = 1280, 5120
+    wg, wu = ((torch.randn((d, d_ff), generator=gen, device="cuda")
+               * d ** -0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn((d_ff, d), generator=gen, device="cuda")
+          * d_ff ** -0.5).bfloat16()
+    worst, side = 0.0, {}
+    for groups in (64, 37):
+        M = groups * 257
+        x = torch.randn((M, d), generator=gen, device="cuda")
+        h = swiglu_gate_up_cuda(x, wg, wu)
+        y = matmul_cuda(h, wd)
+        if not (torch.equal(h, swiglu_gate_up_cuda(x, wg, wu)) and
+                torch.equal(y, matmul_cuda(h, wd))):
+            _fail(f"split_gemm M={M}: not the same bits twice")
+        x64 = x.double()
+        cases = (("gate_up", d, d_ff, h, lambda: ref.swiglu_gate_up(x, wg, wu),
+                  lambda: F.silu(x @ wg.float()) * (x @ wu.float()),
+                  lambda: F.silu(x64 @ wg.double()) * (x64 @ wu.double())),
+                 ("down", d_ff, d, y, lambda: ref.matmul(h, wd),
+                  lambda: h @ wd.float(), lambda: h.double() @ wd.double()))
+        for what, K, N, got, plain_fn, lib_fn, exact_fn in cases:
+            exact = exact_fn()
+            errs = [(t.double() - exact).abs().max().item()
+                    for t in (got, plain_fn(), lib_fn())]
+            del exact
+            worst = max(worst, errs[0])
+            print(f"  split_gemm {what} M={M} ({groups} x 257) K={K} N={N}: "
+                  f"max abs err vs float64 kernel {errs[0]:.3e}, plain "
+                  f"{errs[1]:.3e}, fp32 cuBLAS {errs[2]:.3e} (kernel / "
+                  f"cuBLAS {errs[0] / errs[2]:.2f}, gate 2)")
+            if not errs[0] <= 2 * errs[2]:
+                _fail(f"split_gemm {what} M={M}: error vs float64 "
+                      f"{errs[0]:.3e} > 2x fp32 cuBLAS's {errs[2]:.3e}")
+            if groups != 64:
+                continue
+            a = x if what == "gate_up" else h
+            kern = (lambda: swiglu_gate_up_cuda(x, wg, wu)) \
+                if what == "gate_up" else (lambda: matmul_cuda(h, wd))
+            wf = [w.float() for w in ((wg, wu) if what == "gate_up"
+                                      else (wd,))]
+            lib = (lambda: F.silu(x @ wf[0]) * (x @ wf[1])) \
+                if what == "gate_up" else (lambda: h @ wf[0])
+            prev = (lambda: F.silu(x @ wg.to(x.dtype)) * (x @ wu.to(x.dtype))) \
+                if what == "gate_up" else (lambda: h @ wd.to(h.dtype))
+            ops_ = 2.0 * M * K * N * (2 if what == "gate_up" else 1)
+            side[what] = {
+                "ms": time_ms(kern), "plain_ms": time_ms(plain_fn, reps=2,
+                                                         trials=3),
+                "library_ms": time_ms(lib), "previous_path_ms": time_ms(prev),
+                "bound_ms": 3 * ops_ / peak["bf16"] * 1e3,
+                "cuda_core_bound_ms": ops_ / peak["fp32"] * 1e3,
+                "shape": [M, K, N], "a_dtype": str(a.dtype)}
+            s_ = side[what]
+            print(f"  split_gemm {what} M={M} K={K} N={N}: kernel "
+                  f"{s_['ms']:.4f} ms ({ops_ / s_['ms'] / 1e9:.1f} fp32 "
+                  f"TFLOP/s, {s_['bound_ms'] / s_['ms']:.0%} of the bound "
+                  f"{s_['bound_ms']:.4f} ms; CUDA-core bound "
+                  f"{s_['cuda_core_bound_ms']:.4f} ms), plain "
+                  f"{s_['plain_ms']:.4f} ms, fp32 torch.matmul "
+                  f"{s_['library_ms']:.4f} ms, previous path (casts at "
+                  f"every call) {s_['previous_path_ms']:.4f} ms")
+        del x, x64, h, y
+        torch.cuda.empty_cache()
+    # inf and NaN where fp32 cuBLAS puts them
+    x = torch.randn((257, d), generator=gen, device="cuda")
+    x[1, 3], x[2, 0], x[3, 5] = float("inf"), float("-inf"), float("nan")
+    h = swiglu_gate_up_cuda(x, wg, wu)
+    h_lib = F.silu(x @ wg.float()) * (x @ wu.float())
+    y, y_lib = matmul_cuda(x, wg), x @ wg.float()
+    for got, want in ((h, h_lib), (y, y_lib)):
+        if not all(torch.equal(f(got), f(want)) for f in
+                   (torch.isnan, torch.isposinf, torch.isneginf)):
+            _fail("split_gemm: inf / NaN not where fp32 cuBLAS puts them")
+    print("  split_gemm: inf and NaN in x land where fp32 cuBLAS puts them")
+    return {"name": "split_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/split_gemm/csrc/"
+                      "split_gemm.cu",
+            "replaces": "none (models/layers.py::swiglu's fp32 products)",
+            "max_abs_err": worst,
+            "ms": side["gate_up"]["ms"] + side["down"]["ms"],
+            "plain_ms": side["gate_up"]["plain_ms"]
+            + side["down"]["plain_ms"],
+            "bound_ms": side["gate_up"]["bound_ms"]
+            + side["down"]["bound_ms"],
+            "bound_by": "operations (three bf16 products)",
+            "library_ms": side["gate_up"]["library_ms"]
+            + side["down"]["library_ms"], "side": side}
+
+
 def check_flash_lm(gen):
     """The flash forward at the LM prefills, bf16, causal: qwen2-1.5b's
     (32 prompts of 2,048, 12 heads of 128 over 2 kv heads) and qwen3-moe's
@@ -1227,6 +1334,8 @@ def kernel_phase():
     torch.cuda.empty_cache()
     rows += check_decode(gen)
     rows += check_moe_gemm(gen)
+    rows.append(check_split_gemm(gen))
+    torch.cuda.empty_cache()
     rows += check_flash_lm(gen)
     torch.cuda.empty_cache()
     return rows
@@ -1245,6 +1354,7 @@ def _counters():
     from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.retrieval_topk import ops as topk_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.split_gemm import ops as split_ops
     return {"int4_quant": (int4_ops, "launches"),
             "int4_dequant": (int4_ops, "launches_dequant"),
             "retrieval_topk_int4": (topk_ops, "launches"),
@@ -1256,7 +1366,8 @@ def _counters():
             "rmsnorm_bwd": (rms_ops, "bwd_launches"),
             "decode_attention": (decode_ops, "launches"),
             "moe_gemm": (moe_ops, "launches"),
-            "moe_gemm_bwd": (moe_ops, "bwd_launches")}
+            "moe_gemm_bwd": (moe_ops, "bwd_launches"),
+            "split_gemm": (split_ops, "launches")}
 
 
 def _reset_launches() -> None:
@@ -1265,6 +1376,7 @@ def _reset_launches() -> None:
     _counters()["flash_attention_fwd"][0].launches_by_head_dim.clear()
     _counters()["moe_gemm"][0].launches_by_kernel.clear()
     _counters()["moe_gemm"][0].bwd_launches_by_kernel.clear()
+    _counters()["split_gemm"][0].launches_by_kernel.clear()
 
 
 def _read_launches(cfg) -> dict:
@@ -1432,6 +1544,8 @@ def check_calls_vs_plain(params, spec, vision, text, lora=None):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
+    from repro_torch.kernels.split_gemm import ops as split_ops
+    from repro_torch.kernels.split_gemm import ref as split_ref
     from repro_torch.models import imagebind as IB
     from repro_torch.models import layers, transformer as T
     rel_tol = 2.0 ** -7
@@ -1443,7 +1557,14 @@ def check_calls_vs_plain(params, spec, vision, text, lora=None):
                                    _flash_plain)), \
             mock.patch.object(layers, "rmsnorm_op",
                               both("rmsnorm", rms_ops.rmsnorm_op,
-                                   rmsnorm_reference)):
+                                   rmsnorm_reference)), \
+            mock.patch.object(split_ops, "swiglu_gate_up",
+                              both("split_gemm[gate_up]",
+                                   split_ops.swiglu_gate_up,
+                                   split_ref.swiglu_gate_up)), \
+            mock.patch.object(split_ops, "matmul",
+                              both("split_gemm[down]", split_ops.matmul,
+                                   split_ref.matmul)):
         for modality, items in (("vision", vision), ("text", text)):
             if items is None:
                 continue
@@ -1603,7 +1724,7 @@ def serve_phase():
 
 SERVE_KERNELS = ("retrieval_topk_int4", "flash_attention_fwd[vision]",
                  "flash_attention_fwd[text]", "rmsnorm", "int4_quant",
-                 "int4_dequant")
+                 "int4_dequant", "split_gemm")
 IVF_KERNELS = ("retrieval_topk_int4_gathered", "retrieval_topk_dense")
 
 

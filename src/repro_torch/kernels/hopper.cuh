@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the port's kernels
 // (flash_attention/csrc/flash_fwd.cu, moe_gemm/csrc/moe_gemm.cu,
-// retrieval_topk/csrc/topk_tile.cuh, decode_attention/csrc/decode_attn.cu):
+// retrieval_topk/csrc/topk_tile.cuh, decode_attention/csrc/decode_attn.cu,
+// split_gemm/csrc/split_gemm.cu):
 // tensor maps for TMA, mbarriers, TMA loads and stores, named barriers,
 // wgmma shared-memory descriptors and the wgmma instructions themselves,
 // mma.sync, and the cp.async copies of the FMA kernels, as inline PTX for
@@ -35,17 +36,18 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// A bf16 tensor map of `rank` dims (dims[0] contiguous; strides in bytes of
-// dims 1.. ) whose box lands in shared memory with the 128-byte swizzle.
-// Elements outside the tensor read as zero. Returns a cudaError_t.
+// A tensor map of `rank` dims of element type `type` (dims[0] contiguous;
+// strides in bytes of dims 1.. ) whose box lands in shared memory with the
+// 128-byte swizzle (so a box row is at most 128 bytes). Elements outside
+// the tensor read as zero. Returns a cudaError_t.
 //
 // cuTensorMapEncodeTiled needs a current context: a host thread whose first
 // CUDA call this is (an autograd worker, say) has none until the runtime
 // binds one lazily at its first launch, and the encode fails.
 // cudaSetDevice binds the current device's primary context first.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                           const uint64_t* dims, const uint64_t* strides,
-                           const uint32_t* box) {
+inline int encode_sw128_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, int rank, const uint64_t* dims,
+                            const uint64_t* strides, const uint32_t* box) {
   int dev = 0;
   cudaError_t bound = cudaGetDevice(&dev);
   if (bound == cudaSuccess) bound = cudaSetDevice(dev);
@@ -69,12 +71,20 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i > 0) s[i - 1] = strides[i - 1];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  CUresult r = fn(map, type, (cuuint32_t)rank,
                   const_cast<void*>(base), d, s, b, e,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The same for a bf16 tensor.
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                           const uint64_t* dims, const uint64_t* strides,
+                           const uint32_t* box) {
+  return encode_sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank,
+                          dims, strides, box);
 }
 
 // -------------------------------------------------------------- device side
@@ -287,7 +297,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // M (the grouped GEMM's dW reads xs^T so). scale_d == 0 overwrites d
 // instead of adding to it. Only the shapes the kernels use are here: ss at
 // N 64 (the flash backward's S^T, dP^T), 128 and 256 (flash's S, the
-// grouped GEMM), rs at N = D (flash's P V, the backward's dV, dK).
+// grouped GEMM), rs at N = D (flash's P V, the backward's dV, dK; the
+// split GEMMs at N 64 and 128).
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<64> {

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
+from repro_torch.kernels.split_gemm import ops as split_gemm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -278,8 +279,19 @@ def swiglu(p: Schema, x: torch.Tensor, lora: Optional[Dict] = None,
            lora_scale: float = 0.0) -> torch.Tensor:
     """SwiGLU FFN: the gate's SiLU in fp32, cast back, times up; with the
     ``lora`` deltas of ``w_gate``/``w_up``/``w_down`` (that of ``w_down``
-    on the post-activation h), as the reference's transformer adds them."""
+    on the post-activation h), as the reference's transformer adds them.
+
+    fp32 activations on bf16 weights with no gradient recorded and no
+    LoRA delta on the MLP (the vision tower serving) take the split GEMMs
+    (``kernels/split_gemm``): the weights as stored, the fp32 products on
+    the tensor cores, SiLU(g) * u inside the gate/up kernel."""
     lora = lora or {}
+    ws = (p["w_gate"], p["w_up"], p["w_down"])
+    if not any(k in lora for k in ("w_gate", "w_up", "w_down")) and \
+            split_gemm.takes(x, *ws):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        h = split_gemm.swiglu_gate_up(x2, ws[0], ws[1])
+        return split_gemm.matmul(h, ws[2]).view(*x.shape[:-1], -1)
     g = x @ p["w_gate"].to(x.dtype)
     u = x @ p["w_up"].to(x.dtype)
     if "w_gate" in lora:

@@ -1543,3 +1543,74 @@ def test_gradient_collectives_on_the_card_equal_the_cpu(gen):
     for gt, wt in zip(got, want):
         for k in shapes:
             assert torch.equal(_bits(gt[k].cpu()), _bits(wt[k])), k
+
+
+# M, d, d_ff of the split GEMMs: the vision tower's widths at one exit row
+# group (257 = 2 x 128 + 1 rows: a ragged last tile) and three, K past
+# many 32-deep stages; N not a multiple of the 64- or 128-column tile (d_ff
+# 200, d 72); K under one stage (8); one row; many tiles a block (M 4,000
+# at d_ff 5,120: 32 x 80 gate/up tiles over 132 blocks)
+@pytest.mark.parametrize("M,d,d_ff", [
+    (257, 1280, 512), (771, 256, 1280), (37, 72, 200), (1, 8, 8),
+    (4000, 1280, 5120)])
+def test_split_gemm_kernels_match_plain(gen, M, d, d_ff):
+    """Both kernels against the plain version and a float64 product: the
+    worst error against float64 within 2x fp32 cuBLAS's (TF32 off) plus
+    half an fp32 step of the output's scale (small K leaves cuBLAS exact);
+    the same bits twice; each launch counted."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.split_gemm import ops, ref
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x = torch.randn((M, d), generator=gen, device="cuda")
+    wg, wu = ((torch.randn((d, d_ff), generator=gen, device="cuda")
+               * d ** -0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn((d_ff, d), generator=gen, device="cuda")
+          * d_ff ** -0.5).bfloat16()
+    before = dict(ops.launches_by_kernel)
+    h = ops.swiglu_gate_up(x, wg, wu)
+    y = ops.matmul(h, wd)
+    assert ops.launches_by_kernel.get("gate_up", 0) == \
+        before.get("gate_up", 0) + 1
+    assert ops.launches_by_kernel.get("down", 0) == before.get("down", 0) + 1
+    assert torch.equal(h, ops.swiglu_gate_up(x, wg, wu))
+    assert torch.equal(y, ops.matmul(h, wd))
+    x64 = x.double()
+    for got, plain, lib, exact in (
+            (h, ref.swiglu_gate_up(x, wg, wu),
+             F.silu(x @ wg.float()) * (x @ wu.float()),
+             F.silu(x64 @ wg.double()) * (x64 @ wu.double())),
+            (y, ref.matmul(h, wd), h @ wd.float(),
+             h.double() @ wd.double())):
+        assert got.shape == exact.shape and got.dtype == torch.float32
+        err, err_lib = ((t.double() - exact).abs().max().item()
+                        for t in (got, lib))
+        floor = 2.0 ** -24 * exact.abs().max().item()
+        assert err <= 2 * err_lib + floor, (err, err_lib)
+        assert (got - plain).abs().max().item() <= \
+            2 * err_lib + 2 * (plain.double() - exact).abs().max().item() \
+            + floor
+
+
+@pytest.mark.parametrize("which", ["gate_up", "down"])
+def test_split_gemm_kernels_propagate_non_finite(gen, which):
+    """inf and NaN in x (a NaN whose payload lies below bit 16 too) land
+    where fp32 cuBLAS puts them."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.split_gemm import ops
+    d, N = 64, 136
+    x = torch.randn((300, d), generator=gen, device="cuda")
+    x[1, 3], x[2, 0], x[3, 5] = float("inf"), float("-inf"), float("nan")
+    x[4, 1], x[4, 2] = float("inf"), float("-inf")
+    x[5, 7] = torch.tensor([0x7F800001], dtype=torch.int32,
+                           device="cuda").view(torch.float32)
+    wg, wu = ((torch.randn((d, N), generator=gen, device="cuda")
+               * d ** -0.5).bfloat16() for _ in range(2))
+    if which == "down":
+        got, want = ops.matmul(x, wg), x @ wg.float()
+    else:
+        got = ops.swiglu_gate_up(x, wg, wu)
+        want = F.silu(x @ wg.float()) * (x @ wu.float())
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(got), f(want)), f
+    fin = torch.isfinite(want)
+    assert (got[fin] - want[fin]).abs().max().item() <= 1e-4
