@@ -1,0 +1,2 @@
+"""The card's idle share of the MLA prefill window (``read_idle_share``)."""
+from bench.metrics.readers import read_idle_share as read  # noqa: F401

@@ -24,8 +24,53 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3, ``q_lora_rank`` null):
+    q = x W_q, (H, nope + rope) a token; [c_kv | k_pe] = x W_kv_a, c_kv
+    RMS-normed (``latent_norm_eps``: the modeling file's default, not the
+    config's ``rms_norm_eps``); [k_nope | v] = c_kv W_kv_b, (H, nope + v)
+    a token; RoPE on q's rope part and on the one k_pe head all heads
+    share. The cache holds a token's normed c_kv and roped k_pe."""
+
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    latent_norm_eps: float = 1e-6
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of a token's row in the latent cache."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class RouterConfig:
+    """DeepSeek-V3's router (``topk_method`` noaux_tc): sigmoid scores in
+    fp32, the top-k chosen on scores + ``e_score_correction_bias``, the
+    weights the unbiased scores, renormalised (``norm_topk_prob``) and
+    times ``routed_scaling_factor``; no token is dropped. Only one expert
+    group (``n_group`` = ``topk_group`` = 1) is implemented."""
+
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    n_group: int = 1
+    topk_group: int = 1
+
+
+@dataclass(frozen=True)
 class LMConfig:
     """Decoder-style transformer (also used bidirectionally for encoders)."""
+
+    # DeepSeek-V3-style blocks (``MLALMConfig``'s fields; class attributes
+    # here, so that this dataclass's fields stay the reference's)
+    mla = None
+    router = None
+    first_k_dense = 0
 
     n_layers: int
     d_model: int
@@ -80,6 +125,46 @@ class LMConfig:
         per_layer = (self._attn_params() + (m.top_k + m.n_shared_experts)
                      * ff_exp + d * m.n_experts + 2 * d)
         return self.n_layers * per_layer + self._embed_params() + d
+
+
+@dataclass(frozen=True)
+class MLALMConfig(LMConfig):
+    """A DeepSeek-V3-style decoder: MLA attention (``mla``; ``n_heads`` =
+    ``n_kv_heads``, ``d_head`` the q/k head dim), the first
+    ``first_k_dense`` layers a dense SwiGLU ``d_ff`` wide, the rest MoE
+    layers routed by ``router`` (dropless), ``moe.n_shared_experts``
+    experts always on as one SwiGLU ``n_shared * d_ff_expert`` wide. No
+    such config exists in the reference."""
+
+    mla: Optional[MLAConfig] = None
+    router: Optional[RouterConfig] = None
+    first_k_dense: int = 0
+
+    def _attn_params(self) -> int:
+        m, d, h = self.mla, self.d_model, self.n_heads
+        return (d * h * m.qk_head_dim + d * m.latent_dim + m.kv_lora_rank
+                + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+                + h * m.v_head_dim * d)
+
+    def _ffn_params(self, active: bool) -> int:
+        d, m = self.d_model, self.moe
+        routed = m.top_k if active else m.n_experts
+        moe = ((routed + m.n_shared_experts) * 3 * d * m.d_ff_expert
+               + d * m.n_experts + m.n_experts)
+        return (self.first_k_dense * 3 * d * self.d_ff
+                + (self.n_layers - self.first_k_dense) * moe)
+
+    @property
+    def n_params(self) -> int:
+        per_layer = self._attn_params() + 2 * self.d_model
+        return (self.n_layers * per_layer + self._ffn_params(False)
+                + self._embed_params() + self.d_model)
+
+    @property
+    def n_active_params(self) -> int:
+        per_layer = self._attn_params() + 2 * self.d_model
+        return (self.n_layers * per_layer + self._ffn_params(True)
+                + self._embed_params() + self.d_model)
 
 
 @dataclass(frozen=True)
@@ -214,31 +299,41 @@ _REGISTRY: Dict[str, ArchSpec] = {}
 _ARCH_MODULES = ["qwen3_moe_30b_a3b", "moonshot_v1_16b_a3b", "minitron_8b",
                  "deepseek_67b", "qwen2_1_5b", "gatedgcn", "bst",
                  "dlrm_mlperf", "sasrec", "dien", "recall_imagebind"]
+# archs of the port alone (no JAX twin): ``get_arch`` finds them,
+# ``list_archs`` and ``all_cells`` (the reference's registry) do not
+_PORT_MODULES = ["moonlight_16b_a3b"]
+_PORT_REGISTRY: Dict[str, ArchSpec] = {}
 
 
-def register(spec: ArchSpec) -> ArchSpec:
-    _REGISTRY[spec.arch_id] = spec
+def register(spec: ArchSpec, *, port_only: bool = False) -> ArchSpec:
+    (_PORT_REGISTRY if port_only else _REGISTRY)[spec.arch_id] = spec
     return spec
 
 
 def _ensure_loaded() -> None:
-    for mod in _ARCH_MODULES:
+    for mod in _ARCH_MODULES + _PORT_MODULES:
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 
 def get_arch(arch_id: str) -> ArchSpec:
     _ensure_loaded()
-    key = arch_id.replace("_", "-")
-    if key in _REGISTRY:
-        return _REGISTRY[key]
-    if arch_id in _REGISTRY:
-        return _REGISTRY[arch_id]
-    raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
+    for reg in (_REGISTRY, _PORT_REGISTRY):
+        for key in (arch_id.replace("_", "-"), arch_id):
+            if key in reg:
+                return reg[key]
+    raise KeyError(f"unknown arch {arch_id!r}; known: "
+                   f"{sorted(_REGISTRY) + port_archs()}")
 
 
 def list_archs() -> List[str]:
     _ensure_loaded()
     return sorted(_REGISTRY)
+
+
+def port_archs() -> List[str]:
+    """The archs of the port alone (not in ``list_archs``)."""
+    _ensure_loaded()
+    return sorted(_PORT_REGISTRY)
 
 
 def all_cells() -> List[Tuple[str, str]]:
@@ -260,6 +355,11 @@ def smoke_variant(spec: ArchSpec) -> ArchSpec:
         sm = replace(m, n_layers=4, d_model=64, n_heads=4,
                      n_kv_heads=min(m.n_kv_heads, 2), d_head=16, d_ff=128,
                      vocab=512, moe=moe, dtype="float32")
+        if m.mla is not None:   # no reference branch: the port's own
+            sm = replace(sm, n_layers=3, n_kv_heads=4, d_head=24,
+                         mla=replace(m.mla, kv_lora_rank=32,
+                                     qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                     v_head_dim=16))
         shapes = (ShapeConfig("smoke_train", "train", global_batch=4,
                               seq_len=32),
                   ShapeConfig("smoke_decode", "decode", global_batch=4,

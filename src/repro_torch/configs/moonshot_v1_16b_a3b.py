@@ -1,7 +1,11 @@
 """moonshot-v1-16b-a3b [hf:moonshotai/Moonlight-16B-A3B]: 48L d=2048
 16H (kv=16, i.e. MHA) head_dim=128, MoE 64 experts top-6, expert d_ff=1408,
-vocab 163840. The HF model's dense first layer and shared experts are
-simplified to a homogeneous all-MoE stack, as in the reference."""
+vocab 163840. The JAX reference's copy, kept value for value for the parity
+tests: it is NOT Moonlight's published architecture (27 layers, MLA, a
+dense first layer, shared experts, sigmoid routing without drops), which
+the port runs as ``moonlight-16b-a3b``. The HF model's dense first layer
+and shared experts are simplified to a homogeneous all-MoE stack, as in
+the reference."""
 from repro_torch.configs.base import (ArchSpec, LMConfig, MoEConfig,
                                       RecallConfig, lm_shapes, register)
 

@@ -119,12 +119,14 @@ constexpr int CONSUMERS = 256;
 constexpr int ATOM_Q = BQ * 128;        // bytes of one 64-column atom
 constexpr int ATOM_K = BK * 128;
 
-template <int D> struct Smem {
-  static constexpr int NA = (D + 63) / 64;  // 64-column atoms across D
+// q and k tiles DQK columns wide, v tiles DV (DQK = DV but for MLA)
+template <int DQK, int DV> struct Smem {
+  static constexpr int NA = (DQK + 63) / 64;  // 64-column atoms across DQK
+  static constexpr int NV = (DV + 63) / 64;   // and across DV
   static constexpr int Q = 0;
   static constexpr int K = Q + NA * ATOM_Q;
   static constexpr int V = K + STAGES * NA * ATOM_K;
-  static constexpr int BAR = V + STAGES * NA * ATOM_K;
+  static constexpr int BAR = V + STAGES * NV * ATOM_K;
   static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;  // + align
 };
 
@@ -253,18 +255,17 @@ __device__ __forceinline__ void p_to_bf16(const float (&sc)[BK / 2],
 }
 }  // namespace fa
 
-template <int D>
-__global__ void __launch_bounds__(fa::THREADS, 1)
-flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
-                const __grid_constant__ CUtensorMap map_k,
-                const __grid_constant__ CUtensorMap map_v,
-                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                int Sq, int Skv, int H, int KV, float scale, int causal,
-                int window, int q_offset) {
+// The bf16 kernels' body: q and k DQK wide, v and out DV wide.
+template <int DQK, int DV>
+__device__ __forceinline__ void fwd_wgmma_body(
+    const CUtensorMap& map_q, const CUtensorMap& map_k,
+    const CUtensorMap& map_v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Skv, int H, int KV, float scale,
+    int causal, int window, int q_offset) {
   using namespace fa;
   using namespace hopper;
-  using L = Smem<D>;
-  constexpr int NA = L::NA;
+  using L = Smem<DQK, DV>;
+  constexpr int NA = L::NA, NV = L::NV, D = DV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -312,9 +313,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
           tma_load_4d(sm + L::K + (s * NA + a) * ATOM_K, &map_k, &full_k[s],
                       a * 64, kvh, kj0, b);
         if (i >= STAGES) mbar_wait(&empty_v[s], par);
-        mbar_expect_tx(&full_v[s], NA * ATOM_K);
-        for (int a = 0; a < NA; ++a)
-          tma_load_4d(sm + L::V + (s * NA + a) * ATOM_K, &map_v, &full_v[s],
+        mbar_expect_tx(&full_v[s], NV * ATOM_K);
+        for (int a = 0; a < NV; ++a)
+          tma_load_4d(sm + L::V + (s * NV + a) * ATOM_K, &map_v, &full_v[s],
                       a * 64, kvh, kj0, b);
       }
     }
@@ -328,7 +329,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
     const int p_lo = q0 + cw * 64 + q_offset, p_hi = p_lo + 63;
     const uint8_t* qa = sm + L::Q + cw * 64 * 128;
     auto k_tile = [&](int s) { return sm + L::K + s * NA * ATOM_K; };
-    auto v_tile = [&](int s) { return sm + L::V + s * NA * ATOM_K; };
+    auto v_tile = [&](int s) { return sm + L::V + s * NV * ATOM_K; };
     auto masked = [&](int i) {
       return tile_needs_mask((lo + i) * BK, BK, p_lo, p_hi, Skv, causal,
                              window);
@@ -345,7 +346,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
 
     // tile 0: S, softmax, P
     mbar_wait(&full_k[0], 0);
-    issue_qk<D>(sc, qa, k_tile(0));
+    issue_qk<DQK>(sc, qa, k_tile(0));
     wgmma_wait<0>();
     fence_regs(sc);
     mbar_arrive(&empty_k[0]);
@@ -357,7 +358,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
     for (int i = 1; i < n; ++i) {
       const int s = i % STAGES, sp = (i - 1) % STAGES;
       mbar_wait(&full_k[s], (i / STAGES) & 1);
-      issue_qk<D>(sc, qa, k_tile(s));
+      issue_qk<DQK>(sc, qa, k_tile(s));
       mbar_wait(&full_v[sp], ((i - 1) / STAGES) & 1);
       issue_pv<D>(o, pa, v_tile(sp));
       wgmma_wait<1>();  // S_i is done (groups complete in order)
@@ -410,10 +411,40 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                float* lse, int B, int Sq, int Skv, int H, int KV, float scale,
-                int causal, int window, int q_offset, cudaStream_t stream) {
+__global__ void __launch_bounds__(fa::THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int Sq, int Skv, int H, int KV, float scale, int causal,
+                int window, int q_offset) {
+  fwd_wgmma_body<D, D>(map_q, map_k, map_v, out, lse, Sq, Skv, H, KV, scale,
+                       causal, window, q_offset);
+}
+
+// MLA (DeepSeek-V3's attention after the up-projection): q and k 192 wide
+// (nope 128 + rope 64), v 128. The smem ring: q 48 KB, K 2 x 48 KB, V 2 x
+// 32 KB, 209 KB in all; the registers those of D = 128 (S is 128 keys
+// wide whatever DQK, O 128 columns).
+template <int DQK, int DV>
+__global__ void __launch_bounds__(fa::THREADS, 1)
+flash_fwd_mla(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+              int Sq, int Skv, int H, int KV, float scale, int causal,
+              int window, int q_offset) {
+  fwd_wgmma_body<DQK, DV>(map_q, map_k, map_v, out, lse, Sq, Skv, H, KV,
+                          scale, causal, window, q_offset);
+}
+
+template <int DQK, int DV, typename Kern>
+int launch_bf16(Kern kern, const void* q, const void* k, const void* v,
+                void* out, float* lse, int B, int Sq, int Skv, int H, int KV,
+                float scale, int causal, int window, int q_offset,
+                cudaStream_t stream) {
   using namespace fa;
+  constexpr int D = DQK;
   CUtensorMap mq, mk, mv;
   const uint64_t dq[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
   const uint64_t sq[3] = {(uint64_t)D * 2, (uint64_t)H * D * 2,
@@ -424,12 +455,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const uint64_t sk[3] = {(uint64_t)D * 2, (uint64_t)KV * D * 2,
                           (uint64_t)Skv * KV * D * 2};
   const uint32_t bk[4] = {64, 1, BK, 1};
+  const uint64_t dv[4] = {(uint64_t)DV, (uint64_t)KV, (uint64_t)Skv,
+                          (uint64_t)B};
+  const uint64_t sv[3] = {(uint64_t)DV * 2, (uint64_t)KV * DV * 2,
+                          (uint64_t)Skv * KV * DV * 2};
   int err = hopper::encode_bf16_map(&mq, q, 4, dq, sq, bq);
   if (!err) err = hopper::encode_bf16_map(&mk, k, 4, dk, sk, bk);
-  if (!err) err = hopper::encode_bf16_map(&mv, v, 4, dk, sk, bk);
+  if (!err) err = hopper::encode_bf16_map(&mv, v, 4, dv, sv, bk);
   if (err) return err;
-  const int smem = Smem<D>::BYTES;
-  auto kern = flash_fwd_wgmma<D>;
+  const int smem = Smem<DQK, DV>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -691,9 +725,10 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                    window, q_offset, stream
   if (is_bf16) {
     switch (D) {
-      case 64: return launch_bf16<64>(FLASH_ARGS);
-      case 80: return launch_bf16<80>(FLASH_ARGS);
-      case 128: return launch_bf16<128>(FLASH_ARGS);
+      case 64: return launch_bf16<64, 64>(flash_fwd_wgmma<64>, FLASH_ARGS);
+      case 80: return launch_bf16<80, 80>(flash_fwd_wgmma<80>, FLASH_ARGS);
+      case 128:
+        return launch_bf16<128, 128>(flash_fwd_wgmma<128>, FLASH_ARGS);
     }
   } else {
     switch (D) {
@@ -703,5 +738,22 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
     }
   }
 #undef FLASH_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+// MLA's forward, bf16: q, k (B, S, H, Dqk), v (B, Skv, KV, Dv), out
+// (B, Sq, H, Dv); (Dqk, Dv) = (192, 128). Returns a cudaError_t.
+extern "C" int flash_fwd_mla_launch(const void* q, const void* k,
+                                    const void* v, void* out, float* lse,
+                                    int B, int Sq, int Skv, int H, int KV,
+                                    int Dqk, int Dv, float scale, int causal,
+                                    int window, int q_offset,
+                                    cudaStream_t stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV)
+    return (int)cudaErrorInvalidValue;
+  if (Dqk == 192 && Dv == 128)
+    return launch_bf16<192, 128>(flash_fwd_mla<192, 128>, q, k, v, out, lse,
+                                 B, Sq, Skv, H, KV, scale, causal, window,
+                                 q_offset, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,6 +15,10 @@ that sum). Under GQA the dK/dV grid has a block per query head, each
 writing fp32 partials that another kernel sums over the group in head
 order (``reduce_head_partials`` is the plain mirror of that sum).
 
+A v head dim other than q's (MLA: q/k 192, v 128, bf16; ``MLA_HEAD_DIMS``)
+runs the bf16 kernel's body as ``flash_fwd_mla``, a kernel of its own name
+(entry ``flash_fwd_mla_launch``), out (B, Sq, H, 128).
+
 ``kv_tile_range`` and ``keyless_row`` mirror the CUDA arithmetic that
 decides which key tiles a q tile visits, ``tiles_meet`` the backward's
 test of a (q tile, key tile) pair and ``needs_mask`` its test of whether
@@ -34,6 +38,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_fwd_reference
 
 HEAD_DIMS = (64, 80, 128)
+# (q/k, v) head dims of the MLA forward (bf16 only)
+MLA_HEAD_DIMS = ((192, 128),)
 DTYPES = (torch.float32, torch.bfloat16)
 # (q rows, keys) of a tile, by path
 TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
@@ -49,6 +55,9 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd_launch.restype = ctypes.c_int
     lib.flash_fwd_launch.argtypes = ([_P] * 5 + [_I] * 7 + [ctypes.c_float]
                                      + [_I] * 3 + [_P])
+    lib.flash_fwd_mla_launch.restype = ctypes.c_int
+    lib.flash_fwd_mla_launch.argtypes = ([_P] * 5 + [_I] * 7
+                                         + [ctypes.c_float] + [_I] * 3 + [_P])
     return lib
 
 
@@ -156,33 +165,42 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_fwd_cuda takes f32 or bf16 (all alike), got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:3] != v.shape[:3]:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, Sq, H, D = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
+    Skv, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D or H % KV or Skv == 0:
         raise ValueError(f"incompatible q {tuple(q.shape)} / kv "
                          f"{tuple(k.shape)}")
-    if D not in HEAD_DIMS:
+    mla = Dv != D
+    if mla and (q.dtype != torch.bfloat16 or (D, Dv) not in MLA_HEAD_DIMS):
+        raise ValueError(f"head dims (q/k {D}, v {Dv}), {q.dtype}: the MLA "
+                         f"kernel takes bf16 at {MLA_HEAD_DIMS}")
+    if not mla and D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_fwd_cuda wants contiguous q, k, v")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_fwd_cuda wants 16-byte aligned q, k, v")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, H, Dv))
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     if B * Sq == 0:
         return out, lse
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().flash_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Sq, Skv, H, KV, D,
-            int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
-            int(window), int(q_offset), stream)
-    build.check(err, "flash_fwd")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B, Sq, Skv, H, KV, D)
+        tail = (float(scale), int(bool(causal)), int(window), int(q_offset),
+                stream)
+        if mla:
+            err = _lib().flash_fwd_mla_launch(*ptrs, Dv, *tail)
+        else:
+            err = _lib().flash_fwd_launch(
+                *ptrs, int(q.dtype == torch.bfloat16), *tail)
+    build.check(err, "flash_fwd_mla" if mla else "flash_fwd")
     return out, lse
 
 

@@ -1,8 +1,10 @@
 """Dispatch for attention, forward and backward.
 
-Layouts: q (B, Sq, H, D); k, v (B, Skv, KV, D); GQA via H = KV * G. A CPU
-tensor takes the plain versions (``ref.py``); a CUDA tensor launches the
-hand-written kernels (``kernel.py``) or raises. ``flash_attention`` is a
+Layouts: q (B, Sq, H, D); k (B, Skv, KV, D), v (B, Skv, KV, Dv); GQA via
+H = KV * G. A CPU tensor takes the plain versions (``ref.py``); a CUDA
+tensor launches the hand-written kernels (``kernel.py``) or raises (MLA's
+D 192 / Dv 128 runs the ``flash_fwd_mla`` kernel, forward only: its
+backward raises). ``flash_attention`` is a
 ``torch.autograd.Function`` (the reference's ``custom_vjp``): its forward
 saves q, k, v, out and lse, its backward runs the backward kernel on CUDA
 and ``attention_bwd_reference`` on the CPU. ``launches`` counts forward
@@ -29,7 +31,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         q_offset: int = 0, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) f32), no autograd."""
+    """(out (B, Sq, H, Dv) in q's dtype, lse (B, H, Sq) f32), no
+    autograd."""
     global launches
     if q.device.type == "cpu":
         return attention_fwd_reference(q, k, v, causal=causal, window=window,
@@ -60,6 +63,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention backward: no kernel for "
                          f"{q.device}")
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            f"flash_attention backward: no kernel for q/k head dim "
+            f"{q.shape[-1]} with v head dim {v.shape[-1]} (MLA's forward "
+            f"only; training an MLA model is not supported on CUDA)")
     from repro_torch.kernels.flash_attention.kernel import flash_bwd_cuda
     grads = flash_bwd_cuda(q, k, v, out, lse, dout, **kw)
     bwd_launches += 1
@@ -86,8 +94,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attention, differentiable in q, k, v. q (B,Sq,H,D), k/v
-    (B,Skv,KV,D) -> (B,Sq,H,D)."""
+    """Attention, differentiable in q, k, v. q (B,Sq,H,D), k (B,Skv,KV,D),
+    v (B,Skv,KV,Dv) -> (B,Sq,H,Dv)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, q_offset, scale)

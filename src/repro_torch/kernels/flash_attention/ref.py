@@ -1,9 +1,11 @@
 """Plain PyTorch attention (materialised softmax) with the flash kernel's
 masks and outputs.
 
-q (B, Sq, H, D); k, v (B, Skv, KV, D) with H % KV == 0 (GQA: head h reads
-kv head h // (H // KV)). ``q_offset`` shifts query positions (query i sits
-at absolute position i + q_offset). Scores and softmax in fp32.
+q (B, Sq, H, D); k (B, Skv, KV, D), v (B, Skv, KV, Dv) with H % KV == 0
+(GQA: head h reads kv head h // (H // KV)); the forward's output takes v's
+head dim (MLA: q/k 192, v 128). ``q_offset`` shifts query positions
+(query i sits at absolute position i + q_offset). Scores and softmax in
+fp32.
 
 ``p_dtype`` gives the variant that rounds P as the TPU kernel does
 (``p.astype(v.dtype)`` before P·V, ``repro/kernels/flash_attention/
@@ -47,7 +49,7 @@ def attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                             p_dtype: Optional[torch.dtype] = None,
                             block_kv: Optional[int] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) f32)."""
+    """Returns (out (B, Sq, H, Dv) in q's dtype, lse (B, H, Sq) f32)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -63,7 +65,8 @@ def attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
         o = torch.einsum("bkgqj,bjkd->bqkgd", p, v.float())
     else:
         o = _pv_rounding_p(s, v.float(), p_dtype, block_kv or Skv)
-    return o.reshape(B, Sq, H, D).to(q.dtype), lse.reshape(B, H, Sq)
+    return (o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype),
+            lse.reshape(B, H, Sq))
 
 
 def _pv_rounding_p(s: torch.Tensor, v: torch.Tensor, p_dtype: torch.dtype,

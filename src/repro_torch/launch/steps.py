@@ -379,17 +379,21 @@ def build_lm_prefill(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
                      window: int = 0, n_layers: Optional[int] = None,
                      pad_to: Optional[int] = None) -> StepBundle:
     """fn(params, tokens (B, S)) -> {k_cache, v_cache (L, B, max(S,
-    pad_to), KV, hd), exit_embs (n_exits, B, E)}."""
+    pad_to), KV, hd), exit_embs (n_exits, B, E)}; for an MLA config
+    {latent_cache (L, B, max(S, pad_to), kv_lora_rank + rope),
+    exit_embs}."""
     cfg = _lm_cfg(spec, n_layers)
     recall = spec.recall
     dev = resolve_device(device)
     B, S = shape.global_batch, shape.seq_len
 
+    keys = (("k_cache", "v_cache") if cfg.mla is None
+            else ("latent_cache",)) + ("exit_embs",)
+
     def prefill_step(params, tokens):
         out = T.prefill(params, cfg, recall, tokens, pad_to=pad_to,
                         window=window)
-        return {"k_cache": out["k_cache"], "v_cache": out["v_cache"],
-                "exit_embs": out["exit_embs"]}
+        return {k: out[k] for k in keys}
 
     tokens = B * S
     return StepBundle(
@@ -403,7 +407,9 @@ def build_lm_decode(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
                     n_layers: Optional[int] = None) -> StepBundle:
     """fn(params, token (B,), k_cache, v_cache (L, B, S, KV, hd), lengths
     (B,) int32 incl. the new token) -> (logits (B, V) f32, k_cache,
-    v_cache), the caches written in place."""
+    v_cache), the caches written in place. An MLA config's fn is
+    fn(params, token, latent_cache (L, B, S, kv_lora_rank + rope),
+    lengths) -> (logits, latent_cache)."""
     cfg = _lm_cfg(spec, n_layers)
     recall = spec.recall
     dev = resolve_device(device)
@@ -413,8 +419,13 @@ def build_lm_decode(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
         return T.decode_step(params, cfg, recall, token, k_cache, v_cache,
                              lengths, window=window)
 
+    def decode_step_mla(params, token, latent_cache, lengths):
+        return T.decode_step_mla(params, cfg, recall, token, latent_cache,
+                                 lengths)
+
     return StepBundle(
-        name="serve_step", fn=decode_step,
+        name="serve_step",
+        fn=decode_step if cfg.mla is None else decode_step_mla,
         model_flops=2.0 * cfg.n_active_params * B
         + 2.0 * 2 * B * S * cfg.n_heads * cfg.head_dim,  # + KV attention read
         meta={"tokens": B, "cfg": cfg, "device": dev})

@@ -1,5 +1,7 @@
 """Mixture-of-Experts: top-k router + GShard group-wise capacity semantics,
-with the expert FFN on the grouped expert GEMM.
+with the expert FFN on the grouped expert GEMM; and DeepSeek-V3's layer
+(``moe_apply_dropless``: a sigmoid router with a bias that chooses but
+does not weigh, no capacity and no drop, the shared experts beside).
 
 The reference dispatches each group's (batch row's) tokens into a
 (B, E, C, d) capacity buffer and runs the experts as dense einsums. The
@@ -13,20 +15,39 @@ uses no atomics: the same bits twice.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import MoEConfig
+from repro_torch.configs.base import MoEConfig, RouterConfig
 from repro_torch.kernels.moe_gemm import ops as gemm
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamDef, Schema
+from repro_torch.tracing import span
+
+# counters of the dropless layer: calls, routed (token, expert) assignments
+# and the largest load one expert took in one call (a device scalar, read
+# by ``read_counters``: the layer never waits for the host)
+counters: Dict[str, int] = {"calls": 0, "assignments": 0}
+_max_load: Dict[torch.device, torch.Tensor] = {}
+
+
+def read_counters() -> Dict[str, int]:
+    """{"calls", "assignments", "max_load"} since ``reset_counters``."""
+    loads = [int(t.item()) for t in _max_load.values()]
+    return dict(counters, max_load=max(loads, default=0))
+
+
+def reset_counters() -> None:
+    counters.update(calls=0, assignments=0)
+    _max_load.clear()
 
 
 def moe_schema(d_model: int, moe: MoEConfig,
-               layer_dims: Tuple[int, ...] = ()) -> Schema:
+               layer_dims: Tuple[int, ...] = (),
+               router: Optional[RouterConfig] = None) -> Schema:
     Ld = layer_dims
     la = tuple("layer" for _ in Ld)
     E, Fe = moe.n_experts, moe.d_ff_expert
@@ -39,6 +60,8 @@ def moe_schema(d_model: int, moe: MoEConfig,
     if moe.n_shared_experts:
         s["shared"] = L.swiglu_schema(d_model, Fe * moe.n_shared_experts,
                                       layer_dims=Ld)
+    if router is not None:   # e_score_correction_bias
+        s["bias"] = ParamDef(Ld + (E,), la + ("expert",), "zeros")
     return s
 
 
@@ -127,3 +150,51 @@ def moe_apply_dense(p: Schema, x: torch.Tensor,
     if "shared" in p:
         y = y + L.swiglu(p["shared"], x)
     return y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def route_sigmoid(p: Schema, x: torch.Tensor, moe: MoEConfig,
+                  router: RouterConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's router on x (T, d): (top_i (T, K) int64, weights
+    (T, K) f32). Scores sigmoid(x W_r) in fp32; the top-k of scores + bias;
+    weights the unbiased scores of the chosen,
+    renormalised when ``norm_topk_prob``, times the scaling factor."""
+    if router.n_group != 1 or router.topk_group != 1:
+        raise NotImplementedError("group-limited routing (n_group > 1)")
+    scores = torch.sigmoid(x.float() @ p["router"].float())
+    choice = scores + p["bias"].float()
+    top_i = torch.topk(choice, moe.top_k, dim=-1).indices
+    w = torch.gather(scores, -1, top_i)
+    if router.norm_topk_prob and moe.top_k > 1:
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+    return top_i, w * router.routed_scaling_factor
+
+
+def moe_apply_dropless(p: Schema, x: torch.Tensor, moe: MoEConfig,
+                       router: RouterConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (y, aux 0): every token through its top-k experts
+    on the grouped GEMMs (no capacity, nothing dropped), the k outputs
+    summed by their weights in one batched product, then the shared
+    experts' SwiGLU added."""
+    B, S, d = x.shape
+    x2 = x.reshape(B * S, d)
+    with span("moe.route"):
+        top_i, w = route_sigmoid(p, x2, moe, router)
+        load = torch.zeros(moe.n_experts, dtype=torch.int64,
+                           device=x.device).index_add_(
+            0, top_i.reshape(-1), torch.ones_like(top_i.reshape(-1)))
+        acc = _max_load.get(x.device)
+        _max_load[x.device] = (load.max() if acc is None
+                               else torch.maximum(acc, load.max()))
+    counters["calls"] += 1
+    counters["assignments"] += top_i.numel()
+    with span("moe.experts"):
+        y_tok = expert_ffn(p, x2, top_i.reshape(-1), moe.top_k)
+        y = torch.bmm(w.to(x.dtype)[:, None, :],
+                      y_tok.view(B * S, moe.top_k, d))[:, 0]
+    if "shared" in p:
+        with span("moe.shared"):
+            y = y + L.swiglu(p["shared"], x2)
+    return y.view(B, S, d), torch.zeros((), dtype=torch.float32,
+                                        device=x.device)

@@ -42,6 +42,15 @@ SPANS = (
     "layer.exit_head",      # exit_embedding
     "lm.embed",             # the token lookup
     "lm.caches",            # prefill's zeroed KV caches
+    # models/transformer MLA (inside layer.attn)
+    "mla.q",                # q = x W_q, RoPE on its rope part
+    "mla.kv_down",          # [c_kv | k_pe] = x W_kv_a, c_kv's norm, RoPE
+    "mla.latent_write",     # the tokens' latent rows into the cache
+    "mla.kv_up",            # [k_nope | v] = c_kv W_kv_b (decode: absorbed)
+    # models/moe dropless layer (inside layer.mlp)
+    "moe.route",            # sigmoid router, biased top-k, weights
+    "moe.experts",          # the grouped GEMMs and the weighted sum
+    "moe.shared",           # the shared experts' SwiGLU
     # serving/query and core/retrieval rounds
     "query.embed",          # the query tower's pass
     "query.filter",         # round 1, the store scan

@@ -25,7 +25,7 @@ CFG = TC.MEMConfig(towers=(TC.TowerConfig("vision", 4, 32, 2, 64, 12, 16),
                    embed_dim=32)
 RC = TC.RecallConfig(exit_interval=1, superficial_layers=2,
                      predictor_hidden=32, lora_rank=4, query_granularities=2)
-FAMILIES = ("engine.", "store.", "layer.", "lm.", "query.")
+FAMILIES = ("engine.", "store.", "layer.", "lm.", "query.", "mla.", "moe.")
 DRAIN_LAYERS = {"layer.attn", "layer.mlp", "layer.pool", "layer.exit_head"}
 # a span -> the spans one of which must hold it (a test's own range for the
 # outermost)
@@ -46,6 +46,10 @@ for _n in tracing.SPANS:
     elif _n in ("layer.attn", "layer.mlp", "layer.pool"):
         PARENTS[_n] = ("engine.superficial", "engine.continue", "test.step",
                        "query.embed", "query.refine")
+    elif _n.startswith("mla."):     # an MLA layer's attention half
+        PARENTS[_n] = ("layer.attn",)
+    elif _n.startswith("moe."):     # a dropless MoE layer
+        PARENTS[_n] = ("layer.mlp",)
 
 
 @pytest.fixture(autouse=True)
@@ -166,4 +170,34 @@ def test_prefill_step_spans_nest():
     for name in ("layer.attn", "layer.mlp", "layer.kv_write", "layer.pool"):
         assert len(ranges[name]) == L
     for key in ("k_cache", "v_cache", "exit_embs"):
+        assert torch.equal(out[key], plain[key])
+
+
+def test_mla_prefill_step_spans_nest():
+    """An MLA config's prefill: the mla.* spans inside layer.attn (the
+    latent write too), the moe.* spans inside the MoE layers' layer.mlp,
+    and no layer.kv_write (the latent cache is written in the layer)."""
+    spec = TC.smoke_variant(TC.get_arch("moonlight-16b-a3b"))
+    params = lm_init(torch.Generator().manual_seed(0), spec.model,
+                     spec.recall, device="cpu")
+    step = build_step(spec, TC.ShapeConfig("p", "prefill", 2, 16),
+                      device="cpu", pad_to=32).fn
+    tokens = torch.randint(0, spec.model.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    plain = step(params, tokens)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("test.step"):
+            out = step(params, tokens)
+    ranges = _ranges(prof)
+    ours = _check_nesting(ranges)
+    want = {n for n in tracing.SPANS
+            if n.startswith(("layer.", "lm.", "mla.", "moe."))}
+    assert ours == want - {"layer.kv_write"}
+    L, k = spec.model.n_layers, spec.model.first_k_dense
+    for name in ("layer.attn", "layer.mlp", "layer.pool", "mla.q",
+                 "mla.kv_down", "mla.latent_write", "mla.kv_up"):
+        assert len(ranges[name]) == L
+    for name in ("moe.route", "moe.experts", "moe.shared"):
+        assert len(ranges[name]) == L - k
+    for key in ("latent_cache", "exit_embs"):
         assert torch.equal(out[key], plain[key])
