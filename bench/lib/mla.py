@@ -1,15 +1,16 @@
 """The yardstick of the MLA cells (Moonlight-16B-A3B, DeepSeek-V3's
 block): the model FLOPs of a prefill step, the operations and bytes of
 one call of the MLA flash forward and of the expert GEMMs, and the
-readers of their roofline shares. ``c`` is the configuration file's dict
-(HF key names). Kept beside the benchmark, so that no change to the
-program moves it.
+readers of their roofline shares and of the elementwise share. ``c`` is
+the configuration file's dict (HF key names). Kept beside the benchmark,
+so that no change to the program moves it.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-from bench.metrics.yardstick import HBM_BYTES_PER_S, PEAK_FLOPS
+from bench.metrics.yardstick import (ELEMENTWISE, HBM_BYTES_PER_S,
+                                     PEAK_FLOPS, kernel_class)
 from bench.reference.moonlight import exit_layers
 
 FLASH_KERNEL = "flash_fwd_mla"   # the MLA forward's kernel name
@@ -83,3 +84,17 @@ def read_gemm_roofline(rec) -> Optional[float]:
     ops = 6.0 * n * c["hidden_size"] * c["moe_intermediate_size"]
     t = tr.kernel_time(GEMM_KERNEL)
     return 100.0 * ops / PEAK_FLOPS["bf16"] / t if t else None
+
+
+def read_elementwise_share(rec) -> Optional[float]:
+    """The share of the card's busy time in the traced window spent in
+    elementwise work (casts, copies, RoPE, the MoE layer's row shuffles and
+    weighted sum), in %: the kernels ``yardstick.kernel_class`` names no
+    class for, less the ``flash_fwd_mla`` kernels, which it knows by no
+    name either."""
+    tr = rec["trace"]
+    if tr is None or not tr.busy_s:
+        return None
+    s = sum(t for n, t in tr.kernel_s.items()
+            if kernel_class(n) == ELEMENTWISE and FLASH_KERNEL not in n)
+    return 100.0 * s / tr.busy_s

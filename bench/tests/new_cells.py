@@ -1,9 +1,5 @@
-"""Tiny versions of the cells ``recall.query`` and
-``moonlight.prefill_8k`` for the CPU tests (their own shrink and limits:
-``tiny.py`` covers the cells before them). ``recall.query`` is built but
-not in ``BENCHMARK.json`` (its host-bound rounds spread too widely to be
-admitted); ``BENCH`` is the benchmark with that cell entered, as a
-registration would enter it."""
+"""A tiny version of the cell ``moonlight.prefill_8k`` for the CPU tests
+(its own shrink and limits: ``tiny.py`` covers the cells before it)."""
 from __future__ import annotations
 
 import copy
@@ -14,53 +10,26 @@ import torch
 from bench import harness
 from bench.tests import tiny
 
-CELLS = ["recall.query", "moonlight.prefill_8k"]
-QUERY_CELL = {"name": "recall.query", "config": "recall-imagebind",
-              "traffic": "coco5k_queries", "chips": 1,
-              "why": "16-caption query_batch rounds over a 5,000-photo "
-                     "gallery drained in set-up"}
-BENCH = copy.deepcopy(tiny.BENCH)
-if all(w["name"] != QUERY_CELL["name"] for w in BENCH["workloads"]):
-    BENCH["workloads"].append(QUERY_CELL)
+CELLS = ["moonlight.prefill_8k"]
+BENCH = tiny.BENCH
 
 # the port's plain versions on the CPU against the float32 reference: the
-# text tower and the MLA model run bfloat16 activations, so their numbers
-# sit near a bf16 step of their scale (~1e-2 of it); the vision tower's
-# rows and activations are float32 (a few 1e-6 of a quantization step)
-TINY_LIMITS = {
-    "recall.query": {"missing": 0, "cand_gap": 0.05, "score_gap": 0.05,
-                     "fine_gap": 0.05, "emb_gap": 5e-5, "act_gap": 5e-5},
-    "moonlight.prefill_8k": {"latent_err": 0.05, "exit_err": 0.05},
-}
+# MLA model runs bfloat16 activations, so its numbers sit near a bf16 step
+# of their scale (~1e-2 of it)
+TINY_LIMITS = {"moonlight.prefill_8k": {"latent_err": 0.05,
+                                        "exit_err": 0.05}}
 
 
 def tiny_files(workload: str):
     files = harness.resolve(BENCH, workload)
     cfg = copy.deepcopy(files["config"])
-    if cfg["family"] == "mem":
-        for t in cfg["towers"]:
-            t.update(n_layers=5, d_model=32, n_heads=2, d_ff=64,
-                     n_tokens=min(t["n_tokens"], 16),
-                     d_input=min(t["d_input"], 24))
-            if t.get("vocab"):
-                t["vocab"] = 256
-        cfg["embed_dim"] = 32
-        cfg["recall"].update(exit_interval=1, superficial_layers=2,
-                             predictor_hidden=16)
-        cfg["mean_exit_layers"] = 3.4
-        files["traffic"].update(gallery=64, chunk=16, fit_photos=24,
-                                max_batch=8, queries_per_round=3, rounds=60,
-                                caption_min=3, caption_max=10, k=4,
-                                final_k=4)
-    else:
-        cfg.update(num_hidden_layers=3, hidden_size=64,
-                   num_attention_heads=4, num_key_value_heads=4,
-                   kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
-                   v_head_dim=16, intermediate_size=128,
-                   moe_intermediate_size=32, n_routed_experts=8,
-                   num_experts_per_tok=2, n_shared_experts=1,
-                   vocab_size=256, exit_interval=2, embed_dim=32)
-        files["traffic"].update(batch=2, seq=40, cache=48, pool_batches=3)
+    cfg.update(num_hidden_layers=3, hidden_size=64, num_attention_heads=4,
+               num_key_value_heads=4, kv_lora_rank=32, qk_nope_head_dim=16,
+               qk_rope_head_dim=8, v_head_dim=16, intermediate_size=128,
+               moe_intermediate_size=32, n_routed_experts=8,
+               num_experts_per_tok=2, n_shared_experts=1, vocab_size=256,
+               exit_interval=2, embed_dim=32)
+    files["traffic"].update(batch=2, seq=40, cache=48, pool_batches=3)
     files["config"] = cfg
     files["limits"] = dict(TINY_LIMITS[workload])
     return files

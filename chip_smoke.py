@@ -12,9 +12,10 @@ kernel against its plain PyTorch version at its path's shapes (the int4
 activation-cache kernels bit for bit; the grouped GEMM's side cases through
 both of its kernels, wgmma and mma.sync; the bf16 flash kernel against the
 plain variant that rounds P to bf16 per key tile, as the TPU kernel does,
-within one bf16 step of each element at max(|o|, 1)). Then it drives ten
-paths, each with every launch counter set to 0 just before it and read
-just after:
+within one bf16 step of each element at max(|o|, 1); MLA's 192/128
+forward, ``flash_fwd_mla``, the same way at the moonlight.prefill_8k
+cell's shape and side shapes). Then it drives eleven paths, each with
+every launch counter set to 0 just before it and read just after:
 
   * serve: RECALL end to end at the full width of ``recall-imagebind``
     (random weights from a seed): drain (the activation cache quantized on
@@ -71,6 +72,11 @@ just after:
   * MoE: qwen3-moe-30b-a3b at full width and 16 of its 48 layers, 16
     prompts of 1,024 into a 4,096-token cache, then 16 decode steps, with
     the expert loads and the assignments the capacity drops;
+  * moonlight: moonlight-16b-a3b at full width and depth (MLA, DeepSeek-V3
+    routing without drops): a prefill of 2 x 1,024 held call by call, 2
+    decode steps through its latent cache, then the moonlight.prefill_8k
+    cell's step (8 x 8,192), with 27 ``flash_fwd_mla`` launches and 78
+    grouped GEMMs a step;
   * families: the recsys and GNN families through ``build_step`` and
     ``train_loop``. Every step kind of the five archs' smoke variants on
     the card against the CPU (1e-5 of scale); dlrm-mlperf (its five big
@@ -96,12 +102,13 @@ just after:
 One prefill and one decode step of each LM are held call by call against
 the plain versions; the MoE prefill's grouped-GEMM launches must all run
 the wgmma kernel, the decode window's all the mma.sync kernel. It ends
-with one JSON line of kernel measurements (eighteen rows: the fourteen
+with one JSON line of kernel measurements (twenty-one rows: seventeen
 forward rows and four backward kernels: flash attention, RMSNorm and the
 grouped GEMM's dX and dW) and one ``{"ok": true, ...}``
 line. Any failed phase or tolerance exits non-zero;
 without a CUDA device it exits non-zero at once. It never imports JAX or
-the JAX package.
+the JAX package (the moonlight phase draws its weights with the
+benchmark's ``bench/lib/weights``).
 """
 from __future__ import annotations
 
@@ -698,6 +705,102 @@ def check_flash(gen):
     return rows
 
 
+# MLA's forward (``flash_fwd_mla``: q/k 192, v 128, bf16): the
+# moonlight.prefill_8k cell's shape, a ragged length (S 1,000: a partial
+# last q and key tile), a small batch with q_offset and one without the
+# causal mask
+FLASH_MLA_CASES = (  # B, S, H, causal, q_offset
+    (8, 8192, 16, True, 0),
+    (2, 1000, 16, True, 0),
+    (2, 77, 4, True, 51),
+    (2, 300, 2, False, 0))
+
+
+def _mla_case(B, S, H, causal, q_offset, gen):
+    """One MLA flash case against the plain variant that rounds P as the
+    kernel does, one prompt at a time (a prompt's plain scores at S 8,192
+    take 4.3 GB): per element within one bf16 step at max(|o|, 1)
+    (``ref.bf16_step_limit``), the lse within 1e-3."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import (flash_fwd_cuda,
+                                                            plain_like_kernel)
+    from repro_torch.kernels.flash_attention.ref import bf16_step_limit
+    bf = torch.bfloat16
+    q = torch.randn((B, S, H, 192), generator=gen, device="cuda").to(bf)
+    k = torch.randn((B, S, H, 192), generator=gen, device="cuda").to(bf)
+    v = torch.randn((B, S, H, 128), generator=gen, device="cuda").to(bf)
+    kw = dict(causal=causal, q_offset=q_offset)
+    o, lse = flash_fwd_cuda(q, k, v, **kw)
+    if tuple(o.shape) != (B, S, H, 128):
+        _fail(f"flash_fwd_mla out {tuple(o.shape)}, not {(B, S, H, 128)}")
+    err = over = lerr = 0.0
+    for b in range(B):
+        o_p, l_p = plain_like_kernel(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                     **kw)
+        diff = (o[b:b + 1].float() - o_p.float()).abs()
+        err = max(err, diff.max().item())
+        over = max(over, (diff / bf16_step_limit(o_p)).max().item())
+        lerr = max(lerr, (lse[b:b + 1] - l_p).abs().max().item())
+        del o_p, l_p, diff
+    if not (over <= 1.0 and lerr <= 1e-3):
+        _fail(f"flash_fwd_mla B={B} S={S} H={H} {kw}: out err {err} "
+              f"({over:.3f} of its limit), lse err {lerr} (tol 1e-3)")
+    return q, k, v, err, over
+
+
+def check_flash_mla(gen):
+    """The MLA forward at ``FLASH_MLA_CASES``; at the cell's shape timed
+    beside the plain variant (its 8 prompts in turn) and SDPA (a backend
+    that takes a v head dim other than q's; the math backend is left out:
+    its scores of 8 prompts take 34 GB)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention.kernel import (flash_fwd_cuda,
+                                                            plain_like_kernel)
+    row = None
+    for B, S, H, causal, qoff in FLASH_MLA_CASES:
+        q, k, v, err, over = _mla_case(B, S, H, causal, qoff, gen)
+        print(f"  flash_fwd_mla B={B} S={S} H={H} causal={causal} "
+              f"q_offset={qoff}: max_abs_err {err:.3e} ({over:.2f} of the "
+              "per-element limit): ok")
+        if row is not None:
+            del q, k, v
+            continue
+        ms = time_ms(lambda: flash_fwd_cuda(q, k, v, causal=True), reps=5)
+        plain_ms = time_ms(lambda: [plain_like_kernel(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True)
+            for b in range(B)], reps=1, trials=2)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        try:
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION]):
+                lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), reps=5)
+        except RuntimeError as e:   # a yardstick only: report it
+            print(f"  SDPA refused the MLA shape: "
+                  f"{str(e).splitlines()[0][:160]}")
+            lib_ms = None
+        n_bytes = B * S * H * (2 * 192 + 2 * 128) * 2 + B * H * S * 4
+        n_ops = 2.0 * B * H * S * (S + 1) / 2 * (192 + 128)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
+        print(f"  flash_fwd_mla (moonlight.prefill_8k) B={B} S={S} H={H} "
+              f"q/k 192, v 128, bf16 causal: kernel {ms:.4f} ms "
+              f"({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+              "sdpa " + (f"{lib_ms:.4f} ms" if lib_ms is not None else
+                         "n/a") + f", bound {b_ms:.4f} ms ({b_by})")
+        row = {"name": "flash_attention_fwd[mla_prefill]", "route": "cuda",
+               "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                         "flash_fwd.cu",
+               "replaces": "none (models/transformer.py MLA attention)",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return row
+
+
 def check_rmsnorm(gen):
     import torch
     import torch.nn.functional as F
@@ -1081,11 +1184,14 @@ def check_moe_gemm(gen):
               "ok")
     rows = []
     # the MoE paths' shapes at qwen3-moe's d = 2048, E = 128, top-8:
-    # prefill (16 x 1,024 tokens x 8) gate/up and down, decode (16 x 8)
-    for what, T, d, F in (("prefill", 131072, 2048, 768),
-                          ("prefill down", 131072, 768, 2048),
-                          ("decode", 128, 2048, 768)):
-        E = 128
+    # prefill (16 x 1,024 tokens x 8) gate/up and down, decode (16 x 8);
+    # and moonlight.prefill_8k's (8 x 8,192 tokens x top-6 over 64 experts
+    # of 1,408, ~6,144 rows an expert) gate/up and down
+    for what, T, d, F, E in (("prefill", 131072, 2048, 768, 128),
+                             ("prefill down", 131072, 768, 2048, 128),
+                             ("decode", 128, 2048, 768, 128),
+                             ("moonlight", 393216, 2048, 1408, 64),
+                             ("moonlight down", 393216, 1408, 2048, 64)):
         xs, w, p, bt, err, rel = _moe_case(T, d, E, F, bf16,
                                            ids(T, E, "random"), gen)
         kernel = kernel_for(bf16, bt, d, F)
@@ -1145,7 +1251,7 @@ def check_moe_gemm(gen):
               f"{loop_ms:.4f} ms, torch._grouped_mm "
               + (f"{gmm_ms:.4f} ms" if gmm_ms is not None else "n/a")
               + f", bound {b_ms:.4f} ms ({b_by})")
-        if what != "prefill down":
+        if not what.endswith(" down"):
             rows.append({"name": f"moe_gemm[{what}]", "route": "cuda",
                          "source": "src/repro_torch/kernels/moe_gemm/csrc/"
                                    "moe_gemm.cu",
@@ -1325,6 +1431,8 @@ def kernel_phase():
     rows = [check_topk(gen)]
     torch.cuda.empty_cache()
     rows += check_flash(gen)
+    rows.append(check_flash_mla(gen))
+    torch.cuda.empty_cache()
     rows.append(check_rmsnorm(gen))
     rows.append(check_gathered(gen))
     torch.cuda.empty_cache()
@@ -2934,6 +3042,107 @@ def moe_phase():
                 c["prefill"]["flash_attention_fwd"],
             "moe_gemm[prefill]": c["prefill"]["moe_gemm/wgmma"],
             "moe_gemm[decode]": c["decode"]["moe_gemm/mma_sync"]}
+
+def moonlight_phase():
+    """moonlight-16b-a3b whole (27 layers: MLA, a dense first layer, 26
+    dropless MoE layers; bf16 weights drawn as the benchmark draws them,
+    ``bench/lib/weights.make_params``) through ``build_step``: a prefill of
+    2 x 1,024 held call by call (each ``flash_fwd_mla`` call and each
+    grouped GEMM against its plain version) and 2 decode steps through its
+    latent cache; then the moonlight.prefill_8k cell's step, 8 prompts of
+    8,192 into an 8,192 latent cache, counted (27 ``flash_fwd_mla``
+    launches at head dim 192, 3 grouped GEMMs an MoE layer, every routed
+    assignment through them) and timed, median of 3."""
+    import torch
+    from bench.lib.weights import make_params
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import moe as MOE, transformer as T
+    arch, B, S, b, s, n_dec = "moonlight-16b-a3b", 8, 8192, 2, 1024, 2
+    spec = get_arch(arch)
+    cfg, recall = spec.model, spec.recall
+    L, top_k = cfg.n_layers, cfg.moe.top_k
+    n_moe = L - cfg.first_k_dense
+    print(f"LM {arch} (bf16, full width and depth: d={cfg.d_model}, "
+          f"{cfg.n_heads} MLA heads, latent {cfg.mla.kv_lora_rank}, q/k "
+          f"{cfg.mla.qk_head_dim}, v {cfg.mla.v_head_dim}; {n_moe} MoE "
+          f"layers of {cfg.moe.n_experts} x {cfg.moe.d_ff_expert}, top-"
+          f"{top_k}; {cfg.n_params / 1e9:.2f} B params)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        params = make_params(T.lm_schema(cfg, recall), seed=0,
+                             dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        small = build_step(spec, ShapeConfig("p", "prefill", b, s),
+                           pad_to=s + n_dec)
+        dec = build_step(spec, ShapeConfig("d", "decode", b, s + n_dec))
+        out = check_lm_calls(lambda: small.fn(params, tokens[:b, :s]),
+                             f"one prefill of {b} x {s}")
+        latent = out.pop("latent_cache")
+        del out
+        for i in range(n_dec):
+            lengths = torch.full((b,), s + i + 1, dtype=torch.int32,
+                                 device="cuda")
+            logits, latent = dec.fn(params, tokens[:b, s + i], latent,
+                                    lengths)
+            if not torch.isfinite(logits).all():
+                _fail(f"{arch} decode step {i}: non-finite logits")
+        print(f"  {n_dec} decode steps through the latent cache: finite "
+              "logits")
+        del latent, logits
+        torch.cuda.empty_cache()
+        pre = build_step(spec, ShapeConfig("prefill", "prefill", B, S),
+                         pad_to=S)
+        _reset_launches()
+        MOE.reset_counters()
+        t0 = time.perf_counter()
+        out = pre.fn(params, tokens)
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t0]
+        counts = _lm_launches()
+        by_dim = dict(flash_ops.launches_by_head_dim)
+        routed = MOE.read_counters()
+        lat, embs = out["latent_cache"], out["exit_embs"]
+        n_exits = len(recall.exit_layers(L))
+        if tuple(lat.shape) != (L, B, S, cfg.mla.latent_dim):
+            _fail(f"{arch} prefill: latent cache {tuple(lat.shape)}")
+        if tuple(embs.shape) != (n_exits, B, 1024) or \
+                not torch.isfinite(embs).all():
+            _fail(f"{arch} prefill: exit embeddings {tuple(embs.shape)} "
+                  f"not finite or not ({n_exits}, {B}, 1024)")
+        del out, lat, embs
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pre.fn(params, tokens)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    t_pre = statistics.median(walls)
+    print(f"  init {t_init:.2f} s; prefill {B} x {S}: {t_pre:.3f} s "
+          f"(median of {', '.join(f'{w:.3f}' for w in walls)}) = "
+          f"{B * S / t_pre:.0f} tokens/s; launches (first run) {counts}, "
+          f"flash by head dim {by_dim}; routed {routed}")
+    for name, got, want in (
+            ("flash_fwd_mla (head dim 192)", by_dim.get(192, 0), L),
+            ("flash_attention_fwd", counts["flash_attention_fwd"], L),
+            ("moe_gemm", counts["moe_gemm"], 3 * n_moe),
+            ("MoE layer calls", routed["calls"], n_moe),
+            ("routed assignments", routed["assignments"],
+             n_moe * B * S * top_k)):
+        if got != want:
+            _fail(f"{arch} prefill of {B} x {S}: {name} {got}, not {want}")
+    if not 0 < routed["max_load"] <= B * S:
+        _fail(f"{arch} prefill: largest expert load {routed['max_load']}")
+    del params
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd[mla_prefill]": by_dim.get(192, 0),
+            "moe_gemm[moonlight]": counts["moe_gemm"]}
+
 
 # ---------------------------------------------------------------------------
 # P-LoRA healing on the card: the backward kernels, heal_tower, healed
@@ -5483,7 +5692,8 @@ def main() -> None:
                         ("train", train_phase), ("ivf", ivf_phase),
                         ("async", async_phase), ("shard", shard_phase),
                         ("lm", lm_phase),
-                        ("moe", moe_phase), ("families", families_phase),
+                        ("moe", moe_phase), ("moonlight", moonlight_phase),
+                        ("families", families_phase),
                         ("mesh", mesh_phase)):
         t0 = time.perf_counter()
         walls[name] = (phase(), time.perf_counter() - t0)
@@ -5493,7 +5703,8 @@ def main() -> None:
         f"{name} {wall:.1f} s" for name, (_, wall) in walls.items()))
     rows = walls["kernels"][0] + HEAL_ROWS
     for row in rows:  # each kernel's count from the path that runs it
-        path = next((p for p in ("lm", "moe", "heal", "train")
+        path = next((p for p in ("lm", "moe", "moonlight", "heal",
+                                 "train")
                      if row["name"] in walls[p][0]),
                     "ivf" if row["name"] in IVF_KERNELS else "serve")
         row["launches"] = walls[path][0][row["name"]]

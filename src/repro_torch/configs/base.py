@@ -305,8 +305,14 @@ _PORT_MODULES = ["moonlight_16b_a3b"]
 _PORT_REGISTRY: Dict[str, ArchSpec] = {}
 
 
-def register(spec: ArchSpec, *, port_only: bool = False) -> ArchSpec:
-    (_PORT_REGISTRY if port_only else _REGISTRY)[spec.arch_id] = spec
+def register(spec: ArchSpec) -> ArchSpec:
+    _REGISTRY[spec.arch_id] = spec
+    return spec
+
+
+def register_port(spec: ArchSpec) -> ArchSpec:
+    """Register an arch of the port alone (no JAX twin)."""
+    _PORT_REGISTRY[spec.arch_id] = spec
     return spec
 
 

@@ -9,9 +9,9 @@ sigmoid router (``noaux_tc``, one group, ``norm_topk_prob``,
 arch (``moonshot-v1-16b-a3b`` is the reference's simplified copy)."""
 from repro_torch.configs.base import (ArchSpec, MLAConfig, MLALMConfig,
                                       MoEConfig, RecallConfig, RouterConfig,
-                                      lm_shapes, register)
+                                      lm_shapes, register_port)
 
-register(ArchSpec(
+register_port(ArchSpec(
     arch_id="moonlight-16b-a3b",
     family="lm",
     model=MLALMConfig(
@@ -29,4 +29,4 @@ register(ArchSpec(
     recall=RecallConfig(exit_interval=4, superficial_layers=7,
                         lora_targets=("wq", "wo")),
     source="hf:moonshotai/Moonlight-16B-A3B",
-), port_only=True)
+))

@@ -713,16 +713,21 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // is_bf16 picks the path: bf16 runs the wgmma kernel, f32 the FMA kernel.
-// D is 64, 80 or 128. Returns a cudaError_t.
+// D is q's and k's head dim, Dv v's and out's: (D, D) for D 64, 80 or 128,
+// or MLA's (192, 128) on the bf16 path alone (its own kernel,
+// flash_fwd_mla). Returns a cudaError_t.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int B, int Sq, int Skv,
-                                int H, int KV, int D, int is_bf16, float scale,
-                                int causal, int window, int q_offset,
-                                cudaStream_t stream) {
+                                int H, int KV, int D, int Dv, int is_bf16,
+                                float scale, int causal, int window,
+                                int q_offset, cudaStream_t stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV)
     return (int)cudaErrorInvalidValue;
 #define FLASH_ARGS q, k, v, out, lse, B, Sq, Skv, H, KV, scale, causal, \
                    window, q_offset, stream
+  if (is_bf16 && D == 192 && Dv == 128)
+    return launch_bf16<192, 128>(flash_fwd_mla<192, 128>, FLASH_ARGS);
+  if (Dv != D) return (int)cudaErrorInvalidValue;
   if (is_bf16) {
     switch (D) {
       case 64: return launch_bf16<64, 64>(flash_fwd_wgmma<64>, FLASH_ARGS);
@@ -738,22 +743,5 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
     }
   }
 #undef FLASH_ARGS
-  return (int)cudaErrorInvalidValue;
-}
-
-// MLA's forward, bf16: q, k (B, S, H, Dqk), v (B, Skv, KV, Dv), out
-// (B, Sq, H, Dv); (Dqk, Dv) = (192, 128). Returns a cudaError_t.
-extern "C" int flash_fwd_mla_launch(const void* q, const void* k,
-                                    const void* v, void* out, float* lse,
-                                    int B, int Sq, int Skv, int H, int KV,
-                                    int Dqk, int Dv, float scale, int causal,
-                                    int window, int q_offset,
-                                    cudaStream_t stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || KV < 1 || H % KV)
-    return (int)cudaErrorInvalidValue;
-  if (Dqk == 192 && Dv == 128)
-    return launch_bf16<192, 128>(flash_fwd_mla<192, 128>, q, k, v, out, lse,
-                                 B, Sq, Skv, H, KV, scale, causal, window,
-                                 q_offset, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,7 +17,7 @@ order (``reduce_head_partials`` is the plain mirror of that sum).
 
 A v head dim other than q's (MLA: q/k 192, v 128, bf16; ``MLA_HEAD_DIMS``)
 runs the bf16 kernel's body as ``flash_fwd_mla``, a kernel of its own name
-(entry ``flash_fwd_mla_launch``), out (B, Sq, H, 128).
+(the same entry, ``flash_fwd_launch``), out (B, Sq, H, 128).
 
 ``kv_tile_range`` and ``keyless_row`` mirror the CUDA arithmetic that
 decides which key tiles a q tile visits, ``tiles_meet`` the backward's
@@ -53,11 +53,8 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_fwd")
     lib.flash_fwd_launch.restype = ctypes.c_int
-    lib.flash_fwd_launch.argtypes = ([_P] * 5 + [_I] * 7 + [ctypes.c_float]
+    lib.flash_fwd_launch.argtypes = ([_P] * 5 + [_I] * 8 + [ctypes.c_float]
                                      + [_I] * 3 + [_P])
-    lib.flash_fwd_mla_launch.restype = ctypes.c_int
-    lib.flash_fwd_mla_launch.argtypes = ([_P] * 5 + [_I] * 7
-                                         + [ctypes.c_float] + [_I] * 3 + [_P])
     return lib
 
 
@@ -191,16 +188,12 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out, lse
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), B, Sq, Skv, H, KV, D)
-        tail = (float(scale), int(bool(causal)), int(window), int(q_offset),
-                stream)
-        if mla:
-            err = _lib().flash_fwd_mla_launch(*ptrs, Dv, *tail)
-        else:
-            err = _lib().flash_fwd_launch(
-                *ptrs, int(q.dtype == torch.bfloat16), *tail)
-    build.check(err, "flash_fwd_mla" if mla else "flash_fwd")
+        err = _lib().flash_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, Sq, Skv, H, KV, D, Dv,
+            int(q.dtype == torch.bfloat16), float(scale), int(bool(causal)),
+            int(window), int(q_offset), stream)
+    build.check(err, "flash_fwd")
     return out, lse
 
 
