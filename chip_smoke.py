@@ -1140,6 +1140,79 @@ def _moe_case(T, d, E, F, dtype, ids, gen, kernels=None, bt=None):
     return xs, w, p, bt, err, rel
 
 
+def check_moe_swiglu(xs, w_gate, p, bt, gen, T):
+    """The fused gate/up kernel (``moe_gemm_wgmma_swiglu``) at one plan:
+    held per element to the three steps it replaces on the card (gate and
+    up on ``moe_gemm_wgmma``, then ``F.silu(g.float()).to(bf16) * u``),
+    within one bf16 step (``bf16_step_limit``), with the share of elements
+    bit-equal; to the plain version (fp32 products) within one output
+    rounding step of h's scale; timed beside the gate and up launches it
+    replaces and beside the three steps whole; the bound counts the ``T``
+    assignments' operations. Returns the row's fields."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ref import bf16_step_limit
+    from repro_torch.kernels.moe_gemm.kernel import (moe_gemm_cuda,
+                                                     moe_gemm_swiglu_cuda)
+    from repro_torch.kernels.moe_gemm.ref import (
+        moe_gemm_sorted_swiglu_reference)
+    E, d, F_ = w_gate.shape
+    w_up = (torch.randn((E, d, F_), generator=gen, device="cuda")
+            * d ** -0.5).to(w_gate.dtype)
+    n = int(p.used)
+    be, used = p.block_expert, p.used
+
+    def fused():
+        return moe_gemm_swiglu_cuda(xs, be, w_gate, w_up, bt, used)
+
+    def gate_up():
+        return (moe_gemm_cuda(xs, be, w_gate, bt, used),
+                moe_gemm_cuda(xs, be, w_up, bt, used))
+
+    def three_steps():
+        g, u = gate_up()
+        return F.silu(g.float()).to(g.dtype) * u
+
+    h, steps = fused()[:n], three_steps()[:n]
+    lim = bf16_step_limit(steps)
+    diff = (h.float() - steps.float()).abs()
+    steps_err = (diff / lim).max().item()
+    exact = (h == steps).float().mean().item()
+    if not steps_err <= 1.0:
+        _fail(f"moe_gemm swiglu T={T}: {steps_err:.3f} bf16 steps from the "
+              "three steps it replaces")
+    del steps, lim, diff
+    h_p = moe_gemm_sorted_swiglu_reference(xs, be, w_gate, w_up, bt,
+                                           used)[:n]
+    scale = max(1.0, h_p.float().abs().max().item())
+    err = (h.float() - h_p.float()).abs().max().item() / scale
+    if not err <= 2.0 ** -7:
+        _fail(f"moe_gemm swiglu T={T}: error {err:.3e} of h's scale against "
+              "the plain version")
+    del h, h_p
+    torch.cuda.empty_cache()
+    ms = time_ms(fused, reps=10)
+    gate_up_ms = time_ms(gate_up, reps=10)
+    steps_ms = time_ms(three_steps, reps=10)
+    e_used = int((torch.bincount(be[:n // bt].long(), minlength=E) > 0)
+                 .sum())
+    n_bytes = (T * d + 2 * e_used * d * F_ + T * F_) * 2
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * T * d * F_, "bf16")
+    print(f"  moe_gemm swiglu T={T} d={d} F={F_} E={E} (token block {bt}): "
+          f"fused kernel {ms:.4f} ms ({4.0 * T * d * F_ / ms / 1e9:.1f} "
+          f"TFLOP/s, {b_ms / ms:.1%} of the bound {b_ms:.4f} ms, {b_by}); "
+          f"the gate and up launches it replaces {gate_up_ms:.4f} ms "
+          f"({gate_up_ms / ms:.3f}x the fused one), with the SiLU chain "
+          f"{steps_ms:.4f} ms; against those "
+          f"steps {steps_err:.3f} of one bf16 step at worst, {exact:.4%} of "
+          f"elements bit-equal; against the plain version {err:.3e} of h's "
+          f"scale (tol {2.0 ** -7:.2e})")
+    return {"swiglu_ms": ms, "swiglu_bound_ms": b_ms,
+            "swiglu_gate_up_ms": gate_up_ms, "swiglu_steps_ms": steps_ms,
+            "swiglu_max_abs_err": err, "swiglu_steps_err": steps_err,
+            "swiglu_bit_equal": exact}
+
+
 def check_moe_gemm(gen):
     import torch
     from repro_torch.kernels.moe_gemm import ops
@@ -1177,8 +1250,11 @@ def check_moe_gemm(gen):
         bt = bt or ops.block_t_for(T, E)
         both = kernel_for(dtype, bt, d, F) == "wgmma"
         kernels = ("wgmma", "mma_sync") if both else ("mma_sync",)
-        _moe_case(T, d, E, F, dtype, ids(T, E, kind), gen, kernels=kernels,
-                  bt=bt)
+        xs, w, p, _, _, _ = _moe_case(T, d, E, F, dtype, ids(T, E, kind),
+                                      gen, kernels=kernels, bt=bt)
+        if both:
+            check_moe_swiglu(xs, w, p, bt, gen, T)
+        del xs, w
         print(f"  moe_gemm side case T={T} d={d} E={E} F={F} {dtype} "
               f"({kind}, token block {bt}) through {' and '.join(kernels)}: "
               "ok")
@@ -1260,6 +1336,8 @@ def check_moe_gemm(gen):
                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "library_ms": lib_ms})
+        if what in ("prefill", "moonlight"):  # the MoE layers' gate and up
+            rows[-1].update(check_moe_swiglu(xs, w, p, bt, gen, T))
         del xs, w
         torch.cuda.empty_cache()
     return rows
@@ -2564,6 +2642,8 @@ def _layer_of(kernel_name: str) -> str:
         return "grouped GEMM backward dW (mma.sync kernel)"
     if "moe_gemm_dx_wgmma" in kernel_name:
         return "grouped GEMM backward dX (persistent wgmma kernel)"
+    if "moe_gemm_wgmma_swiglu" in kernel_name:
+        return "grouped GEMM gate/up with SiLU·up (fused wgmma kernel)"
     if "moe_gemm_kernel" in kernel_name and ("true>" in kernel_name
                                              or "Lb1E" in kernel_name):
         return "grouped GEMM backward dX (mma.sync kernel)"
@@ -2655,28 +2735,35 @@ def profile_windows(windows):
 
 def _lm_launches() -> dict:
     """The LM kernels' counts, and the grouped GEMM's split by kernel
-    (``moe_gemm/wgmma``, ``moe_gemm/mma_sync``)."""
+    (``moe_gemm/wgmma``, ``moe_gemm/mma_sync``, ``moe_gemm/swiglu_wgmma``:
+    the fused gate/up)."""
     c = _counters()
     out = {name: getattr(*c[name]) for name in
            ("flash_attention_fwd", "decode_attention", "moe_gemm", "rmsnorm")}
     by_kernel = c["moe_gemm"][0].launches_by_kernel
     out.update({f"moe_gemm/{k}": by_kernel.get(k, 0)
-                for k in ("wgmma", "mma_sync")})
+                for k in ("wgmma", "mma_sync", "swiglu_wgmma")})
     return out
 
 
 def check_lm_calls(run, what, *, record_plan=None):
     """Every kernel call of ``run()`` (a prefill or a decode step) against
     its plain version on the same inputs, within one bf16 step of the
-    output's scale; the grouped GEMM on the rows of real groups.
+    output's scale; the grouped GEMM on the rows of real groups. A fused
+    gate/up call is held to the three steps it replaces on the card, whose
+    gate and up products are each held to their plain versions as a
+    grouped GEMM call is (the fp32 plain products may round g or u a bf16
+    step apart, which SiLU·u carries past one step of h's scale).
     ``record_plan`` sees the expert ids of every MoE layer."""
     import torch
+    import torch.nn.functional as F
     from unittest import mock
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_reference)
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_cuda
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
@@ -2684,6 +2771,13 @@ def check_lm_calls(run, what, *, record_plan=None):
     rel_tol = 2.0 ** -7
     both, worst, calls = _call_checker(rel_tol)
     plan = moe_ops.plan
+    grouped = both("moe_gemm", moe_gemm_cuda, moe_gemm_sorted_reference,
+                   rows=lambda *a: int(a[4]))
+
+    def swiglu_steps(xs, block_expert, w_gate, w_up, bt, used):
+        g, u = (grouped(xs, block_expert, w, bt, used)
+                for w in (w_gate, w_up))
+        return F.silu(g.float()).to(g.dtype) * u
 
     def recording_plan(expert_ids, *args):
         if record_plan is not None:
@@ -2708,6 +2802,11 @@ def check_lm_calls(run, what, *, record_plan=None):
                                    lambda *a: moe_gemm_sorted_reference(
                                        *a[:5]),
                                    rows=lambda *a: int(a[4]))), \
+            mock.patch.object(moe_ops, "moe_gemm_sorted_swiglu",
+                              both("moe_gemm_swiglu",
+                                   moe_ops.moe_gemm_sorted_swiglu,
+                                   swiglu_steps,
+                                   rows=lambda *a: int(a[5]))), \
             mock.patch.object(moe_ops, "plan", recording_plan):
         out = run()
         torch.cuda.synchronize()
@@ -2972,15 +3071,18 @@ def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
         if exit_api:
             check_exit_api(params, cfg, spec.recall, tokens[:check_batch])
     # rmsnorm: two a layer, then the exit head's (prefill) or the final
-    # norm (decode); the grouped GEMM's prefill launches all on the wgmma
-    # kernel, its decode launches all on the mma.sync kernel
-    n_moe = 3 * L if cfg.moe else 0
+    # norm (decode); the grouped GEMM's bf16 prefill runs two launches a
+    # layer on the wgmma kernels (gate and up fused, then down), its decode
+    # three a layer on the mma.sync kernel
+    n_moe = L if cfg.moe else 0
     for name, want in (("flash_attention_fwd", ("prefill", L)),
                        ("decode_attention", ("decode", L * n_steps)),
-                       ("moe_gemm", ("prefill", n_moe)),
+                       ("moe_gemm", ("prefill", 2 * n_moe)),
                        ("moe_gemm/wgmma", ("prefill", n_moe)),
-                       ("moe_gemm", ("decode", n_moe * n_steps)),
-                       ("moe_gemm/mma_sync", ("decode", n_moe * n_steps)),
+                       ("moe_gemm/swiglu_wgmma", ("prefill", n_moe)),
+                       ("moe_gemm", ("decode", 3 * n_moe * n_steps)),
+                       ("moe_gemm/mma_sync",
+                        ("decode", 3 * n_moe * n_steps)),
                        ("rmsnorm", ("prefill", 2 * L + 1)),
                        ("rmsnorm", ("decode", (2 * L + 1) * n_steps))):
         window, n = want
@@ -3032,7 +3134,8 @@ def moe_phase():
           f"{sum(drops)} of {B * S * K * len(drops)} over {len(drops)} "
           f"layers")
     print(f"  grouped GEMM launches by kernel: prefill wgmma "
-          f"{c['prefill']['moe_gemm/wgmma']}, mma.sync "
+          f"{c['prefill']['moe_gemm/wgmma']}, fused gate/up "
+          f"{c['prefill']['moe_gemm/swiglu_wgmma']}, mma.sync "
           f"{c['prefill']['moe_gemm/mma_sync']}; decode window wgmma "
           f"{c['decode']['moe_gemm/wgmma']}, mma.sync "
           f"{c['decode']['moe_gemm/mma_sync']}")
@@ -3040,7 +3143,8 @@ def moe_phase():
                 c["decode"]["decode_attention"],
             "flash_attention_fwd[moe_prefill]":
                 c["prefill"]["flash_attention_fwd"],
-            "moe_gemm[prefill]": c["prefill"]["moe_gemm/wgmma"],
+            "moe_gemm[prefill]": c["prefill"]["moe_gemm/wgmma"]
+            + c["prefill"]["moe_gemm/swiglu_wgmma"],
             "moe_gemm[decode]": c["decode"]["moe_gemm/mma_sync"]}
 
 def moonlight_phase():
@@ -3051,8 +3155,9 @@ def moonlight_phase():
     grouped GEMM against its plain version) and 2 decode steps through its
     latent cache; then the moonlight.prefill_8k cell's step, 8 prompts of
     8,192 into an 8,192 latent cache, counted (27 ``flash_fwd_mla``
-    launches at head dim 192, 3 grouped GEMMs an MoE layer, every routed
-    assignment through them) and timed, median of 3."""
+    launches at head dim 192, 2 grouped GEMMs an MoE layer: gate and up
+    fused, then down; every routed assignment through them) and timed,
+    median of 3."""
     import torch
     from bench.lib.weights import make_params
     from repro_torch.configs.base import ShapeConfig, get_arch
@@ -3130,7 +3235,10 @@ def moonlight_phase():
     for name, got, want in (
             ("flash_fwd_mla (head dim 192)", by_dim.get(192, 0), L),
             ("flash_attention_fwd", counts["flash_attention_fwd"], L),
-            ("moe_gemm", counts["moe_gemm"], 3 * n_moe),
+            ("moe_gemm", counts["moe_gemm"], 2 * n_moe),
+            ("moe_gemm/swiglu_wgmma", counts["moe_gemm/swiglu_wgmma"],
+             n_moe),
+            ("moe_gemm/wgmma", counts["moe_gemm/wgmma"], n_moe),
             ("MoE layer calls", routed["calls"], n_moe),
             ("routed assignments", routed["assignments"],
              n_moe * B * S * top_k)):
@@ -4068,11 +4176,12 @@ def heal_lm_moe(gen):
     peak = torch.cuda.max_memory_allocated()
     got = _moe_launches()
     L, n = cfg.n_layers, len(log) * hc.steps_per_phase
-    # the targets' forward, then per step every layer forward and backward:
-    # three grouped GEMMs a layer each way, the backward's all dX
+    # the targets' forward (no gradient: gate and up fused, then down),
+    # then per step every layer forward and backward: three grouped GEMMs a
+    # layer each way, the backward's all dX
     want = {"flash_attention_fwd": (n + 1) * L, "flash_attention_bwd": n * L,
             "rmsnorm": (n + 1) * (2 * L + 1), "rmsnorm_bwd": n * 2 * L,
-            "moe_gemm": (n + 1) * 3 * L, "moe_gemm_bwd/dx_wgmma": n * 3 * L,
+            "moe_gemm": 2 * L + n * 3 * L, "moe_gemm_bwd/dx_wgmma": n * 3 * L,
             "moe_gemm_bwd/dx_mma_sync": 0, "moe_gemm_bwd/dw_wgmma": 0,
             "moe_gemm_bwd/dw_mma_sync": 0}
     print(f"  heal_lm qwen3-moe-30b-a3b (bf16, {L} of "

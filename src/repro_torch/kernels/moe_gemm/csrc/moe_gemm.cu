@@ -1,9 +1,11 @@
-// Grouped ("ragged") expert GEMM for Hopper: two kernels of one function.
+// Grouped ("ragged") expert GEMM for Hopper: two kernels of one function,
+// and a third that fuses the MoE layer's gate, up and SiLU·up.
 //
 // Replaces the TPU kernel repro/kernels/moe_gemm/kernel.py::_gemm_kernel
 // (entry moe_gemm_pallas). The JAX package's MoE layer computes the same
 // expert FFN as a dense capacity-buffer einsum; the port's MoE layer runs
-// this kernel for gate, up and down.
+// this kernel for gate, up and down, and, where no gradient is recorded,
+// gate and up with SiLU·up in one launch (moe_gemm_wgmma_swiglu).
 //
 // Function: xs (T_pad, d) rows sorted by expert, each expert's group padded
 // to a multiple of bt rows (ops.plan); block_expert (T_pad / bt,) int32
@@ -30,6 +32,19 @@
 // the one 64-row tile. A consumer keeps one wgmma group in flight and
 // releases a stage as soon as the group reading it has completed. Columns
 // past F are masked at the store.
+//
+// moe_gemm_wgmma_swiglu (the same shapes; the MoE layer's gate and up where
+// no gradient is recorded): h[r] = bf16(SiLU(bf16(g))) * bf16(u), g = xs[r]
+// @ w_gate[e] and u = xs[r] @ w_up[e], with the unfused layer's roundings (g
+// and u stored in bf16, F.silu in fp32 cast back, the product rounded once),
+// in one launch: g and u never reach device memory. What bounds it: 2 * 2 *
+// T * d * F operations at 989 TFLOP/s (4.59 ms at T = 393,216, d = 2048,
+// F = 1408). Design: the forward's, with one block per (bt rows, 128
+// columns of h); each stage brings the xs slice once and the 64 x 128
+// slices of w_gate and w_up through two 3-D maps, their 64-column atoms
+// interleaved (gate, up, gate, up), so the same m64nNk16 instructions sum a
+// row's gate and up columns side by side and the epilogue pairs them in
+// registers. 1,408 = 11 x 128: no column of the tiles is wasted there.
 //
 // The backward (no Pallas site: the reference differentiates its MoE
 // layer's einsums) is the same grouped product twice more, each with
@@ -334,20 +349,36 @@ template <int BM> struct Cfg {
 };
 }  // namespace gm
 
-// The forward: the w map covers (F, d, E) in 64 x 64 boxes, four stacked
-// along F (64-column atoms, read MN-major through the transpose bit).
-template <int BM>
-__global__ void __launch_bounds__(gm::THREADS, 1)
-moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
-               const __grid_constant__ CUtensorMap map_w,
-               const int* __restrict__ block_expert,
-               const int* __restrict__ used, __nv_bfloat16* __restrict__ ys,
-               int d, int F, int bt) {
+// h = bf16(SiLU(g) * u) from the fp32 sums, with the unfused layer's
+// roundings: g and u as stored in bf16, SiLU in fp32 (as PyTorch's silu
+// kernel computes it) cast back, times u; the product of two bf16 values is
+// exact in fp32, so pack_bf16 rounds it once, as a bf16 multiply does.
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  const float gr = __bfloat162float(__float2bfloat16(g));
+  const float ur = __bfloat162float(__float2bfloat16(u));
+  return __bfloat162float(__float2bfloat16(gr / (1.f + expf(-gr)))) * ur;
+}
+
+// The forward's body. The w maps cover (F, d, E) in 64 x 64 boxes (64-column
+// atoms, read MN-major through the transpose bit). Plain (SWIGLU false):
+// four atoms of w0 stacked along F, ys (T_pad, F) = xs @ w0[e], 256 columns
+// a block. SWIGLU: 128 columns of h a block, its B tile the atoms of w0
+// (gate) and w1 (up) interleaved, gate n0, up n0, gate n0 + 64, up n0 + 64;
+// ys is h.
+template <int BM, bool SWIGLU>
+__device__ __forceinline__ void wgmma_fwd(const CUtensorMap* map_x,
+                                          const CUtensorMap* map_w0,
+                                          const CUtensorMap* map_w1,
+                                          const int* __restrict__ block_expert,
+                                          const int* __restrict__ used,
+                                          __nv_bfloat16* __restrict__ ys,
+                                          int d, int F, int bt) {
   using namespace hopper;
   using C = gm::Cfg<BM>;
   constexpr int STAGES = C::STAGES, WN = C::WN;
+  constexpr int NOUT = SWIGLU ? gm::BN / 2 : gm::BN;  // output columns a block
   const int row0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * gm::BN;
+  const int n0 = blockIdx.x * NOUT;
   if (row0 >= *used) return;  // past the last real group
   const int e = block_expert[row0 / bt];
   const int nk = (d + gm::BK - 1) / gm::BK;
@@ -369,18 +400,28 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
   if (wg == 0) {  // producer
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      // w boxes that start inside F (a box past F would only read zeros)
-      const int n_atoms = min(gm::BN / 64, (F - n0 + 63) / 64);
-      const uint32_t bytes = C::A_BYTES + n_atoms * gm::B_ATOM;
+      // output atoms that start inside F (a box past F would only read zeros)
+      const int n_atoms = min(NOUT / 64, (F - n0 + 63) / 64);
+      const uint32_t bytes =
+          C::A_BYTES + (SWIGLU ? 2 : 1) * n_atoms * gm::B_ATOM;
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % STAGES;
         if (kt >= STAGES) mbar_wait(&empty[s], (kt / STAGES - 1) & 1);
         uint8_t* st = sm + s * C::STAGE;
+        uint8_t* b = st + C::A_BYTES;
         mbar_expect_tx(&full[s], bytes);
-        tma_load_2d(st, &map_x, &full[s], kt * gm::BK, row0);
-        for (int a = 0; a < n_atoms; ++a)
-          tma_load_3d(st + C::A_BYTES + a * gm::B_ATOM, &map_w, &full[s],
-                      n0 + 64 * a, kt * gm::BK, e);
+        tma_load_2d(st, map_x, &full[s], kt * gm::BK, row0);
+        for (int a = 0; a < n_atoms; ++a) {
+          if (SWIGLU) {
+            tma_load_3d(b + 2 * a * gm::B_ATOM, map_w0, &full[s], n0 + 64 * a,
+                        kt * gm::BK, e);
+            tma_load_3d(b + (2 * a + 1) * gm::B_ATOM, map_w1, &full[s],
+                        n0 + 64 * a, kt * gm::BK, e);
+          } else {
+            tma_load_3d(b + a * gm::B_ATOM, map_w0, &full[s], n0 + 64 * a,
+                        kt * gm::BK, e);
+          }
+        }
       }
     }
   } else {  // consumers
@@ -408,27 +449,73 @@ moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
     wgmma_wait<0>();
     fence_regs(acc);
 
+    // element (row 16 warp + g + 8 h, column 8 c + 2 t + j) of the
+    // consumer's WN columns of the B tile is acc[4 c + 2 h + j]
     const int tid = threadIdx.x - 128 * wg;
     const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
     const int row = row0 + wm * 64 + warp * 16 + g;
     __nv_bfloat16* y0 = ys + (size_t)row * F;
     __nv_bfloat16* y1 = y0 + (size_t)8 * F;
+    if constexpr (SWIGLU) {
+      // atom pair q: the gate's columns at c = 16 q .. 16 q + 7, up's 8 on
 #pragma unroll
-    for (int c = 0; c < WN / 8; ++c) {
-      const int col = n0 + wn * WN + 8 * c + 2 * t;
-      if (col < F) {
-        *reinterpret_cast<uint32_t*>(y0 + col) = pack_bf16(acc[4 * c], acc[4 * c + 1]);
-        *reinterpret_cast<uint32_t*>(y1 + col) = pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
+      for (int q = 0; q < WN / 128; ++q)
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc) {
+          const int col = n0 + wn * (WN / 2) + 64 * q + 8 * cc + 2 * t;
+          const int gi = 4 * (16 * q + cc), ui = gi + 32;
+          if (col < F) {
+            *reinterpret_cast<uint32_t*>(y0 + col) =
+                pack_bf16(silu_mul(acc[gi], acc[ui]),
+                          silu_mul(acc[gi + 1], acc[ui + 1]));
+            *reinterpret_cast<uint32_t*>(y1 + col) =
+                pack_bf16(silu_mul(acc[gi + 2], acc[ui + 2]),
+                          silu_mul(acc[gi + 3], acc[ui + 3]));
+          }
+        }
+    } else {
+#pragma unroll
+      for (int c = 0; c < WN / 8; ++c) {
+        const int col = n0 + wn * WN + 8 * c + 2 * t;
+        if (col < F) {
+          *reinterpret_cast<uint32_t*>(y0 + col) = pack_bf16(acc[4 * c], acc[4 * c + 1]);
+          *reinterpret_cast<uint32_t*>(y1 + col) = pack_bf16(acc[4 * c + 2], acc[4 * c + 3]);
+        }
       }
     }
   }
 }
 
 template <int BM>
-int launch_wgmma(const void* xs, const int* block_expert, const void* w,
-                 const int* used, void* ys, int T_pad, int d, int F, int E,
-                 cudaStream_t stream) {
-  CUtensorMap mx, mw;
+__global__ void __launch_bounds__(gm::THREADS, 1)
+moe_gemm_wgmma(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_w,
+               const int* __restrict__ block_expert,
+               const int* __restrict__ used, __nv_bfloat16* __restrict__ ys,
+               int d, int F, int bt) {
+  wgmma_fwd<BM, false>(&map_x, &map_w, &map_w, block_expert, used, ys, d, F,
+                       bt);
+}
+
+template <int BM>
+__global__ void __launch_bounds__(gm::THREADS, 1)
+moe_gemm_wgmma_swiglu(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_gate,
+                      const __grid_constant__ CUtensorMap map_up,
+                      const int* __restrict__ block_expert,
+                      const int* __restrict__ used,
+                      __nv_bfloat16* __restrict__ h, int d, int F, int bt) {
+  wgmma_fwd<BM, true>(&map_x, &map_gate, &map_up, block_expert, used, h, d, F,
+                      bt);
+}
+
+// ys = xs @ w0[e] on moe_gemm_wgmma, or (SWIGLU) h = SiLU(xs @ w0[e]) *
+// (xs @ w1[e]) on moe_gemm_wgmma_swiglu; w1 is read only there.
+template <int BM, bool SWIGLU>
+int launch_wgmma(const void* xs, const int* block_expert, const void* w0,
+                 const void* w1, const int* used, void* ys, int T_pad, int d,
+                 int F, int E, cudaStream_t stream) {
+  CUtensorMap mx, mw0, mw1;
   const uint64_t dx[2] = {(uint64_t)d, (uint64_t)T_pad};
   const uint64_t sx[1] = {(uint64_t)d * 2};
   const uint32_t bx[2] = {64, BM};
@@ -436,16 +523,24 @@ int launch_wgmma(const void* xs, const int* block_expert, const void* w,
   const uint64_t sw[2] = {(uint64_t)F * 2, (uint64_t)d * F * 2};
   const uint32_t bw[3] = {64, 64, 1};
   int err = hopper::encode_bf16_map(&mx, xs, 2, dx, sx, bx);
-  if (!err) err = hopper::encode_bf16_map(&mw, w, 3, dw, sw, bw);
+  if (!err) err = hopper::encode_bf16_map(&mw0, w0, 3, dw, sw, bw);
+  if (!err && SWIGLU) err = hopper::encode_bf16_map(&mw1, w1, 3, dw, sw, bw);
   if (err) return err;
   const int smem = gm::Cfg<BM>::BYTES;
-  auto kern = moe_gemm_wgmma<BM>;
+  const void* kern = SWIGLU ? (const void*)moe_gemm_wgmma_swiglu<BM>
+                            : (const void*)moe_gemm_wgmma<BM>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((F + gm::BN - 1) / gm::BN, T_pad / BM);
-  kern<<<grid, gm::THREADS, smem, stream>>>(
-      mx, mw, block_expert, used, static_cast<__nv_bfloat16*>(ys), d, F, BM);
+  constexpr int NOUT = SWIGLU ? gm::BN / 2 : gm::BN;
+  const dim3 grid((F + NOUT - 1) / NOUT, T_pad / BM);
+  auto* out = static_cast<__nv_bfloat16*>(ys);
+  if constexpr (SWIGLU)
+    moe_gemm_wgmma_swiglu<BM><<<grid, gm::THREADS, smem, stream>>>(
+        mx, mw0, mw1, block_expert, used, out, d, F, BM);
+  else
+    moe_gemm_wgmma<BM><<<grid, gm::THREADS, smem, stream>>>(
+        mx, mw0, block_expert, used, out, d, F, BM);
   return (int)cudaGetLastError();
 }
 
@@ -1030,10 +1125,29 @@ extern "C" int moe_gemm_wgmma_launch(const void* xs, const int* block_expert,
                                      cudaStream_t stream) {
   if (!wgmma_shape(T_pad, d, F, E, bt)) return (int)cudaErrorInvalidValue;
   if (bt == 128)
-    return launch_wgmma<128>(xs, block_expert, w, used, ys, T_pad, d, F, E,
-                             stream);
-  return launch_wgmma<64>(xs, block_expert, w, used, ys, T_pad, d, F, E,
-                          stream);
+    return launch_wgmma<128, false>(xs, block_expert, w, w, used, ys, T_pad,
+                                    d, F, E, stream);
+  return launch_wgmma<64, false>(xs, block_expert, w, w, used, ys, T_pad, d,
+                                 F, E, stream);
+}
+
+// h (T_pad, F) = SiLU(xs @ w_gate[e]) * (xs @ w_up[e]) with the unfused
+// layer's bf16 roundings, on moe_gemm_wgmma_swiglu (the shapes
+// moe_gemm_wgmma_launch takes; w_gate and w_up both (E, d, F)). Rows from
+// used on are not written. Returns a cudaError_t.
+extern "C" int moe_gemm_swiglu_wgmma_launch(const void* xs,
+                                            const int* block_expert,
+                                            const void* w_gate,
+                                            const void* w_up, const int* used,
+                                            void* h, int T_pad, int d, int F,
+                                            int E, int bt,
+                                            cudaStream_t stream) {
+  if (!wgmma_shape(T_pad, d, F, E, bt)) return (int)cudaErrorInvalidValue;
+  if (bt == 128)
+    return launch_wgmma<128, true>(xs, block_expert, w_gate, w_up, used, h,
+                                   T_pad, d, F, E, stream);
+  return launch_wgmma<64, true>(xs, block_expert, w_gate, w_up, used, h,
+                                T_pad, d, F, E, stream);
 }
 
 // dX (T_pad, d) from dys (T_pad, F) and w (E, d, F), on the mma.sync kernel

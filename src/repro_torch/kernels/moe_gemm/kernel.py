@@ -14,6 +14,9 @@ and of w (``moe_gemm_dw_cuda``) have two kernels each, picked by the same
 rule: ``"wgmma"`` (a persistent TMA and wgmma kernel with a TMA-store
 epilogue, one for dX and one for dW) or ``"mma_sync"`` (dX on the forward's
 ``mma.sync`` kernel with w read transposed, dW on a kernel of its own).
+``moe_gemm_swiglu_cuda`` runs the MoE layer's gate and up with SiLU·up in
+one launch (``moe_gemm_wgmma_swiglu``), on the shapes ``kernel_for`` gives
+the wgmma kernel.
 """
 from __future__ import annotations
 
@@ -55,6 +58,8 @@ def _lib() -> ctypes.CDLL:
     lib.moe_gemm_dw_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P]
     lib.moe_gemm_dw_wgmma_launch.restype = ctypes.c_int
     lib.moe_gemm_dw_wgmma_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+    lib.moe_gemm_swiglu_wgmma_launch.restype = ctypes.c_int
+    lib.moe_gemm_swiglu_wgmma_launch.argtypes = [_P] * 6 + [_I] * 5 + [_P]
     return lib
 
 
@@ -88,6 +93,34 @@ def _check_used(used: torch.Tensor, *index: torch.Tensor) -> None:
                         f"{tuple(used.shape)}")
 
 
+def _check_sorted(xs: torch.Tensor, block_expert: torch.Tensor,
+                  block_t: int, used: torch.Tensor, *ws: torch.Tensor,
+                  k_dim: int = 1) -> None:
+    """The checks every sorted-layout wrapper makes: dtypes, xs's width
+    against each w's dim ``k_dim``, the token block, contiguous and 16-byte
+    aligned inputs."""
+    if xs.dtype not in DTYPES or any(w.dtype != xs.dtype for w in ws):
+        raise TypeError(f"moe_gemm_cuda takes f32 or bf16 (x and w alike), "
+                        f"got {xs.dtype}, {[w.dtype for w in ws]}")
+    if xs.dim() != 2 or any(w.dim() != 3 or w.shape[k_dim] != xs.shape[1]
+                            or w.shape != ws[0].shape for w in ws):
+        raise ValueError(f"shapes xs {tuple(xs.shape)}, w "
+                         f"{[tuple(w.shape) for w in ws]}"
+                         + (" (dx)" if k_dim == 2 else ""))
+    T_pad = xs.shape[0]
+    if block_t < 16 or block_t % 16 or T_pad % block_t or \
+            tuple(block_expert.shape) != (T_pad // block_t,):
+        raise ValueError(f"block_t {block_t} (a multiple of 16 dividing "
+                         f"T_pad {T_pad}), block_expert "
+                         f"{tuple(block_expert.shape)}")
+    _check_used(used, block_expert)
+    if not (xs.is_contiguous() and all(w.is_contiguous() for w in ws) and
+            block_expert.is_contiguous()):
+        raise ValueError("moe_gemm_cuda wants contiguous inputs")
+    if xs.data_ptr() % 16 or any(w.data_ptr() % 16 for w in ws):
+        raise ValueError("moe_gemm_cuda wants 16-byte aligned xs and w")
+
+
 def moe_gemm_cuda(xs: torch.Tensor, block_expert: torch.Tensor,
                   w: torch.Tensor, block_t: int, used: torch.Tensor, *,
                   kernel: Optional[str] = None,
@@ -101,26 +134,9 @@ def moe_gemm_cuda(xs: torch.Tensor, block_expert: torch.Tensor,
     persistent dX kernel (``moe_gemm_dx_wgmma``), ``"mma_sync"`` the
     forward's ``mma.sync`` kernel with w read transposed."""
     dev = _check_device(xs, block_expert, w, used)
-    if xs.dtype not in DTYPES or w.dtype != xs.dtype:
-        raise TypeError(f"moe_gemm_cuda takes f32 or bf16 (x and w alike), "
-                        f"got {xs.dtype}, {w.dtype}")
-    if xs.dim() != 2 or w.dim() != 3 or w.shape[2 if dx else 1] != \
-            xs.shape[1]:
-        raise ValueError(f"shapes xs {tuple(xs.shape)}, w {tuple(w.shape)}"
-                         + (" (dx)" if dx else ""))
+    _check_sorted(xs, block_expert, block_t, used, w, k_dim=2 if dx else 1)
     T_pad = xs.shape[0]
     E, d, F = w.shape
-    if block_t < 16 or block_t % 16 or T_pad % block_t or \
-            tuple(block_expert.shape) != (T_pad // block_t,):
-        raise ValueError(f"block_t {block_t} (a multiple of 16 dividing "
-                         f"T_pad {T_pad}), block_expert "
-                         f"{tuple(block_expert.shape)}")
-    _check_used(used, block_expert)
-    if not (xs.is_contiguous() and w.is_contiguous() and
-            block_expert.is_contiguous()):
-        raise ValueError("moe_gemm_cuda wants contiguous inputs")
-    if xs.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("moe_gemm_cuda wants 16-byte aligned xs and w")
     kernel = _check_kernel(kernel, xs.dtype, block_t, d, F)
     ys = torch.empty((T_pad, d if dx else F), dtype=xs.dtype, device=dev)
     lib = _lib()
@@ -138,6 +154,33 @@ def moe_gemm_cuda(xs: torch.Tensor, block_expert: torch.Tensor,
                      stream)
     build.check(err, f"moe_gemm{' dx' if dx else ''} ({kernel})")
     return ys
+
+
+def moe_gemm_swiglu_cuda(xs: torch.Tensor, block_expert: torch.Tensor,
+                         w_gate: torch.Tensor, w_up: torch.Tensor,
+                         block_t: int, used: torch.Tensor) -> torch.Tensor:
+    """h (T_pad, F) bf16 = SiLU(xs @ w_gate[e]) * (xs @ w_up[e]) in one
+    launch of ``moe_gemm_wgmma_swiglu``, with the roundings of the three
+    steps it replaces (g and u in bf16, SiLU in fp32 cast back, the product
+    rounded once); rows from ``used`` on are left unwritten. Only the
+    shapes ``kernel_for`` gives the wgmma kernel: it raises for others."""
+    dev = _check_device(xs, block_expert, w_gate, w_up, used)
+    _check_sorted(xs, block_expert, block_t, used, w_gate, w_up)
+    T_pad = xs.shape[0]
+    E, d, F = w_gate.shape
+    if kernel_for(xs.dtype, block_t, d, F) != "wgmma":
+        raise ValueError(f"moe_gemm_swiglu_cuda does not take {xs.dtype}, "
+                         f"block_t {block_t}, d {d}, F {F}")
+    h = torch.empty((T_pad, F), dtype=xs.dtype, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.moe_gemm_swiglu_wgmma_launch(
+            xs.data_ptr(), block_expert.data_ptr(), w_gate.data_ptr(),
+            w_up.data_ptr(), used.data_ptr(), h.data_ptr(), T_pad, d, F, E,
+            int(block_t), stream)
+    build.check(err, "moe_gemm swiglu (wgmma)")
+    return h
 
 
 def moe_gemm_dw_cuda(xs: torch.Tensor, dys: torch.Tensor,

@@ -14,7 +14,14 @@ block (``moe_gemm_sorted_dx``) and dw[e] = xs_e^T @ dys_e over each
 expert's rows (``moe_gemm_sorted_dw``), each launched only for an input
 that needs its gradient; on the CPU the plain versions. ``bwd_launches``
 counts backward kernel launches, ``bwd_launches_by_kernel`` splits them
-into ``dx_wgmma``, ``dx_mma_sync``, ``dw_wgmma`` and ``dw_mma_sync``. ``scatter_rows`` and
+into ``dx_wgmma``, ``dx_mma_sync``, ``dw_wgmma`` and ``dw_mma_sync``.
+
+``moe_gemm_sorted_swiglu`` is the MoE layer's gate, up and SiLU·up in one
+call: the plain three steps on a CPU tensor, one launch of the fused wgmma
+kernel on a CUDA tensor (counted in ``launches`` and as ``swiglu_wgmma``).
+It has no backward; ``swiglu_takes`` is the rule by which the layer takes
+it: CUDA tensors on the wgmma kernel's shapes, no gradient recorded through
+them. ``scatter_rows`` and
 ``gather_rows`` move rows by index; the backward of ``scatter_rows`` sums
 a token's ``top_k`` assignment gradients in a fixed order, so a MoE
 layer's gradient has the same bits twice.
@@ -25,9 +32,10 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels.moe_gemm.ref import (moe_gemm_sorted_dw_reference,
-                                              moe_gemm_sorted_dx_reference,
-                                              moe_gemm_sorted_reference)
+from repro_torch.kernels.grad_guard import refuse_grad
+from repro_torch.kernels.moe_gemm.ref import (
+    moe_gemm_sorted_dw_reference, moe_gemm_sorted_dx_reference,
+    moe_gemm_sorted_reference, moe_gemm_sorted_swiglu_reference)
 
 launches = 0
 launches_by_kernel: Dict[str, int] = {}
@@ -181,6 +189,47 @@ def moe_gemm_sorted(xs: torch.Tensor, block_expert: torch.Tensor,
     if torch.is_grad_enabled() and (xs.requires_grad or w.requires_grad):
         return _MoEGemmSorted.apply(xs, block_expert, w, block_t, used, ends)
     return moe_gemm_sorted_fwd(xs, block_expert, w, block_t, used)
+
+
+def swiglu_takes(xs: torch.Tensor, w_gate: torch.Tensor,
+                 w_up: torch.Tensor, block_t: int) -> bool:
+    """Whether gate, up and SiLU·up of the sorted rows may take
+    ``moe_gemm_sorted_swiglu``'s one launch: CUDA tensors of one dtype on
+    the shapes ``kernel.kernel_for`` gives the wgmma kernel, and no
+    gradient recorded through them (the fused kernel has no backward)."""
+    if xs.device.type != "cuda" or w_gate.dtype != xs.dtype or \
+            w_up.dtype != xs.dtype:
+        return False
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xs, w_gate, w_up)):
+        return False
+    from repro_torch.kernels.moe_gemm.kernel import kernel_for
+    return kernel_for(xs.dtype, block_t, xs.shape[1],
+                      w_gate.shape[2]) == "wgmma"
+
+
+def moe_gemm_sorted_swiglu(xs: torch.Tensor, block_expert: torch.Tensor,
+                           w_gate: torch.Tensor, w_up: torch.Tensor,
+                           block_t: int, used: torch.Tensor) -> torch.Tensor:
+    """h (T_pad, F) = SiLU(g) * u, g and u the sorted rows' products
+    through ``w_gate`` and ``w_up`` rounded to xs's dtype, SiLU in fp32 cast
+    back (the three steps the MoE layer takes under grad mode, with their
+    roundings); rows from ``used`` on are 0 on the CPU, unwritten on the
+    card. On the card one launch of ``moe_gemm_wgmma_swiglu``: g and u never
+    reach device memory; no backward."""
+    global launches
+    if xs.device.type == "cpu":
+        return moe_gemm_sorted_swiglu_reference(xs, block_expert, w_gate,
+                                                w_up, block_t, used)
+    if xs.device.type != "cuda":
+        raise ValueError(f"moe_gemm swiglu: no kernel for {xs.device}")
+    refuse_grad("moe_gemm swiglu", "the MoE layer takes the three grouped "
+                "GEMMs under grad mode", xs, w_gate, w_up)
+    from repro_torch.kernels.moe_gemm.kernel import moe_gemm_swiglu_cuda
+    out = moe_gemm_swiglu_cuda(xs, block_expert, w_gate, w_up, block_t, used)
+    launches += 1
+    _count(launches_by_kernel, "swiglu_wgmma")
+    return out
 
 
 def _slot_of(p: Plan) -> torch.Tensor:

@@ -8,11 +8,14 @@ of the kernel's own function on the expert-sorted, block-padded layout of
 expert, rows from ``used`` on are left 0. ``moe_gemm_sorted_dx_reference``
 and ``moe_gemm_sorted_dw_reference`` are the plain versions of its backward
 on the same layout (the gradients of xs and of w), which read no row from
-``used`` on.
+``used`` on. ``moe_gemm_sorted_swiglu_reference`` is the plain version of
+the fused gate/up kernel: the MoE layer's three steps, gate, up and
+``F.silu(g.float()).to(dtype) * u``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def moe_gemm_reference(x: torch.Tensor, expert_ids: torch.Tensor,
@@ -37,6 +40,19 @@ def moe_gemm_sorted_reference(xs: torch.Tensor, block_expert: torch.Tensor,
     for e, r0, r1 in _groups(block_expert, block_t, used):
         ys[r0:r1] = (xs[r0:r1].float() @ w[e].float()).to(xs.dtype)
     return ys
+
+
+def moe_gemm_sorted_swiglu_reference(xs: torch.Tensor,
+                                     block_expert: torch.Tensor,
+                                     w_gate: torch.Tensor,
+                                     w_up: torch.Tensor, block_t: int,
+                                     used: torch.Tensor) -> torch.Tensor:
+    """h (T_pad, F) in xs's dtype = SiLU(g) * u with g and u the sorted
+    products through ``w_gate`` and ``w_up`` (E, d, F), each in xs's dtype,
+    and SiLU taken in fp32 and cast back; rows from ``used`` on are 0."""
+    g = moe_gemm_sorted_reference(xs, block_expert, w_gate, block_t, used)
+    u = moe_gemm_sorted_reference(xs, block_expert, w_up, block_t, used)
+    return F.silu(g.float()).to(xs.dtype) * u
 
 
 def _groups(block_expert: torch.Tensor, block_t: int, used: torch.Tensor):

@@ -82,21 +82,29 @@ def _route(p: Schema, x: torch.Tensor, moe: MoEConfig):
 def expert_ffn(p: Schema, x: torch.Tensor, expert_ids: torch.Tensor,
                top_k: int) -> torch.Tensor:
     """(T * K, d) outputs of assignment a = token a // top_k of x (T, d)
-    through expert ``expert_ids[a]``'s SwiGLU: three grouped GEMMs on one
-    sort/pad plan, the gate's SiLU in fp32 cast back, times up."""
+    through expert ``expert_ids[a]``'s SwiGLU on one sort/pad plan: gate and
+    up, the gate's SiLU in fp32 cast back, times up, then down. Where
+    ``swiglu_takes`` the sorted rows (on the card, no gradient recorded) the
+    first three are one fused launch, else three grouped GEMMs' steps."""
     E = p["w_gate"].shape[0]
     bt = gemm.block_t_for(expert_ids.shape[0], E)
     plan = gemm.plan(expert_ids, E, bt)
     xs = gemm.scatter_rows(x, plan, top_k)
+    w_gate, w_up, w_down = (p[k].to(x.dtype)
+                            for k in ("w_gate", "w_up", "w_down"))
 
     def grouped(h, w):
-        return gemm.moe_gemm_sorted(h, plan.block_expert, w.to(x.dtype), bt,
-                                    plan.used, plan.ends)
+        return gemm.moe_gemm_sorted(h, plan.block_expert, w, bt, plan.used,
+                                    plan.ends)
 
-    g = grouped(xs, p["w_gate"])
-    u = grouped(xs, p["w_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
-    return gemm.gather_rows(grouped(h, p["w_down"]), plan)
+    if gemm.swiglu_takes(xs, w_gate, w_up, bt):
+        h = gemm.moe_gemm_sorted_swiglu(xs, plan.block_expert, w_gate, w_up,
+                                        bt, plan.used)
+    else:
+        g = grouped(xs, w_gate)
+        u = grouped(xs, w_up)
+        h = F.silu(g.float()).to(x.dtype) * u
+    return gemm.gather_rows(grouped(h, w_down), plan)
 
 
 def moe_apply(p: Schema, x: torch.Tensor,

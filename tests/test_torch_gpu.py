@@ -592,6 +592,112 @@ def test_moe_gemm_both_kernels_match_plain(gen, T, d, E, F, bt, kind):
         before.get("mma_sync", 0)
 
 
+# the fused gate/up kernel (moe_gemm_wgmma_swiglu): Moonlight's shape (d
+# 2,048, F 1,408 = 11 x 128, E 64, 128-row blocks), a ragged side shape (F
+# 768, 64-row blocks), F with a half atom (96) and F 200 (three atoms and a
+# part), empty experts and padding rows
+@pytest.mark.parametrize("T,d,E,F,bt,kind", [
+    (16384, 2048, 64, 1408, 128, "random"),
+    (3000, 512, 16, 768, 64, "empty"),
+    (1000, 256, 8, 96, 64, "random"),
+    (777, 200, 8, 200, 128, "empty")])
+def test_moe_gemm_swiglu_kernel_matches_plain(gen, T, d, E, F, bt, kind):
+    """h = SiLU(g) * u in one launch against the three steps it replaces on
+    the card (gate and up on ``moe_gemm_wgmma``, then the torch SiLU chain),
+    which round g and u as it does: within one bf16 step per element
+    (``bf16_step_limit``); against the plain version (fp32 products, another
+    summation order, so g and u may round a step apart) within one output
+    rounding step of h's scale. Rows from ``used`` on are not read (NaN
+    there) nor written (a launch into a NaN-filled h leaves them NaN); each
+    call counts one ``swiglu_wgmma`` launch, and a gradient through it
+    raises."""
+    import torch.nn.functional as Fn
+    from repro_torch.kernels.flash_attention.ref import bf16_step_limit
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.kernel import _lib
+    from repro_torch.kernels.moe_gemm.ref import (
+        moe_gemm_sorted_swiglu_reference)
+    bf = torch.bfloat16
+    eid = torch.randint(0, E, (T,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if kind == "empty":
+        eid = eid // 2 * 2
+    x = torch.randn((T, d), generator=gen, device="cuda").to(bf)
+    wg, wu = ((torch.randn((E, d, F), generator=gen, device="cuda")
+               * d ** -0.5).to(bf) for _ in range(2))
+    p = ops.plan(eid, E, bt)
+    xs = ops.scatter_rows(x, p)
+    n = int(p.used)
+    assert n < p.T_pad and ops.swiglu_takes(xs, wg, wu, bt)
+    xs[n:] = float("nan")
+    before = (ops.launches, dict(ops.launches_by_kernel))
+    h = ops.moe_gemm_sorted_swiglu(xs, p.block_expert, wg, wu, bt, p.used)
+    assert ops.launches == before[0] + 1
+    assert ops.launches_by_kernel["swiglu_wgmma"] == \
+        before[1].get("swiglu_wgmma", 0) + 1
+    assert {k: v for k, v in ops.launches_by_kernel.items()
+            if k != "swiglu_wgmma"} == \
+        {k: v for k, v in before[1].items() if k != "swiglu_wgmma"}
+    g = ops.moe_gemm_sorted(xs, p.block_expert, wg, bt, p.used, p.ends)
+    u = ops.moe_gemm_sorted(xs, p.block_expert, wu, bt, p.used, p.ends)
+    steps = (Fn.silu(g.float()).to(bf) * u)[:n]
+    assert ((h[:n].float() - steps.float()).abs()
+            <= bf16_step_limit(steps)).all()
+    h_p = moe_gemm_sorted_swiglu_reference(xs, p.block_expert, wg, wu, bt,
+                                           p.used)[:n]
+    scale = max(1.0, h_p.float().abs().max().item())
+    assert (h[:n].float() - h_p.float()).abs().max().item() <= \
+        2.0 ** -7 * scale
+    filled = torch.full_like(h, float("nan"))
+    err = _lib().moe_gemm_swiglu_wgmma_launch(
+        xs.data_ptr(), p.block_expert.data_ptr(), wg.data_ptr(),
+        wu.data_ptr(), p.used.data_ptr(), filled.data_ptr(), p.T_pad, d, F,
+        E, bt, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    assert torch.equal(filled[:n], h[:n]) and filled[n:].isnan().all()
+    wl = wg.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.moe_gemm_sorted_swiglu(xs, p.block_expert, wl, wu, bt, p.used)
+
+
+def test_moe_dropless_takes_the_fused_gate_up_without_grad(gen):
+    """DeepSeek-V3's MoE layer (``moe_apply_dropless``) at Moonlight's
+    expert width (64 experts of 1,408, top-6, 2 shared) over 2 x 512 bf16
+    tokens: under ``no_grad`` the grouped GEMMs are one fused gate/up and
+    one down launch; with a gradient recorded through x, three grouped
+    GEMMs; the two outputs within one bf16 step of the output's scale (the
+    moonlight phase's call-by-call tolerance of ``chip_smoke.py``)."""
+    from repro_torch.configs.base import MoEConfig, RouterConfig
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.models import moe as TM
+    from repro_torch.models.layers import init_params
+    moe = MoEConfig(n_experts=64, top_k=6, d_ff_expert=1408,
+                    n_shared_experts=2)
+    router = RouterConfig(routed_scaling_factor=2.446)
+    d = 512
+    params = init_params(gen, TM.moe_schema(d, moe, router=router),
+                         dtype=torch.bfloat16, device="cuda")
+    x = torch.randn((2, 512, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def run(grad):
+        before = dict(ops.launches_by_kernel)
+        xl = x.clone().requires_grad_(grad)
+        with torch.set_grad_enabled(grad):
+            y, _ = TM.moe_apply_dropless(params, xl, moe, router)
+        return y.detach(), {k: v - before.get(k, 0)
+                            for k, v in ops.launches_by_kernel.items()
+                            if v != before.get(k, 0)}
+
+    fused, fused_launches = run(False)
+    three, three_launches = run(True)
+    assert fused_launches == {"swiglu_wgmma": 1, "wgmma": 1}
+    assert three_launches == {"wgmma": 3}
+    scale = max(1.0, three.float().abs().max().item())
+    assert (fused.float() - three.float()).abs().max().item() <= \
+        2.0 ** -7 * scale
+
+
 def test_lm_prefill_and_decode_on_the_card_match_the_cpu(gen):
     """A small fp32 MoE LM (head dim 64, GQA 2:1, 8 experts top-2) through
     prefill and two greedy decode steps on the card (flash, rmsnorm,

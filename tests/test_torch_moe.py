@@ -153,3 +153,76 @@ def test_moe_apply_grads_match_reference(case, drops):
     for name, got, w in zip([k for k, _ in flat] + ["x"], grads, want):
         err = np.abs(got.numpy() - w).max()
         assert err <= TOL * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("needs_grad", ["x", "weights", "both", "none"])
+def test_expert_ffn_takes_three_grouped_gemms_under_grad_mode(monkeypatch,
+                                                              needs_grad):
+    """``expert_ffn`` on bf16 rows at a token block the fused gate/up
+    kernel's shapes take (64, d and F multiples of 8): where a gradient is
+    recorded it runs gate, up and down as three grouped GEMMs and never the
+    fused call (which has no backward), and its output and gradients are
+    bit for bit those of the three steps written out; on the CPU, with no
+    gradient, it takes the same three steps (the fused launch is the card's
+    alone)."""
+    from repro_torch.kernels.moe_gemm import kernel as MK
+    bf = torch.bfloat16
+    E, K, T, d, F = 4, 2, 128, 16, 40
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32)
+                         ).to(bf)
+    ids = torch.from_numpy(rng.integers(0, E, T * K).astype(np.int64))
+    p = {k: torch.from_numpy((rng.standard_normal(shape) * 0.3).astype(
+        np.float32)).to(bf) for k, shape in (("w_gate", (E, d, F)),
+                                             ("w_up", (E, d, F)),
+                                             ("w_down", (E, F, d)))}
+    bt = MO.block_t_for(T * K, E)
+    assert bt == 64 and MK.kernel_for(bf, bt, d, F) == "wgmma"
+    calls = {"sorted": 0, "swiglu": 0}
+
+    def spy(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run
+
+    monkeypatch.setattr(MO, "moe_gemm_sorted",
+                        spy("sorted", MO.moe_gemm_sorted))
+    monkeypatch.setattr(MO, "moe_gemm_sorted_swiglu",
+                        spy("swiglu", MO.moe_gemm_sorted_swiglu))
+    g_out = torch.from_numpy(rng.standard_normal((T * K, d)).astype(
+        np.float32)).to(bf)
+
+    def leaves():
+        xl = x.clone().requires_grad_(needs_grad in ("x", "both"))
+        pl = {k: v.clone().requires_grad_(needs_grad in ("weights", "both"))
+              for k, v in p.items()}
+        return xl, pl
+
+    def written_out(xl, pl):
+        plan = MO.plan(ids, E, bt)
+        xs = MO.scatter_rows(xl, plan, K)
+
+        def grouped(h, w):
+            return MO.moe_gemm_sorted(h, plan.block_expert, w, bt,
+                                      plan.used, plan.ends)
+        g, u = grouped(xs, pl["w_gate"]), grouped(xs, pl["w_up"])
+        h = torch.nn.functional.silu(g.float()).to(bf) * u
+        return MO.gather_rows(grouped(h, pl["w_down"]), plan)
+
+    def run(fn):
+        xl, pl = leaves()
+        calls.update(sorted=0, swiglu=0)
+        y = fn(xl, pl)
+        assert calls == {"sorted": 3, "swiglu": 0}
+        wrt = [t for t in (xl, *pl.values()) if t.requires_grad]
+        return y, (torch.autograd.grad((y.float() * g_out.float()).sum(),
+                                       wrt) if wrt else ())
+
+    y, grads = run(lambda xl, pl: TM.expert_ffn(pl, xl, ids, K))
+    y_w, grads_w = run(written_out)
+    assert torch.equal(y, y_w)
+    assert len(grads) == len(grads_w) == {"x": 1, "weights": 3, "both": 4,
+                                          "none": 0}[needs_grad]
+    for a, b in zip(grads, grads_w):
+        assert torch.equal(a, b)

@@ -18,6 +18,7 @@ from repro_torch.kernels.moe_gemm.ref import (moe_gemm_reference,
                                               moe_gemm_sorted_dw_reference,
                                               moe_gemm_sorted_dx_reference,
                                               moe_gemm_sorted_reference)
+from torch.nn import functional as F
 
 
 def _ids(kind, T, E, seed):
@@ -95,6 +96,41 @@ def test_sorted_plain_version_leaves_unused_rows_zero():
     be = p.block_expert.long().repeat_interleave(16)[:int(p.used)]
     want = torch.einsum("td,tdf->tf", xs[:int(p.used)], w[be])
     torch.testing.assert_close(ys[:int(p.used)], want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T,d,E,F_,bt,kind", [
+    (100, 32, 8, 1408, 16, "random"),        # Moonlight's F, decode blocks
+    (300, 24, 4, 1408, 64, "empty_experts"),  # F 1,408 at the wgmma block
+    (700, 16, 4, 768, 128, "random"),        # qwen3-moe's F, prefill block
+    (77, 40, 8, 768, 64, "one_expert")])
+def test_sorted_swiglu_plain_version_is_the_three_steps(T, d, E, F_, bt,
+                                                         kind):
+    """``moe_gemm_sorted_swiglu`` on the CPU is, bit for bit, the MoE
+    layer's three steps on bf16 rows: gate and up through the plain sorted
+    product, then ``F.silu(g.float()).to(bf16) * u``; rows from ``used`` on
+    (T leaves padding rows) are 0; no kernel is launched, and
+    ``swiglu_takes`` sends no CPU tensor to the fused kernel."""
+    bf = torch.bfloat16
+    rng = np.random.default_rng(T + F_)
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32))
+    wg, wu = (torch.from_numpy((rng.standard_normal((E, d, F_)) * d ** -0.5)
+                               .astype(np.float32)).to(bf) for _ in range(2))
+    p = MO.plan(torch.from_numpy(_ids(kind, T, E, seed=T)), E, bt)
+    xs = MO.scatter_rows(x.to(bf), p)
+    n = int(p.used)
+    assert n < p.T_pad
+    g = moe_gemm_sorted_reference(xs, p.block_expert, wg, bt, p.used)
+    u = moe_gemm_sorted_reference(xs, p.block_expert, wu, bt, p.used)
+    want = F.silu(g.float()).to(bf) * u
+    before = (MO.launches, dict(MO.launches_by_kernel))
+    h = MO.moe_gemm_sorted_swiglu(xs, p.block_expert, wg, wu, bt, p.used)
+    assert (MO.launches, MO.launches_by_kernel) == before
+    assert h.dtype == bf and h.shape == (p.T_pad, F_)
+    assert torch.equal(h, want)
+    assert not h[n:].any() and h[:n].any()
+    assert not MO.swiglu_takes(xs, wg, wu, bt)
+    with pytest.raises(ValueError, match="CUDA"):
+        MK.moe_gemm_swiglu_cuda(xs, p.block_expert, wg, wu, bt, p.used)
 
 
 def test_block_t_for():
