@@ -1625,15 +1625,15 @@ def check_fp32_end_to_end(params, spec, vision, text):
     from repro_torch.kernels.flash_attention.ref import attention_reference
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
     from repro_torch.models import imagebind as IB
-    from repro_torch.models import layers, transformer as T
+    from repro_torch.models import attention as ATT, layers, transformer as T
     tol = 1e-4  # unit-norm embeddings, as the CPU parity tests hold them
     cfg32 = dataclasses.replace(spec.model, dtype="float32")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
 
     def exit_embs(p, modality, h0, plain):
-        with mock.patch.object(T, "flash_attention", attention_reference
-                               if plain else T.flash_attention), \
+        with mock.patch.object(ATT, "flash_attention", attention_reference
+                               if plain else ATT.flash_attention), \
                 mock.patch.object(layers, "rmsnorm_op", rmsnorm_reference
                                   if plain else layers.rmsnorm_op):
             pooled = IB.tower_forward(p, cfg32, spec.recall, modality, None,
@@ -1733,11 +1733,11 @@ def check_calls_vs_plain(params, spec, vision, text, lora=None):
     from repro_torch.kernels.split_gemm import ops as split_ops
     from repro_torch.kernels.split_gemm import ref as split_ref
     from repro_torch.models import imagebind as IB
-    from repro_torch.models import layers, transformer as T
+    from repro_torch.models import attention as ATT, layers
     rel_tol = 2.0 ** -7
     both, worst, calls = _call_checker(rel_tol)
     with torch.no_grad(), \
-            mock.patch.object(T, "flash_attention",
+            mock.patch.object(ATT, "flash_attention",
                               both("flash_attention_fwd",
                                    flash_ops.flash_attention,
                                    _flash_plain)), \
@@ -1775,15 +1775,15 @@ def _recording_f32_flash_shapes():
     import collections
     from unittest import mock
     import torch
-    from repro_torch.models import transformer as T
+    from repro_torch.models import attention as ATT
     shapes = collections.Counter()
-    real = T.flash_attention
+    real = ATT.flash_attention
 
     def recording(q, k, v, **kw):
         if q.dtype == torch.float32:
             shapes[(tuple(q.shape), tuple(k.shape))] += 1
         return real(q, k, v, **kw)
-    with mock.patch.object(T, "flash_attention", recording):
+    with mock.patch.object(ATT, "flash_attention", recording):
         yield shapes
 
 
@@ -2767,7 +2767,7 @@ def check_lm_calls(run, what, *, record_plan=None):
     from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
-    from repro_torch.models import layers, transformer as T
+    from repro_torch.models import attention as ATT, layers
     rel_tol = 2.0 ** -7
     both, worst, calls = _call_checker(rel_tol)
     plan = moe_ops.plan
@@ -2785,11 +2785,11 @@ def check_lm_calls(run, what, *, record_plan=None):
         return plan(expert_ids, *args)
 
     with torch.no_grad(), \
-            mock.patch.object(T, "flash_attention",
+            mock.patch.object(ATT, "flash_attention",
                               both("flash_attention_fwd",
                                    flash_ops.flash_attention,
                                    _flash_plain)), \
-            mock.patch.object(T, "decode_attention",
+            mock.patch.object(ATT, "decode_attention",
                               both("decode_attention",
                                    dec_ops.decode_attention,
                                    decode_attention_reference)), \
@@ -3939,7 +3939,7 @@ def check_heal_gradient(params, spec, lora, x):
     import torch
     from unittest import mock
     from repro_torch.core import healing as H
-    from repro_torch.models import layers, transformer as T
+    from repro_torch.models import attention as ATT, layers
 
     def cast(tree, dt):
         if isinstance(tree, dict):
@@ -3960,7 +3960,7 @@ def check_heal_gradient(params, spec, lora, x):
         with contextlib.ExitStack() as stack:
             if dt == torch.float64:
                 stack.enter_context(mock.patch.object(
-                    T, "flash_attention", _attention64))
+                    ATT, "flash_attention", _attention64))
                 stack.enter_context(mock.patch.object(
                     layers, "rmsnorm_op", _rmsnorm64))
             loss = H.exit_distill_loss(H.tower_exit_embs(
@@ -4341,12 +4341,12 @@ def check_train_step_calls(params, cfg, rc, mb, chunk):
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_reference,
                                                  rmsnorm_reference)
-    from repro_torch.models import layers, transformer as T
+    from repro_torch.models import attention as ATT, layers, transformer as T
     from repro_torch.optim.adamw import value_and_grad
     rel_tol = 2.0 ** -7
     fwd, f_worst, f_calls = _call_checker(rel_tol)
     bwd, b_worst, b_calls, tc = _bwd_call_checker()
-    with mock.patch.object(T, "flash_attention",
+    with mock.patch.object(ATT, "flash_attention",
                            fwd("flash_attention_fwd",
                                flash_ops.flash_attention,
                                _no_grad(_flash_plain))), \
@@ -4450,7 +4450,7 @@ def check_init_gradient(bundle, raw, batch):
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_reference,
                                                  rmsnorm_reference)
-    from repro_torch.models import layers, transformer as T
+    from repro_torch.models import attention as ATT, layers
     from repro_torch.optim import adamw as A
     update = A.AdamW.update
     seen = {}
@@ -4464,7 +4464,7 @@ def check_init_gradient(bundle, raw, batch):
         ("plain backward", ((flash_ops, "flash_attention_bwd",
                              attention_bwd_reference),
                             (rms_ops, "rmsnorm_bwd", rmsnorm_bwd_reference))),
-        ("plain forward and backward", ((T, "flash_attention",
+        ("plain forward and backward", ((ATT, "flash_attention",
                                          attention_reference),
                                         (layers, "rmsnorm_op",
                                          rmsnorm_reference))))

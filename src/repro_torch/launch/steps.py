@@ -46,6 +46,7 @@ from repro_torch.data.sampler import max_sizes
 from repro_torch.distributed import mesh_utils
 from repro_torch.distributed.mesh_utils import (Mesh, NamedSharding,
                                                 PartitionSpec, tree_map)
+from repro_torch.models import attention as A
 from repro_torch.models import gnn as G
 from repro_torch.models import imagebind as IB
 from repro_torch.models import layers as L
@@ -378,17 +379,14 @@ def build_lm_train(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
 def build_lm_prefill(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
                      window: int = 0, n_layers: Optional[int] = None,
                      pad_to: Optional[int] = None) -> StepBundle:
-    """fn(params, tokens (B, S)) -> {k_cache, v_cache (L, B, max(S,
-    pad_to), KV, hd), exit_embs (n_exits, B, E)}; for an MLA config
-    {latent_cache (L, B, max(S, pad_to), kv_lora_rank + rope),
-    exit_embs}."""
+    """fn(params, tokens (B, S)) -> {the attention kind's caches (L, B,
+    max(S, pad_to), ...) by their ``cache_names`` (GQA: k_cache, v_cache;
+    MLA: latent_cache), exit_embs (n_exits, B, E)}."""
     cfg = _lm_cfg(spec, n_layers)
     recall = spec.recall
     dev = resolve_device(device)
     B, S = shape.global_batch, shape.seq_len
-
-    keys = (("k_cache", "v_cache") if cfg.mla is None
-            else ("latent_cache",)) + ("exit_embs",)
+    keys = A.kind(cfg).cache_names + ("exit_embs",)
 
     def prefill_step(params, tokens):
         out = T.prefill(params, cfg, recall, tokens, pad_to=pad_to,
@@ -405,27 +403,21 @@ def build_lm_prefill(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
 def build_lm_decode(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
                     window: int = 0,
                     n_layers: Optional[int] = None) -> StepBundle:
-    """fn(params, token (B,), k_cache, v_cache (L, B, S, KV, hd), lengths
-    (B,) int32 incl. the new token) -> (logits (B, V) f32, k_cache,
-    v_cache), the caches written in place. An MLA config's fn is
-    fn(params, token, latent_cache (L, B, S, kv_lora_rank + rope),
-    lengths) -> (logits, latent_cache)."""
+    """fn(params, token (B,), *caches, lengths (B,) int32 incl. the new
+    token) -> (logits (B, V) f32, *caches), the attention kind's caches
+    (GQA: k_cache, v_cache (L, B, S, KV, hd); MLA: latent_cache (L, B, S,
+    kv_lora_rank + rope)) written in place."""
     cfg = _lm_cfg(spec, n_layers)
     recall = spec.recall
     dev = resolve_device(device)
     B, S = shape.global_batch, shape.seq_len
 
-    def decode_step(params, token, k_cache, v_cache, lengths):
-        return T.decode_step(params, cfg, recall, token, k_cache, v_cache,
-                             lengths, window=window)
-
-    def decode_step_mla(params, token, latent_cache, lengths):
-        return T.decode_step_mla(params, cfg, recall, token, latent_cache,
-                                 lengths)
+    def decode_step(params, token, *caches_and_lengths):
+        return T.decode_step(params, cfg, recall, token, *caches_and_lengths,
+                             window=window)
 
     return StepBundle(
-        name="serve_step",
-        fn=decode_step if cfg.mla is None else decode_step_mla,
+        name="serve_step", fn=decode_step,
         model_flops=2.0 * cfg.n_active_params * B
         + 2.0 * 2 * B * S * cfg.n_heads * cfg.head_dim,  # + KV attention read
         meta={"tokens": B, "cfg": cfg, "device": dev})

@@ -19,6 +19,7 @@ from repro.launch import steps as JS
 from repro.models import transformer as JT
 from repro_torch.configs import base as TC
 from repro_torch.launch import steps as TS
+from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_jax
@@ -199,7 +200,7 @@ def _lm_loss64(P, cfg, x, y):
 
 
 def _proj_qkv_with(matmul):
-    """``transformer._proj_qkv`` (no LoRA) with its three products taken
+    """``attention._proj_qkv`` (no LoRA) with its three products taken
     by ``matmul(x2, w2)``."""
     def proj(p, x, positions=None, rope_theta=0.0, lora=None,
              lora_scale=0.0):
@@ -257,7 +258,7 @@ def test_lm_init_gradient_gap_is_the_qkv_products_rounding(
             m.setattr(mod, name, fn)
         suspects = worst(port_grad()[1])
     assert suspects > 2 * err_ref, (suspects, err_ref)
-    monkeypatch.setattr(TT, "_proj_qkv", _proj_qkv_with(
+    monkeypatch.setattr(TA, "_proj_qkv", _proj_qkv_with(
         lambda a, w: (a.double() @ w.double()).float()))
     rounded = worst(port_grad()[1])
     assert rounded <= 2 * err_ref, (rounded, err_ref)
@@ -265,7 +266,7 @@ def test_lm_init_gradient_gap_is_the_qkv_products_rounding(
     for seed in range(8):
         perm = torch.randperm(64, generator=torch.Generator().manual_seed(
             seed))
-        monkeypatch.setattr(TT, "_proj_qkv", _proj_qkv_with(
+        monkeypatch.setattr(TA, "_proj_qkv", _proj_qkv_with(
             lambda a, w, perm=perm: a[:, perm] @ w[perm]))
         orders.append(worst(port_grad()[1]))
     assert min(orders) <= 2 * err_ref and max(orders) >= err_port, orders
@@ -302,7 +303,7 @@ def _suspects64():
                 * scale.double()).float()
 
     return [(TT, "chunked_xent", xent64), (TT.L, "embed_lookup", embed64),
-            (TT, "flash_attention", attn64), (TT.L, "rmsnorm", rms64)]
+            (TA, "flash_attention", attn64), (TT.L, "rmsnorm", rms64)]
 
 
 def _errs64(g, g64):
