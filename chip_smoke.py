@@ -1343,6 +1343,96 @@ def check_moe_gemm(gen):
     return rows
 
 
+def check_moe_rows(gen):
+    """The MoE row kernels (``moe_gemm/csrc/moe_rows.cu``) at
+    moonlight.prefill_8k's shape: 8 x 8,192 tokens, each to its top-6 of 64
+    experts (distinct, as the router picks them), d 2,048, bf16, 128-row
+    blocks. The dispatch bit for bit ``scatter_rows`` below ``used``; the
+    combine (on a random stand-in for the down output) within one bf16 step
+    of the gather and batched product it replaces (``bf16_step_limit``),
+    the same bits twice. Each timed beside the torch steps it replaces and
+    the plain version, against its bound: bytes at 3.35 TB/s, the dispatch
+    reading x and slot_of once and writing the ``used`` rows (assignments
+    and padding), the combine reading the A assignment rows, slot_of and w
+    and writing y. Returns the two kernels' rows."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import bf16_step_limit
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.kernel import (moe_combine_rows_cuda,
+                                                     moe_dispatch_rows_cuda)
+    from repro_torch.kernels.moe_gemm.ref import (combine_rows_reference,
+                                                  dispatch_rows_reference)
+    T, K, E, d, bt = 65536, 6, 64, 2048, 128
+    A = T * K
+    ids = torch.rand((T, E), generator=gen, device="cuda").topk(K).indices
+    p = ops.plan(ids.reshape(-1), E, bt)
+    n = int(p.used)
+    x = torch.randn((T, d), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def dispatch():
+        return moe_dispatch_rows_cuda(x, p.slot_of, p.counts, p.ends,
+                                      p.T_pad, K)
+
+    xs = dispatch()
+    same = torch.equal(xs[:n], ops.scatter_rows(x, p, K)[:n])
+    if not same:
+        _fail("moe_dispatch_rows at the moonlight shape: not bit-equal to "
+              "scatter_rows below used")
+    del xs
+    torch.cuda.empty_cache()
+    ys = torch.randn((p.T_pad, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    w = torch.rand((T, K), generator=gen, device="cuda") * 2.446
+
+    def combine():
+        return moe_combine_rows_cuda(ys, p.slot_of, w)
+
+    def steps():  # the gather and the batched product
+        return combine_rows_reference(ys, p.slot_of, w)
+
+    y, want = combine(), steps()
+    if not torch.equal(combine(), y):
+        _fail("moe_combine_rows: another result on the second call")
+    diff = (y.float() - want.float()).abs()
+    err, over = diff.max().item(), (diff / bf16_step_limit(want)).max().item()
+    exact = (y == want).float().mean().item()
+    if not over <= 1.0:
+        _fail(f"moe_combine_rows: {over:.3f} bf16 steps from the gather "
+              "and batched product")
+    del diff
+    del y, want
+    torch.cuda.empty_cache()
+    hbm = _peaks()[0]
+    b_disp = ((T + n) * d * 2 + A * 4 + 2 * E * 4) / hbm * 1e3
+    b_comb = ((A + T) * d * 2 + A * 4 + A * 4) / hbm * 1e3
+    ms_disp = time_ms(dispatch, reps=10)
+    torch_disp = time_ms(lambda: ops.scatter_rows(x, p, K), reps=10)
+    plain_disp = time_ms(lambda: dispatch_rows_reference(
+        x, p.slot_of, p.T_pad, K), reps=2, trials=3)
+    ms_comb = time_ms(combine, reps=10)
+    torch_comb = time_ms(steps, reps=10)
+    print(f"  moe rows T={T} top-{K} of E={E} d={d} bf16 (rows {n} of "
+          f"{p.T_pad}): dispatch {ms_disp:.4f} ms ({b_disp / ms_disp:.1%} "
+          f"of the bound {b_disp:.4f} ms, bytes), scatter_rows "
+          f"{torch_disp:.4f} ms, plain {plain_disp:.4f} ms, bit-equal "
+          f"below used; combine {ms_comb:.4f} ms ({b_comb / ms_comb:.1%} of "
+          f"the bound {b_comb:.4f} ms, bytes), gather + bmm {torch_comb:.4f} "
+          f"ms; {over:.3f} of one bf16 step at worst, {exact:.4%} of "
+          "elements bit-equal, the same bits twice")
+    del x, ys, w
+    src = "src/repro_torch/kernels/moe_gemm/csrc/moe_rows.cu"
+    return [{"name": "moe_dispatch_rows", "route": "cuda", "source": src,
+             "replaces": "none (ops.scatter_rows' torch steps)",
+             "max_abs_err": 0.0, "ms": ms_disp, "plain_ms": plain_disp,
+             "bound_ms": b_disp, "bound_by": "bytes",
+             "library_ms": torch_disp},
+            {"name": "moe_combine_rows", "route": "cuda", "source": src,
+             "replaces": "none (ops.gather_rows and torch.bmm)",
+             "max_abs_err": err, "steps_err": over, "bit_equal": exact,
+             "ms": ms_comb, "plain_ms": torch_comb, "bound_ms": b_comb,
+             "bound_by": "bytes", "library_ms": torch_comb}]
+
+
 def check_split_gemm(gen):
     """The split GEMMs at the vision tower's shapes (d 1,280, d_ff 5,120;
     an exit group of 64 x 257 rows and a ragged one of 37 x 257): against
@@ -1520,6 +1610,8 @@ def kernel_phase():
     torch.cuda.empty_cache()
     rows += check_decode(gen)
     rows += check_moe_gemm(gen)
+    rows += check_moe_rows(gen)
+    torch.cuda.empty_cache()
     rows.append(check_split_gemm(gen))
     torch.cuda.empty_cache()
     rows += check_flash_lm(gen)
@@ -1553,6 +1645,7 @@ def _counters():
             "decode_attention": (decode_ops, "launches"),
             "moe_gemm": (moe_ops, "launches"),
             "moe_gemm_bwd": (moe_ops, "bwd_launches"),
+            "moe_rows": (moe_ops, "row_launches"),
             "split_gemm": (split_ops, "launches")}
 
 
@@ -1562,6 +1655,7 @@ def _reset_launches() -> None:
     _counters()["flash_attention_fwd"][0].launches_by_head_dim.clear()
     _counters()["moe_gemm"][0].launches_by_kernel.clear()
     _counters()["moe_gemm"][0].bwd_launches_by_kernel.clear()
+    _counters()["moe_gemm"][0].row_launches_by_kernel.clear()
     _counters()["split_gemm"][0].launches_by_kernel.clear()
 
 
@@ -2734,15 +2828,19 @@ def profile_windows(windows):
 
 
 def _lm_launches() -> dict:
-    """The LM kernels' counts, and the grouped GEMM's split by kernel
+    """The LM kernels' counts, the grouped GEMM's split by kernel
     (``moe_gemm/wgmma``, ``moe_gemm/mma_sync``, ``moe_gemm/swiglu_wgmma``:
-    the fused gate/up)."""
+    the fused gate/up) and the MoE row kernels' (``moe_rows/dispatch``,
+    ``moe_rows/combine``)."""
     c = _counters()
     out = {name: getattr(*c[name]) for name in
            ("flash_attention_fwd", "decode_attention", "moe_gemm", "rmsnorm")}
     by_kernel = c["moe_gemm"][0].launches_by_kernel
     out.update({f"moe_gemm/{k}": by_kernel.get(k, 0)
                 for k in ("wgmma", "mma_sync", "swiglu_wgmma")})
+    rows = c["moe_rows"][0].row_launches_by_kernel
+    out.update({f"moe_rows/{k}": rows.get(k, 0)
+                for k in ("dispatch", "combine")})
     return out
 
 
@@ -2753,7 +2851,9 @@ def check_lm_calls(run, what, *, record_plan=None):
     gate/up call is held to the three steps it replaces on the card, whose
     gate and up products are each held to their plain versions as a
     grouped GEMM call is (the fp32 plain products may round g or u a bf16
-    step apart, which SiLU·u carries past one step of h's scale).
+    step apart, which SiLU·u carries past one step of h's scale). A row
+    dispatch is held to ``scatter_rows`` below ``used``, a row combine to
+    the gather and batched product it replaces, on the card.
     ``record_plan`` sees the expert ids of every MoE layer."""
     import torch
     import torch.nn.functional as F
@@ -2764,7 +2864,8 @@ def check_lm_calls(run, what, *, record_plan=None):
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.moe_gemm.kernel import moe_gemm_cuda
-    from repro_torch.kernels.moe_gemm.ref import moe_gemm_sorted_reference
+    from repro_torch.kernels.moe_gemm.ref import (combine_rows_reference,
+                                                  moe_gemm_sorted_reference)
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_reference
     from repro_torch.models import attention as ATT, layers
@@ -2807,6 +2908,15 @@ def check_lm_calls(run, what, *, record_plan=None):
                                    moe_ops.moe_gemm_sorted_swiglu,
                                    swiglu_steps,
                                    rows=lambda *a: int(a[5]))), \
+            mock.patch.object(moe_ops, "dispatch_rows",
+                              both("moe_dispatch_rows",
+                                   moe_ops.dispatch_rows,
+                                   moe_ops.scatter_rows,
+                                   rows=lambda x, p, k: int(p.used))), \
+            mock.patch.object(moe_ops, "combine_rows",
+                              both("moe_combine_rows", moe_ops.combine_rows,
+                                   lambda ys, p, w: combine_rows_reference(
+                                       ys, p.slot_of, w))), \
             mock.patch.object(moe_ops, "plan", recording_plan):
         out = run()
         torch.cuda.synchronize()
@@ -3073,7 +3183,8 @@ def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
     # rmsnorm: two a layer, then the exit head's (prefill) or the final
     # norm (decode); the grouped GEMM's bf16 prefill runs two launches a
     # layer on the wgmma kernels (gate and up fused, then down), its decode
-    # three a layer on the mma.sync kernel
+    # three a layer on the mma.sync kernel; the rows go to the experts on
+    # one dispatch a layer (the capacity layer combines them by torch steps)
     n_moe = L if cfg.moe else 0
     for name, want in (("flash_attention_fwd", ("prefill", L)),
                        ("decode_attention", ("decode", L * n_steps)),
@@ -3083,6 +3194,10 @@ def _serve_lm(arch, *, n_layers, B, S, pad_to, n_steps, check_batch,
                        ("moe_gemm", ("decode", 3 * n_moe * n_steps)),
                        ("moe_gemm/mma_sync",
                         ("decode", 3 * n_moe * n_steps)),
+                       ("moe_rows/dispatch", ("prefill", n_moe)),
+                       ("moe_rows/dispatch", ("decode", n_moe * n_steps)),
+                       ("moe_rows/combine", ("prefill", 0)),
+                       ("moe_rows/combine", ("decode", 0)),
                        ("rmsnorm", ("prefill", 2 * L + 1)),
                        ("rmsnorm", ("decode", (2 * L + 1) * n_steps))):
         window, n = want
@@ -3156,8 +3271,8 @@ def moonlight_phase():
     latent cache; then the moonlight.prefill_8k cell's step, 8 prompts of
     8,192 into an 8,192 latent cache, counted (27 ``flash_fwd_mla``
     launches at head dim 192, 2 grouped GEMMs an MoE layer: gate and up
-    fused, then down; every routed assignment through them) and timed,
-    median of 3."""
+    fused, then down; 1 row dispatch and 1 row combine an MoE layer; every
+    routed assignment through them) and timed, median of 3."""
     import torch
     from bench.lib.weights import make_params
     from repro_torch.configs.base import ShapeConfig, get_arch
@@ -3239,6 +3354,8 @@ def moonlight_phase():
             ("moe_gemm/swiglu_wgmma", counts["moe_gemm/swiglu_wgmma"],
              n_moe),
             ("moe_gemm/wgmma", counts["moe_gemm/wgmma"], n_moe),
+            ("moe_rows/dispatch", counts["moe_rows/dispatch"], n_moe),
+            ("moe_rows/combine", counts["moe_rows/combine"], n_moe),
             ("MoE layer calls", routed["calls"], n_moe),
             ("routed assignments", routed["assignments"],
              n_moe * B * S * top_k)):
@@ -3249,7 +3366,9 @@ def moonlight_phase():
     del params
     torch.cuda.empty_cache()
     return {"flash_attention_fwd[mla_prefill]": by_dim.get(192, 0),
-            "moe_gemm[moonlight]": counts["moe_gemm"]}
+            "moe_gemm[moonlight]": counts["moe_gemm"],
+            "moe_dispatch_rows": counts["moe_rows/dispatch"],
+            "moe_combine_rows": counts["moe_rows/combine"]}
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ SOURCES: Dict[str, Path] = {
     "decode_attn": KERNELS_DIR / "decode_attention" / "csrc"
     / "decode_attn.cu",
     "moe_gemm": KERNELS_DIR / "moe_gemm" / "csrc" / "moe_gemm.cu",
+    "moe_rows": KERNELS_DIR / "moe_gemm" / "csrc" / "moe_rows.cu",
     "split_gemm": KERNELS_DIR / "split_gemm" / "csrc" / "split_gemm.cu",
 }
 

@@ -17,6 +17,12 @@ epilogue, one for dX and one for dW) or ``"mma_sync"`` (dX on the forward's
 ``moe_gemm_swiglu_cuda`` runs the MoE layer's gate and up with SiLU·up in
 one launch (``moe_gemm_wgmma_swiglu``), on the shapes ``kernel_for`` gives
 the wgmma kernel.
+
+The row kernels (``csrc/moe_rows.cu``, their own library) move rows
+between token order and the sorted layout through the plan's ``slot_of``:
+``moe_dispatch_rows_cuda`` writes each token's row to its ``top_k`` slots
+and zeroes the groups' padding rows, ``moe_combine_rows_cuda`` sums each
+token's ``top_k`` sorted rows by their weights.
 """
 from __future__ import annotations
 
@@ -60,6 +66,15 @@ def _lib() -> ctypes.CDLL:
     lib.moe_gemm_dw_wgmma_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P]
     lib.moe_gemm_swiglu_wgmma_launch.restype = ctypes.c_int
     lib.moe_gemm_swiglu_wgmma_launch.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    return lib
+
+
+def _rows_lib() -> ctypes.CDLL:
+    lib = build.load("moe_rows")
+    lib.moe_dispatch_rows_launch.restype = ctypes.c_int
+    lib.moe_dispatch_rows_launch.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+    lib.moe_combine_rows_launch.restype = ctypes.c_int
+    lib.moe_combine_rows_launch.argtypes = [_P] * 4 + [_I] * 4 + [_P]
     return lib
 
 
@@ -226,3 +241,70 @@ def moe_gemm_dw_cuda(xs: torch.Tensor, dys: torch.Tensor,
                                          stream)
     build.check(err, f"moe_gemm dw ({kernel})")
     return dw
+
+
+def _check_slots(slot_of: torch.Tensor, T: int, top_k: int,
+                 *index: torch.Tensor) -> None:
+    """slot_of (T * top_k,) and the plan's other index tensors: contiguous
+    int32."""
+    tensors = (slot_of, *index)
+    if any(t.dtype != torch.int32 or not t.is_contiguous()
+           for t in tensors) or tuple(slot_of.shape) != (T * top_k,):
+        raise ValueError(f"slot_of must be ({T} * {top_k},) and the plan's "
+                         f"index tensors contiguous int32, got "
+                         f"{[(tuple(t.shape), t.dtype) for t in tensors]}")
+
+
+def moe_dispatch_rows_cuda(x: torch.Tensor, slot_of: torch.Tensor,
+                           counts: torch.Tensor, ends: torch.Tensor,
+                           T_pad: int, top_k: int) -> torch.Tensor:
+    """The sorted buffer (T_pad, d) in one launch of ``moe_dispatch_rows``:
+    token t's row of x (T, d) at rows ``slot_of[t * top_k + k]``, each
+    expert group's padding rows (from its start plus ``counts[e]`` to
+    ``ends[e]``) zeroed, rows from ``ends[-1]`` (the plan's ``used``) on
+    left unwritten."""
+    dev = _check_device(x, slot_of, counts, ends)
+    if x.dtype not in DTYPES or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"moe_dispatch_rows_cuda takes contiguous (T, d) "
+                         f"f32 or bf16 rows, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    T, d = x.shape
+    _check_slots(slot_of, T, top_k, counts, ends)
+    if counts.shape != ends.shape or counts.dim() != 1:
+        raise ValueError(f"counts {tuple(counts.shape)} and ends "
+                         f"{tuple(ends.shape)} must be (E,)")
+    xs = torch.empty((T_pad, d), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _rows_lib().moe_dispatch_rows_launch(
+            x.data_ptr(), slot_of.data_ptr(), counts.data_ptr(),
+            ends.data_ptr(), xs.data_ptr(), T, int(top_k), counts.shape[0],
+            d * x.element_size(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "moe_dispatch_rows")
+    return xs
+
+
+def moe_combine_rows_cuda(ys: torch.Tensor, slot_of: torch.Tensor,
+                          w: torch.Tensor) -> torch.Tensor:
+    """y (T, d) in ys's dtype in one launch of ``moe_combine_rows``: token
+    t's ``K`` rows ``ys[slot_of[t * K + k]]`` times w[t, k] (w (T, K) fp32,
+    each rounded to ys's dtype), summed in fp32 in the order k = 0 .. K - 1
+    and rounded once. No row of ys that ``slot_of`` does not name is
+    read."""
+    dev = _check_device(ys, slot_of, w)
+    if ys.dtype not in DTYPES or ys.dim() != 2 or not ys.is_contiguous():
+        raise ValueError(f"moe_combine_rows_cuda takes contiguous (T_pad, "
+                         f"d) f32 or bf16 rows, got {ys.dtype} "
+                         f"{tuple(ys.shape)}")
+    if w.dtype != torch.float32 or w.dim() != 2 or not w.is_contiguous():
+        raise ValueError(f"w must be contiguous (T, K) float32, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    T, K = w.shape
+    _check_slots(slot_of, T, K)
+    y = torch.empty((T, ys.shape[1]), dtype=ys.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = _rows_lib().moe_combine_rows_launch(
+            ys.data_ptr(), slot_of.data_ptr(), w.data_ptr(), y.data_ptr(), T,
+            K, ys.shape[1], int(ys.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "moe_combine_rows")
+    return y

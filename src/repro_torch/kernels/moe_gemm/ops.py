@@ -25,6 +25,15 @@ them. ``scatter_rows`` and
 ``gather_rows`` move rows by index; the backward of ``scatter_rows`` sums
 a token's ``top_k`` assignment gradients in a fixed order, so a MoE
 layer's gradient has the same bits twice.
+
+``dispatch_rows`` and ``combine_rows`` are the same row moves on the row
+kernels (``csrc/moe_rows.cu``): the sorted buffer in one token-major pass,
+and each token's ``top_k`` sorted rows weighed and summed in one pass (the
+gather and the MoE layer's batched product). Neither has a backward;
+``rows_take`` is the rule by which the layer takes them: CUDA tensors, no
+gradient recorded through them. ``row_launches`` counts their launches
+apart from the GEMMs', ``row_launches_by_kernel`` splits them into
+``dispatch`` and ``combine``.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import torch
 
 from repro_torch.kernels.grad_guard import refuse_grad
 from repro_torch.kernels.moe_gemm.ref import (
+    combine_rows_reference, dispatch_rows_reference,
     moe_gemm_sorted_dw_reference, moe_gemm_sorted_dx_reference,
     moe_gemm_sorted_reference, moe_gemm_sorted_swiglu_reference)
 
@@ -41,6 +51,8 @@ launches = 0
 launches_by_kernel: Dict[str, int] = {}
 bwd_launches = 0
 bwd_launches_by_kernel: Dict[str, int] = {}
+row_launches = 0
+row_launches_by_kernel: Dict[str, int] = {}
 
 
 class Plan(NamedTuple):
@@ -50,6 +62,8 @@ class Plan(NamedTuple):
     T_pad: int                  # static bound ((T + bt - 1)//bt + E) * bt
     used: torch.Tensor          # () int32 rows in real groups, on device
     ends: torch.Tensor          # (E,) int32 end row of each expert's group
+    counts: torch.Tensor        # (E,) int32 real rows of each group
+    slot_of: torch.Tensor       # (T,) int32 row of assignment i (inverse)
 
 
 def block_t_for(T: int, n_experts: int) -> int:
@@ -85,8 +99,11 @@ def plan(expert_ids: torch.Tensor, n_experts: int, block_t: int) -> Plan:
     block_expert = torch.clamp(
         torch.searchsorted(ends, block_starts, right=True), 0,
         n_experts - 1).to(torch.int32)
-    return Plan(order, slot.to(torch.int32), block_expert, T_pad,
-                ends[-1].to(torch.int32), ends.to(torch.int32))
+    slot = slot.to(torch.int32)
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot
+    return Plan(order, slot, block_expert, T_pad, ends[-1].to(torch.int32),
+                ends.to(torch.int32), counts.to(torch.int32), slot_of)
 
 
 def sort_by_expert(expert_ids: torch.Tensor, n_experts: int, block_t: int
@@ -232,13 +249,6 @@ def moe_gemm_sorted_swiglu(xs: torch.Tensor, block_expert: torch.Tensor,
     return out
 
 
-def _slot_of(p: Plan) -> torch.Tensor:
-    """(T,) the buffer row of assignment i (the plan's inverse)."""
-    slot_of = torch.empty_like(p.slot)
-    slot_of[p.order] = p.slot
-    return slot_of.long()
-
-
 def scatter_rows(x: torch.Tensor, p: Plan, top_k: int = 1) -> torch.Tensor:
     """The (T_pad, d) sorted buffer: assignment a (token ``a // top_k`` of
     x) at row ``slot_of[a]``; padding rows are 0. The backward gathers each
@@ -246,13 +256,65 @@ def scatter_rows(x: torch.Tensor, p: Plan, top_k: int = 1) -> torch.Tensor:
     xa = x if top_k == 1 else x.unsqueeze(1).expand(
         -1, top_k, -1).reshape(-1, x.shape[1])
     xs = torch.zeros((p.T_pad, x.shape[1]), dtype=x.dtype, device=x.device)
-    xs[_slot_of(p)] = xa
+    xs[p.slot_of.long()] = xa
     return xs
 
 
 def gather_rows(ys: torch.Tensor, p: Plan) -> torch.Tensor:
     """Inverse of ``scatter_rows``: (T, F) in the original token order."""
-    return ys[_slot_of(p)]
+    return ys[p.slot_of.long()]
+
+
+def rows_take(*tensors: torch.Tensor) -> bool:
+    """Whether the MoE layer moves its rows on the row kernels
+    (``dispatch_rows``, ``combine_rows``): CUDA tensors, and no gradient
+    recorded through them (the kernels have no backward)."""
+    if any(t.device.type != "cuda" for t in tensors):
+        return False
+    return not (torch.is_grad_enabled() and
+                any(t.requires_grad for t in tensors))
+
+
+def dispatch_rows(x: torch.Tensor, p: Plan, top_k: int = 1) -> torch.Tensor:
+    """``scatter_rows``' buffer below ``used``: token t's row of x at each of
+    its ``top_k`` rows ``slot_of[t * top_k + k]``, padding rows 0; rows from
+    ``used`` on are 0 on the CPU, unwritten on the card. On the card one
+    launch of ``moe_dispatch_rows``, which reads each row of x once; no
+    backward."""
+    global row_launches
+    if x.device.type == "cpu":
+        return dispatch_rows_reference(x, p.slot_of, p.T_pad, top_k)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe dispatch rows: no kernel for {x.device}")
+    refuse_grad("moe dispatch rows", "the MoE layer takes scatter_rows "
+                "under grad mode", x)
+    from repro_torch.kernels.moe_gemm.kernel import moe_dispatch_rows_cuda
+    out = moe_dispatch_rows_cuda(x.contiguous(), p.slot_of, p.counts, p.ends,
+                                 p.T_pad, top_k)
+    row_launches += 1
+    _count(row_launches_by_kernel, "dispatch")
+    return out
+
+
+def combine_rows(ys: torch.Tensor, p: Plan, w: torch.Tensor) -> torch.Tensor:
+    """y (T, d) in ys's dtype: token t's K = w.shape[1] sorted rows
+    ``ys[slot_of[t * K + k]]`` summed by their weights w (T, K), each
+    rounded to ys's dtype. On the CPU the MoE layer's gather and batched
+    product; on the card one launch of ``moe_combine_rows``, which sums in
+    fp32 in the order k = 0 .. K - 1 and rounds once (within one step of
+    ys's dtype of the batched product); no backward."""
+    global row_launches
+    if ys.device.type == "cpu":
+        return combine_rows_reference(ys, p.slot_of, w)
+    if ys.device.type != "cuda":
+        raise ValueError(f"moe combine rows: no kernel for {ys.device}")
+    refuse_grad("moe combine rows", "the MoE layer takes gather_rows and "
+                "torch.bmm under grad mode", ys, w)
+    from repro_torch.kernels.moe_gemm.kernel import moe_combine_rows_cuda
+    out = moe_combine_rows_cuda(ys, p.slot_of, w.float().contiguous())
+    row_launches += 1
+    _count(row_launches_by_kernel, "combine")
+    return out
 
 
 def moe_gemm(x: torch.Tensor, expert_ids: torch.Tensor, w: torch.Tensor, *,

@@ -10,7 +10,11 @@ and ``moe_gemm_sorted_dw_reference`` are the plain versions of its backward
 on the same layout (the gradients of xs and of w), which read no row from
 ``used`` on. ``moe_gemm_sorted_swiglu_reference`` is the plain version of
 the fused gate/up kernel: the MoE layer's three steps, gate, up and
-``F.silu(g.float()).to(dtype) * u``.
+``F.silu(g.float()).to(dtype) * u``. ``dispatch_rows_reference`` and
+``combine_rows_reference`` are the plain versions of the row kernels
+(``csrc/moe_rows.cu``): token rows into the sorted layout through the
+plan's ``slot_of``, and each token's ``top_k`` sorted rows back, weighed
+and summed as the MoE layer's batched product sums them.
 """
 from __future__ import annotations
 
@@ -93,3 +97,27 @@ def moe_gemm_sorted_dw_reference(xs: torch.Tensor, dys: torch.Tensor,
     for e, r0, r1 in _groups(block_expert, block_t, used):
         dw[e] = (xs[r0:r1].float().T @ dys[r0:r1].float()).to(dw.dtype)
     return dw
+
+
+def dispatch_rows_reference(x: torch.Tensor, slot_of: torch.Tensor,
+                            T_pad: int, top_k: int) -> torch.Tensor:
+    """x (T, d) -> the sorted buffer (T_pad, d): token t's row at each of
+    its ``top_k`` rows ``slot_of[t * top_k + k]``, every other row 0 (the
+    padding rows, which the kernel zeroes, and the rows from ``used`` on,
+    which it leaves unwritten)."""
+    xs = torch.zeros((T_pad, x.shape[1]), dtype=x.dtype, device=x.device)
+    slots = slot_of.long().view(-1, top_k)
+    for k in range(top_k):
+        xs[slots[:, k]] = x
+    return xs
+
+
+def combine_rows_reference(ys: torch.Tensor, slot_of: torch.Tensor,
+                           w: torch.Tensor) -> torch.Tensor:
+    """ys (T_pad, d) sorted rows, w (T, K) -> y (T, d) in ys's dtype: token
+    t's K rows ``ys[slot_of[t * K + k]]`` summed by their weights, each
+    weight rounded to ys's dtype, in one batched product (the MoE layer's
+    torch steps, bit for bit)."""
+    T, K = w.shape
+    rows = ys[slot_of.long()].view(T, K, ys.shape[1])
+    return torch.bmm(w.to(ys.dtype)[:, None, :], rows)[:, 0]

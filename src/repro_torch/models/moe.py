@@ -79,17 +79,21 @@ def _route(p: Schema, x: torch.Tensor, moe: MoEConfig):
     return probs, top_p, top_i
 
 
-def expert_ffn(p: Schema, x: torch.Tensor, expert_ids: torch.Tensor,
-               top_k: int) -> torch.Tensor:
-    """(T * K, d) outputs of assignment a = token a // top_k of x (T, d)
-    through expert ``expert_ids[a]``'s SwiGLU on one sort/pad plan: gate and
-    up, the gate's SiLU in fp32 cast back, times up, then down. Where
-    ``swiglu_takes`` the sorted rows (on the card, no gradient recorded) the
-    first three are one fused launch, else three grouped GEMMs' steps."""
+def expert_ffn_sorted(p: Schema, x: torch.Tensor, expert_ids: torch.Tensor,
+                      top_k: int) -> Tuple[torch.Tensor, gemm.Plan]:
+    """(ys, plan): ys (T_pad, d) the outputs of assignment a = token
+    a // top_k of x (T, d) through expert ``expert_ids[a]``'s SwiGLU, at
+    row ``plan.slot_of[a]`` of the plan's sorted layout: gate and up, the
+    gate's SiLU in fp32 cast back, times up, then down. Where ``rows_take``
+    x (on the card, no gradient recorded) the rows are dispatched in one
+    launch, else by ``scatter_rows``; where ``swiglu_takes`` the sorted rows
+    the first three steps are one fused launch, else three grouped GEMMs'
+    steps."""
     E = p["w_gate"].shape[0]
     bt = gemm.block_t_for(expert_ids.shape[0], E)
     plan = gemm.plan(expert_ids, E, bt)
-    xs = gemm.scatter_rows(x, plan, top_k)
+    xs = (gemm.dispatch_rows(x, plan, top_k) if gemm.rows_take(x)
+          else gemm.scatter_rows(x, plan, top_k))
     w_gate, w_up, w_down = (p[k].to(x.dtype)
                             for k in ("w_gate", "w_up", "w_down"))
 
@@ -104,7 +108,16 @@ def expert_ffn(p: Schema, x: torch.Tensor, expert_ids: torch.Tensor,
         g = grouped(xs, w_gate)
         u = grouped(xs, w_up)
         h = F.silu(g.float()).to(x.dtype) * u
-    return gemm.gather_rows(grouped(h, w_down), plan)
+    return grouped(h, w_down), plan
+
+
+def expert_ffn(p: Schema, x: torch.Tensor, expert_ids: torch.Tensor,
+               top_k: int) -> torch.Tensor:
+    """(T * K, d) outputs of assignment a = token a // top_k of x (T, d)
+    through expert ``expert_ids[a]``'s SwiGLU (``expert_ffn_sorted``), in
+    assignment order."""
+    ys, plan = expert_ffn_sorted(p, x, expert_ids, top_k)
+    return gemm.gather_rows(ys, plan)
 
 
 def moe_apply(p: Schema, x: torch.Tensor,
@@ -183,8 +196,11 @@ def moe_apply_dropless(p: Schema, x: torch.Tensor, moe: MoEConfig,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y, aux 0): every token through its top-k experts
     on the grouped GEMMs (no capacity, nothing dropped), the k outputs
-    summed by their weights in one batched product, then the shared
-    experts' SwiGLU added."""
+    summed by their weights (weights rounded to x's dtype), then the shared
+    experts' SwiGLU added. Where ``rows_take`` the sorted outputs and the
+    weights (on the card, no gradient recorded) the sum reads each token's
+    k sorted rows in one launch (``combine_rows``), else the rows are
+    gathered and summed in one batched product."""
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
     with span("moe.route"):
@@ -198,9 +214,13 @@ def moe_apply_dropless(p: Schema, x: torch.Tensor, moe: MoEConfig,
     counters["calls"] += 1
     counters["assignments"] += top_i.numel()
     with span("moe.experts"):
-        y_tok = expert_ffn(p, x2, top_i.reshape(-1), moe.top_k)
-        y = torch.bmm(w.to(x.dtype)[:, None, :],
-                      y_tok.view(B * S, moe.top_k, d))[:, 0]
+        ys, plan = expert_ffn_sorted(p, x2, top_i.reshape(-1), moe.top_k)
+        if gemm.rows_take(ys, w):
+            y = gemm.combine_rows(ys, plan, w)
+        else:
+            y_tok = gemm.gather_rows(ys, plan)
+            y = torch.bmm(w.to(x.dtype)[:, None, :],
+                          y_tok.view(B * S, moe.top_k, d))[:, 0]
     if "shared" in p:
         with span("moe.shared"):
             y = y + L.swiglu(p["shared"], x2)

@@ -664,9 +664,10 @@ def test_moe_dropless_takes_the_fused_gate_up_without_grad(gen):
     """DeepSeek-V3's MoE layer (``moe_apply_dropless``) at Moonlight's
     expert width (64 experts of 1,408, top-6, 2 shared) over 2 x 512 bf16
     tokens: under ``no_grad`` the grouped GEMMs are one fused gate/up and
-    one down launch; with a gradient recorded through x, three grouped
-    GEMMs; the two outputs within one bf16 step of the output's scale (the
-    moonlight phase's call-by-call tolerance of ``chip_smoke.py``)."""
+    one down launch and the rows move on one dispatch and one combine
+    launch; with a gradient recorded through x, three grouped GEMMs and no
+    row kernel; the two outputs within one bf16 step of the output's scale
+    (the moonlight phase's call-by-call tolerance of ``chip_smoke.py``)."""
     from repro_torch.configs.base import MoEConfig, RouterConfig
     from repro_torch.kernels.moe_gemm import ops
     from repro_torch.models import moe as TM
@@ -680,22 +681,178 @@ def test_moe_dropless_takes_the_fused_gate_up_without_grad(gen):
     x = torch.randn((2, 512, d), generator=gen, device="cuda").to(
         torch.bfloat16)
 
+    def delta(counter, before):
+        return {k: v - before.get(k, 0) for k, v in counter.items()
+                if v != before.get(k, 0)}
+
     def run(grad):
-        before = dict(ops.launches_by_kernel)
+        before = (dict(ops.launches_by_kernel),
+                  dict(ops.row_launches_by_kernel))
         xl = x.clone().requires_grad_(grad)
         with torch.set_grad_enabled(grad):
             y, _ = TM.moe_apply_dropless(params, xl, moe, router)
-        return y.detach(), {k: v - before.get(k, 0)
-                            for k, v in ops.launches_by_kernel.items()
-                            if v != before.get(k, 0)}
+        return y.detach(), delta(ops.launches_by_kernel, before[0]), \
+            delta(ops.row_launches_by_kernel, before[1])
 
-    fused, fused_launches = run(False)
-    three, three_launches = run(True)
+    fused, fused_launches, fused_rows = run(False)
+    three, three_launches, three_rows = run(True)
     assert fused_launches == {"swiglu_wgmma": 1, "wgmma": 1}
     assert three_launches == {"wgmma": 3}
+    # the row kernels where no gradient is recorded, the torch steps else
+    assert fused_rows == {"dispatch": 1, "combine": 1}
+    assert three_rows == {}
     scale = max(1.0, three.float().abs().max().item())
     assert (fused.float() - three.float()).abs().max().item() <= \
         2.0 ** -7 * scale
+
+
+# the row kernels (csrc/moe_rows.cu) at moonlight.prefill_8k's shape (8 x
+# 8,192 tokens, top-6 of 64 experts, d 2,048, 128-row blocks) and beside it:
+# a decode-sized batch on 16-row blocks, qwen3-moe's top-8 of 128, fp32,
+# widths that take the 8-, 4- and 2-byte moves (d 36, 18 bf16; 33 f32)
+ROW_CASES = [(65536, 6, 64, 2048, 128, torch.bfloat16),
+             (37, 6, 64, 2048, 16, torch.bfloat16),
+             (16384, 8, 128, 2048, 128, torch.bfloat16),
+             (300, 6, 8, 256, 64, torch.float32),
+             (200, 2, 8, 36, 16, torch.bfloat16),
+             (77, 3, 4, 18, 16, torch.bfloat16),
+             (100, 1, 4, 33, 16, torch.float32)]
+
+
+def _row_case(gen, T, K, E, bt):
+    """A plan of T tokens' top-K distinct experts of E (as a router picks
+    them), on ``bt``-row blocks."""
+    from repro_torch.kernels.moe_gemm import ops
+    ids = torch.rand((T, E), generator=gen, device="cuda").topk(K).indices
+    return ops.plan(ids.reshape(-1), E, bt)
+
+
+@pytest.mark.parametrize("T,K,E,d,bt,dtype", ROW_CASES)
+def test_moe_dispatch_rows_kernel_matches_scatter_rows(gen, T, K, E, d, bt,
+                                                       dtype):
+    """``moe_dispatch_rows`` against ``scatter_rows`` (and the plain
+    version) bit for bit on every row below ``used``, the padding rows
+    zeroed; launched into a NaN-filled buffer it leaves the rows from
+    ``used`` on as they were; ``dispatch_rows`` counts one ``dispatch``
+    row launch and no GEMM launch, and refuses a gradient."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.kernel import _rows_lib
+    from repro_torch.kernels.moe_gemm.ref import dispatch_rows_reference
+    p = _row_case(gen, T, K, E, bt)
+    x = torch.randn((T, d), generator=gen, device="cuda").to(dtype)
+    n = int(p.used)
+    want = ops.scatter_rows(x, p, K)
+    before = (ops.launches, ops.row_launches,
+              ops.row_launches_by_kernel.get("dispatch", 0))
+    xs = ops.dispatch_rows(x, p, K)
+    assert (ops.launches, ops.row_launches,
+            ops.row_launches_by_kernel["dispatch"]) == \
+        (before[0], before[1] + 1, before[2] + 1)
+    assert xs.shape == want.shape and xs.dtype == dtype
+    assert torch.equal(xs[:n], want[:n])
+    assert torch.equal(xs[:n], dispatch_rows_reference(x, p.slot_of, p.T_pad,
+                                                       K)[:n])
+    filled = torch.full_like(want, float("nan"))
+    err = _rows_lib().moe_dispatch_rows_launch(
+        x.data_ptr(), p.slot_of.data_ptr(), p.counts.data_ptr(),
+        p.ends.data_ptr(), filled.data_ptr(), T, K, E, d * x.element_size(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    assert torch.equal(filled[:n], want[:n]) and filled[n:].isnan().all()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.dispatch_rows(x.clone().requires_grad_(), p, K)
+
+
+@pytest.mark.parametrize("T,K,E,d,bt,dtype", ROW_CASES)
+def test_moe_combine_rows_kernel_within_a_step_of_bmm(gen, T, K, E, d, bt,
+                                                      dtype):
+    """``moe_combine_rows`` against the gather and batched product it
+    replaces (the plain version, run on the card: cuBLAS's bmm), per element
+    within one bf16 step (``bf16_step_limit``) or 1e-5 of the scale (f32);
+    in bf16 bit for bit the fp32 sum in the order k = 0 .. K - 1 of the
+    rounded weights times the rows (each product exact in fp32), rounded
+    once; the same bits twice; no row from ``used`` on is read (NaN there);
+    ``combine_rows`` counts one ``combine`` row launch."""
+    from repro_torch.kernels.flash_attention.ref import bf16_step_limit
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import combine_rows_reference
+    p = _row_case(gen, T, K, E, bt)
+    n = int(p.used)
+    ys = torch.randn((p.T_pad, d), generator=gen, device="cuda").to(dtype)
+    ys[n:] = float("nan")
+    w = torch.rand((T, K), generator=gen, device="cuda") * 2.446
+    before = (ops.launches, ops.row_launches_by_kernel.get("combine", 0))
+    y = ops.combine_rows(ys, p, w)
+    assert (ops.launches, ops.row_launches_by_kernel["combine"]) == \
+        (before[0], before[1] + 1)
+    assert torch.equal(ops.combine_rows(ys, p, w), y)
+    want = combine_rows_reference(ys, p.slot_of, w)
+    assert y.shape == (T, d) and y.dtype == dtype
+    if dtype == torch.bfloat16:
+        assert ((y.float() - want.float()).abs()
+                <= bf16_step_limit(want)).all()
+        rows = ys[p.slot_of.long()].view(T, K, d).float()
+        wb = w.to(dtype).float()
+        acc = torch.zeros((T, d), device="cuda")
+        for k in range(K):
+            acc = acc + wb[:, k, None] * rows[:, k]
+        assert torch.equal(y, acc.to(dtype))
+    else:
+        scale = max(1.0, want.abs().max().item())
+        assert (y - want).abs().max().item() <= 1e-5 * scale
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.combine_rows(ys, p, w.clone().requires_grad_())
+
+
+def test_moonlight_smoke_prefill_moves_rows_on_the_row_kernels(gen):
+    """moonlight-16b-a3b's smoke variant in bf16 with the published MLA
+    head dims (q/k 192, v 128: the MLA kernel's only shape) through
+    build_step's prefill and one decode step under ``no_grad``: one
+    dispatch and one combine launch a MoE layer a call, and exit embeddings
+    within one bf16 step of their scale of the torch steps'
+    (``rows_take`` false), which sum the top-k rows in another order."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch.configs.base import ShapeConfig, get_arch, smoke_variant
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.transformer import lm_init
+    full = get_arch("moonlight-16b-a3b").model
+    spec = smoke_variant(get_arch("moonlight-16b-a3b"))
+    spec = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, mla=dataclasses.replace(
+            spec.model.mla, qk_nope_head_dim=full.mla.qk_nope_head_dim,
+            qk_rope_head_dim=full.mla.qk_rope_head_dim,
+            v_head_dim=full.mla.v_head_dim),
+        d_head=full.mla.qk_head_dim, dtype="bfloat16"))
+    cfg = spec.model
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    assert n_moe > 0
+    params = lm_init(gen, cfg, spec.recall, device="cuda")
+    B, S = 2, 64
+    tokens = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    pre = build_step(spec, ShapeConfig("p", "prefill", B, S), device="cuda",
+                     pad_to=S + 1).fn
+    dec = build_step(spec, ShapeConfig("d", "decode", B, S + 1),
+                     device="cuda").fn
+    lengths = torch.full((B,), S + 1, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        before = dict(ops.row_launches_by_kernel)
+        out = pre(params, tokens[:, :S])
+        after_pre = dict(ops.row_launches_by_kernel)
+        dec(params, tokens[:, S], out["latent_cache"], lengths)
+        after_dec = dict(ops.row_launches_by_kernel)
+        with mock.patch.object(ops, "rows_take", lambda *t: False):
+            steps = pre(params, tokens[:, :S])
+    for k in ("dispatch", "combine"):
+        assert after_pre[k] - before.get(k, 0) == n_moe
+        assert after_dec[k] - after_pre[k] == n_moe
+    assert dict(ops.row_launches_by_kernel) == after_dec
+    got, want = out["exit_embs"].float(), steps["exit_embs"].float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= \
+        2.0 ** -7 * max(1.0, want.abs().max().item())
 
 
 def test_lm_prefill_and_decode_on_the_card_match_the_cpu(gen):

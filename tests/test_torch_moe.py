@@ -226,3 +226,113 @@ def test_expert_ffn_takes_three_grouped_gemms_under_grad_mode(monkeypatch,
                                           "none": 0}[needs_grad]
     for a, b in zip(grads, grads_w):
         assert torch.equal(a, b)
+
+
+def _dropless_setup(seed=0, E=8, K=3, d=16, F=24, B=2, S=20):
+    from repro_torch.configs.base import RouterConfig
+    from repro_torch.models.layers import init_params
+    moe = MoEConfig(n_experts=E, top_k=K, d_ff_expert=F, n_shared_experts=1)
+    router = RouterConfig(routed_scaling_factor=2.446)
+    gen = torch.Generator().manual_seed(seed)
+    p = init_params(gen, TM.moe_schema(d, moe, router=router),
+                    dtype=torch.bfloat16, device="cpu")
+    x = torch.randn((B, S, d), generator=gen).to(torch.bfloat16)
+    return moe, router, p, x
+
+
+def _spy_rows(monkeypatch):
+    calls = dict.fromkeys(("dispatch_rows", "combine_rows", "scatter_rows",
+                           "gather_rows"), 0)
+    for name in calls:
+        fn = getattr(MO, name)
+
+        def run(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(MO, name, run)
+    return calls
+
+
+def _dropless_written_out(p, x, moe, router):
+    """The dropless layer's torch steps written out: route, scatter, the
+    three grouped GEMMs' steps, gather, the batched product, the shared
+    experts."""
+    from repro_torch.models import layers as L
+    B, S, d = x.shape
+    x2 = x.reshape(B * S, d)
+    top_i, w = TM.route_sigmoid(p, x2, moe, router)
+    ids = top_i.reshape(-1)
+    bt = MO.block_t_for(ids.shape[0], moe.n_experts)
+    plan = MO.plan(ids, moe.n_experts, bt)
+    xs = MO.scatter_rows(x2, plan, moe.top_k)
+
+    def grouped(h, wt):
+        return MO.moe_gemm_sorted(h, plan.block_expert, wt.to(x.dtype), bt,
+                                  plan.used, plan.ends)
+    g, u = grouped(xs, p["w_gate"]), grouped(xs, p["w_up"])
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    y_tok = MO.gather_rows(grouped(h, p["w_down"]), plan)
+    y = torch.bmm(w.to(x.dtype)[:, None, :],
+                  y_tok.view(B * S, moe.top_k, d))[:, 0]
+    return (y + L.swiglu(p["shared"], x2)).view(B, S, d)
+
+
+@pytest.mark.parametrize("needs_grad", ["none", "x", "weights"])
+def test_dropless_layer_takes_the_torch_steps_under_grad_mode_and_on_the_cpu(
+        monkeypatch, needs_grad):
+    """``moe_apply_dropless`` on the CPU, with or without a gradient
+    recorded through x or the expert weights: the rows move by
+    ``scatter_rows``, ``gather_rows`` and the batched product (the row
+    kernels are the card's alone, and have no backward), once each a call,
+    and the output and gradients are bit for bit those of the steps written
+    out."""
+    moe, router, p, x = _dropless_setup()
+
+    def leaves():
+        xl = x.clone().requires_grad_(needs_grad == "x")
+        pl = {k: (v.clone().requires_grad_(needs_grad == "weights")
+                  if k in ("w_gate", "w_up", "w_down") else v)
+              for k, v in p.items()}
+        return xl, pl
+
+    g_out = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+    calls = _spy_rows(monkeypatch)
+
+    def run(fn):
+        xl, pl = leaves()
+        calls.update(dict.fromkeys(calls, 0))
+        y = fn(xl, pl)
+        assert calls == {"dispatch_rows": 0, "combine_rows": 0,
+                         "scatter_rows": 1, "gather_rows": 1}
+        wrt = [t for t in (xl, pl["w_gate"], pl["w_up"], pl["w_down"])
+               if t.requires_grad]
+        return y, (torch.autograd.grad((y.float() * g_out).sum(), wrt)
+                   if wrt else ())
+
+    y, grads = run(lambda xl, pl: TM.moe_apply_dropless(pl, xl, moe,
+                                                        router)[0])
+    y_w, grads_w = run(lambda xl, pl: _dropless_written_out(pl, xl, moe,
+                                                            router))
+    assert torch.equal(y, y_w)
+    assert len(grads) == len(grads_w) == {"none": 0, "x": 1,
+                                          "weights": 3}[needs_grad]
+    for a, b in zip(grads, grads_w):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K", [1, 3, 6])
+def test_moe_apply_dropless_on_the_row_path_gives_the_same_bits(
+        monkeypatch, K):
+    """With ``rows_take`` made true on the CPU, the dropless layer moves
+    its rows through ``dispatch_rows`` and ``combine_rows`` (their plain
+    versions here), once each a call and never through ``scatter_rows`` or
+    ``gather_rows``, and its output is bit for bit the torch steps'."""
+    moe, router, p, x = _dropless_setup(seed=K, K=K)
+    want = TM.moe_apply_dropless(p, x, moe, router)[0]
+    calls = _spy_rows(monkeypatch)
+    monkeypatch.setattr(MO, "rows_take", lambda *t: True)
+    with torch.no_grad():
+        got = TM.moe_apply_dropless(p, x, moe, router)[0]
+    assert calls == {"dispatch_rows": 1, "combine_rows": 1,
+                     "scatter_rows": 0, "gather_rows": 0}
+    assert torch.equal(got, want)
