@@ -801,6 +801,83 @@ def check_flash_mla(gen):
     return row
 
 
+# the KDA chunked kernel: kimi_linear.prefill_16k's shape (B 4, S 16,384,
+# 32 heads of 128), a ragged S with an initial state, and strong decay
+# (A_log = log 16: Gamma over a chunk passes -1000)
+KDA_CASES = [(4, 16384, 32, 0.0, False), (1, 1000, 4, -4.0, True),
+             (2, 300, 8, math.log(16), False)]
+
+
+def _kda_inputs(B, S, H, a_log, init, gen):
+    """q, k L2-normed and v in bf16, g = -exp(a_log) softplus(N(0, 1)) and
+    beta = sigmoid(N(0, 1)) in fp32, an fp32 initial state or None."""
+    import torch
+    import torch.nn.functional as F
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q = F.normalize(r(B, S, H, 128), dim=-1).bfloat16()
+    k = F.normalize(r(B, S, H, 128), dim=-1).bfloat16()
+    v = r(B, S, H, 128).bfloat16()
+    g = -math.exp(a_log) * F.softplus(r(B, S, H, 128))
+    beta = torch.sigmoid(r(B, S, H))
+    return q, k, v, g, beta, (r(B, H, 128, 128) if init else None)
+
+
+def check_kda(gen):
+    """The KDA chunked kernel at ``KDA_CASES`` against the plain chunked
+    version (``kda/ref.kda_chunked`` with ``tf32``: the kernel's
+    arithmetic in torch, its products' operands rounded to TF32 as the
+    tensor cores take them): o within two bf16 steps of the largest |o|
+    (each side sums in fp32 in its own order and rounds once to bf16), the
+    final state within 1e-3 relative (fp32 over S / 64 chunk steps in
+    another order, an operand on either side of a TF32 rounding boundary
+    one TF32 step apart); the same bits on two launches; at the cell's
+    shape timed beside the plain version."""
+    import torch
+    from repro_torch.kernels.kda.kernel import kda_fwd_cuda
+    from repro_torch.kernels.kda.ref import kda_chunked
+    row = None
+    for B, S, H, a_log, init in KDA_CASES:
+        q, k, v, g, beta, s0 = _kda_inputs(B, S, H, a_log, init, gen)
+        kw = dict(scale=128 ** -0.5, initial_state=s0)
+        o, st = kda_fwd_cuda(q, k, v, g, beta, **kw)
+        o2, st2 = kda_fwd_cuda(q, k, v, g, beta, **kw)
+        if not (torch.equal(o, o2) and torch.equal(st, st2)):
+            _fail(f"kda_fwd B={B} S={S} H={H}: two launches differ")
+        po, pst = kda_chunked(q, k, v, g, beta, tf32=True, **kw)
+        err = (o.float() - po.float()).abs().max().item()
+        lim = 2.0 ** -7 * po.float().abs().max().item()
+        rel = (torch.linalg.vector_norm(st - pst)
+               / torch.linalg.vector_norm(pst)).item()
+        print(f"  kda_fwd B={B} S={S} H={H} A_log={a_log:.2f} "
+              f"init={init}: o max_abs_err {err:.3e} ({err / lim:.2f} of "
+              f"the limit), state rel {rel:.3e}, same bits twice")
+        if err > lim or rel > 1e-3:
+            _fail(f"kda_fwd B={B} S={S} H={H}: o {err:.3e} (limit "
+                  f"{lim:.3e}), state {rel:.3e} (limit 1e-3)")
+        if row is not None:
+            continue
+        ms = time_ms(lambda: kda_fwd_cuda(q, k, v, g, beta, **kw), reps=5)
+        plain_ms = time_ms(lambda: kda_chunked(q, k, v, g, beta, tf32=True,
+                                               **kw), reps=1, trials=2)
+        n = B * S * H
+        n_bytes = n * (4 * 128 * 2 + 128 * 4 + 4) + B * H * 128 * 128 * 4
+        n_ops = 6.0 * n * 128 * 128
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bf16")
+        print(f"  kda_fwd (kimi_linear.prefill_16k) B={B} S={S} H={H} "
+              f"dk = dv 128: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        row = {"name": "kda_fwd[kimi_linear_prefill]", "route": "cuda",
+               "source": "src/repro_torch/kernels/kda/csrc/kda_fwd.cu",
+               "replaces": "none (models/attention.py KDA)",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del q, k, v, g, beta, o, o2, po
+        torch.cuda.empty_cache()
+    return row
+
+
 def check_rmsnorm(gen):
     import torch
     import torch.nn.functional as F
@@ -1600,6 +1677,8 @@ def kernel_phase():
     torch.cuda.empty_cache()
     rows += check_flash(gen)
     rows.append(check_flash_mla(gen))
+    torch.cuda.empty_cache()
+    rows.append(check_kda(gen))
     torch.cuda.empty_cache()
     rows.append(check_rmsnorm(gen))
     rows.append(check_gathered(gen))

@@ -30,13 +30,17 @@ class MLAConfig:
     RMS-normed (``latent_norm_eps``: the modeling file's default, not the
     config's ``rms_norm_eps``); [k_nope | v] = c_kv W_kv_b, (H, nope + v)
     a token; RoPE on q's rope part and on the one k_pe head all heads
-    share. The cache holds a token's normed c_kv and roped k_pe."""
+    share. The cache holds a token's normed c_kv and roped k_pe. With
+    ``nope`` (Kimi Linear's ``mla_use_nope``) no RoPE is applied: q's and
+    k_pe's rope-wide parts enter the scores as they are, and the cache
+    holds k_pe unrotated."""
 
     kv_lora_rank: int
     qk_nope_head_dim: int
     qk_rope_head_dim: int
     v_head_dim: int
     latent_norm_eps: float = 1e-6
+    nope: bool = False
 
     @property
     def qk_head_dim(self) -> int:
@@ -46,6 +50,37 @@ class MLAConfig:
     def latent_dim(self) -> int:
         """Width of a token's row in the latent cache."""
         return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class KDAConfig:
+    """Kimi Delta Attention (Kimi Linear's ``linear_attn_config``):
+    ``n_heads`` heads of ``head_dim`` (dk = dv); q, k and v each a
+    projection, a causal depthwise convolution ``conv_size`` wide and a
+    SiLU; q and k L2-normed per head; beta = sigmoid(x W_b); the log-decay
+    g = -exp(A_log) softplus(x W_fa W_fb + dt_bias), per channel; the
+    gated delta rule's state (dk, dv) a head; o RMS-normed per head
+    (``norm_eps``) and gated by sigmoid(x W_ga W_gb + b_g), then W_o.
+    ``gate_rank`` is the low-rank width of W_f and W_g (the modeling
+    file's head_dim; the config does not give it)."""
+
+    n_heads: int
+    head_dim: int
+    conv_size: int = 4
+    gate_rank: int = 128
+    norm_eps: float = 1e-5
+
+    @property
+    def width(self) -> int:
+        return self.n_heads * self.head_dim
+
+    def n_params(self, d: int) -> int:
+        """One KDA layer's attention parameters at model width ``d``: W_q,
+        W_k, W_v, W_o, the three convolutions, W_fa, W_fb, dt_bias, A_log,
+        W_b, W_ga, W_gb, b_g and the norm's scale."""
+        w, r, H = self.width, self.gate_rank, self.n_heads
+        return (4 * d * w + 3 * self.conv_size * w + 2 * (d * r + r * w)
+                + 2 * w + H + d * H + self.head_dim)
 
 
 @dataclass(frozen=True)
@@ -71,6 +106,8 @@ class LMConfig:
     mla = None
     router = None
     first_k_dense = 0
+    kda = None          # and ``HybridLMConfig``'s
+    kda_layers = ()
 
     n_layers: int
     d_model: int
@@ -164,6 +201,33 @@ class MLALMConfig(LMConfig):
     def n_active_params(self) -> int:
         per_layer = self._attn_params() + 2 * self.d_model
         return (self.n_layers * per_layer + self._ffn_params(True)
+                + self._embed_params() + self.d_model)
+
+
+@dataclass(frozen=True)
+class HybridLMConfig(MLALMConfig):
+    """An MLALMConfig whose layers ``kda_layers`` (0-indexed) are KDA
+    layers (``kda``) and the rest MLA layers (Kimi Linear's hybrid, its
+    ``linear_attn_config`` lists 1-indexed). No such config exists in the
+    reference."""
+
+    kda: Optional[KDAConfig] = None
+    kda_layers: Tuple[int, ...] = ()
+
+    def _attn_total(self) -> int:
+        n_kda = len(self.kda_layers)
+        return ((self.n_layers - n_kda) * self._attn_params()
+                + n_kda * self.kda.n_params(self.d_model)
+                + self.n_layers * 2 * self.d_model)
+
+    @property
+    def n_params(self) -> int:
+        return (self._attn_total() + self._ffn_params(False)
+                + self._embed_params() + self.d_model)
+
+    @property
+    def n_active_params(self) -> int:
+        return (self._attn_total() + self._ffn_params(True)
                 + self._embed_params() + self.d_model)
 
 
@@ -301,7 +365,7 @@ _ARCH_MODULES = ["qwen3_moe_30b_a3b", "moonshot_v1_16b_a3b", "minitron_8b",
                  "dlrm_mlperf", "sasrec", "dien", "recall_imagebind"]
 # archs of the port alone (no JAX twin): ``get_arch`` finds them,
 # ``list_archs`` and ``all_cells`` (the reference's registry) do not
-_PORT_MODULES = ["moonlight_16b_a3b"]
+_PORT_MODULES = ["moonlight_16b_a3b", "kimi_linear_48b_a3b"]
 _PORT_REGISTRY: Dict[str, ArchSpec] = {}
 
 
@@ -366,6 +430,11 @@ def smoke_variant(spec: ArchSpec) -> ArchSpec:
                          mla=replace(m.mla, kv_lora_rank=32,
                                      qk_nope_head_dim=16, qk_rope_head_dim=8,
                                      v_head_dim=16))
+        if m.kda is not None:   # a hybrid: 3 KDA layers, then an MLA one
+            sm = replace(sm, n_layers=4,
+                         kda=replace(m.kda, n_heads=4, head_dim=16,
+                                     gate_rank=8),
+                         kda_layers=tuple(i for i in m.kda_layers if i < 4))
         shapes = (ShapeConfig("smoke_train", "train", global_batch=4,
                               seq_len=32),
                   ShapeConfig("smoke_decode", "decode", global_batch=4,

@@ -39,6 +39,7 @@ SOURCES: Dict[str, Path] = {
     "moe_gemm": KERNELS_DIR / "moe_gemm" / "csrc" / "moe_gemm.cu",
     "moe_rows": KERNELS_DIR / "moe_gemm" / "csrc" / "moe_rows.cu",
     "split_gemm": KERNELS_DIR / "split_gemm" / "csrc" / "split_gemm.cu",
+    "kda_fwd": KERNELS_DIR / "kda" / "csrc" / "kda_fwd.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -267,8 +267,15 @@ def _layout(spec: ArchSpec, shape: ShapeConfig, bundle: "StepBundle",
 
 
 def _lm_cfg(spec: ArchSpec, n_layers: Optional[int]) -> LMConfig:
-    return spec.model if n_layers is None else replace(spec.model,
-                                                       n_layers=n_layers)
+    """The model's config, cut to its first ``n_layers`` when given (a
+    hybrid keeps its KDA layers among them)."""
+    m = spec.model
+    if n_layers is None:
+        return m
+    if m.kda is not None:
+        return replace(m, n_layers=n_layers, kda_layers=tuple(
+            i for i in m.kda_layers if i < n_layers))
+    return replace(m, n_layers=n_layers)
 
 
 def _auto_lm_train_plan(cfg: LMConfig, B: int, S: int, dp: int, tp: int,
@@ -379,14 +386,16 @@ def build_lm_train(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
 def build_lm_prefill(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
                      window: int = 0, n_layers: Optional[int] = None,
                      pad_to: Optional[int] = None) -> StepBundle:
-    """fn(params, tokens (B, S)) -> {the attention kind's caches (L, B,
-    max(S, pad_to), ...) by their ``cache_names`` (GQA: k_cache, v_cache;
-    MLA: latent_cache), exit_embs (n_exits, B, E)}."""
+    """fn(params, tokens (B, S)) -> {the attention stacks' caches by their
+    ``cache_names`` (GQA: k_cache, v_cache (L, B, max(S, pad_to), ...);
+    MLA: latent_cache; a hybrid: latent_cache, then KDA's kda_state (n_kda,
+    B, H, dk, dv) fp32 and conv_state (n_kda, B, conv_size - 1, 3 H d)),
+    exit_embs (n_exits, B, E)}."""
     cfg = _lm_cfg(spec, n_layers)
     recall = spec.recall
     dev = resolve_device(device)
     B, S = shape.global_batch, shape.seq_len
-    keys = A.kind(cfg).cache_names + ("exit_embs",)
+    keys = A.cache_names(cfg) + ("exit_embs",)
 
     def prefill_step(params, tokens):
         out = T.prefill(params, cfg, recall, tokens, pad_to=pad_to,
@@ -404,9 +413,10 @@ def build_lm_decode(spec: ArchSpec, shape: ShapeConfig, *, device="cuda",
                     window: int = 0,
                     n_layers: Optional[int] = None) -> StepBundle:
     """fn(params, token (B,), *caches, lengths (B,) int32 incl. the new
-    token) -> (logits (B, V) f32, *caches), the attention kind's caches
+    token) -> (logits (B, V) f32, *caches), the attention stacks' caches
     (GQA: k_cache, v_cache (L, B, S, KV, hd); MLA: latent_cache (L, B, S,
-    kv_lora_rank + rope)) written in place."""
+    kv_lora_rank + rope); a hybrid: latent_cache, kda_state, conv_state)
+    updated in place."""
     cfg = _lm_cfg(spec, n_layers)
     recall = spec.recall
     dev = resolve_device(device)

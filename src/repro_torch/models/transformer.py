@@ -9,7 +9,9 @@ with the exit embeddings) and ``decode_step`` (one greedy token against
 those caches, written in place).
 
 A layer's attention half and the caches are the config's attention kind
-(``models/attention.py``: GQA or MLA); the norms go through the rmsnorm
+(``models/attention.py``: GQA or MLA; a hybrid's KDA layers, their own
+parameter stack ``kda`` beside ``attn``, carry a recurrent state in
+their caches instead of rows); the norms go through the rmsnorm
 kernel's dispatch, MoE layers through the grouped expert GEMM's
 (``models/moe.py``). The first ``n_dense_layers(cfg)`` layers are dense
 SwiGLUs (the ``mlp`` stack), the rest MoE layers (the ``moe`` stack).
@@ -62,8 +64,10 @@ def lm_schema(cfg: LMConfig, recall: RecallConfig, *, embed_out: int = 1024,
     layer: Schema = {
         "norm1": L.rmsnorm_schema(cfg.d_model, Ld),
         "norm2": L.rmsnorm_schema(cfg.d_model, Ld),
-        "attn": A.kind(cfg).schema(Ld),
     }
+    sizes = A.stack_sizes(cfg)
+    for name, att in A.stacks(cfg).items():
+        layer[name] = att.schema((sizes[name],))
     if k:
         layer["mlp"] = L.swiglu_schema(cfg.d_model, cfg.d_ff, layer_dims=(k,))
     if cfg.moe is not None:
@@ -111,27 +115,22 @@ def layer_slice(tree, i: int):
 
 
 def layer_params(layers: Schema, i: int, cfg: LMConfig) -> Schema:
-    """Layer ``i``'s params: ``layer_slice`` of every stack but the FFN
-    ones, of which the layer has one: ``mlp`` (the first
-    ``n_dense_layers``) or ``moe`` (the rest, indexed from there)."""
+    """Layer ``i``'s params: ``layer_slice`` of the norms; of the
+    attention stacks, the one that holds the layer
+    (``attention.layer_stack``: ``attn``, or a hybrid's ``kda``) at its
+    position there; of the FFN ones, the one the layer has: ``mlp`` (the
+    first ``n_dense_layers``) or ``moe`` (the rest, indexed from
+    there)."""
     k = n_dense_layers(cfg)
     out = {n: layer_slice(v, i) for n, v in layers.items()
-           if n not in ("mlp", "moe")}
+           if n not in ("mlp", "moe", "attn", "kda")}
+    name, j = A.layer_stack(cfg, i)
+    out[name] = layer_slice(layers[name], j)
     if i < k:
         out["mlp"] = layer_slice(layers["mlp"], i)
     else:
         out["moe"] = layer_slice(layers["moe"], i - k)
     return out
-
-
-def new_caches(cfg: LMConfig, n_layers: int, B: int, S: int,
-               device) -> Tuple[torch.Tensor, ...]:
-    """The attention kind's caches (n_layers, B, S, *its cache row), one
-    per name in its ``cache_names``, zeroed, in the config's dtype."""
-    att = A.kind(cfg)
-    return tuple(torch.zeros((n_layers, B, S) + att.cache_row,
-                             dtype=L.torch_dtype(cfg.dtype), device=device)
-                 for _ in att.cache_names)
 
 
 def _mlp_half(pl_: Schema, x: torch.Tensor, cfg: LMConfig,
@@ -159,9 +158,11 @@ def layer_full(pl_: Schema, x: torch.Tensor, cfg: LMConfig, positions, *,
     leaves the caller to write into ``cache`` at [:, :S] (GQA: k, v)."""
     with span("layer.attn"):
         h = L.rmsnorm(x, pl_["norm1"], cfg.norm_eps)
-        y, rows = A.kind(cfg).full(pl_["attn"], h, positions, window=window,
-                                   lora=lora, lora_scale=lora_scale,
-                                   cache=cache)
+        name = "kda" if "kda" in pl_ else "attn"
+        y, rows = A.stacks(cfg)[name].full(pl_[name], h, positions,
+                                           window=window, lora=lora,
+                                           lora_scale=lora_scale,
+                                           cache=cache)
         x = x + y
     return (*_mlp_half(pl_, x, cfg, lora, lora_scale), rows)
 
@@ -174,9 +175,10 @@ def layer_decode(pl_: Schema, x: torch.Tensor, cache: Tuple, lengths,
     sequence length *including* the new token."""
     with span("layer.attn"):
         h = L.rmsnorm(x, pl_["norm1"], cfg.norm_eps)
-        x = x + A.kind(cfg).decode(pl_["attn"], h, lengths, cache,
-                                   window=window, lora=lora,
-                                   lora_scale=lora_scale)
+        name = "kda" if "kda" in pl_ else "attn"
+        x = x + A.stacks(cfg)[name].decode(pl_[name], h, lengths, cache,
+                                           window=window, lora=lora,
+                                           lora_scale=lora_scale)
     return _mlp_half(pl_, x, cfg, lora, lora_scale)
 
 
@@ -199,8 +201,8 @@ def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
     (L', B, S', ...) in its ``cache_names`` order (if return_kv)}. With
     ``kv_cache`` (such a tuple) the layers' rows are written into those
     caches at [i - layer_start, :, :S] (S' >= S; a prefill into
-    preallocated padded caches); without it ``new_caches`` of exactly S
-    are made. ``lora`` (stacked over all n_layers) adds its
+    preallocated padded caches); without it ``attention.new_caches`` of
+    exactly S are made. ``lora`` (stacked over all n_layers) adds its
     deltas at scale ``recall.lora_alpha / recall.lora_rank``. ``remat``
     keeps no layer's activations for the backward but its input, and runs
     the layer again there."""
@@ -218,11 +220,14 @@ def forward_hidden(params: Schema, cfg: LMConfig, recall: RecallConfig, *,
     layer_end = cfg.n_layers if layer_end is None else layer_end
     window = cfg.window if window is None else window
     if return_kv and kv_cache is None:
-        kv_cache = new_caches(cfg, layer_end - layer_start, B, S, x.device)
+        kv_cache = A.new_caches(cfg, layer_end - layer_start, B, S,
+                                x.device)
+    if return_kv and cfg.kda is not None and layer_start:
+        raise NotImplementedError("a hybrid's caches from layer 0 only")
     lora_scale = recall.lora_alpha / recall.lora_rank
     pooled, aux = [], None
     for i in range(layer_start, layer_end):
-        cache = (tuple(c[i - layer_start] for c in kv_cache) if return_kv
+        cache = (A.layer_caches(cfg, kv_cache, i - layer_start) if return_kv
                  else None)
         run = lambda x_, p_, l_: layer_full(p_, x_, cfg, positions,
                                             window=window, lora=l_,
@@ -380,25 +385,26 @@ def lm_loss(params: Schema, cfg: LMConfig, recall: RecallConfig,
 
 def prefill(params: Schema, cfg: LMConfig, recall: RecallConfig,
             tokens: torch.Tensor, pad_to: Optional[int] = None, **fw_kw):
-    """Prefill: the attention kind's caches (L, B, max(S, pad_to), ...)
-    by their ``cache_names``, zero past S, the final hidden, the exit
+    """Prefill: the attention stacks' caches (``attention.cache_names``;
+    a row cache (L, B, max(S, pad_to), ...), zero past S; KDA's states and
+    conv tails after the prompt), the final hidden, the exit
     embeddings (n_exits, B, E) and the aux loss. The caches are allocated
     once at their padded size (the reference stacks, then pads)."""
     B, S = tokens.shape
     with span("lm.caches"):
-        caches = new_caches(cfg, cfg.n_layers, B, max(S, pad_to or 0),
+        caches = A.new_caches(cfg, cfg.n_layers, B, max(S, pad_to or 0),
                             tokens.device)
     out = encode_exits(params, cfg, recall, tokens=tokens, return_kv=True,
                        kv_cache=caches, **fw_kw)
-    return {**dict(zip(A.kind(cfg).cache_names, caches)), "h": out["h"],
+    return {**dict(zip(A.cache_names(cfg), caches)), "h": out["h"],
             "exit_embs": out["exit_embs"], "aux": out["aux"]}
 
 
 def decode_step(params: Schema, cfg: LMConfig, recall: RecallConfig,
                 token: torch.Tensor, *caches_and_lengths: torch.Tensor,
                 lora=None, window: Optional[int] = None):
-    """token (B,), the attention kind's caches (L, B, S, ...) in its
-    ``cache_names`` order, lengths (B,) incl. the new token -> (logits
+    """token (B,), the attention stacks' caches in ``attention.cache_names``
+    order, lengths (B,) incl. the new token -> (logits
     (B,V) f32, *caches), the same tensors, the new token's rows written in
     place. ``lora`` adds its deltas at the scale of the default
     ``RecallConfig()``, not ``recall``'s, as the reference's does."""
@@ -411,7 +417,7 @@ def decode_step(params: Schema, cfg: LMConfig, recall: RecallConfig,
     lengths = lengths.to(torch.int32)
     for i in range(cfg.n_layers):
         x, _ = layer_decode(layer_params(params["layers"], i, cfg), x,
-                            tuple(c[i] for c in caches), lengths, cfg,
+                            A.layer_caches(cfg, caches, i), lengths, cfg,
                             window=window,
                             lora=layer_slice(lora, i) if lora else None,
                             lora_scale=lora_scale)

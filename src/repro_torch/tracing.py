@@ -47,6 +47,13 @@ SPANS = (
     "mla.kv_down",          # [c_kv | k_pe] = x W_kv_a, c_kv's norm, RoPE
     "mla.latent_write",     # the tokens' latent rows into the cache
     "mla.kv_up",            # [k_nope | v] = c_kv W_kv_b (decode: absorbed)
+    # models/attention KDA layers (inside layer.attn)
+    "kda.proj",             # [q | k | v] = x [W_q | W_k | W_v]
+    "kda.conv",             # the short convolutions, SiLU, q and k L2-normed
+    "kda.gate",             # the log-decay g and beta
+    "kda.chunk",            # the recurrence (prefill: the chunked kernel)
+    "kda.out",              # the gated per-head RMSNorm and W_o
+    "kda.state_write",      # the state and the conv tail into the caches
     # models/moe dropless layer (inside layer.mlp)
     "moe.route",            # sigmoid router, biased top-k, weights
     "moe.experts",          # the grouped GEMMs and the weighted sum

@@ -2,6 +2,8 @@
 small shapes. Marked ``gpu``: they skip where there is no card and run on
 the GPU with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``
 (the full-shape checks are in ``chip_smoke.py``)."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -1972,3 +1974,135 @@ def test_moonlight_prefill_and_decode_at_published_widths(gen):
 # 0.255 and 0.277 against itself. 0.06 sits 3.3x above the one and 4x
 # below the other.
 MOONLIGHT_LOGIT_LIMIT = 0.06
+
+
+# the KDA chunked kernel (kernels/kda/csrc/kda_fwd.cu) against the plain
+# chunked version, which repeats its arithmetic in torch (``tf32``: the
+# products' operands rounded to TF32 as the tensor cores take them): the
+# kimi_linear.prefill_16k cell's shape (B 4, S 16,384, 32 heads of 128),
+# a ragged S with an initial state, S under one chunk, and strong decay
+# (A_log = log 16). o within two bf16 steps of the largest |o|: each side
+# sums in fp32 in its own order and rounds once to bf16; the final state
+# within 1e-3 relative: fp32 through S / 64 chunk steps in another order,
+# where an operand that the two orders leave on either side of a TF32
+# rounding boundary rounds one TF32 step (2^-11) apart (the card read up
+# to 2.9e-4 at S 4,096 with weak decay and an initial state)
+KDA_CASES = [(4, 16384, 32, 0.0, False), (1, 1000, 4, -4.0, True),
+             (2, 37, 3, 0.0, True), (2, 300, 8, 2.772588722239781, False)]
+
+
+def _kda_inputs(B, S, H, a_log, init, gen):
+    import math
+    import torch.nn.functional as F
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q = F.normalize(r(B, S, H, 128), dim=-1).bfloat16()
+    k = F.normalize(r(B, S, H, 128), dim=-1).bfloat16()
+    v = r(B, S, H, 128).bfloat16()
+    g = -math.exp(a_log) * F.softplus(r(B, S, H, 128))
+    beta = torch.sigmoid(r(B, S, H))
+    return q, k, v, g, beta, (r(B, H, 128, 128) if init else None)
+
+
+@pytest.mark.parametrize("B,S,H,a_log,init", KDA_CASES)
+def test_kda_kernel_matches_plain(gen, B, S, H, a_log, init):
+    from repro_torch.kernels.kda import ops
+    from repro_torch.kernels.kda.ref import kda_chunked
+    q, k, v, g, beta, s0 = _kda_inputs(B, S, H, a_log, init, gen)
+    before = ops.read_counters()
+    o, st = ops.kda_chunk(q, k, v, g, beta, scale=128 ** -0.5,
+                          initial_state=s0)
+    after = ops.read_counters()
+    assert after["launches"] == before["launches"] + 1
+    assert after["tokens"] == before["tokens"] + B * S * H
+    assert o.dtype == torch.bfloat16 and st.dtype == torch.float32
+    po, pst = kda_chunked(q, k, v, g, beta, scale=128 ** -0.5,
+                          initial_state=s0, tf32=True)
+    lim = 2.0 ** -7 * po.float().abs().max().item()
+    assert (o.float() - po.float()).abs().max().item() <= lim
+    rel = torch.linalg.vector_norm(st - pst) / torch.linalg.vector_norm(pst)
+    assert rel.item() <= 1e-3
+
+
+def test_kda_kernel_gives_the_same_bits_twice(gen):
+    from repro_torch.kernels.kda.kernel import kda_fwd_cuda
+    q, k, v, g, beta, s0 = _kda_inputs(2, 700, 8, -1.0, True, gen)
+    a = kda_fwd_cuda(q, k, v, g, beta, scale=0.1, initial_state=s0)
+    b = kda_fwd_cuda(q, k, v, g, beta, scale=0.1, initial_state=s0)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_kda_kernel_refuses_a_gradient_and_other_widths(gen):
+    from repro_torch.kernels.kda import ops
+    q, k, v, g, beta, _ = _kda_inputs(1, 64, 2, 0.0, False, gen)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.kda_chunk(q, k, v, g, beta, scale=0.1)
+    with torch.no_grad(), pytest.raises(ValueError, match="128"):
+        ops.kda_chunk(q[..., :64], k[..., :64], v[..., :64], g[..., :64],
+                      beta, scale=0.1)
+
+
+def test_kimi_linear_prefill_and_decode_at_published_widths(gen):
+    """kimi-linear-48b-a3b at its published widths, cut to the benchmark's
+    stage (layers 1-12: 9 KDA, 3 NoPE MLA, 11 MoE layers of 256 experts;
+    21.28e9 bf16 parameters drawn as the benchmark draws them): a prefill
+    of 2 x 1,024 through build_step (the KDA kernel, flash_fwd_mla, the
+    dropless MoE), then 2 decode steps through the latent cache, the KDA
+    states and the conv tails on 2 more seeded tokens, their logits
+    against the float32 reference's full forward pass over all 1,026."""
+    from bench.drivers.kda_prefill import kda_spec
+    from bench.lib import weights as W
+    from bench.reference import kimi_linear as RK
+    from bench.harness import load_json, ROOT
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.kernels.flash_attention import ops as FOPS
+    from repro_torch.kernels.kda import ops as KOPS
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.attention import cache_names
+    from repro_torch.models.transformer import lm_schema
+    c = load_json(ROOT / "bench/configs/kimi-linear-48b-a3b.json")
+    spec = kda_spec(c)
+    m27 = get_arch("kimi-linear-48b-a3b").model
+    # the registered arch is the file's, cut to the stage
+    assert spec.model == dataclasses.replace(
+        m27, n_layers=12, kda_layers=tuple(i for i in m27.kda_layers
+                                           if i < 12))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = W.make_params(lm_schema(spec.model, spec.recall), seed=5,
+                           dtype=torch.bfloat16, device="cuda")
+    B, S, n = 2, 1024, 2
+    seq = torch.randint(0, c["vocab_size"], (B, S + n), generator=gen,
+                        device="cuda")
+    pre = build_step(spec, ShapeConfig("p", "prefill", B, S), device="cuda",
+                     pad_to=S + n).fn
+    dec = build_step(spec, ShapeConfig("d", "decode", B, S + n),
+                     device="cuda").fn
+    flash0, kda0 = FOPS.launches_by_head_dim.get(192, 0), \
+        KOPS.read_counters()["launches"]
+    with torch.no_grad():
+        out = pre(params, seq[:, :S])
+        assert FOPS.launches_by_head_dim[192] == flash0 + 3
+        assert KOPS.read_counters()["launches"] == kda0 + 9
+        caches = [out[k] for k in cache_names(spec.model)]
+        got = []
+        for i in range(n):      # the token at position S + i
+            lengths = torch.full((B,), S + i + 1, dtype=torch.int32,
+                                 device="cuda")
+            logits, *caches = dec(params, seq[:, S + i], *caches, lengths)
+            got.append(logits)
+        del out, caches
+        ref = RK.logits(params, seq, c)[:, S:]
+    out = torch.stack(got, 1)
+    rel = ((out - ref).norm() / ref.norm()).item()
+    print(f"kimi-linear logits rel {rel:.4e}")
+    assert rel <= KIMI_LOGIT_LIMIT, rel
+
+
+# bf16 activations and weights through 12 layers against float32: the
+# logits' relative error (Frobenius) read 2.84e-2 and 2.65e-2 on the card
+# (seeds 5, 6); the float32 reference with its products in fp8 e4m3 read
+# 0.332 and 0.316 against itself. 0.09 sits 3.2x above the one and 3.5x
+# below the other.
+KIMI_LOGIT_LIMIT = 0.09

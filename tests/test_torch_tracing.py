@@ -25,7 +25,8 @@ CFG = TC.MEMConfig(towers=(TC.TowerConfig("vision", 4, 32, 2, 64, 12, 16),
                    embed_dim=32)
 RC = TC.RecallConfig(exit_interval=1, superficial_layers=2,
                      predictor_hidden=32, lora_rank=4, query_granularities=2)
-FAMILIES = ("engine.", "store.", "layer.", "lm.", "query.", "mla.", "moe.")
+FAMILIES = ("engine.", "store.", "layer.", "lm.", "query.", "mla.", "moe.",
+            "kda.")
 DRAIN_LAYERS = {"layer.attn", "layer.mlp", "layer.pool", "layer.exit_head"}
 # a span -> the spans one of which must hold it (a test's own range for the
 # outermost)
@@ -46,7 +47,7 @@ for _n in tracing.SPANS:
     elif _n in ("layer.attn", "layer.mlp", "layer.pool"):
         PARENTS[_n] = ("engine.superficial", "engine.continue", "test.step",
                        "query.embed", "query.refine")
-    elif _n.startswith("mla."):     # an MLA layer's attention half
+    elif _n.startswith(("mla.", "kda.")):   # an MLA or KDA attention half
         PARENTS[_n] = ("layer.attn",)
     elif _n.startswith("moe."):     # a dropless MoE layer
         PARENTS[_n] = ("layer.mlp",)
@@ -200,4 +201,37 @@ def test_mla_prefill_step_spans_nest():
     for name in ("moe.route", "moe.experts", "moe.shared"):
         assert len(ranges[name]) == L - k
     for key in ("latent_cache", "exit_embs"):
+        assert torch.equal(out[key], plain[key])
+
+
+def test_kda_prefill_step_spans_nest():
+    """A hybrid's prefill (kimi-linear's smoke variant: 3 KDA layers, then
+    an MLA one): the kda.* spans inside the KDA layers' layer.attn, the
+    mla.* spans inside the MLA layer's, once a layer each."""
+    spec = TC.smoke_variant(TC.get_arch("kimi-linear-48b-a3b"))
+    m = spec.model
+    params = lm_init(torch.Generator().manual_seed(0), m, spec.recall,
+                     device="cpu")
+    step = build_step(spec, TC.ShapeConfig("p", "prefill", 2, 16),
+                      device="cpu", pad_to=32).fn
+    tokens = torch.randint(0, m.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    plain = step(params, tokens)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("test.step"):
+            out = step(params, tokens)
+    ranges = _ranges(prof)
+    ours = _check_nesting(ranges)
+    want = {n for n in tracing.SPANS
+            if n.startswith(("layer.", "lm.", "mla.", "moe.", "kda."))}
+    assert ours == want - {"layer.kv_write"}
+    n_kda = len(m.kda_layers)
+    for name in ("layer.attn", "layer.mlp", "layer.pool"):
+        assert len(ranges[name]) == m.n_layers
+    for name in ("kda.proj", "kda.conv", "kda.gate", "kda.chunk",
+                 "kda.out", "kda.state_write"):
+        assert len(ranges[name]) == n_kda
+    for name in ("mla.q", "mla.kv_down", "mla.latent_write", "mla.kv_up"):
+        assert len(ranges[name]) == m.n_layers - n_kda
+    for key in ("latent_cache", "kda_state", "conv_state", "exit_embs"):
         assert torch.equal(out[key], plain[key])
